@@ -1,0 +1,104 @@
+"""The port stands alone: it imports neither JAX nor the reference package,
+and its entry points run on the card unless the caller asks for the CPU."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.core import algorithms as JAlg
+from repro_torch import device as dev_mod
+from repro_torch.core import aggregators as G
+from repro_torch.core import algorithms as Alg
+from repro_torch.core import simulator as S
+from repro_torch.core import testbeds as TB
+from repro_torch.kernels import cwtm, median, pairdist
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)",
+                       re.MULTILINE)
+
+
+def test_importing_every_module_leaves_jax_and_repro_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "print(len(mods), bad)\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split(maxsplit=1)
+    assert int(out[0]) >= 20
+    assert out[1].strip() == "[]"
+
+
+def test_no_source_imports_jax_or_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    offenders = [str(p) for p in files if FORBIDDEN.search(p.read_text())]
+    assert offenders == []
+    assert FORBIDDEN.search("from repro.core import x\n")
+    assert FORBIDDEN.search("import jax.numpy as jnp\n")
+    assert not FORBIDDEN.search("from repro_torch.core import x\n")
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Alg.AlgorithmConfig(name="rosdhb", n_workers=5, f=1,
+                              aggregator=G.AggregatorConfig("cwtm", f=1,
+                                                            pre_nnm=True))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dev_mod.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        G.make_aggregator(cfg.aggregator)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Alg.init_state(cfg, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TB.quadratic_testbed(5, d=8)
+    loss, params0, batch_fn, _ = TB.quadratic_testbed(5, d=8, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        S.Simulator(loss, params0, cfg)
+    sim = S.Simulator(loss, params0, cfg, device="cpu")
+    state, m = sim.rollout(sim.init(0), batch_fn, steps=2)
+    assert state.params_flat.device.type == "cpu"
+    assert m["loss"].shape == (2,)
+    x = torch.randn(2, 5, 8)
+    assert pairdist.pairdist(x).shape == (2, 5, 5)
+    assert cwtm.cwtm(x, 1).shape == median.median(x).shape == (2, 8)
+
+
+def test_rosdhb_state_is_a_third_of_dasha():
+    for d in (11958, 1048576):
+        kw = dict(n_workers=13, f=3)
+        r = Alg.server_state_bytes(Alg.AlgorithmConfig(name="rosdhb", **kw), d)
+        da = Alg.server_state_bytes(Alg.AlgorithmConfig(name="dasha", **kw), d)
+        assert 3 * r == da
+        assert r == JAlg.server_state_bytes(
+            JAlg.AlgorithmConfig(name="rosdhb", **kw), d) == 13 * d * 4
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    """No ``ok`` line without a card, nor from a lone copy of the script."""
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", lone)
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (lone, tmp_path)):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        if not torch.cuda.is_available():
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        p = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                           capture_output=True, text=True, timeout=120)
+        if torch.cuda.is_available() and script != lone:
+            continue  # on a card the repository's copy is expected to pass
+        assert p.returncode != 0
+        assert '"ok"' not in p.stdout
