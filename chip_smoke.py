@@ -9,12 +9,19 @@ CUDA toolkit::
 Phases, each of which fails the run (nonzero exit, no ``ok`` line):
 
 1. the card's name and power limit, from ``nvidia-smi``;
-2. build every CUDA kernel of the port (``nvcc``, all sources at once);
+2. build every CUDA kernel of the port (``nvcc``, one process per source,
+   all started together);
 3. kernels: pairdist, CWTM and median against their plain PyTorch versions
-   at awkward shapes and at the main path's shapes ``[1, 13, 11958]`` (the
-   CNN), ``[1, 13, 1048576]`` (the quadratic testbed) and
-   ``[8, 13, 1048576]``; times of the kernel, the plain version and a
-   PyTorch library call beside the least time the card could take;
+   at awkward shapes and at the main paths' shapes ``[1, 13, 11958]`` (the
+   CNN), ``[1, 13, 1048576]`` (the quadratic testbed), ``[8, 13, 1048576]``
+   and, for CWTM, ``[1, 8, 416179200]`` (the LLM step); Block-RandK
+   compress and decompress bitwise against theirs at awkward shapes and at
+   the LLM step's ``[8, 416179200]`` with 40,642 blocks of 512; flash
+   attention forward and backward against the plain version in float32 at
+   awkward shapes (ragged lengths, GQA, MQA, windows, offsets, head dims
+   64/80/128) and at the LLM step's ``[1, 4096, 32, 80]``. Times of the
+   kernel, the plain version and a PyTorch library call beside the least
+   time the card could take;
 4. main path, CNN: the ``fig1-alie`` RoSDHB cell (n=13, f=3, global RandK
    at 0.1, ALIE z=1.5, NNM+CWTM, beta=0.9, gamma=0.05) on the paper's CNN at
    full width (D = 11,958) for 30 rounds through ``Simulator``; the launch
@@ -22,7 +29,14 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    fall, and the first rounds must agree with the same rounds on the CPU;
 5. main path, quadratic: the same cell at d = 1,048,576 for 10 rounds, the
    kernel path against the plain path on the same card, and the distance
-   to the honest optimum must fall.
+   to the honest optimum must fall;
+6. main path, LLM: ``repro_torch.launch.train`` on full-width stablelm_3b
+   cut to 2 layers (D = 416,179,200), seq 4096, n = 8 workers of one
+   sequence, f = 1, ALIE, CWTM, global Block-RandK at 0.05, for 8 steps;
+   every step's honest loss, |R| and time, the peak device memory and a
+   profiled window; the launch counts (flash forward and backward = layers
+   x workers x steps, compress = decompress = CWTM = steps), a finite
+   falling loss, and the first 2 steps against the plain path.
 
 TF32 is off for matmuls and cuDNN convolutions throughout: the parity bars
 are float32 ones. The last line is ``{"ok": true, "device": {...}}``; the
@@ -51,6 +65,8 @@ AWKWARD = [(3, 13, 3, 300), (2, 7, 0, 130), (4, 5, 2, 257),
 PATH_SHAPES = [(1, 13, 11958), (1, 13, 1048576), (8, 13, 1048576)]
 F = 3  # fig1-alie: f = 3 Byzantine workers, CWTM trims max(f, 1) = 3
 
+PEAK_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
+
 KERNELS = {
     "pairdist": {"source": "src/repro_torch/csrc/pairdist.cu",
                  "replaces": "src/repro/kernels/pairdist/pairdist.py:29"},
@@ -58,7 +74,49 @@ KERNELS = {
              "replaces": "src/repro/kernels/cwtm/cwtm.py:77"},
     "median": {"source": "src/repro_torch/csrc/sorted_weight.cu",
                "replaces": "src/repro/kernels/median/median.py:34"},
+    "block_compress": {"source": "src/repro_torch/csrc/randk.cu",
+                       "replaces": "src/repro/kernels/randk/randk.py:34"},
+    "block_decompress": {"source": "src/repro_torch/csrc/randk.cu",
+                         "replaces": "src/repro/kernels/randk/randk.py:67"},
+    "flash_fwd": {"source": "src/repro_torch/csrc/flash_attention.cu",
+                  "replaces": "src/repro/kernels/flash_attention/flash.py:34"},
+    "flash_bwd": {"source": "src/repro_torch/csrc/flash_attention.cu",
+                  "replaces": "src/repro/kernels/flash_attention/flash.py:34"},
 }
+
+# The LLM path (``repro_torch.launch.train``): full-width stablelm_3b cut to
+# 2 layers, seq 4096, n = 8 workers with one sequence each, global
+# Block-RandK at 0.05 with 512-wide blocks.
+LLM_LAYERS, LLM_WORKERS, LLM_SEQ = 2, 8, 4096
+LLM_D = 416_179_200  # make_flat_spec(pad_to=8) of the 2-layer model
+LLM_BS = 512
+LLM_KB = 40_642      # max(1, round(0.05 * D / 512))
+
+# Block-RandK cases: (n, d, block_size, kb, local ids, dtype name).
+RANDK_AWKWARD = [(3, 128 * 7, 128, 1, False, "float32"),
+                 (3, 128 * 7, 128, 3, True, "float32"),
+                 (2, 512 * 5, 512, 5, False, "float32"),
+                 (4, 512 * 9, 512, 4, True, "bfloat16"),
+                 (1, 128, 128, 1, False, "bfloat16"),
+                 (8, 512 * 33, 512, 2, False, "float32"),
+                 (5, 512 * 40, 512, 40, True, "float32")]
+RANDK_PATH = (LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, "float32")
+
+# Flash cases: (B, Sq, Sk, H, KV, D, causal, window, q_offset).
+FLASH_AWKWARD = [(2, 100, 100, 32, 32, 80, True, None, 0),
+                 (1, 130, 130, 16, 2, 64, True, None, 0),
+                 (2, 77, 77, 8, 1, 128, True, None, 0),
+                 (1, 200, 200, 16, 2, 80, True, 48, 0),
+                 (2, 64, 192, 8, 1, 64, True, None, 128),
+                 (1, 96, 160, 32, 32, 128, True, 40, 64),
+                 (1, 70, 90, 16, 2, 80, False, None, 0)]
+FLASH_PATH = (1, LLM_SEQ, LLM_SEQ, 32, 32, 80, True, None, 0)
+# Kernel against the plain version in float32 from the same bf16 inputs,
+# as max |err| / max |plain|: the kernel rounds P (and dS) to bf16 before
+# the tensor-core products (relative 2^-9 each) and writes bf16 outputs
+# (relative 2^-9); sums over up to 4096 keys run in float32.
+FLASH_TOL_OUT = 1e-2
+FLASH_TOL_GRAD = 2e-2
 
 
 def log(msg: str) -> None:
@@ -162,10 +220,14 @@ def kernel_case(torch, name: str, shape, f: int, dtype, timed: bool,
     return rec
 
 
+SORT_KERNELS = ("pairdist", "cwtm", "median")
+
+
 def kernel_phase(torch) -> dict:
-    results = {k: [] for k in KERNELS}
+    """pairdist, CWTM and median cases (``kernel_case``)."""
+    results = {k: [] for k in SORT_KERNELS}
     failures = []
-    for name in KERNELS:
+    for name in SORT_KERNELS:
         cases = []
         for (b, n, f, d) in AWKWARD:
             dtypes = [torch.float32] + ([torch.bfloat16]
@@ -174,6 +236,8 @@ def kernel_phase(torch) -> dict:
                 cases.append(((b, n, d), f, dt, False))
         for shape in PATH_SHAPES:
             cases.append((shape, F, torch.float32, True))
+        if name == "cwtm":  # the LLM path's aggregation, f = 1
+            cases.append(((1, LLM_WORKERS, LLM_D), 1, torch.float32, True))
         for i, (shape, f, dt, timed) in enumerate(cases):
             rec = kernel_case(torch, name, shape, f, dt, timed, seed=100 + i)
             results[name].append(rec)
@@ -194,6 +258,228 @@ def kernel_phase(torch) -> dict:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
     return results
+
+
+def _bound(nbytes: float, ops: float, ops_rate: float) -> tuple:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def randk_case(torch, case, timed: bool, seed: int,
+               device: str = "cuda") -> dict:
+    """Block compress and decompress against their plain versions, bitwise,
+    and (below 1e8 values) against the dense mask multiply on finite
+    inputs."""
+    from repro_torch.kernels.randk import (block_compress_ref,
+                                           block_decompress_ref, compress,
+                                           decompress)
+    n, d, bs, kb, local, dt = case
+    dtype = getattr(torch, dt)
+    nb = d // bs
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn((n, d), generator=gen, device=device).to(dtype)
+    if local:
+        ids = torch.stack([torch.randperm(nb, generator=gen, device=device)[:kb]
+                           for _ in range(n)]).int()
+    else:
+        ids = torch.randperm(nb, generator=gen, device=device)[:kb].int()
+    alpha = nb / kb
+    kern_c = lambda: compress(g, ids, block_size=bs, alpha=alpha)  # noqa: E731
+    plain_c = lambda: block_compress_ref(g, ids, bs, alpha)  # noqa: E731
+    pay = kern_c()
+    pay_ref = plain_c()
+    ok_c = torch.equal(pay, pay_ref)
+    err_c = float((pay.float() - pay_ref.float()).abs().max())
+    del pay_ref
+    kern_d = lambda: decompress(pay, ids, block_size=bs, d=d)  # noqa: E731
+    plain_d = lambda: block_decompress_ref(pay, ids, bs, d)  # noqa: E731
+    dense = kern_d()
+    dense_ref = plain_d()
+    ok_d = torch.equal(dense, dense_ref)
+    err_d = float((dense.float() - dense_ref.float()).abs().max())
+    del dense_ref
+    if n * d < 100_000_000:
+        # the reference's contract: bitwise the dense (alpha*g)*mask on
+        # finite gradients (torch.equal takes -0.0 == 0.0)
+        mask = torch.zeros((n, nb), dtype=dtype, device=device)
+        mask.scatter_(1, ids.long().expand(n, kb), 1)
+        want = (alpha * g) * mask.repeat_interleave(bs, dim=1)
+        ok_d = ok_d and torch.equal(dense, want)
+    rec = {"shape": [n, d], "block_size": bs, "kb": kb, "local": local,
+           "dtype": dt, "ok": {"block_compress": ok_c,
+                               "block_decompress": ok_d},
+           "max_abs_err": {"block_compress": err_c,
+                           "block_decompress": err_d}}
+    if timed:
+        isz = g.element_size()
+        pay_bytes = n * kb * bs * isz
+        rec["block_compress"] = {
+            "ms": time_ms(torch, kern_c, 5), "plain_ms": time_ms(
+                torch, plain_c, 5), "library_ms": None}
+        rec["block_compress"]["bound_ms"], rec["block_compress"][
+            "bound_by"] = _bound(2 * pay_bytes + ids.numel() * 4, 0,
+                                 PEAK_F32_OPS_PER_S)
+        del dense
+        rec["block_decompress"] = {
+            "ms": time_ms(torch, kern_d, 5), "plain_ms": time_ms(
+                torch, plain_d, 5), "library_ms": None}
+        rec["block_decompress"]["bound_ms"], rec["block_decompress"][
+            "bound_by"] = _bound(pay_bytes + n * d * isz + nb * 4
+                                 + ids.numel() * 4, 0, PEAK_F32_OPS_PER_S)
+    return rec
+
+
+def randk_phase(torch, device: str = "cuda", path=RANDK_PATH) -> list:
+    """Block-RandK kernel cases: awkward shapes, then the LLM path's."""
+    out, failures = [], []
+    cases = [(c, False) for c in RANDK_AWKWARD] + [(path, True)]
+    for i, (case, timed) in enumerate(cases):
+        rec = randk_case(torch, case, timed and device == "cuda",
+                         seed=300 + i, device=device)
+        out.append(rec)
+        line = (f"kernel block_compress/decompress n={case[0]} d={case[1]} "
+                f"bs={case[2]} kb={case[3]} local={case[4]} {case[5]}: "
+                f"bitwise {rec['ok']}")
+        for name in ("block_compress", "block_decompress"):
+            if name in rec:
+                t = rec[name]
+                line += (f" | {name} ms={t['ms']:.5f} plain_ms="
+                         f"{t['plain_ms']:.5f} bound_ms={t['bound_ms']:.5f}"
+                         f" ({t['bound_by']}) library_ms=null")
+        log(line)
+        failures += [f"{k} {case}" for k, v in rec["ok"].items() if not v]
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"block kernels disagree: {failures}")
+    return out
+
+
+def flash_pairs(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
+    """Visible (query, key) pairs: the work the mask leaves."""
+    total = 0
+    for i in range(sq):
+        qpos = q_offset + i
+        hi = min(sk - 1, qpos) if causal else sk - 1
+        lo = max(0, qpos - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_case(torch, case, timed: bool, seed: int,
+               device: str = "cuda") -> dict:
+    """Flash forward and backward against the plain version computed in
+    float32 from the same bf16 inputs: out, dq, dk, dv."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    import torch.nn.functional as Fn
+    b, sq, sk, h, kv, d, causal, window, q_offset = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16)
+
+    q, k, v, dout = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d), \
+        rnd(b, sq, h, d)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(o, leaves, dout)
+    fl = [t.float().requires_grad_() for t in (q, k, v)]
+    o_ref = attention_ref(*fl, **kw)
+    grads_ref = torch.autograd.grad(o_ref, fl, dout.float())
+    errs, ok = {}, True
+    for name, got, want, tol in [("out", o, o_ref, FLASH_TOL_OUT)] + [
+            (n_, g_, w_, FLASH_TOL_GRAD) for n_, g_, w_ in
+            zip(("dq", "dk", "dv"), grads, grads_ref)]:
+        err = float((got.detach().float() - want.detach()).abs().max())
+        scale = float(want.detach().abs().max())
+        errs[name] = err
+        ok = ok and got.shape == want.shape and math.isfinite(err) and \
+            err <= tol * scale
+        errs[name + "_rel"] = err / scale
+    del fl, o_ref, grads_ref
+    rec = {"case": list(case), "errs": errs, "ok": ok,
+           "tolerance": f"max|err| <= {FLASH_TOL_OUT:g} max|plain| (out), "
+                        f"{FLASH_TOL_GRAD:g} max|plain| (dq, dk, dv)"}
+    if timed:
+        from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
+                                                         flash_fwd_cuda)
+        o_k, lse = flash_fwd_cuda(q, k, v, **kw)
+        pairs = flash_pairs(sq, sk, causal, window, q_offset)
+        fwd_ops = 4 * b * h * d * pairs
+        io = q.numel() * 2 * 2 + k.numel() * 2 * 2  # q, o, k, v
+        rec["flash_fwd"] = {
+            "ms": time_ms(torch, lambda: flash_fwd_cuda(q, k, v, **kw), 10),
+            "plain_ms": time_ms(torch, lambda: attention_ref(q, k, v, **kw),
+                                5)}
+        rec["flash_fwd"]["bound_ms"], rec["flash_fwd"]["bound_by"] = _bound(
+            io + lse.numel() * 4, fwd_ops, PEAK_BF16_OPS_PER_S)
+        rec["flash_bwd"] = {"ms": time_ms(torch, lambda: flash_bwd_cuda(
+            q, k, v, o_k, lse, dout, **kw), 10)}
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o_p = attention_ref(*leaves, **kw)
+        rec["flash_bwd"]["plain_ms"] = time_ms(torch, lambda: torch.autograd
+                                               .grad(o_p, leaves, dout,
+                                                     retain_graph=True), 5)
+        del o_p
+        rec["flash_bwd"]["bound_ms"], rec["flash_bwd"]["bound_by"] = _bound(
+            io + dout.numel() * 2 + lse.numel() * 4 + q.numel() * 2
+            + 2 * k.numel() * 2, 2.5 * fwd_ops, PEAK_BF16_OPS_PER_S)
+        # yardstick only: PyTorch's fused attention on [B, H, S, D]
+        lib = None
+        if causal and window is None and q_offset == 0 and sq == sk \
+                and h == kv:
+            qt, kt, vt, dt_ = (t.transpose(1, 2).contiguous()
+                               for t in (q, k, v, dout))
+            sdpa = lambda *a: Fn.scaled_dot_product_attention(  # noqa: E731
+                *a, is_causal=True)
+            lib = time_ms(torch, lambda: sdpa(qt, kt, vt), 10)
+            lt = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+            o_l = sdpa(*lt)
+            lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                o_l, lt, dt_, retain_graph=True), 10)
+
+            def fwd_bwd():
+                o2 = sdpa(*lt)
+                torch.autograd.grad(o2, lt, dt_)
+            rec["library_fwd_bwd_ms"] = time_ms(torch, fwd_bwd, 10)
+            del o_l
+        rec["flash_fwd"]["library_ms"] = lib
+        rec["flash_bwd"]["library_ms"] = lib_bwd if lib is not None else None
+    return rec
+
+
+def flash_phase(torch, device: str = "cuda", path=FLASH_PATH) -> list:
+    """Flash attention kernel cases: awkward shapes, then the LLM path's."""
+    out, failures = [], []
+    cases = [(c, False) for c in FLASH_AWKWARD] + [(path, True)]
+    for i, (case, timed) in enumerate(cases):
+        rec = flash_case(torch, case, timed and device == "cuda",
+                         seed=500 + i, device=device)
+        out.append(rec)
+        e = rec["errs"]
+        line = (f"kernel flash {case}: rel err out {e['out_rel']:.3g} dq "
+                f"{e['dq_rel']:.3g} dk {e['dk_rel']:.3g} dv {e['dv_rel']:.3g}"
+                f" ({rec['tolerance']}) {'ok' if rec['ok'] else 'FAIL'}")
+        for name in ("flash_fwd", "flash_bwd"):
+            if name in rec:
+                t = rec[name]
+                lib = t["library_ms"]
+                line += (f" | {name} ms={t['ms']:.5f} plain_ms="
+                         f"{t['plain_ms']:.5f} bound_ms={t['bound_ms']:.5f}"
+                         f" ({t['bound_by']}) library_ms="
+                         f"{'null' if lib is None else f'{lib:.5f}'}")
+        if "library_fwd_bwd_ms" in rec:
+            line += f" | sdpa fwd+bwd ms={rec['library_fwd_bwd_ms']:.5f}"
+        log(line)
+        if not rec["ok"]:
+            failures.append(str(case))
+    if failures:
+        raise AssertionError(f"flash kernels disagree: {failures}")
+    return out
 
 
 # ----------------------------------------------------------------------- #
@@ -224,11 +510,32 @@ def sync(torch, device: str) -> None:
         torch.cuda.synchronize()
 
 
-def profile_rounds(torch, sim, state, batch_fn, start: int,
-                   n: int = 5) -> dict:
-    """Device busy share and device time by kernel over ``n`` steady CNN
-    rounds, from ``torch.profiler`` (CUPTI). The wall time includes the
-    profiler's own cost."""
+def op_kind(name: str) -> str:
+    """Coarse kind of a device operation, by its kernel name."""
+    low = name.lower()
+    if "flash" in low:
+        return "flash attention (port)"
+    if any(k in low for k in ("sorted_weight", "pairdist", "compress_kernel",
+                              "decompress_kernel")):
+        return "server kernels (port)"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
+                              "wgrad", "dgrad", "conv")):
+        return "matmul/conv (library)"
+    if "sort" in low:
+        return "sort"
+    if "reduce" in low or "norm" in low or "softmax" in low:
+        return "reductions"
+    if "copy" in low:
+        return "casts and copies"
+    return "other elementwise"
+
+
+def profile_window(torch, step, n: int, label: str) -> dict:
+    """Device busy share and device time by kernel over ``n`` calls of
+    ``step(i)`` (steady rounds or steps), from ``torch.profiler`` (CUPTI).
+    The wall time includes the profiler's own cost."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -236,8 +543,8 @@ def profile_rounds(torch, sim, state, batch_fn, start: int,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(start, start + n):
-            state, _ = sim.round(state, batch_fn(t))
+        for i in range(n):
+            step(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -249,20 +556,29 @@ def profile_rounds(torch, sim, state, batch_fn, start: int,
         tot, cnt = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + (b - a), cnt + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    by_kind = {}
+    for name, (tot, _) in by_name.items():
+        kind = op_kind(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + tot / n / 1e3
     out = {"rounds": n, "wall_ms_per_round": wall_us / n / 1e3,
            "device_busy_ms_per_round": busy / n / 1e3,
            "device_events": len(spans),
            "idle_share": (1.0 - busy / wall_us) if spans else None,
+           "ms_per_round_by_kind": by_kind,
            "top": [{"name": k[:80], "ms_per_round": v[0] / n / 1e3,
                     "calls_per_round": v[1] / n} for k, v in top]}
     if not spans:
-        log("cnn profile: the profiler saw no device events (device time "
-            "not measured)")
+        log(f"{label} profile: the profiler saw no device events (device "
+            f"time not measured)")
         return out
-    log(f"cnn profile over {n} rounds: wall {out['wall_ms_per_round']:.3f} "
-        f"ms/round (profiler on), device busy "
+    log(f"{label} profile over {n} rounds: wall "
+        f"{out['wall_ms_per_round']:.3f} ms/round (profiler on), device busy "
         f"{out['device_busy_ms_per_round']:.3f} ms/round, idle share "
-        f"{out['idle_share']:.3f}")
+        f"{out['idle_share']:.3f}, {len(spans) / n:.0f} device operations "
+        f"per round")
+    log(f"{label} device time by kind (ms/round): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(by_kind.items(),
+                                          key=lambda kv: -kv[1])))
     for row in out["top"]:
         log(f"  {row['ms_per_round'] * 1e3:9.2f} us/round "
             f"{row['calls_per_round']:5.1f} calls  {row['name']}")
@@ -310,8 +626,13 @@ def cnn_phase(torch, device: str = "cuda", rounds: int = 30,
             raise AssertionError(f"cnn: {k} launched {launches[k]} times "
                                  f"in {rounds} rounds")
 
-    prof = (profile_rounds(torch, sim, state, batch_fn, rounds)
-            if device == "cuda" else None)
+    prof = None
+    if device == "cuda":
+        box = [state]
+
+        def one_round(i):
+            box[0], _ = sim.round(box[0], batch_fn(rounds + i))
+        prof = profile_window(torch, one_round, 5, "cnn")
 
     # the same first rounds on the CPU (plain versions), same draws
     k = cfg.sparsifier.k(sim.d)
@@ -392,6 +713,166 @@ def quadratic_phase(torch, device: str = "cuda", d: int = 1048576,
     return out
 
 
+LLM_GAMMA = 0.5      # large enough that 8 steps move the honest loss
+LLM_STEPS = 8
+LLM_CHECK_STEPS = 2
+# Kernel path against the plain path over the first steps, same seed, same
+# draws: the flash kernels round P and dS to bf16 where the plain attention
+# rounds the normalised probabilities, so activations and bf16 gradients
+# differ by bf16 rounding (relative 2^-9); the compress round trip is
+# bitwise the mask multiply and CWTM differs only in float32 summation
+# order. The honest loss averages 7 x 4095 token losses.
+LLM_TOL_LOSS = 5e-3   # relative, per step
+LLM_TOL_DIR = 2e-2    # relative |R|, per step
+
+
+def llm_argv(device: str, steps: int, n_layers: int = LLM_LAYERS) -> list:
+    return ["--arch", "stablelm_3b", "--steps", str(steps), "--n-layers",
+            str(n_layers), "--n-workers", str(LLM_WORKERS), "--global-batch",
+            str(LLM_WORKERS), "--f", "1", "--ratio", "0.05", "--gamma",
+            str(LLM_GAMMA), "--seed", "0", "--device", device]
+
+
+def llm_phase(torch, device: str = "cuda", steps: int = LLM_STEPS,
+              check_steps: int = LLM_CHECK_STEPS) -> dict:
+    """The LLM main path through ``repro_torch.launch.train`` (``cpu`` only
+    to rehearse the script's logic at the launcher's reduced CPU size)."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import train
+
+    K.reset_launches()
+    res = train.run(llm_argv(device, steps), log=log)
+    launches = K.launches()
+    plan = res["plan"]
+    cfg = plan.model
+    log(f"llm: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}x"
+        f"{cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"layers={cfg.n_layers} seq={plan.shape.seq_len} n={plan.n_workers}"
+        f" D={plan.flat_spec.padded_size:,} gamma={LLM_GAMMA}")
+    for t, (l, r, ms) in enumerate(zip(res["losses"], res["dir_norms"],
+                                       res["step_ms"])):
+        log(f"llm step {t:3d} honest_loss={l:.6f} |R|={r:.6f} ms={ms:.3f}")
+    steady = sorted(res["step_ms"][1:])[len(res["step_ms"][1:]) // 2]
+    peak_mib = (res["peak_bytes"] / 2**20 if res["peak_bytes"] is not None
+                else float("nan"))
+    log(f"llm: launches {launches}, first step {res['step_ms'][0]:.3f} ms, "
+        f"median step {steady:.3f} ms, peak device memory {peak_mib:.1f} MiB")
+    losses = res["losses"]
+    if not all(math.isfinite(v) for v in losses + res["dir_norms"]):
+        raise AssertionError(f"llm: non-finite loss or |R|: {losses}")
+    if not sum(losses[-2:]) / 2 < losses[0]:
+        raise AssertionError(f"llm: honest loss did not fall: {losses}")
+    on_card = device == "cuda"
+    per_step = cfg.n_layers * plan.n_workers
+    want = {"flash_fwd": per_step * steps, "flash_bwd": per_step * steps,
+            "block_compress": steps, "block_decompress": steps,
+            "cwtm": steps, "pairdist": 0, "median": 0}
+    if not on_card:
+        want = {k: 0 for k in want}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"llm: launches {launches}, expected {want}")
+
+    prof = None
+    if on_card:
+        box = [res["state"]]
+
+        def one_step(i):
+            box[0], _ = res["step"](box[0], res["batch_fn"]())
+        prof = profile_window(torch, one_step, 2, "llm")
+        del box
+    first = {"losses": losses[:check_steps],
+             "dir_norms": res["dir_norms"][:check_steps]}
+    step_ms = res["step_ms"]
+    del res
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the plain path on the same device, same seed and draws
+    plain = train.run(llm_argv(device, check_steps), plain=True, log=log)
+    rel_l = max(abs(a - b) / abs(b) for a, b in zip(first["losses"],
+                                                   plain["losses"]))
+    rel_r = max(abs(a - b) / abs(b) for a, b in zip(first["dir_norms"],
+                                                   plain["dir_norms"]))
+    log(f"llm: kernel vs plain path over {check_steps} steps: honest loss "
+        f"{first['losses']} vs {plain['losses']} (max rel {rel_l:.3g}, bound "
+        f"{LLM_TOL_LOSS:g}); |R| {first['dir_norms']} vs "
+        f"{plain['dir_norms']} (max rel {rel_r:.3g}, bound {LLM_TOL_DIR:g}); "
+        f"plain steps {', '.join(f'{v:.3f}' for v in plain['step_ms'])} ms")
+    if rel_l > LLM_TOL_LOSS or rel_r > LLM_TOL_DIR:
+        raise AssertionError("llm: kernel and plain paths disagree")
+    out = {"steps": steps, "losses": losses, "step_ms": step_ms,
+           "median_step_ms": steady, "peak_mib": peak_mib,
+           "launches": launches, "profile": prof, "plain_rel_loss": rel_l,
+           "plain_rel_dir": rel_r, "plain_step_ms": plain["step_ms"]}
+    del plain
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def kernel_record(results, randk, flash, cnn, quad, llm) -> dict:
+    """The ``{"kernels": [...]}`` line: every kernel of the port, its
+    launches on the main paths and its numbers at its main path's shape."""
+    record = {"kernels": []}
+    for name in SORT_KERNELS:
+        recs = [r for r in results[name] if "ms" in r]
+        head = recs[0]  # the CNN path's shape
+        record["kernels"].append({
+            "name": name, "route": "cuda", **KERNELS[name],
+            "launches": cnn["launches"][name],
+            "launches_quadratic": quad["kernel"]["launches"][name],
+            "launches_llm": llm["launches"][name],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shape": head["shape"],
+            "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                          "library_ms", "bound_ms",
+                                          "max_abs_err")} for r in recs]})
+    timed_randk = randk[-1]
+    timed_flash = flash[-1]
+    for name, rec, err, shape in (
+            ("block_compress", timed_randk,
+             timed_randk["max_abs_err"]["block_compress"],
+             timed_randk["shape"]),
+            ("block_decompress", timed_randk,
+             timed_randk["max_abs_err"]["block_decompress"],
+             timed_randk["shape"]),
+            ("flash_fwd", timed_flash, timed_flash["errs"]["out"],
+             timed_flash["case"]),
+            ("flash_bwd", timed_flash, max(timed_flash["errs"][k] for k in
+                                           ("dq", "dk", "dv")),
+             timed_flash["case"])):
+        t = rec[name]
+        record["kernels"].append({
+            "name": name, "route": "cuda", **KERNELS[name],
+            "launches": llm["launches"][name], "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": shape})
+    return record
+
+
+def ptxas_summary(report: str) -> list:
+    """One line per compiled kernel from ``-Xptxas -v``: its name (with its
+    first integer template argument), registers, shared memory and any
+    spills."""
+    import re
+    out, name, spill = [], "?", ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"\d([a-z][a-z0-9_]*?kernel)(?:IL[ij](\d+)E)?",
+                          line)
+            name = (f"{m[1]}<{m[2]}>" if m[2] else m[1]) if m else line
+            spill = ""
+        elif "spill stores" in line:
+            spill = ("" if ", 0 bytes spill stores" in line
+                     else " | " + line.strip())
+        elif "Used" in line and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}{spill}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -418,34 +899,41 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s wall")
     for name, (secs, report) in build.BUILD_LOG.items():
         log(f"build {name}: {secs:.2f} s")
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {line.strip()}")
+        for line in ptxas_summary(report):
+            log(f"  ptxas {line}")
 
+    phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else None
+
+    def want(name):
+        return phases is None or name in phases
+
+    if phases is not None:
+        # a partial run (kernel bring-up): no ok line
+        for name, fn in (("kernels", kernel_phase), ("randk", randk_phase),
+                         ("flash", flash_phase), ("llm", llm_phase)):
+            if want(name):
+                fn(torch)
+        log(card)
+        return 3
     results = kernel_phase(torch)
+    randk = randk_phase(torch)
+    flash = flash_phase(torch)
+    torch.cuda.empty_cache()
     cnn = cnn_phase(torch)
     quad = quadratic_phase(torch)
-    record = {"kernels": []}
-    for name, meta in KERNELS.items():
-        recs = [r for r in results[name] if "ms" in r]
-        head = recs[0]  # the CNN path's shape
-        record["kernels"].append({
-            "name": name, "route": "cuda", **meta,
-            "launches": cnn["launches"][name],
-            "launches_quadratic": quad["kernel"]["launches"][name],
-            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shape": head["shape"],
-            "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms",
-                                          "library_ms", "bound_ms",
-                                          "max_abs_err")} for r in recs]})
+    llm = llm_phase(torch)
+    record = kernel_record(results, randk, flash, cnn, quad, llm)
     log(json.dumps({"summary": {
         "cnn": {k: cnn[k] for k in ("rounds", "median_round_ms", "acc",
                                     "cpu_rel_diff", "profile")},
         "quadratic": {k: {m: quad[k][m] for m in ("ms_per_round",
                                                   "peak_mib")}
-                      for k in ("kernel", "plain")}}}))
+                      for k in ("kernel", "plain")},
+        "llm": {k: llm[k] for k in ("steps", "losses", "step_ms",
+                                    "median_step_ms", "peak_mib",
+                                    "plain_rel_loss", "plain_rel_dir",
+                                    "plain_step_ms", "profile")},
+        "flash_sdpa_fwd_bwd_ms": flash[-1].get("library_fwd_bwd_ms")}}))
     log(json.dumps(record))
     log(card)
     print(json.dumps({"ok": True, "device": {

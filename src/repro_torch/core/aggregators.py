@@ -54,8 +54,21 @@ def trimmed_mean(x: torch.Tensor, f: int) -> torch.Tensor:
         return x.mean(dim=-2)
     if n - 2 * f <= 0:
         raise ValueError(f"trimmed_mean requires n > 2f, got n={n}, f={f}")
-    xs = torch.sort(x, dim=-2).values
-    return xs[..., f:n - f, :].mean(dim=-2)
+
+    def trim(cols: torch.Tensor) -> torch.Tensor:
+        return torch.sort(cols, dim=-2).values[..., f:n - f, :].mean(dim=-2)
+
+    # Column slices bound the sort's int64 indices (every column is sorted
+    # on its own, so the result is the same): at an LLM's D they would
+    # outgrow the card.
+    d = x.shape[-1]
+    if d <= _SORT_COLS:
+        return trim(x)
+    return torch.cat([trim(x[..., i:i + _SORT_COLS])
+                      for i in range(0, d, _SORT_COLS)], dim=-1)
+
+
+_SORT_COLS = 1 << 22
 
 
 def _pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:

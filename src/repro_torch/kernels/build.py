@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
+F = ctypes.c_float
 
 #: C signatures, by source name: ``{entry: argtypes}``; every entry returns
 #: an int (the ``cudaError_t`` of its launches).
@@ -47,6 +48,21 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "pairdist": {
         # x, partial, out, B, n, d, n_splits, tiles_per_split, dtype, stream
         "pairdist": (P, P, P, I, I, LL, I, I, I, P),
+    },
+    "randk": {
+        # g, ids, payload, n, d, kb, bs, ids_stride, alpha, dtype, stream
+        "block_compress": (P, P, P, I, LL, I, I, I, F, I, P),
+        # payload, slots, dense, n, nb, kb, bs, slots_stride, dtype, stream
+        "block_decompress": (P, P, P, I, I, I, I, I, I, P),
+    },
+    "flash_attention": {
+        # q, k, v, o, lse, B, Sq, Sk, H, KV, D, causal, window, q_offset,
+        # stream
+        "flash_fwd": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+        # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, D,
+        # causal, window, q_offset, stream
+        "flash_bwd": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                      I, P),
     },
 }
 

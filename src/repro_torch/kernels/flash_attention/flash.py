@@ -1,0 +1,148 @@
+"""CUDA kernel wrappers: flash attention, forward and backward.
+
+Replaces ``repro/kernels/flash_attention/flash.py:_flash_kernel`` (launched
+by ``flash_attention``). The TPU kernel is forward-only, and ``jax.grad``
+through it fails; the port trains through its kernel, so
+``csrc/flash_attention.cu`` adds the FlashAttention-2 backward (a ``delta``
+pass, then dk/dv per key tile and dq per query tile, no atomics). Bound by
+operations at the model's shapes: WMMA bf16 tensor-core tiles with float32
+accumulation, one block of 4 warps per 64-row tile and head.
+
+:class:`FlashAttention` is a ``torch.autograd.Function``: the forward saves
+the per-row log-sum-exp ``[B, H, Sq]`` in float32 for the backward.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (64, 80, 128)
+
+
+def fully_masked_rows(sq: int, sk: int, causal: bool, window: Optional[int],
+                      q_offset: int) -> bool:
+    """True when some query row sees no key. The dense reference averages v
+    there; the kernel refuses such calls (a model's self-attention always
+    sees its own position)."""
+    if sk < 1:
+        return True
+    if causal and q_offset < 0:
+        return True
+    return window is not None and q_offset + sq - 1 > sk + window - 2
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool, window: Optional[int], q_offset: int) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"flash attention kernel needs CUDA tensors, "
+                             f"got {name} on {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"flash attention kernel takes bfloat16, got "
+                            f"{name} {t.dtype}")
+        if t.ndim != 4 or not t.is_contiguous():
+            raise ValueError(f"flash attention kernel takes contiguous "
+                             f"[B, S, heads, D], got {name} "
+                             f"{tuple(t.shape)}")
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel is built for head dims "
+                         f"{HEAD_DIMS}, got {d}")
+    if h % kv or b > 65535 or h > 65535:
+        raise ValueError(f"H={h} must be a multiple of KV={kv}; B, H <= 65535")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    if fully_masked_rows(sq, sk, causal, window, q_offset):
+        raise ValueError(
+            f"query rows with no visible key (Sq={sq}, Sk={sk}, causal="
+            f"{causal}, window={window}, q_offset={q_offset}): the kernel "
+            f"does not take them")
+
+
+def _problem(q, k, causal, window, q_offset) -> tuple:
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    return (b, sq, sk, h, kv, d, int(causal),
+            0 if window is None else int(window), int(q_offset))
+
+
+def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True, window: Optional[int] = None,
+                   q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward: ``(o [B, Sq, H, D] bf16, lse [B, H, Sq] f32)``."""
+    _check(q, k, v, causal, window, q_offset)
+    b, sq, h, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = build.load("flash_attention")
+    err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), lse.data_ptr(),
+                        *_problem(q, k, causal, window, q_offset),
+                        build.stream_ptr(q.device))
+    build.check(err, "flash_fwd")
+    flash_fwd_cuda.launches += 1
+    return o, lse
+
+
+def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   causal: bool = True, window: Optional[int] = None,
+                   q_offset: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward (delta, dk/dv, dq kernels): ``(dq, dk, dv)`` in
+    bf16, shaped like q, k, v."""
+    _check(q, k, v, causal, window, q_offset)
+    dout = dout.contiguous()
+    for name, t, dt in (("o", o, torch.bfloat16), ("dout", dout,
+                                                   torch.bfloat16),
+                        ("lse", lse, torch.float32)):
+        if t.device != q.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"flash backward: {name} must be a contiguous "
+                             f"{dt} tensor on {q.device}")
+    if o.shape != q.shape or dout.shape != q.shape:
+        raise ValueError("flash backward: o and dout must be shaped like q")
+    b, sq, h, _ = q.shape
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = build.load("flash_attention")
+    err = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(),
+                        *_problem(q, k, causal, window, q_offset),
+                        build.stream_ptr(q.device))
+    build.check(err, "flash_bwd")
+    flash_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_fwd_cuda.launches = 0
+flash_bwd_cuda.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention on the card, differentiable through its backward
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        o, lse = flash_fwd_cuda(q, k, v, causal, window, q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_cuda(q, k, v, o, lse, dout, *ctx.mask)
+        return dq, dk, dv, None, None, None

@@ -1,0 +1,112 @@
+"""CUDA kernel wrappers: Block-RandK compress and decompress.
+
+Replace ``repro/kernels/randk/randk.py:_compress_kernel`` (launched by
+``block_compress``) and ``:_decompress_kernel`` (``block_decompress``). The
+kernels, ``csrc/randk.cu``, are bound by device memory: one thread block per
+(block, worker row) moves the block as 16-byte vectors, one per thread. The
+reference maps them over the rows one at a time; here one launch covers the
+``[n, d]`` bank, with one id vector shared by all rows (a global mask) or
+one per row (local masks).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_bank(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} needs a CUDA tensor, got {x.device}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"{what} takes float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous [n, d] bank, got "
+                         f"{tuple(x.shape)}")
+    if not 1 <= x.shape[0] <= 65535:
+        raise ValueError(f"{what} takes 1 <= n <= 65535 rows, got "
+                         f"{x.shape[0]}")
+
+
+def _check_block(block_size: int, dtype: torch.dtype) -> None:
+    nbytes = block_size * (4 if dtype == torch.float32 else 2)
+    if block_size < 1 or nbytes % 16 or nbytes // 16 > 1024:
+        raise ValueError(
+            f"block_size {block_size} must span a multiple of 16 bytes and "
+            f"at most 1024 16-byte vectors for {dtype}")
+
+
+def _ids(ids: torch.Tensor, n: int, device) -> tuple:
+    """Block ids as contiguous int32 on the card, with their row stride."""
+    if ids.ndim not in (1, 2) or (ids.ndim == 2 and ids.shape[0] != n):
+        raise ValueError(f"block ids must be [kb] or [{n}, kb], got "
+                         f"{tuple(ids.shape)}")
+    ids = ids.to(device=device, dtype=torch.int32).contiguous()
+    return ids, (0 if ids.ndim == 1 else ids.shape[1])
+
+
+def block_compress_cuda(g: torch.Tensor, ids: torch.Tensor, block_size: int,
+                        alpha: float) -> torch.Tensor:
+    """g ``[n, d]``, ids ``[kb]`` or ``[n, kb]`` (distinct, in
+    ``[0, d/block_size)``) -> payload ``[n, kb * block_size]``."""
+    _check_bank(g, "block_compress")
+    _check_block(block_size, g.dtype)
+    n, d = g.shape
+    if d % block_size:
+        raise ValueError(f"d={d} is not a multiple of block_size={block_size}")
+    ids, stride = _ids(ids, n, g.device)
+    kb = ids.shape[-1]
+    payload = torch.empty((n, kb * block_size), dtype=g.dtype, device=g.device)
+    lib = build.load("randk")
+    err = lib.block_compress(g.data_ptr(), ids.data_ptr(), payload.data_ptr(),
+                             n, d, kb, block_size, stride, float(alpha),
+                             DTYPES[g.dtype], build.stream_ptr(g.device))
+    build.check(err, "block_compress")
+    block_compress_cuda.launches += 1
+    return payload
+
+
+def slot_map(ids: torch.Tensor, nb: int) -> torch.Tensor:
+    """Destination block -> payload row (``-1``: not selected), ``[nb]`` for
+    ``[kb]`` ids or ``[n, nb]`` for ``[n, kb]`` ids, int32 on ids' device.
+    One scatter on the device, no loop over blocks."""
+    kb = ids.shape[-1]
+    slots = torch.full(ids.shape[:-1] + (nb,), -1, dtype=torch.int32,
+                       device=ids.device)
+    src = torch.arange(kb, dtype=torch.int32, device=ids.device)
+    return slots.scatter_(-1, ids.long(), src.expand(ids.shape))
+
+
+def block_decompress_cuda(payload: torch.Tensor, ids: torch.Tensor,
+                          block_size: int, d: int) -> torch.Tensor:
+    """payload ``[n, kb * block_size]``, the ids it was compressed with ->
+    dense ``[n, d]``, every destination block written once."""
+    _check_bank(payload, "block_decompress")
+    _check_block(block_size, payload.dtype)
+    n = payload.shape[0]
+    if d % block_size or payload.shape[1] % block_size:
+        raise ValueError(f"d={d} and the payload width {payload.shape[1]} "
+                         f"must be multiples of block_size={block_size}")
+    nb, kb = d // block_size, payload.shape[1] // block_size
+    ids, _ = _ids(ids, n, payload.device)
+    if ids.shape[-1] != kb:
+        raise ValueError(f"{ids.shape[-1]} block ids for a payload of {kb} "
+                         f"blocks")
+    slots = slot_map(ids, nb)
+    stride = 0 if slots.ndim == 1 else nb
+    dense = torch.empty((n, d), dtype=payload.dtype, device=payload.device)
+    lib = build.load("randk")
+    err = lib.block_decompress(payload.data_ptr(), slots.data_ptr(),
+                               dense.data_ptr(), n, nb, kb, block_size, stride,
+                               DTYPES[payload.dtype],
+                               build.stream_ptr(payload.device))
+    build.check(err, "block_decompress")
+    block_decompress_cuda.launches += 1
+    return dense
+
+
+block_compress_cuda.launches = 0
+block_decompress_cuda.launches = 0

@@ -1,0 +1,145 @@
+"""The RoSDHB train step for the LLM path (counterpart of
+``repro.launch.steps``, host mode).
+
+``build_train_step`` wires the paper's algorithm into the decoder:
+
+  1. per-worker loss and gradient with respect to a bf16 copy of the f32
+     master parameters, one worker after the other (a Python loop: the
+     kernels are ``ctypes`` calls inside ``autograd.Function``s, which
+     ``torch.func.vmap`` cannot map, and the loop keeps one worker's
+     activations alive at a time);
+  2. each gradient raveled into its row of the float32 ``[n, D]`` bank in
+     the reference's flat layout (the naive flatten: the reference's
+     sharded bank transforms and mesh have no single-card counterpart);
+  3. ``core.algorithms.server_round``: the round's masks, the Block-RandK
+     wire round trip, the Byzantine overwrite, the per-worker momentum and
+     the robust aggregation;
+  4. ``p - gamma * d`` on the master parameters.
+
+The reference's ``TrainState`` carries a PRNG key; the port's carries the
+draws provider the server round takes its masks from.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchSpec, InputShape, model_for_shape
+from repro_torch.core import aggregators as G
+from repro_torch.core import algorithms as A
+from repro_torch.core import attacks as ATK
+from repro_torch.core import compression as C
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as tf
+from repro_torch.models.config import ModelConfig
+from repro_torch.utils import tree as T
+
+
+class TrainState(NamedTuple):
+    params: Any              # model parameter tree (f32 master)
+    server: A.ServerState    # RoSDHB momentum bank [n_workers, Dp]
+    step: int
+    draws: Any               # draws provider of the server rounds
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainPlan:
+    """What the launcher needs to build a train step: the model, the
+    algorithm, the flat layout of the parameters and the worker split."""
+
+    arch: ArchSpec
+    shape: InputShape
+    model: ModelConfig
+    algo: A.AlgorithmConfig
+    flat_spec: T.FlatSpec
+    n_workers: int
+    local_batch: int
+
+
+def make_train_plan(spec: ArchSpec, shape: InputShape,
+                    algo_overrides: Optional[Dict] = None,
+                    n_workers: int = 8) -> TrainPlan:
+    """The reference's host-mode plan: ``n_workers`` simulated workers, the
+    naive flatten padded to a multiple of 8 (one chip), and the reference's
+    defaults (f = max(1, n//8), gamma 1e-3, beta 0.9, ``block_hash`` at the
+    arch's ratio with 512-wide blocks, CWTM, ALIE). The server banks are
+    float32: ``momentum_dtype`` other than float32 is not ported."""
+    cfg = model_for_shape(spec, shape)
+    n = n_workers
+    if shape.global_batch % n:
+        raise ValueError(f"global_batch {shape.global_batch} not divisible "
+                         f"by n_workers {n}")
+    abstract = tf.model_init(cfg, None, device="meta")
+    flat_spec = T.make_flat_spec(abstract, pad_to=8)
+    ov = dict(algo_overrides or {})
+    mdt = ov.pop("momentum_dtype", "float32")
+    if mdt != "float32":
+        raise ValueError(f"momentum_dtype {mdt!r} is not ported (the port's "
+                         f"server banks are float32)")
+    algo = A.AlgorithmConfig(
+        name=ov.pop("name", "rosdhb"),
+        n_workers=n,
+        f=ov.pop("f", max(1, n // 8)),
+        gamma=ov.pop("gamma", 1e-3),
+        beta=ov.pop("beta", 0.9),
+        sparsifier=ov.pop("sparsifier", C.SparsifierConfig(
+            kind="block_hash", ratio=spec.rosdhb_ratio, block_size=512)),
+        aggregator=ov.pop("aggregator", G.AggregatorConfig(
+            name="cwtm", f=max(1, n // 8))),
+        attack=ov.pop("attack", ATK.AttackConfig(name="alie")),
+        **ov,
+    )
+    return TrainPlan(spec, shape, cfg, algo, flat_spec, n,
+                     shape.global_batch // n)
+
+
+def build_train_step(plan: TrainPlan, device: DeviceLike = None):
+    """``train_step(state, batch) -> (state, metrics)`` on ``device``
+    (default the card). ``batch["tokens"]`` is ``[n_workers, local_batch,
+    seq]``; metrics are ``loss`` (mean honest loss, rows ``f:``),
+    ``dir_norm`` (|R|) and ``payload_floats_per_worker``."""
+    dev = resolve_device(device)
+    cfg, fspec, algo = plan.model, plan.flat_spec, plan.algo
+    agg = G.make_aggregator(algo.aggregator, device=dev)
+    n, d = plan.n_workers, fspec.padded_size
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[TrainState, Dict[str, Any]]:
+        # (1)+(2) mixed precision, as the reference: differentiate with
+        # respect to a bf16 cast of the f32 master parameters
+        half = [(p.to(torch.bfloat16) if p.dtype == torch.float32 else p)
+                .detach().requires_grad_()
+                for p in T.tree_leaves(state.params)]
+        half_tree = T.tree_unflatten(fspec.treedef, half)
+        bank = torch.empty((n, d), dtype=torch.float32, device=dev)
+        losses = []
+        for w in range(n):
+            loss = tf.lm_loss(half_tree, cfg,
+                              {k: v[w] for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, half)
+            T.tree_ravel_into(list(grads), bank[w], fspec)
+            losses.append(loss.detach())
+            del grads, loss
+        del half, half_tree
+        # (3) the paper's steps 1-6 on the [n, D] bank
+        direction, server, aux = A.server_round(algo, state.server, bank,
+                                                state.draws, agg=agg)
+        del bank
+        # (4) step 7 on the master parameters, one fused multiply-add
+        dir_leaves = T.tree_leaves(T.tree_unravel(direction, fspec))
+        new_params = T.tree_unflatten(fspec.treedef, [
+            torch.add(p, r.to(p.dtype), alpha=-algo.gamma)
+            for p, r in zip(T.tree_leaves(state.params), dir_leaves)])
+        metrics = {
+            "loss": torch.stack(losses)[algo.f:].mean(),
+            "dir_norm": torch.linalg.vector_norm(direction),
+            "payload_floats_per_worker": float(
+                aux["payload_floats_per_worker"]),
+        }
+        return TrainState(new_params, server, state.step + 1,
+                          state.draws), metrics
+
+    return train_step

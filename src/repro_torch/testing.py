@@ -12,7 +12,12 @@ draw a round consumes from a *draws provider*:
 The reference's key chain per round, for a test that wants to replay it:
 ``key, mask_key = split(state.key)`` (``simulator.py:142``);
 ``mask_key, atk_key = split(mask_key)`` (``algorithms.py:819``);
-RandK takes ``permutation(mask_key, d)[:k]`` (``compression.py:77``).
+RandK takes ``permutation(mask_key, d)[:k]`` (``compression.py:77``),
+Block-RandK ``permutation(mask_key, nb)[:kb]`` of the block ids
+(``compression.py:275``) and ``block_hash`` one
+``bits(mask_key, (), uint32)`` seed (``compression.py:109``). The LLM train
+step splits ``state.key`` into ``(key, round_key)`` first
+(``launch/steps.py:131``) and hands ``round_key`` to the server round.
 
 This module never imports JAX: :func:`from_jax_params` takes the reference's
 parameters as numpy arrays.
@@ -47,21 +52,29 @@ class TorchDraws:
         return torch.rand(tuple(shape), generator=self.generator,
                           device=self.device)
 
+    def bits_u32(self) -> int:
+        """One uniform uint32 (the per-round seed of ``block_hash``)."""
+        return int(torch.randint(0, 2 ** 32, (), generator=self.generator,
+                                 device=self.device))
+
 
 class ReplayDraws:
     """Pre-computed draws handed out in order (parity tests).
 
-    ``permutations`` are the index prefixes RandK consumes, one per mask
-    draw; ``uniforms`` the U[0, 1) arrays Bernoulli masks consume. Asking for
-    a draw the queue does not hold raises ``LookupError``.
+    ``permutations`` are the index prefixes RandK and Block-RandK consume,
+    one per mask draw; ``uniforms`` the U[0, 1) arrays Bernoulli masks
+    consume; ``bits`` the uint32 seeds ``block_hash`` consumes. Asking for a
+    draw the queue does not hold raises ``LookupError``.
     """
 
     def __init__(self, device: torch.device,
                  permutations: Iterable[Any] = (),
-                 uniforms: Iterable[Any] = ()):
+                 uniforms: Iterable[Any] = (),
+                 bits: Iterable[int] = ()):
         self.device = torch.device(device)
         self._perms = deque(np.asarray(p) for p in permutations)
         self._unif = deque(np.asarray(u) for u in uniforms)
+        self._bits = deque(int(b) for b in bits)
 
     def permutation_prefix(self, d: int, k: int) -> torch.Tensor:
         if not self._perms:
@@ -82,9 +95,17 @@ class ReplayDraws:
                              f"expected {tuple(shape)}")
         return torch.as_tensor(np.array(u, np.float32), device=self.device)
 
+    def bits_u32(self) -> int:
+        if not self._bits:
+            raise LookupError("ReplayDraws: no uint32 draw left")
+        b = self._bits.popleft()
+        if not 0 <= b < 2 ** 32:
+            raise ValueError(f"replayed uint32 draw {b} is out of range")
+        return b
+
     @property
     def remaining(self) -> int:
-        return len(self._perms) + len(self._unif)
+        return len(self._perms) + len(self._unif) + len(self._bits)
 
 
 def from_jax_params(np_tree: Any, device: Optional[torch.device] = None

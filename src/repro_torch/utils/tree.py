@@ -109,6 +109,18 @@ def tree_ravel(tree: Any, spec: FlatSpec | None = None,
     return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
+def tree_ravel_into(tree: Any, out: torch.Tensor, spec: FlatSpec
+                    ) -> torch.Tensor:
+    """:func:`tree_ravel` into the preallocated 1-D ``out`` of
+    ``spec.padded_size`` (a row of a worker bank), each leaf converted to
+    ``out``'s dtype on the copy (a bf16 gradient into a float32 row), the
+    padding zeroed. ``tree`` may be the list of leaves in leaf order."""
+    for leaf, off, size in zip(tree_leaves(tree), spec.offsets, spec.sizes):
+        out[off:off + size].copy_(leaf.reshape(-1))
+    out[spec.size:].zero_()
+    return out
+
+
 def tree_unravel(flat: torch.Tensor, spec: FlatSpec) -> Any:
     """Inverse of :func:`tree_ravel` (drops padding, restores leaf dtypes).
     Leaves of the same dtype as ``flat`` are views into it."""

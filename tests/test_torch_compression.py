@@ -79,7 +79,7 @@ def test_torch_draws_randk_mask_is_exact_k():
 def test_unported_kind_raises():
     with pytest.raises(ValueError, match="not ported"):
         C.make_mask(TorchDraws(0, "cpu"), 64,
-                    C.SparsifierConfig(kind="block", ratio=0.5))
+                    C.SparsifierConfig(kind="natural", ratio=0.5))
 
 
 @pytest.mark.parametrize("d", [1, 2, 255, 256, 11958, 65537, 1048576])

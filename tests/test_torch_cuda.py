@@ -78,9 +78,11 @@ def test_launch_counters(card):
     x = _x(2, 13, 500, 3, card)
     K.reset_launches()
     pairdist(x), cwtm(x, 3), median(x), cwtm(x[0], 3)
-    assert K.launches() == {"pairdist": 1, "cwtm": 2, "median": 1}
+    want = {k: 0 for k in K.kernel_wrappers()}
+    want.update(pairdist=1, cwtm=2, median=1)
+    assert K.launches() == want
     pairdist(x.cpu()), cwtm(x.cpu(), 3), median(x.cpu())
-    assert K.launches() == {"pairdist": 1, "cwtm": 2, "median": 1}
+    assert K.launches() == want
 
 
 @pytest.mark.cuda
@@ -118,3 +120,174 @@ def test_fig1_alie_rounds_card_vs_cpu(card):
     assert K.launches()["pairdist"] == K.launches()["cwtm"] == steps
     scale = float(finals[1].abs().max())
     assert float((finals[0] - finals[1]).abs().max()) <= 1e-5 * scale
+
+
+# --------------------------------------------------------------------------
+# Block-RandK, flash attention and the LLM train step
+# --------------------------------------------------------------------------
+
+RANDK = [(3, 128 * 7, 128, 1, False, torch.float32),
+         (3, 128 * 7, 128, 3, True, torch.float32),
+         (2, 512 * 5, 512, 5, False, torch.float32),
+         (4, 512 * 9, 512, 4, True, torch.bfloat16),
+         (8, 512 * 33, 512, 2, False, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,bs,kb,local,dtype", RANDK)
+def test_block_kernels_bitwise(card, n, d, bs, kb, local, dtype):
+    """Compress and decompress bitwise equal to their plain versions, and
+    the round trip bitwise the dense ``(alpha * g) * mask`` (finite g)."""
+    from repro_torch.kernels.randk import (block_compress_cuda,
+                                           block_compress_ref,
+                                           block_decompress_cuda,
+                                           block_decompress_ref)
+    nb = d // bs
+    g = _x(1, n, d, 5, card, dtype)[0]
+    rng = np.random.default_rng(kb)
+    ids = torch.tensor(np.stack([rng.permutation(nb)[:kb] for _ in range(n)])
+                       if local else rng.permutation(nb)[:kb],
+                       dtype=torch.int32, device=card)
+    alpha = nb / kb
+    pay = block_compress_cuda(g, ids, bs, alpha)
+    assert torch.equal(pay, block_compress_ref(g, ids, bs, alpha))
+    dense = block_decompress_cuda(pay, ids, bs, d)
+    assert torch.equal(dense, block_decompress_ref(pay, ids, bs, d))
+    mask = torch.zeros((n, nb), dtype=dtype, device=card)
+    mask.scatter_(1, ids.long().expand(n, kb), 1)
+    assert torch.equal(dense, (alpha * g) * mask.repeat_interleave(bs, 1))
+
+
+@pytest.mark.cuda
+def test_block_wrappers_reject_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels.randk import block_compress_cuda
+    g = torch.zeros(2, 1024, device=card)
+    ids = torch.tensor([0], device=card)
+    with pytest.raises(TypeError):
+        block_compress_cuda(g.double(), ids, 128, 1.0)
+    with pytest.raises(ValueError, match="16 bytes"):
+        block_compress_cuda(g, ids, 6, 1.0)
+    with pytest.raises(ValueError, match="multiple"):
+        block_compress_cuda(g[:, :1000].contiguous(), ids, 128, 1.0)
+
+
+FLASH = [(2, 100, 100, 32, 32, 80, True, None, 0),
+         (1, 130, 130, 16, 2, 64, True, None, 0),
+         (2, 77, 77, 8, 1, 128, True, None, 0),
+         (1, 200, 200, 16, 2, 80, True, 48, 0),
+         (2, 64, 192, 8, 1, 64, True, None, 128),
+         (1, 70, 90, 16, 2, 80, False, None, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,q_offset", FLASH)
+def test_flash_kernels_match_plain(card, b, sq, sk, h, kv, d, causal, window,
+                                   q_offset):
+    """out within 1e-2 and dq, dk, dv within 2e-2 of the plain version's
+    largest entry, the plain version computed in float32 from the same
+    bf16 inputs (the kernel rounds P and dS to bf16 for the tensor cores
+    and writes bf16)."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    gen = torch.Generator(device=card).manual_seed(sq + sk + d)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=card).to(  # noqa
+        torch.bfloat16)
+    q, k, v, dout = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d), \
+        rnd(b, sq, h, d)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, dout)
+    fl = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = attention_ref(*fl, **kw)
+    ref_grads = torch.autograd.grad(ref, fl, dout.float())
+    for got, want, tol in [(out, ref, 1e-2)] + [
+            (g, w, 2e-2) for g, w in zip(grads, ref_grads)]:
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        err = (got.detach().float() - want.detach()).abs().max()
+        assert float(err) <= tol * float(want.detach().abs().max())
+
+
+@pytest.mark.cuda
+def test_flash_runs_are_deterministic(card):
+    from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
+                                                     flash_fwd_cuda)
+    q = _x(1, 256, 16 * 80, 1, card).reshape(1, 256, 16, 80).to(
+        torch.bfloat16)
+    k = q[:, :, :4].contiguous()
+    o, lse = flash_fwd_cuda(q, k, k)
+    a = flash_bwd_cuda(q, k, k, o, lse, q)
+    b = flash_bwd_cuda(q, k, k, o, lse, q)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels.flash_attention import flash_fwd_cuda
+    q = torch.zeros(1, 64, 4, 64, dtype=torch.bfloat16, device=card)
+    with pytest.raises(TypeError):
+        flash_fwd_cuda(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="head dims"):
+        flash_fwd_cuda(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                       q[..., :48].contiguous())
+    with pytest.raises(ValueError, match="no visible key"):
+        flash_fwd_cuda(q, q, q, window=8, q_offset=80)
+
+
+def _reduced_llm_steps(card, plain: bool, steps: int = 2):
+    """``steps`` train steps of reduced stablelm_3b (2 layers, d_model 256,
+    vocab 512, seq 256, n = 8, f = 1, global Block-RandK at 0.05, CWTM,
+    ALIE) on the card; ``plain`` runs the plain versions."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ArchSpec, InputShape
+    from repro_torch.core import algorithms as Alg
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import model_init
+    from repro_torch.testing import TorchDraws
+    model = get_arch("stablelm_3b").model.reduced(
+        n_layers=2, d_model=256).with_overrides(
+            vocab_size=512, use_flash_attention=False if plain else None)
+    ov = {"f": 1, "gamma": 0.5, "attack": AttackConfig(name="alie"),
+          "sparsifier": SparsifierConfig(kind="block", ratio=0.05,
+                                         block_size=512,
+                                         use_kernels=not plain),
+          "aggregator": AggregatorConfig(name="cwtm", f=1,
+                                         use_kernels=not plain)}
+    plan = S.make_train_plan(ArchSpec(model, "test"),
+                             InputShape("t", 256, 8, "train"), ov,
+                             n_workers=8)
+    step = S.build_train_step(plan, device=card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    state = S.TrainState(
+        model_init(plan.model, gen),
+        Alg.init_state(plan.algo, plan.flat_spec.padded_size, device=card),
+        0, TorchDraws(1, card))
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(steps):
+        toks = torch.from_numpy(make_batch(rng, 512, 8, 1, 256)).to(card)
+        state, m = step(state, {"tokens": toks})
+        out.append((float(m["loss"]), float(m["dir_norm"])))
+    return out
+
+
+@pytest.mark.cuda
+def test_llm_train_steps_kernel_vs_plain(card):
+    """Two steps: the kernel path launches flash fwd/bwd n_layers x
+    n_workers times a step and compress, decompress and CWTM once; it
+    agrees with the plain path (same seed and draws) within rtol 5e-3 on
+    the honest loss and 2e-2 on |R| (bf16 rounding in the attention
+    kernels)."""
+    K.reset_launches()
+    kern = _reduced_llm_steps(card, plain=False)
+    got = K.launches()
+    assert got["flash_fwd"] == got["flash_bwd"] == 2 * 8 * 2
+    assert got["block_compress"] == got["block_decompress"] == 2
+    assert got["cwtm"] == 2 and got["pairdist"] == 0
+    K.reset_launches()
+    plain = _reduced_llm_steps(card, plain=True)
+    assert all(v == 0 for v in K.launches().values())
+    for (lk, rk), (lp, rp) in zip(kern, plain):
+        assert lk == pytest.approx(lp, rel=5e-3)
+        assert rk == pytest.approx(rp, rel=2e-2)

@@ -1,0 +1,125 @@
+"""Flash attention of the port against the reference: the plain version
+(what the CPU runs, and what the CUDA kernels are held against on the card)
+against the reference's Pallas kernel in interpret mode and its
+``attention_ref``; its gradients against ``jax.grad`` of ``attention_ref``
+(the Pallas kernel has no gradient). Inputs in float32 from numpy."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import attention_ref as jax_attention_ref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.models.layers import causal_attention as jax_causal_attention
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention,
+                                                 flash_fwd_cuda,
+                                                 fully_masked_rows)
+from repro_torch.models.layers import causal_attention
+
+# (B, Sq, Sk, H, KV, D, window, q_offset): GQA 2:1 and 4:1, MHA, MQA, a
+# sliding window, a continuation chunk at q_offset, D in {64, 80, 128}
+CASES = [(2, 96, 96, 4, 2, 64, None, 0),
+         (1, 128, 128, 4, 1, 80, None, 0),
+         (1, 64, 64, 2, 2, 128, None, 0),
+         (1, 128, 128, 2, 2, 64, 32, 0),
+         (2, 64, 192, 4, 4, 80, None, 128),
+         (1, 64, 160, 4, 2, 128, 48, 96)]
+
+
+def _inputs(b, sq, sk, h, kv, d, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    return f(b, sq, h, d), f(b, sk, kv, d), f(b, sk, kv, d), f(b, sq, h, d)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_forward_matches_pallas_and_reference(case):
+    """atol 2e-3 against the interpret-mode kernel (its online softmax sums
+    in another order; the reference's own bar, ``tests/test_kernels.py``)
+    and 1e-5 against ``attention_ref`` (the same dense formula)."""
+    b, sq, sk, h, kv, d, window, q_offset = case
+    q, k, v, _ = _inputs(b, sq, sk, h, kv, d, sum(case[:6]))
+    got = attention_ref(*map(torch.tensor, (q, k, v)), causal=True,
+                        window=window, q_offset=q_offset).numpy()
+    kern = jax_flash(q, k, v, causal=True, window=window, q_offset=q_offset,
+                     block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), atol=2e-3)
+    want = jax_attention_ref(q, k, v, causal=True, window=window,
+                             q_offset=q_offset)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+    # the dispatching op runs the plain version on CPU tensors
+    op = flash_attention(*map(torch.tensor, (q, k, v)), window=window,
+                         q_offset=q_offset)
+    assert torch.equal(op, torch.tensor(got))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_gradients_match_jax_grad(case):
+    """dq, dk, dv of ``sum(out * dout)`` against ``jax.grad`` of
+    ``attention_ref``: rtol/atol 1e-4 (float32 sums in other orders over up
+    to 192 keys)."""
+    b, sq, sk, h, kv, d, window, q_offset = case
+    q, k, v, dout = _inputs(b, sq, sk, h, kv, d, 7 + sum(case[:6]))
+
+    def jloss(q, k, v):
+        out = jax_attention_ref(q, k, v, causal=True, window=window,
+                                q_offset=q_offset)
+        return jnp.sum(out * dout)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    out = flash_attention(*leaves, window=window, q_offset=q_offset)
+    got = torch.autograd.grad(out, leaves, torch.tensor(dout))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_bf16_plain_forward_matches_reference():
+    """bf16 inputs: logits in float32, probabilities cast to bf16 before the
+    value product in both packages; within 2 bf16 ulps of |out| <= 4."""
+    q, k, v, _ = _inputs(1, 128, 128, 4, 2, 64, 3)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(jax_attention_ref(*jb), np.float32)
+    tb = [torch.tensor(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = attention_ref(*tb).float().numpy()
+    np.testing.assert_allclose(got, want, atol=2 * 2.0 ** -8 * 4)
+
+
+@pytest.mark.parametrize("window,q_offset", [(None, 0), (32, 0), (48, 64)])
+def test_plain_path_matches_model_causal_attention(window, q_offset):
+    """The model's chunked ``causal_attention`` (the plain path) and the
+    flash op's dense version agree, and both agree with the reference's
+    ``causal_attention``."""
+    q, k, v, _ = _inputs(2, 128, 128 + q_offset, 4, 2, 64, 5)
+    want = np.asarray(jax_causal_attention(q, k, v, q_offset=q_offset,
+                                           window=window, chunk=64))
+    tq, tk, tv = map(torch.tensor, (q, k, v))
+    chunked = causal_attention(tq, tk, tv, q_offset=q_offset, window=window,
+                               chunk=64).numpy()
+    dense = attention_ref(tq, tk, tv, window=window,
+                          q_offset=q_offset).numpy()
+    np.testing.assert_allclose(chunked, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dense, chunked, rtol=1e-5, atol=1e-5)
+
+
+def test_fully_masked_rows_are_detected():
+    assert not fully_masked_rows(64, 64, True, None, 0)
+    assert not fully_masked_rows(64, 192, True, None, 128)
+    assert fully_masked_rows(4, 4, True, None, -1)
+    # q at 64..159 against 96 keys with a 32-key window: rows from 127 on
+    # see nothing
+    assert fully_masked_rows(96, 96, True, 32, 64)
+    assert not fully_masked_rows(96, 160, True, 40, 64)
+    assert not fully_masked_rows(70, 90, False, None, 0)
+
+
+def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
+    q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd_cuda(q, q, q)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))

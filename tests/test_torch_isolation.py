@@ -78,6 +78,30 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     assert cwtm.cwtm(x, 1).shape == median.median(x).shape == (2, 8)
 
 
+def test_llm_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    """The LLM path's entry points (train step builder, launcher) default to
+    the card; the launcher's CPU rehearsal runs the plain versions."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    spec = get_arch("stablelm_3b")
+    plan = S.make_train_plan(spec, InputShape("t", 16, 8, "train"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        S.build_train_step(plan)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TR.run(["--arch", "stablelm_3b", "--steps", "1"])
+    with pytest.raises(ValueError, match="not ported"):
+        TR.run(["--arch", "stablelm_3b", "--device", "cpu", "--stream"])
+    out = []
+    res = TR.run(["--arch", "stablelm_3b", "--steps", "2", "--f", "1",
+                  "--device", "cpu"], log=out.append)
+    assert res["plan"].flat_spec.padded_size == 1_313_280
+    assert len(res["losses"]) == 2 and out[0].startswith("[train] stablelm")
+    assert res["state"].params["embed"].device.type == "cpu"
+
+
 def test_rosdhb_state_is_a_third_of_dasha():
     for d in (11958, 1048576):
         kw = dict(n_workers=13, f=3)

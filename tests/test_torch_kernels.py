@@ -119,7 +119,9 @@ def test_ops_dispatch_cpu_2d_and_3d(op, args):
     batched = op(x, *args)
     rows = torch.stack([op(r, *args) for r in x])
     torch.testing.assert_close(batched, rows, rtol=1e-6, atol=1e-6)
-    assert K.launches() == {"pairdist": 0, "cwtm": 0, "median": 0}
+    launches = K.launches()
+    assert {"pairdist", "cwtm", "median"} <= set(launches)
+    assert launches == {k: 0 for k in launches}
 
 
 @pytest.mark.parametrize("wrapper,args", [(pairdist_cuda, ()),
