@@ -16,7 +16,13 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    CNN), ``[1, 13, 1048576]`` (the quadratic testbed), ``[8, 13, 1048576]``
    and, for CWTM, ``[1, 8, 416179200]`` (the LLM step); Block-RandK
    compress and decompress bitwise against theirs at awkward shapes and at
-   the LLM step's ``[8, 416179200]`` with 40,642 blocks of 512; flash
+   the LLM step's ``[8, 416179200]`` with 40,642 blocks of 512; the
+   momentum update (``momentum_scatter``) bitwise against its plain
+   version at awkward shapes (global and local ids, float32 and bfloat16
+   banks, beta 0, 0.9 and 0.99, one block and every block, banks holding
+   -0.0) and at the LLM step's bank in float32 and in bfloat16; one RoSDHB
+   server round at ``[8, 416179200]`` on the payload route against the
+   dense round (momentum bitwise, direction within rtol 1e-5); flash
    attention forward and backward against the plain version in float32 at
    awkward shapes (ragged lengths, GQA, MQA, windows, offsets, head dims
    64/80/128) and at the LLM step's ``[1, 4096, 32, 80]``. Times of the
@@ -27,16 +33,22 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    full width (D = 11,958) for 30 rounds through ``Simulator``; the launch
    counts of pairdist and CWTM must equal the rounds, the honest loss must
    fall, and the first rounds must agree with the same rounds on the CPU;
-5. main path, quadratic: the same cell at d = 1,048,576 for 10 rounds, the
-   kernel path against the plain path on the same card, and the distance
-   to the honest optimum must fall;
+5. main path, quadratic: the same cell at d = 1,048,576 for 10 rounds, with
+   RoSDHB and then with dasha (Byz-DASHA-PAGE), each the kernel path
+   against the plain path on the same card, and the distance to the honest
+   optimum must fall;
 6. main path, LLM: ``repro_torch.launch.train`` on full-width stablelm_3b
    cut to 2 layers (D = 416,179,200), seq 4096, n = 8 workers of one
-   sequence, f = 1, ALIE, CWTM, global Block-RandK at 0.05, for 8 steps;
-   every step's honest loss, |R| and time, the peak device memory and a
-   profiled window; the launch counts (flash forward and backward = layers
-   x workers x steps, compress = decompress = CWTM = steps), a finite
-   falling loss, and the first 2 steps against the plain path.
+   sequence, f = 1, ALIE, CWTM, global Block-RandK at 0.05, for 8 steps on
+   the payload route; every step's honest loss, |R| and time, the peak
+   device memory and a profiled window; the launch counts (flash forward
+   and backward = layers x workers x steps, compress = momentum_scatter =
+   CWTM = steps, decompress = 0), a finite falling loss, and the first 2
+   steps against the plain path. Then the launcher's options: 2 steps with
+   ``--local-masks`` (the dense wire: decompress = 2), 4 steps with
+   ``--momentum-dtype bfloat16``, and 8 steps with ``--stream --chunk-size
+   4 --prefetch-depth 2 --checkpoint``, bitwise equal to a per-step run over
+   the same ``(seed, t)`` batches, its checkpoint restored bitwise.
 
 TF32 is off for matmuls and cuDNN convolutions throughout: the parity bars
 are float32 ones. The last line is ``{"ok": true, "device": {...}}``; the
@@ -46,6 +58,7 @@ power limit, after a ``{"summary": ...}`` line of the main-path numbers.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -78,6 +91,8 @@ KERNELS = {
                        "replaces": "src/repro/kernels/randk/randk.py:34"},
     "block_decompress": {"source": "src/repro_torch/csrc/randk.cu",
                          "replaces": "src/repro/kernels/randk/randk.py:67"},
+    "momentum_scatter": {"source": "src/repro_torch/csrc/randk.cu",
+                         "replaces": "src/repro/kernels/randk/randk.py:111"},
     "flash_fwd": {"source": "src/repro_torch/csrc/flash_attention.cu",
                   "replaces": "src/repro/kernels/flash_attention/flash.py:34"},
     "flash_bwd": {"source": "src/repro_torch/csrc/flash_attention.cu",
@@ -101,6 +116,22 @@ RANDK_AWKWARD = [(3, 128 * 7, 128, 1, False, "float32"),
                  (8, 512 * 33, 512, 2, False, "float32"),
                  (5, 512 * 40, 512, 40, True, "float32")]
 RANDK_PATH = (LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, "float32")
+
+# Momentum cases: (n, d, block_size, kb, local ids, bank dtype, beta,
+# -0.0 in the bank). The payload is in the bank's dtype (the wire dtype is
+# momentum_dtype); a bfloat16 bank also writes the float32 result.
+MOMENTUM_AWKWARD = [(3, 128 * 7, 128, 1, False, "float32", 0.9, False),
+                    (3, 128 * 7, 128, 7, True, "float32", 0.0, True),
+                    (2, 512 * 5, 512, 5, False, "bfloat16", 0.99, False),
+                    (4, 512 * 9, 512, 4, True, "bfloat16", 0.9, True),
+                    (1, 128, 128, 1, False, "float32", 0.99, True),
+                    (1, 128, 128, 1, True, "bfloat16", 0.0, True),
+                    (8, 512 * 33, 512, 2, False, "float32", 0.9, True),
+                    (5, 512 * 40, 512, 40, True, "bfloat16", 0.99, False)]
+MOMENTUM_PATH = [(LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, "float32", 0.9,
+                  False),
+                 (LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, "bfloat16", 0.9,
+                  False)]
 
 # Flash cases: (B, Sq, Sk, H, KV, D, causal, window, q_offset).
 FLASH_AWKWARD = [(2, 100, 100, 32, 32, 80, True, None, 0),
@@ -330,14 +361,141 @@ def randk_case(torch, case, timed: bool, seed: int,
     return rec
 
 
-def randk_phase(torch, device: str = "cuda", path=RANDK_PATH) -> list:
-    """Block-RandK kernel cases: awkward shapes, then the LLM path's."""
-    out, failures = [], []
+def bits(torch, x):
+    """``x``'s bit pattern (bitwise comparison that tells -0.0 from +0.0)."""
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a - b| in float32, a row at a time (the banks fill the card)."""
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def momentum_case(torch, case, timed: bool, seed: int,
+                  device: str = "cuda") -> dict:
+    """The momentum kernel against its plain version, bitwise in the bank
+    and (bfloat16 bank) in the float32 result."""
+    from repro_torch.kernels.randk import momentum_scatter_ref, momentum_update
+    n, d, bs, kb, local, dt, beta, neg_zero = case
+    dtype = getattr(torch, dt)
+    nb = d // bs
+    gen = torch.Generator(device=device).manual_seed(seed)
+    m0 = torch.randn((n, d), generator=gen, device=device).to(dtype)
+    if neg_zero:  # the first block of every row, and every 7th value
+        m0[:, :bs] = -0.0
+        m0[:, ::7] = -0.0
+    pay = torch.randn((n, kb * bs), generator=gen, device=device).to(dtype)
+    if local:
+        ids = torch.stack([torch.randperm(nb, generator=gen, device=device)[:kb]
+                           for _ in range(n)]).int()
+    else:
+        ids = torch.randperm(nb, generator=gen, device=device)[:kb].int()
+    f32_out = dtype != torch.float32
+    kw = dict(block_size=bs, beta=beta, f32_out=f32_out)
+    m_k = m0.clone()
+    out_k = momentum_update(m_k, pay, ids, **kw)
+    if not f32_out:
+        out_k = None
+    m_p = m0.clone()
+    out_p = momentum_scatter_ref(m_p, pay, ids, bs, beta, f32_out)
+    sync(torch, device)
+    ok = torch.equal(bits(torch, m_k), bits(torch, m_p))
+    err = max_abs_diff(m_k, m_p)
+    if out_k is not None:
+        ok = ok and torch.equal(bits(torch, out_k), bits(torch, out_p))
+        err = max(err, max_abs_diff(out_k, out_p))
+    del m_p, out_p, out_k
+    rec = {"shape": [n, d], "block_size": bs, "kb": kb, "local": local,
+           "dtype": dt, "beta": beta, "neg_zero": neg_zero, "ok": ok,
+           "max_abs_err": err}
+    if timed:
+        isz = m0.element_size()
+        nbytes = (2 * n * d * isz + pay.numel() * pay.element_size()
+                  + ids.numel() * 4 + (n * d * 4 if f32_out else 0))
+        rec["ms"] = time_ms(torch, lambda: momentum_update(m_k, pay, ids,
+                                                           **kw), 5)
+        del m_k
+        rec["plain_ms"] = time_ms(torch, lambda: momentum_scatter_ref(
+            m0, pay, ids, bs, beta, f32_out), 3)
+        rec["library_ms"] = None  # no single call decays and scatter-adds
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 2 * n * d,
+                                                  PEAK_F32_OPS_PER_S)
+    return rec
+
+
+def server_round_case(torch, n: int = LLM_WORKERS, d: int = LLM_D,
+                      bs: int = LLM_BS, device: str = "cuda") -> dict:
+    """One RoSDHB round on the payload route (compress, ALIE on the payload,
+    the momentum kernel, CWTM) against one dense round (compress and
+    decompress, ALIE on the dense wire, the dense momentum, CWTM) from the
+    same bank, momentum and block ids: the momentum bitwise, the direction
+    within rtol 1e-5 (CWTM sums the same values; only the kernel's float32
+    order could differ, and it does not)."""
+    import numpy as np
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import (AggregatorConfig, AlgorithmConfig,
+                                  AttackConfig, SparsifierConfig)
+    from repro_torch.core import make_aggregator
+    from repro_torch.testing import ReplayDraws
+    cfg = AlgorithmConfig(
+        name="rosdhb", n_workers=n, f=1, beta=0.9,
+        sparsifier=SparsifierConfig(kind="block", ratio=0.05, block_size=bs),
+        aggregator=AggregatorConfig(name="cwtm", f=1),
+        attack=AttackConfig(name="alie"))
+    nb = d // bs
+    kb = max(1, int(round(0.05 * nb)))
+    ids = np.random.default_rng(7).permutation(nb)[:kb]
+    gen = torch.Generator(device=device).manual_seed(11)
+    grads = torch.randn((n, d), generator=gen, device=device)
+    m0 = torch.randn((n, d), generator=gen, device=device)
+    agg = make_aggregator(cfg.aggregator, device=device)
+    state = alg.init_state(cfg, 1, device=device)._replace(momentum=m0)
+    assert alg._payload_route(cfg, d)
+    # the dense round first: it leaves m0 as it was
+    hp = alg.static_hparams(cfg)
+    wire = alg._compressed_wire(cfg, grads, ReplayDraws(device,
+                                                        permutations=[ids]))
+    r_dense, dense = alg._rosdhb_apply(cfg, agg, state, wire, hp)
+    del wire
+    m_dense = dense.momentum.cpu()
+    del dense
+    sync(torch, device)
+    t0 = time.perf_counter()
+    r_fused, fused, _ = alg.server_round(
+        cfg, state, grads, ReplayDraws(device, permutations=[ids]), agg=agg)
+    sync(torch, device)
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    del grads, state
+    m_dense = m_dense.to(device)
+    ok_m = torch.equal(bits(torch, fused.momentum), bits(torch, m_dense))
+    diff = float((r_fused - r_dense).abs().max())
+    del m_dense
+    scale = float(r_dense.abs().max())
+    ok_r = diff <= 1e-5 * scale
+    log(f"server round [{n}, {d}]: payload route vs dense round, momentum "
+        f"bitwise {ok_m}, direction max |d| {diff:.3g} of max |R| "
+        f"{scale:.4g} (bound rtol 1e-5) {'ok' if ok_r else 'FAIL'}; "
+        f"payload round {fused_ms:.3f} ms (host clock)")
+    if not (ok_m and ok_r):
+        raise AssertionError("server round: payload route and dense round "
+                             "disagree")
+    return {"momentum_bitwise": ok_m, "dir_max_abs_diff": diff,
+            "dir_scale": scale, "payload_round_ms": fused_ms}
+
+
+def randk_phase(torch, device: str = "cuda", path=RANDK_PATH,
+                momentum_path=MOMENTUM_PATH, round_shape=None) -> dict:
+    """Block-RandK kernel cases: awkward shapes, then the LLM path's; the
+    momentum kernel likewise; then one server round, payload route against
+    dense round, at the LLM path's shape (``round_shape`` ``(n, d, bs)``
+    overrides it)."""
+    out, failures = {"block": [], "momentum": []}, []
     cases = [(c, False) for c in RANDK_AWKWARD] + [(path, True)]
     for i, (case, timed) in enumerate(cases):
         rec = randk_case(torch, case, timed and device == "cuda",
                          seed=300 + i, device=device)
-        out.append(rec)
+        out["block"].append(rec)
         line = (f"kernel block_compress/decompress n={case[0]} d={case[1]} "
                 f"bs={case[2]} kb={case[3]} local={case[4]} {case[5]}: "
                 f"bitwise {rec['ok']}")
@@ -351,8 +509,30 @@ def randk_phase(torch, device: str = "cuda", path=RANDK_PATH) -> list:
         failures += [f"{k} {case}" for k, v in rec["ok"].items() if not v]
         if device == "cuda":
             torch.cuda.empty_cache()
+    cases = ([(c, False) for c in MOMENTUM_AWKWARD]
+             + [(c, True) for c in momentum_path])
+    for i, (case, timed) in enumerate(cases):
+        rec = momentum_case(torch, case, timed and device == "cuda",
+                            seed=400 + i, device=device)
+        out["momentum"].append(rec)
+        line = (f"kernel momentum_scatter n={case[0]} d={case[1]} "
+                f"bs={case[2]} kb={case[3]} local={case[4]} {case[5]} "
+                f"beta={case[6]} -0.0={case[7]}: bitwise {rec['ok']}")
+        if "ms" in rec:
+            line += (f" | ms={rec['ms']:.5f} plain_ms={rec['plain_ms']:.5f}"
+                     f" bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']})"
+                     f" library_ms=null")
+        log(line)
+        if not rec["ok"]:
+            failures.append(f"momentum_scatter {case}")
+        if device == "cuda":
+            torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"block kernels disagree: {failures}")
+    n, d, bs = round_shape or (LLM_WORKERS, LLM_D, LLM_BS)
+    out["server_round"] = server_round_case(torch, n, d, bs, device=device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
@@ -516,7 +696,7 @@ def op_kind(name: str) -> str:
     if "flash" in low:
         return "flash attention (port)"
     if any(k in low for k in ("sorted_weight", "pairdist", "compress_kernel",
-                              "decompress_kernel")):
+                              "decompress_kernel", "momentum_kernel")):
         return "server kernels (port)"
     if "memcpy" in low or "memset" in low:
         return "copies"
@@ -659,57 +839,65 @@ def cnn_phase(torch, device: str = "cuda", rounds: int = 30,
 
 def quadratic_phase(torch, device: str = "cuda", d: int = 1048576,
                     rounds: int = 10) -> dict:
+    """The fig1-alie cell on the quadratic testbed, RoSDHB and then dasha
+    (Byz-DASHA-PAGE, the paper's baseline, on the same cell), each on the
+    kernel path and on the plain path."""
     from repro_torch import kernels as K
     from repro_torch.core import Simulator, quadratic_testbed
 
     out = {}
-    finals = {}
-    for use_kernels in (True, False):
-        cfg = fig1_alie(use_kernels)
-        loss_fn, params0, batch_fn, tg = quadratic_testbed(13, d=d, seed=0,
-                                                           device=device)
-        sim = Simulator(loss_fn, params0, cfg, device=device)
-        state = sim.init(seed=0)
-        opt = tg[F:].mean(dim=0)
-        dist0 = float(torch.linalg.vector_norm(state.params_flat - opt))
-        K.reset_launches()
-        if device == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        round_ms = []
-        for t in range(rounds):
-            sync(torch, device)
-            t0 = time.perf_counter()
-            state, _ = sim.round(state, batch_fn(t))
-            sync(torch, device)
-            round_ms.append((time.perf_counter() - t0) * 1e3)
-        wall = sorted(round_ms[1:])[len(round_ms[1:]) // 2]
-        peak = (torch.cuda.max_memory_allocated() / 2**20
-                if device == "cuda" else float("nan"))
-        launches = K.launches()
-        dist = float(torch.linalg.vector_norm(state.params_flat - opt))
-        tag = "kernel" if use_kernels else "plain"
-        log(f"quadratic d={d} {tag}: first round {round_ms[0]:.3f} ms, "
-            f"median round {wall:.3f} ms, peak device "
-            f"memory {peak:.1f} MiB, distance to the honest optimum "
-            f"{dist0:.4f} -> {dist:.4f}, launches {launches}")
-        if not dist < dist0:
-            raise AssertionError(f"quadratic {tag}: distance did not fall")
-        expected = rounds if use_kernels and device == "cuda" else 0
-        if launches["pairdist"] != expected or launches["cwtm"] != expected:
-            raise AssertionError(f"quadratic: launches {launches} != "
-                                 f"{rounds} rounds")
-        finals[tag] = state.params_flat
-        out[tag] = {"ms_per_round": wall, "dist0": dist0, "dist": dist,
-                    "launches": launches, "peak_mib": peak}
-    diff = float((finals["kernel"] - finals["plain"]).abs().max())
-    scale = float(finals["plain"].abs().max())
-    log(f"quadratic: kernel vs plain path after {rounds} rounds, max |d| "
-        f"{diff:.3g} of max |w| {scale:.4f} (bound 1e-5 relative: the "
-        f"paths differ only in float32 summation order inside the "
-        f"aggregation, about 1e-7 relative a round)")
-    if diff > 1e-5 * scale:
-        raise AssertionError("quadratic: kernel and plain paths disagree")
-    out["max_abs_diff"] = diff
+    for name in ("rosdhb", "dasha"):
+        finals, rec = {}, {}
+        for use_kernels in (True, False):
+            cfg = dataclasses.replace(fig1_alie(use_kernels), name=name)
+            loss_fn, params0, batch_fn, tg = quadratic_testbed(
+                13, d=d, seed=0, device=device)
+            sim = Simulator(loss_fn, params0, cfg, device=device)
+            state = sim.init(seed=0)
+            opt = tg[F:].mean(dim=0)
+            dist0 = float(torch.linalg.vector_norm(state.params_flat - opt))
+            K.reset_launches()
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            round_ms = []
+            for t in range(rounds):
+                sync(torch, device)
+                t0 = time.perf_counter()
+                state, _ = sim.round(state, batch_fn(t))
+                sync(torch, device)
+                round_ms.append((time.perf_counter() - t0) * 1e3)
+            wall = sorted(round_ms[1:])[len(round_ms[1:]) // 2]
+            peak = (torch.cuda.max_memory_allocated() / 2**20
+                    if device == "cuda" else float("nan"))
+            launches = K.launches()
+            dist = float(torch.linalg.vector_norm(state.params_flat - opt))
+            tag = "kernel" if use_kernels else "plain"
+            log(f"quadratic {name} d={d} {tag}: first round "
+                f"{round_ms[0]:.3f} ms, median round {wall:.3f} ms, peak "
+                f"device memory {peak:.1f} MiB, distance to the honest "
+                f"optimum {dist0:.4f} -> {dist:.4f}, launches {launches}")
+            if not dist < dist0:
+                raise AssertionError(f"quadratic {name} {tag}: distance did "
+                                     f"not fall")
+            expected = rounds if use_kernels and device == "cuda" else 0
+            if launches["pairdist"] != expected or \
+                    launches["cwtm"] != expected:
+                raise AssertionError(f"quadratic {name}: launches "
+                                     f"{launches} != {rounds} rounds")
+            finals[tag] = state.params_flat
+            rec[tag] = {"ms_per_round": wall, "dist0": dist0, "dist": dist,
+                        "launches": launches, "peak_mib": peak}
+        diff = float((finals["kernel"] - finals["plain"]).abs().max())
+        scale = float(finals["plain"].abs().max())
+        log(f"quadratic {name}: kernel vs plain path after {rounds} rounds, "
+            f"max |d| {diff:.3g} of max |w| {scale:.4f} (bound 1e-5 "
+            f"relative: the paths differ only in float32 summation order "
+            f"inside the aggregation, about 1e-7 relative a round)")
+        if diff > 1e-5 * scale:
+            raise AssertionError(f"quadratic {name}: kernel and plain paths "
+                                 f"disagree")
+        rec["max_abs_diff"] = diff
+        out[name] = rec
     return out
 
 
@@ -733,10 +921,27 @@ def llm_argv(device: str, steps: int, n_layers: int = LLM_LAYERS) -> list:
             str(LLM_GAMMA), "--seed", "0", "--device", device]
 
 
+def llm_launches(cfg, plan, steps: int, on_card: bool, **server) -> dict:
+    """Expected launches of ``steps`` LLM steps: the flash kernels per layer
+    and worker, and the server kernels given (per step)."""
+    per_step = cfg.n_layers * plan.n_workers
+    want = {"flash_fwd": per_step * steps, "flash_bwd": per_step * steps,
+            "cwtm": steps, "pairdist": 0, "median": 0,
+            **{k: v * steps for k, v in server.items()}}
+    return want if on_card else {k: 0 for k in want}
+
+
+def check_launches(label: str, launches: dict, want: dict) -> None:
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+
+
 def llm_phase(torch, device: str = "cuda", steps: int = LLM_STEPS,
               check_steps: int = LLM_CHECK_STEPS) -> dict:
     """The LLM main path through ``repro_torch.launch.train`` (``cpu`` only
-    to rehearse the script's logic at the launcher's reduced CPU size)."""
+    to rehearse the script's logic at the launcher's reduced CPU size),
+    then the launcher's options: local masks, bfloat16 banks, the streamed
+    run with its checkpoint."""
     from repro_torch import kernels as K
     from repro_torch.launch import train
 
@@ -763,14 +968,11 @@ def llm_phase(torch, device: str = "cuda", steps: int = LLM_STEPS,
     if not sum(losses[-2:]) / 2 < losses[0]:
         raise AssertionError(f"llm: honest loss did not fall: {losses}")
     on_card = device == "cuda"
-    per_step = cfg.n_layers * plan.n_workers
-    want = {"flash_fwd": per_step * steps, "flash_bwd": per_step * steps,
-            "block_compress": steps, "block_decompress": steps,
-            "cwtm": steps, "pairdist": 0, "median": 0}
-    if not on_card:
-        want = {k: 0 for k in want}
-    if {k: launches[k] for k in want} != want:
-        raise AssertionError(f"llm: launches {launches}, expected {want}")
+    # the payload route: compress, the momentum kernel and CWTM once a
+    # step; no dense wire, so no decompress
+    check_launches("llm", launches, llm_launches(
+        cfg, plan, steps, on_card, block_compress=1, block_decompress=0,
+        momentum_scatter=1))
 
     prof = None
     if on_card:
@@ -807,6 +1009,112 @@ def llm_phase(torch, device: str = "cuda", steps: int = LLM_STEPS,
     del plain
     if on_card:
         torch.cuda.empty_cache()
+    out["options"] = llm_options(torch, device)
+    return out
+
+
+def llm_run(torch, device: str, label: str, argv: list, steps: int,
+            **server) -> dict:
+    """One launcher run of ``steps`` steps with its launch counts checked
+    (``server``: the server kernels' launches a step); returns the step
+    times, the peak memory and the session."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import train
+    K.reset_launches()
+    res = train.run(argv, log=log)
+    launches = K.launches()
+    peak = (res["peak_bytes"] / 2**20 if res["peak_bytes"] is not None
+            else float("nan"))
+    log(f"llm {label}: losses {res['losses']}, |R| {res['dir_norms']}, "
+        f"wall ms {', '.join(f'{v:.3f}' for v in res['step_ms'])}, peak "
+        f"device memory {peak:.1f} MiB, launches {launches}")
+    if not all(math.isfinite(v) for v in res["losses"] + res["dir_norms"]):
+        raise AssertionError(f"llm {label}: non-finite loss or |R|")
+    check_launches(f"llm {label}", launches, llm_launches(
+        res["plan"].model, res["plan"], steps, device == "cuda", **server))
+    return {**res, "peak_mib": peak, "launches": launches}
+
+
+def llm_options(torch, device: str = "cuda", local_steps: int = 2,
+                bf16_steps: int = 4, stream_steps: int = 8,
+                chunk: int = 4) -> dict:
+    """The launcher's options on the LLM path: local masks (the dense wire,
+    so decompress runs), bfloat16 server banks, and a streamed run with its
+    checkpoint, against a per-step run over the same ``(seed, t)``
+    batches."""
+    from repro_torch import checkpoint
+    from repro_torch.launch import train
+    from repro_torch.utils.tree import tree_leaves
+
+    on_card = device == "cuda"
+    out = {}
+
+    def done():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # local masks: the dense wire, so decompress and the dense momentum
+    res = llm_run(torch, device, "local masks", llm_argv(
+        device, local_steps) + ["--local-masks"], local_steps,
+        block_compress=1, block_decompress=1, momentum_scatter=0)
+    out["local_masks"] = {k: res[k] for k in ("losses", "step_ms",
+                                              "peak_mib", "launches")}
+    del res
+    done()
+
+    res = llm_run(torch, device, "bfloat16 banks", llm_argv(
+        device, bf16_steps) + ["--momentum-dtype", "bfloat16"], bf16_steps,
+        block_compress=1, block_decompress=0, momentum_scatter=1)
+    if res["state"].server.momentum.dtype != torch.bfloat16:
+        raise AssertionError("llm bfloat16 banks: the momentum bank is "
+                             f"{res['state'].server.momentum.dtype}")
+    out["bf16"] = {k: res[k] for k in ("losses", "step_ms", "peak_mib",
+                                       "launches")}
+    del res
+    done()
+
+    ckpt = ROOT / "build" / "chip_smoke" / "llm_params"
+    argv = llm_argv(device, stream_steps)
+    res = llm_run(torch, device, "stream", argv + [
+        "--stream", "--chunk-size", str(chunk), "--prefetch-depth", "2",
+        "--checkpoint", str(ckpt)], stream_steps, block_compress=1,
+        block_decompress=0, momentum_scatter=1)
+    streamed = res["state"].params
+    stream_rec = {k: res[k] for k in ("losses", "step_ms", "peak_mib",
+                                      "launches", "host_high_water_bytes")}
+    del res
+    done()
+    # the same (seed, t) batches one step at a time
+    s = train.setup(train.parse_args(argv))
+    state = s["state"]
+    losses = []
+    for t in range(stream_steps):
+        batch = {k: torch.from_numpy(v).to(s["device"])
+                 for k, v in s["batch_at"](t).items()}
+        state, m = s["step"](state, batch)
+        losses.append(float(m["loss"]))
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(streamed),
+                                                tree_leaves(state.params)))
+    log(f"llm stream: {stream_steps} streamed steps (chunks of {chunk}) vs "
+        f"per-step over the same batches: parameters bitwise {same}, losses "
+        f"{stream_rec['losses']} vs {losses}; host high-water "
+        f"{stream_rec['host_high_water_bytes']} B")
+    if not same or losses != stream_rec["losses"]:
+        raise AssertionError("llm stream: the streamed run is not the "
+                             "per-step run")
+    del s, state
+    done()
+    back = checkpoint.restore(str(ckpt), {"params": streamed})["params"]
+    same_ck = all(torch.equal(a, b) for a, b in zip(tree_leaves(back),
+                                                   tree_leaves(streamed)))
+    step = checkpoint.latest_step(str(ckpt))
+    log(f"llm checkpoint: restored {len(tree_leaves(back))} leaves, bitwise "
+        f"{same_ck}, step {step}")
+    if not same_ck or step != stream_steps:
+        raise AssertionError("llm checkpoint: the restored parameters are "
+                             "not the saved ones")
+    out["stream"] = {**stream_rec, "bitwise_per_step": same,
+                     "checkpoint_bitwise": same_ck}
     return out
 
 
@@ -820,7 +1128,9 @@ def kernel_record(results, randk, flash, cnn, quad, llm) -> dict:
         record["kernels"].append({
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": cnn["launches"][name],
-            "launches_quadratic": quad["kernel"]["launches"][name],
+            "launches_quadratic": quad["rosdhb"]["kernel"]["launches"][name],
+            "launches_quadratic_dasha": quad["dasha"]["kernel"][
+                "launches"][name],
             "launches_llm": llm["launches"][name],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
@@ -829,7 +1139,7 @@ def kernel_record(results, randk, flash, cnn, quad, llm) -> dict:
             "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms",
                                           "library_ms", "bound_ms",
                                           "max_abs_err")} for r in recs]})
-    timed_randk = randk[-1]
+    timed_randk = randk["block"][-1]
     timed_flash = flash[-1]
     for name, rec, err, shape in (
             ("block_compress", timed_randk,
@@ -850,6 +1160,26 @@ def kernel_record(results, randk, flash, cnn, quad, llm) -> dict:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": shape})
+    # decompress runs on the main path no more; the local-mask run keeps it
+    decompress = next(k for k in record["kernels"]
+                      if k["name"] == "block_decompress")
+    decompress["launches_local_masks"] = llm["options"]["local_masks"][
+        "launches"]["block_decompress"]
+    # the momentum kernel at the LLM path's float32 bank first, then bf16
+    recs = [r for r in randk["momentum"] if "ms" in r]
+    head = recs[0]
+    record["kernels"].append({
+        "name": "momentum_scatter", "route": "cuda",
+        **KERNELS["momentum_scatter"],
+        "launches": llm["launches"]["momentum_scatter"],
+        "launches_bf16": llm["options"]["bf16"]["launches"][
+            "momentum_scatter"],
+        "max_abs_err": max(r["max_abs_err"] for r in randk["momentum"]),
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "shape")},
+        "shapes": [{k: r[k] for k in ("shape", "dtype", "ms", "plain_ms",
+                                      "bound_ms", "max_abs_err")}
+                   for r in recs]})
     return record
 
 
@@ -910,7 +1240,8 @@ def main() -> int:
     if phases is not None:
         # a partial run (kernel bring-up): no ok line
         for name, fn in (("kernels", kernel_phase), ("randk", randk_phase),
-                         ("flash", flash_phase), ("llm", llm_phase)):
+                         ("flash", flash_phase), ("quadratic", quadratic_phase),
+                         ("llm", llm_phase)):
             if want(name):
                 fn(torch)
         log(card)
@@ -926,13 +1257,15 @@ def main() -> int:
     log(json.dumps({"summary": {
         "cnn": {k: cnn[k] for k in ("rounds", "median_round_ms", "acc",
                                     "cpu_rel_diff", "profile")},
-        "quadratic": {k: {m: quad[k][m] for m in ("ms_per_round",
-                                                  "peak_mib")}
-                      for k in ("kernel", "plain")},
+        "quadratic": {a: {k: {m: quad[a][k][m] for m in
+                              ("ms_per_round", "peak_mib", "dist0", "dist")}
+                          for k in ("kernel", "plain")}
+                      for a in ("rosdhb", "dasha")},
+        "server_round": randk["server_round"],
         "llm": {k: llm[k] for k in ("steps", "losses", "step_ms",
                                     "median_step_ms", "peak_mib",
                                     "plain_rel_loss", "plain_rel_dir",
-                                    "plain_step_ms", "profile")},
+                                    "plain_step_ms", "profile", "options")},
         "flash_sdpa_fwd_bwd_ms": flash[-1].get("library_fwd_bwd_ms")}}))
     log(json.dumps(record))
     log(card)

@@ -2,12 +2,21 @@
 ``repro.core.algorithms``, static path).
 
 Ported: ``rosdhb`` (the paper's Algorithm 1, global or local sparsification),
-``robust_dgd`` (robust aggregation of raw gradients) and ``dgd`` (compressed,
-non-robust mean). ``dasha`` and the algorithm bank are still to be ported;
-their memory and wire accounting is here already.
+``dasha`` (Byz-DASHA-PAGE with p = 1, the baseline the paper measures
+RoSDHB against), ``robust_dgd`` (robust aggregation of raw gradients) and
+``dgd`` (compressed, non-robust mean). The algorithm bank is still to be
+ported.
 
 Every function works on ``[n_workers, D]`` banks. The random draws of a round
-(RandK masks) come from a draws provider (``repro_torch.testing``).
+(RandK masks) come from a draws provider (``repro_torch.testing``). The
+server banks are float32 or bfloat16 (``momentum_dtype``); the server's
+arithmetic is float32.
+
+For RoSDHB on global Block-RandK (:func:`_payload_route`) the round never
+builds the dense wire: the Byzantine overwrite runs on the
+``[n, kb * block_size]`` payload and the momentum kernel
+(``repro_torch.kernels.randk.momentum_update``) decays the bank and adds
+the payload into the selected blocks in one pass, bitwise the dense round.
 """
 
 from __future__ import annotations
@@ -23,10 +32,14 @@ from repro_torch.core import attacks as A
 from repro_torch.core import compression as C
 from repro_torch.core import wire as W
 from repro_torch.device import resolve_device
+from repro_torch.kernels.randk import ops as RK
 
 #: Algorithm names of the reference, and the ones this port can run.
 ALGO_BANK: Tuple[str, ...] = ("rosdhb", "dasha", "robust_dgd", "dgd")
-PORTED_ALGORITHMS: Tuple[str, ...] = ("rosdhb", "robust_dgd", "dgd")
+PORTED_ALGORITHMS: Tuple[str, ...] = ALGO_BANK
+
+#: Server bank dtypes the port keeps (``AlgorithmConfig.momentum_dtype``).
+BANK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,25 +56,31 @@ class StateLayout:
         needs = "dasha" in tuple(names)
         return cls(mirror=needs, prev_grad=needs)
 
+    @property
+    def is_full(self) -> bool:
+        return self.mirror and self.prev_grad
+
 
 @dataclasses.dataclass(frozen=True)
 class AlgorithmConfig:
     """Specification of a Byzantine-robust compressed training run.
 
     Attributes:
-      name: ``rosdhb`` | ``robust_dgd`` | ``dgd`` (``dasha`` for the
-        accounting functions only).
+      name: ``rosdhb`` | ``dasha`` | ``robust_dgd`` | ``dgd``.
       n_workers: total workers n.
       f: number of Byzantine workers (the first ``f`` indices).
       gamma: learning rate.
       beta: momentum coefficient; ``None`` -> Theorem 1's
         ``sqrt(1 - 24 gamma L)`` with ``smoothness_L``.
       smoothness_L: Lipschitz constant estimate for the beta schedule.
-      mvr_a: DASHA's MVR coefficient (accounting only here).
+      mvr_a: DASHA's MVR coefficient ``a`` (default ``1 - beta``).
       sparsifier, aggregator, attack: the round's components.
-
-    The server banks are float32 (the reference's default momentum and
-    compute dtypes).
+      momentum_dtype: dtype of the server banks (``float32`` or
+        ``bfloat16``; dasha's previous gradients stay float32).
+      server_compute_dtype: dtype of the server's arithmetic; only
+        ``float32`` is ported.
+      state_layout: an explicit :class:`StateLayout`, or ``None`` for the
+        minimal layout of the algorithm.
     """
 
     name: str = "rosdhb"
@@ -77,12 +96,17 @@ class AlgorithmConfig:
         default_factory=G.AggregatorConfig)
     attack: A.AttackConfig = dataclasses.field(
         default_factory=lambda: A.AttackConfig(name="none"))
+    momentum_dtype: str = "float32"
+    server_compute_dtype: str = "float32"
+    state_layout: Optional[StateLayout] = None
 
     @property
     def honest(self) -> int:
         return self.n_workers - self.f
 
     def resolved_state_layout(self) -> StateLayout:
+        if self.state_layout is not None:
+            return self.state_layout
         return StateLayout.for_algorithms((self.name,))
 
     def resolved_beta(self) -> float:
@@ -114,21 +138,35 @@ class ServerState(NamedTuple):
     attack: Optional[Any] = None
 
 
-def _check_ported(name: str) -> None:
-    if name not in PORTED_ALGORITHMS:
+def _check_ported(cfg: AlgorithmConfig) -> torch.dtype:
+    """Raise on what the port cannot run; returns the bank dtype."""
+    if cfg.name not in PORTED_ALGORITHMS:
         raise ValueError(
-            f"algorithm {name!r} is not ported (ported: "
-            f"{'|'.join(PORTED_ALGORITHMS)}; the reference knows "
-            f"{'|'.join(ALGO_BANK)} and 'bank')")
+            f"algorithm {cfg.name!r} is not ported (ported: "
+            f"{'|'.join(PORTED_ALGORITHMS)}; the reference also knows "
+            f"'bank')")
+    if cfg.momentum_dtype not in BANK_DTYPES:
+        raise ValueError(f"momentum_dtype {cfg.momentum_dtype!r} is not "
+                         f"ported (ported: {'|'.join(BANK_DTYPES)})")
+    if cfg.server_compute_dtype != "float32":
+        raise ValueError(f"server_compute_dtype {cfg.server_compute_dtype!r}"
+                         f" is not ported (the server computes in float32)")
+    return BANK_DTYPES[cfg.momentum_dtype]
 
 
 def init_state(cfg: AlgorithmConfig, d: int, device=None) -> ServerState:
     """Initial server state under ``cfg``'s resolved layout, on ``device``
-    (default the card)."""
-    _check_ported(cfg.name)
+    (default the card): the momentum bank (and dasha's mirrors) in
+    ``momentum_dtype``, dasha's previous gradients in float32. A layout
+    that prunes dasha's slots raises."""
+    mdt = _check_ported(cfg)
     dev = resolve_device(device)
     layout = cfg.resolved_state_layout()
-    zeros = torch.zeros((cfg.n_workers, d), device=dev)
+    if cfg.name == "dasha" and not layout.is_full:
+        raise ValueError(
+            "state layout prunes mirror/prev_grad but dasha needs them (its "
+            "MVR mirror state cannot be pruned)")
+    zeros = torch.zeros((cfg.n_workers, d), dtype=mdt, device=dev)
     return ServerState(
         momentum=zeros,
         mirror=zeros.clone() if layout.mirror else None,
@@ -159,18 +197,86 @@ def _compressed_wire(cfg: AlgorithmConfig, grads: torch.Tensor, draws,
 def _rosdhb_apply(cfg: AlgorithmConfig, agg, state: ServerState,
                   wire: torch.Tensor, hparams) -> Tuple[torch.Tensor,
                                                         ServerState]:
-    # Step 5: per-worker momentum m = beta*m_prev + (1-beta)*wire, written
-    # as one fused multiply-add onto (1-beta)*wire: torch.add with alpha is
-    # an FMA on the CPU and on the card, the rounding XLA's fusion gives the
-    # reference's compiled round. The add is in place on the fresh product
-    # (one [n, D] buffer fewer); the wire itself may be the caller's
-    # gradients (sparsifier 'none') and is left alone.
+    # Step 5: per-worker momentum m = beta*m_prev + (1-beta)*wire in
+    # float32, written as one fused multiply-add onto (1-beta)*wire:
+    # torch.add with alpha is an FMA on the CPU and on the card, the
+    # rounding XLA's fusion gives the reference's compiled round on float32
+    # banks (on bfloat16 banks it contracts the other product: ROADMAP
+    # Queue 3). The momentum kernel rounds the same way. The add is
+    # in place on the fresh product (one [n, D] buffer fewer); the wire
+    # itself may be the caller's gradients (sparsifier 'none') and is left
+    # alone.
     beta, one_m_beta = hparams[0], hparams[2]
-    m = (wire * one_m_beta).add_(state.momentum, alpha=beta)
-    # Step 6: robust aggregation of the momenta.
+    m = (wire.float() * one_m_beta).add_(state.momentum.float(), alpha=beta)
+    # Step 6: robust aggregation of the float32 momenta; the bank keeps
+    # their rounding to momentum_dtype.
     r = agg(m)
-    new = state._replace(momentum=m, step=state.step + 1)
+    new = state._replace(momentum=m.to(state.momentum.dtype),
+                         step=state.step + 1)
     return r, new
+
+
+def _payload_route(cfg: AlgorithmConfig, d: int) -> bool:
+    """RoSDHB on global Block-RandK with the kernels and an attack that
+    keeps zero columns zero: the round can stay on the wire payload. With a
+    global mask every honest row is zero off the selected blocks, so the
+    Byzantine rows are too, and the dense wire adds nothing there."""
+    sp = cfg.sparsifier
+    return (cfg.name == "rosdhb" and C._kernel_eligible(sp, d)
+            and not sp.local and cfg.attack.name in A.ZERO_PRESERVING)
+
+
+def _rosdhb_payload_round(cfg: AlgorithmConfig, agg, state: ServerState,
+                          grads: torch.Tensor, draws, hparams,
+                          attack_params=None) -> Tuple[torch.Tensor,
+                                                       ServerState]:
+    # Steps 1-3 on the wire: the block ids and the [n, kb*bs] payload; step
+    # 4 on its rows (the attack is per coordinate, so the selected columns
+    # get the dense attack's values); step 5 decays the bank in place and
+    # adds (1-beta)*payload into the selected blocks in one pass (a
+    # bfloat16 bank also hands back the unrounded float32 momenta); step 6
+    # aggregates the float32 momenta.
+    sp = cfg.sparsifier
+    payload, ids = C.compressed_payload(grads, draws, sp)
+    payload = _byzantine_overwrite(cfg, payload, attack_params)
+    m = RK.momentum_update(state.momentum, payload, ids,
+                           block_size=sp.block_size, beta=hparams[0],
+                           f32_out=state.momentum.dtype != torch.float32)
+    del payload
+    return agg(m), state._replace(step=state.step + 1)
+
+
+def _dasha_round(cfg: AlgorithmConfig, agg, state: ServerState,
+                 grads: torch.Tensor, draws, hparams,
+                 attack_params=None) -> Tuple[torch.Tensor, ServerState]:
+    # Byz-DASHA-PAGE, p = 1 (the reference's _dasha_step):
+    #   m_i = g_i + (1-a)(m_i' - g_i')         (m_i = g_i on the first step)
+    #   c_i = C((m_i - m_i') + b (m_i' - h_i')),  b = 1/(2 alpha)
+    #   h_i = h_i' + c_i, Byzantine rows overwritten; R = F(h_1 .. h_n)
+    # Each worker draws its own mask whatever the sparsifier's `local` flag
+    # (independent compressors). a*b + c terms are single FMAs, as XLA
+    # contracts them in the reference's compiled round.
+    if state.mirror is None or state.prev_grad is None:
+        raise ValueError("dasha needs the mirror/prev_grad state slots: "
+                         "init the state with a dasha config")
+    sp = dataclasses.replace(cfg.sparsifier, local=True)
+    g32 = grads.float()
+    m_prev = state.momentum.float()
+    h_prev = state.mirror.float()
+    if state.step == 0:
+        m = g32
+    else:
+        m = torch.add(g32, m_prev - state.prev_grad, alpha=hparams[3])
+    b = 1.0 / (2.0 * sp.alpha)
+    x = torch.add(m - m_prev, m_prev - h_prev, alpha=b)
+    h = C.compressed_estimate(x, draws, sp).add_(h_prev)
+    del x
+    h = _byzantine_overwrite(cfg, h, attack_params)
+    r = agg(h)
+    mdt = state.momentum.dtype
+    return r, ServerState(momentum=m.to(mdt), mirror=h.to(mdt),
+                          prev_grad=g32, step=state.step + 1,
+                          attack=state.attack)
 
 
 def _dgd_apply(cfg, agg, state, wire):
@@ -193,14 +299,16 @@ def static_hparams(cfg: AlgorithmConfig) -> Tuple[float, float, float, float]:
 
 
 def server_state_bytes(cfg: AlgorithmConfig, d: int) -> int:
-    """Bytes of the float32 ``[n, D]`` server banks under ``cfg``'s layout:
-    RoSDHB keeps one momentum vector per worker; a dasha layout adds the
-    mirrors and the previous gradients (3x)."""
+    """Bytes of the ``[n, D]`` server banks under ``cfg``'s layout: RoSDHB
+    keeps one momentum vector per worker; a dasha layout adds the mirrors
+    (in ``momentum_dtype``) and the float32 previous gradients (3x at
+    float32)."""
     n = cfg.n_workers
     layout = cfg.resolved_state_layout()
-    total = n * d * 4
+    mdt_bytes = torch.finfo(BANK_DTYPES[cfg.momentum_dtype]).bits // 8
+    total = n * d * mdt_bytes
     if layout.mirror:
-        total += n * d * 4
+        total += n * d * mdt_bytes
     if layout.prev_grad:
         total += n * d * 4
     return total
@@ -221,7 +329,8 @@ def server_round(cfg: AlgorithmConfig, state: ServerState,
 
     Args:
       cfg: algorithm configuration.
-      state: current server state (its momentum is consumed).
+      state: current server state (its momentum is consumed: the payload
+        route updates it in place).
       grads: per-worker gradients ``[n, D]``; the Byzantine rows are
         replaced by the attack.
       draws: the draws provider for this round's masks.
@@ -232,7 +341,7 @@ def server_round(cfg: AlgorithmConfig, state: ServerState,
     Returns:
       (direction R [D] to descend, next state, aux dict).
     """
-    _check_ported(cfg.name)
+    _check_ported(cfg)
     n, d = grads.shape
     if n != cfg.n_workers:
         raise ValueError(f"grads has {n} rows, cfg.n_workers={cfg.n_workers}")
@@ -242,13 +351,20 @@ def server_round(cfg: AlgorithmConfig, state: ServerState,
         wire = _byzantine_overwrite(cfg, grads, attack_params)
         r, new = _robust_dgd_apply(cfg, agg, state, wire)
         return r, new, {"payload_floats_per_worker": d}
-    wire = _compressed_wire(cfg, grads, draws, attack_params)
-    if cfg.name == "rosdhb":
-        r, new = _rosdhb_apply(cfg, agg, state, wire, static_hparams(cfg))
+    aux = {"payload_floats_per_worker": C.payload_floats(d, cfg.sparsifier)}
+    if cfg.name == "dasha":
+        r, new = _dasha_round(cfg, agg, state, grads, draws,
+                              static_hparams(cfg), attack_params)
+    elif _payload_route(cfg, d):
+        r, new = _rosdhb_payload_round(cfg, agg, state, grads, draws,
+                                       static_hparams(cfg), attack_params)
     else:
-        r, new = _dgd_apply(cfg, agg, state, wire)
-    return r, new, {"payload_floats_per_worker":
-                    C.payload_floats(d, cfg.sparsifier)}
+        wire = _compressed_wire(cfg, grads, draws, attack_params)
+        if cfg.name == "rosdhb":
+            r, new = _rosdhb_apply(cfg, agg, state, wire, static_hparams(cfg))
+        else:
+            r, new = _dgd_apply(cfg, agg, state, wire)
+    return r, new, aux
 
 
 def apply_direction(params_flat: torch.Tensor, r: torch.Tensor,

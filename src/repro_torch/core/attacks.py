@@ -9,7 +9,12 @@ stateless mean/std family (``alie``, ``signflip``, ``ipm``, ``foe``,
 The worker-axis statistics reproduce the reference's rounding: the mean is a
 sequential row sum times ``1/h`` and the population variance (no Bessel
 correction, as ``jnp.std``) a sequential fused multiply-add of squares
-divided by ``h``, the order XLA's fused reduction takes.
+divided by ``h``, the order XLA's fused reduction takes. Both run in
+float32 on bfloat16 rows too, rounded where the reference rounds.
+
+:data:`ZERO_PRESERVING` names the attacks that send zero wherever every
+honest row is zero: under a global mask their Byzantine rows are zero off
+the selected blocks, so the attack can run on the wire payload alone.
 """
 
 from __future__ import annotations
@@ -30,25 +35,50 @@ def _alie_z(n: int, f: int) -> float:
     return float(statistics.NormalDist().inv_cdf(frac))
 
 
-def _row_mean(x: torch.Tensor) -> torch.Tensor:
-    """Mean over the worker axis: rows summed in order, times ``1/h``."""
-    acc = x[0].clone()
+def _mean32(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the worker axis in float32: rows summed in order, times
+    ``1/h`` (the reference upcasts bfloat16 rows to float32 for it)."""
+    acc = x[0].to(torch.float32, copy=True)
     for row in x[1:]:
         acc += row
     return acc * (1.0 / x.shape[0])
 
 
+def _row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the worker axis, rounded once to ``x``'s dtype."""
+    return _mean32(x).to(x.dtype)
+
+
 def _row_std(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
-    """Population standard deviation over the worker axis. Each step is one
-    fused multiply-add ``acc = c*c + acc`` rounded once to float32: the
-    product of two float32 values is exact in float64. The square root is
-    taken in float64 too, which rounds to the correctly rounded float32
-    root (PyTorch's vectorised float32 root on the CPU is not)."""
+    """Population standard deviation over the worker axis around the float32
+    mean ``mu``. Each step is one fused multiply-add ``acc = c*c + acc``
+    rounded once to float32: the product of two float32 values is exact in
+    float64. The square root is taken in float64 too, which rounds to the
+    correctly rounded float32 root (PyTorch's vectorised float32 root on the
+    CPU is not). For bfloat16 rows the reference rounds the float32
+    variance to bfloat16, takes its float32 root and rounds that."""
     acc = torch.zeros_like(mu)
     for row in x:
         c = (row - mu).double()
         acc = torch.addcmul(acc.double(), c, c).to(mu.dtype)
-    return torch.sqrt((acc / x.shape[0]).double()).to(mu.dtype)
+    var = acc / x.shape[0]
+    if x.dtype != torch.float32:
+        var = var.to(x.dtype)
+    return torch.sqrt(var.double()).to(torch.float32).to(x.dtype)
+
+
+def _row_stats(x: torch.Tensor):
+    """``(mean, std)`` over the worker axis in ``x``'s dtype; the std is
+    taken around the unrounded float32 mean."""
+    mu = _mean32(x)
+    return mu.to(x.dtype), _row_std(x, mu)
+
+
+def _as_dtype(c: float, dtype: torch.dtype) -> float:
+    """A Python constant rounded to ``dtype``: the reference's weakly typed
+    constants take the array's type (``z`` becomes a bfloat16 on bfloat16
+    rows), where PyTorch would multiply by the float32 constant."""
+    return float(torch.tensor(c, dtype=dtype))
 
 
 def alie(honest: torch.Tensor, f: int, z: float | None = None
@@ -57,16 +87,15 @@ def alie(honest: torch.Tensor, f: int, z: float | None = None
     h = honest.shape[0]
     if z is None:
         z = _alie_z(h + f, f)
-    mu = _row_mean(honest)
-    byz = mu - z * _row_std(honest, mu)
+    mu, sd = _row_stats(honest)
+    byz = mu - _as_dtype(z, mu.dtype) * sd
     return byz.expand((f,) + byz.shape)
 
 
 def linear_attack(honest: torch.Tensor, f: int,
                   coeffs) -> torch.Tensor:
     """The (a, b)-parameterised mean/std family: ``byz = a*mu + b*sd``."""
-    mu = _row_mean(honest)
-    sd = _row_std(honest, mu)
+    mu, sd = _row_stats(honest)
     byz = coeffs[0] * mu + coeffs[1] * sd
     return byz.expand((f,) + byz.shape)
 
@@ -91,7 +120,8 @@ def linear_coeffs(cfg: "AttackConfig", n: int, f: int):
 def sign_flip(honest: torch.Tensor, f: int, scale: float = 1.0
               ) -> torch.Tensor:
     """Send the negated honest mean (scaled)."""
-    byz = -scale * _row_mean(honest)
+    mu = _row_mean(honest)
+    byz = _as_dtype(-scale, mu.dtype) * mu
     return byz.expand((f,) + byz.shape)
 
 
@@ -130,6 +160,12 @@ class AttackConfig:
     name: str = "alie"
     scale: float | None = None
     z: float | None = None
+
+
+#: Ported attacks whose Byzantine vectors are zero on every coordinate where
+#: all honest rows are zero (the mean/std family and mimic; all stateless).
+ZERO_PRESERVING = ("none", "linear", "alie", "signflip", "ipm", "foe",
+                   "mimic", "zero")
 
 
 def apply_attack(cfg: AttackConfig, honest: torch.Tensor, f: int,

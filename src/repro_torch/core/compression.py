@@ -15,13 +15,15 @@ returns the server-side unbiased reconstruction ``(d/k) * (g * mask)`` and
 :func:`payload_bytes` accounts for what the wire would carry. For ``block``
 with ``use_kernels``, :func:`compressed_estimate` runs the real wire round
 trip instead: the Block-RandK compress and decompress kernels
-(``repro_torch.kernels.randk``).
+(``repro_torch.kernels.randk``); :func:`compressed_payload` stops at the
+wire, for the RoSDHB round that updates its momentum from the payload.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
 
 import torch
 
@@ -147,6 +149,31 @@ def _kernel_eligible(cfg: SparsifierConfig, d: int) -> bool:
             and d % cfg.block_size == 0)
 
 
+def block_ids(draws, n: int, d: int, cfg: SparsifierConfig
+              ) -> torch.Tensor:
+    """The round's Block-RandK block ids, drawn exactly as
+    :func:`_block_mask` draws them: ``[kb]`` (one permutation prefix shared
+    by every row) for a global mask, ``[n, kb]`` (one per worker, in worker
+    order) for local masks. ``d`` is a multiple of the block."""
+    nb = d // cfg.block_size
+    kb = max(1, int(round(cfg.ratio * nb)))
+    if cfg.local:
+        return torch.stack([draws.permutation_prefix(nb, kb)
+                            for _ in range(n)])
+    return draws.permutation_prefix(nb, kb)
+
+
+def compressed_payload(grads: torch.Tensor, draws, cfg: SparsifierConfig
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Steps 1-3 on the real wire: the round's block ids
+    (:func:`block_ids`) and the ``[n, kb * block_size]`` payload of
+    ``alpha * g`` on those blocks (the compress kernel). For an eligible
+    ``block`` config (:func:`_kernel_eligible`)."""
+    ids = block_ids(draws, grads.shape[0], grads.shape[1], cfg)
+    return RK.compress(grads, ids, block_size=cfg.block_size,
+                       alpha=cfg.alpha), ids
+
+
 def compressed_estimate(grads: torch.Tensor, draws,
                         cfg: SparsifierConfig) -> torch.Tensor:
     """Steps 1+4: sample the round's masks and return the unbiased
@@ -154,26 +181,15 @@ def compressed_estimate(grads: torch.Tensor, draws,
 
     The dense path is :func:`make_masks` + :func:`compress`. For an eligible
     ``block`` config (:func:`_kernel_eligible`) the round trip runs over the
-    real wire payload instead: block ids are drawn exactly as
-    :func:`_block_mask` draws them (one prefix shared by every row for a
-    global mask, one per worker in worker order for local masks), the
-    compress kernel gathers ``alpha * g`` of those blocks into the
-    ``[n, kb * block_size]`` payload, and the decompress kernel scatters it
-    back into a dense bank. Bitwise the dense path on finite gradients (the
-    kernel writes +0.0 where ``(alpha * g) * 0`` may give -0.0)."""
+    real wire payload instead (:func:`compressed_payload`), and the
+    decompress kernel scatters it back into a dense bank. Bitwise the dense
+    path on finite gradients (the kernel writes +0.0 where
+    ``(alpha * g) * 0`` may give -0.0)."""
     n, d = grads.shape
     if not _kernel_eligible(cfg, d):
         return compress(grads, make_masks(draws, n, d, cfg,
                                           dtype=grads.dtype), cfg)
-    nb = d // cfg.block_size
-    kb = max(1, int(round(cfg.ratio * nb)))
-    if cfg.local:
-        ids = torch.stack([draws.permutation_prefix(nb, kb)
-                           for _ in range(n)])
-    else:
-        ids = draws.permutation_prefix(nb, kb)
-    payload = RK.compress(grads, ids, block_size=cfg.block_size,
-                          alpha=cfg.alpha)
+    payload, ids = compressed_payload(grads, draws, cfg)
     return RK.decompress(payload, ids, block_size=cfg.block_size, d=d)
 
 

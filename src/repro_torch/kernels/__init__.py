@@ -19,10 +19,12 @@ def kernel_wrappers():
     from repro_torch.kernels.median.median import median_cuda
     from repro_torch.kernels.pairdist.pairdist import pairdist_cuda
     from repro_torch.kernels.randk.randk import (block_compress_cuda,
-                                                 block_decompress_cuda)
+                                                 block_decompress_cuda,
+                                                 momentum_scatter_cuda)
     return {"pairdist": pairdist_cuda, "cwtm": cwtm_cuda,
             "median": median_cuda, "block_compress": block_compress_cuda,
             "block_decompress": block_decompress_cuda,
+            "momentum_scatter": momentum_scatter_cuda,
             "flash_fwd": flash_fwd_cuda, "flash_bwd": flash_bwd_cuda}
 
 

@@ -6,9 +6,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.randk.randk import (block_compress_cuda,
-                                             block_decompress_cuda)
+                                             block_decompress_cuda,
+                                             momentum_scatter_cuda)
 from repro_torch.kernels.randk.ref import (block_compress_ref,
-                                           block_decompress_ref)
+                                           block_decompress_ref,
+                                           momentum_scatter_ref)
 
 
 def _device_type(x: torch.Tensor, what: str) -> str:
@@ -31,3 +33,16 @@ def decompress(payload: torch.Tensor, ids: torch.Tensor, *, block_size: int,
     if _device_type(payload, "block decompress") == "cpu":
         return block_decompress_ref(payload, ids, block_size, d)
     return block_decompress_cuda(payload, ids, block_size, d)
+
+
+def momentum_update(m: torch.Tensor, payload: torch.Tensor, ids: torch.Tensor,
+                    *, block_size: int, beta: float,
+                    f32_out: bool = False) -> torch.Tensor:
+    """RoSDHB step 5 on the wire payload, in place on the bank ``m``:
+    ``m <- beta * m + (1 - beta) * wire`` with ``wire`` the decompressed
+    payload. Returns ``m``, or with ``f32_out`` (a bfloat16 bank) the
+    unrounded float32 result."""
+    if _device_type(m, "momentum update") == "cpu":
+        return momentum_scatter_ref(m, payload, ids, block_size, beta,
+                                    f32_out)
+    return momentum_scatter_cuda(m, payload, ids, block_size, beta, f32_out)

@@ -1,12 +1,13 @@
-"""CUDA kernel wrappers: Block-RandK compress and decompress.
+"""CUDA kernel wrappers: Block-RandK compress, decompress and the fused
+RoSDHB momentum update.
 
 Replace ``repro/kernels/randk/randk.py:_compress_kernel`` (launched by
-``block_compress``) and ``:_decompress_kernel`` (``block_decompress``). The
-kernels, ``csrc/randk.cu``, are bound by device memory: one thread block per
-(block, worker row) moves the block as 16-byte vectors, one per thread. The
-reference maps them over the rows one at a time; here one launch covers the
-``[n, d]`` bank, with one id vector shared by all rows (a global mask) or
-one per row (local masks).
+``block_compress``), ``:_decompress_kernel`` (``block_decompress``) and
+``:_momentum_kernel`` (``momentum_scatter``). The kernels, ``csrc/randk.cu``,
+are bound by device memory: one thread block per (block, worker row) moves
+the block as vectors, one per thread. The reference works on one row at a
+time; here one launch covers the ``[n, d]`` bank, with one id vector shared
+by all rows (a global mask) or one per row (local masks).
 """
 
 from __future__ import annotations
@@ -108,5 +109,55 @@ def block_decompress_cuda(payload: torch.Tensor, ids: torch.Tensor,
     return dense
 
 
+def momentum_scatter_cuda(m: torch.Tensor, payload: torch.Tensor,
+                          ids: torch.Tensor, block_size: int, beta: float,
+                          f32_out: bool = False) -> torch.Tensor:
+    """RoSDHB step 5 in place on the momentum bank ``m [n, d]`` (float32 or
+    bfloat16): every value decays by ``beta``, and the selected blocks add
+    ``(1 - beta) * payload`` (``payload [n, kb * block_size]``, float32 or
+    bfloat16, the wire the ``ids`` compressed). Computed in float32, rounded
+    once to ``m``'s dtype. Returns ``m``, or with ``f32_out`` (a bfloat16
+    bank only) a new float32 ``[n, d]`` tensor holding the unrounded
+    result."""
+    _check_bank(m, "momentum_scatter")
+    _check_bank(payload, "momentum_scatter payload")
+    n, d = m.shape
+    if block_size < 4 or block_size % 4 or block_size // 4 > 1024:
+        raise ValueError(f"block_size {block_size} must be a multiple of 4 "
+                         f"and at most 4096")
+    if payload.shape[0] != n or payload.device != m.device:
+        raise ValueError(f"payload {tuple(payload.shape)} on "
+                         f"{payload.device} for a bank {tuple(m.shape)} on "
+                         f"{m.device}")
+    if d % block_size or payload.shape[1] % block_size:
+        raise ValueError(f"d={d} and the payload width {payload.shape[1]} "
+                         f"must be multiples of block_size={block_size}")
+    if f32_out and m.dtype != torch.bfloat16:
+        raise ValueError("f32_out is for a bfloat16 bank (a float32 bank "
+                         "holds the float32 result itself)")
+    for t in (m, payload):
+        if t.data_ptr() % 16:
+            raise ValueError("momentum_scatter needs 16-byte aligned banks")
+    nb, kb = d // block_size, payload.shape[1] // block_size
+    ids, _ = _ids(ids, n, m.device)
+    if ids.shape[-1] != kb:
+        raise ValueError(f"{ids.shape[-1]} block ids for a payload of {kb} "
+                         f"blocks")
+    slots = slot_map(ids, nb)
+    stride = 0 if slots.ndim == 1 else nb
+    out = (torch.empty((n, d), dtype=torch.float32, device=m.device)
+           if f32_out else None)
+    lib = build.load("randk")
+    err = lib.momentum_scatter(
+        m.data_ptr(), payload.data_ptr(), slots.data_ptr(),
+        out.data_ptr() if out is not None else None, n, nb, kb, block_size,
+        stride, float(beta), float(1.0 - beta), DTYPES[m.dtype],
+        DTYPES[payload.dtype], build.stream_ptr(m.device))
+    build.check(err, "momentum_scatter")
+    momentum_scatter_cuda.launches += 1
+    return m if out is None else out
+
+
 block_compress_cuda.launches = 0
 block_decompress_cuda.launches = 0
+momentum_scatter_cuda.launches = 0

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the Block-RandK compress and decompress
-kernels, batched over the worker axis."""
+"""Plain PyTorch versions of the Block-RandK compress, decompress and fused
+momentum kernels, batched over the worker axis."""
 
 from __future__ import annotations
 
@@ -33,3 +33,18 @@ def block_decompress_ref(payload: torch.Tensor, ids: torch.Tensor,
     out.scatter_(1, _row_ids(ids, n).long()[..., None].expand(
         -1, -1, block_size), pb)
     return out.reshape(n, d)
+
+
+def momentum_scatter_ref(m: torch.Tensor, payload: torch.Tensor,
+                         ids: torch.Tensor, block_size: int, beta: float,
+                         f32_out: bool = False) -> torch.Tensor:
+    """The fused RoSDHB step 5 as the dense step computes it: the payload
+    times ``1 - beta`` scattered into a zeroed float32 bank, then one fused
+    multiply-add ``wire + beta * m`` (``torch.add`` with ``alpha``). ``m``
+    is updated in place (rounded to its dtype); returns ``m``, or with
+    ``f32_out`` the float32 result."""
+    wire = block_decompress_ref(payload.float() * (1.0 - beta), ids,
+                                block_size, m.shape[1])
+    out = wire.add_(m.float(), alpha=beta)
+    m.copy_(out)
+    return out if f32_out else m

@@ -8,16 +8,20 @@
      kernels are ``ctypes`` calls inside ``autograd.Function``s, which
      ``torch.func.vmap`` cannot map, and the loop keeps one worker's
      activations alive at a time);
-  2. each gradient raveled into its row of the float32 ``[n, D]`` bank in
-     the reference's flat layout (the naive flatten: the reference's
-     sharded bank transforms and mesh have no single-card counterpart);
+  2. each gradient raveled into its row of the ``[n, D]`` bank in the
+     wire dtype (``momentum_dtype``, as the reference) and the reference's
+     flat layout (the naive flatten: the reference's sharded bank
+     transforms and mesh have no single-card counterpart);
   3. ``core.algorithms.server_round``: the round's masks, the Block-RandK
-     wire round trip, the Byzantine overwrite, the per-worker momentum and
-     the robust aggregation;
+     wire, the Byzantine overwrite, the per-worker momentum (for RoSDHB on
+     a global mask, the momentum kernel on the payload) and the robust
+     aggregation;
   4. ``p - gamma * d`` on the master parameters.
 
-The reference's ``TrainState`` carries a PRNG key; the port's carries the
-draws provider the server round takes its masks from.
+``build_chunked_train_step`` runs ``chunk_size`` such steps over one chunk
+of stacked batches (the streamed launcher's unit). The reference's
+``TrainState`` carries a PRNG key; the port's carries the draws provider the
+server round takes its masks from.
 """
 
 from __future__ import annotations
@@ -65,8 +69,8 @@ def make_train_plan(spec: ArchSpec, shape: InputShape,
     """The reference's host-mode plan: ``n_workers`` simulated workers, the
     naive flatten padded to a multiple of 8 (one chip), and the reference's
     defaults (f = max(1, n//8), gamma 1e-3, beta 0.9, ``block_hash`` at the
-    arch's ratio with 512-wide blocks, CWTM, ALIE). The server banks are
-    float32: ``momentum_dtype`` other than float32 is not ported."""
+    arch's ratio with 512-wide blocks, CWTM, ALIE, bfloat16 server
+    banks)."""
     cfg = model_for_shape(spec, shape)
     n = n_workers
     if shape.global_batch % n:
@@ -75,10 +79,6 @@ def make_train_plan(spec: ArchSpec, shape: InputShape,
     abstract = tf.model_init(cfg, None, device="meta")
     flat_spec = T.make_flat_spec(abstract, pad_to=8)
     ov = dict(algo_overrides or {})
-    mdt = ov.pop("momentum_dtype", "float32")
-    if mdt != "float32":
-        raise ValueError(f"momentum_dtype {mdt!r} is not ported (the port's "
-                         f"server banks are float32)")
     algo = A.AlgorithmConfig(
         name=ov.pop("name", "rosdhb"),
         n_workers=n,
@@ -90,6 +90,7 @@ def make_train_plan(spec: ArchSpec, shape: InputShape,
         aggregator=ov.pop("aggregator", G.AggregatorConfig(
             name="cwtm", f=max(1, n // 8))),
         attack=ov.pop("attack", ATK.AttackConfig(name="alie")),
+        momentum_dtype=ov.pop("momentum_dtype", "bfloat16"),
         **ov,
     )
     return TrainPlan(spec, shape, cfg, algo, flat_spec, n,
@@ -105,6 +106,7 @@ def build_train_step(plan: TrainPlan, device: DeviceLike = None):
     cfg, fspec, algo = plan.model, plan.flat_spec, plan.algo
     agg = G.make_aggregator(algo.aggregator, device=dev)
     n, d = plan.n_workers, fspec.padded_size
+    wire_dtype = A.BANK_DTYPES[algo.momentum_dtype]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -114,7 +116,7 @@ def build_train_step(plan: TrainPlan, device: DeviceLike = None):
                 .detach().requires_grad_()
                 for p in T.tree_leaves(state.params)]
         half_tree = T.tree_unflatten(fspec.treedef, half)
-        bank = torch.empty((n, d), dtype=torch.float32, device=dev)
+        bank = torch.empty((n, d), dtype=wire_dtype, device=dev)
         losses = []
         for w in range(n):
             loss = tf.lm_loss(half_tree, cfg,
@@ -143,3 +145,26 @@ def build_train_step(plan: TrainPlan, device: DeviceLike = None):
                           state.draws), metrics
 
     return train_step
+
+
+def build_chunked_train_step(plan: TrainPlan, chunk_size: int,
+                             device: DeviceLike = None):
+    """``chunk_size`` rounds of :func:`build_train_step` per call:
+    ``chunk_step(state, chunk) -> (state, metrics)`` with ``chunk`` leaves
+    ``[chunk_size, n_workers, ...]`` and every metric stacked to
+    ``[chunk_size]`` (the reference scans the step over the chunk; PyTorch
+    runs eagerly, so this is a loop)."""
+    if chunk_size <= 0:
+        raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+    step = build_train_step(plan, device=device)
+
+    def chunk_step(state: TrainState, chunk: Dict[str, torch.Tensor]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        per_step = []
+        for t in range(chunk_size):
+            state, m = step(state, {k: v[t] for k, v in chunk.items()})
+            per_step.append(m)
+        return state, {k: torch.stack([torch.as_tensor(m[k]) for m in
+                                       per_step]) for k in per_step[0]}
+
+    return chunk_step

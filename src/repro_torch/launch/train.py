@@ -11,8 +11,15 @@ reference's TPU shape, so the cuts are flags: ``--n-layers`` (depth),
 With ``--device cpu`` it reduces the model as the reference's CPU branch
 does (2 layers, d_model 256, vocab 512, seq 128, 16 sequences over 8
 workers) and runs the kernels' plain versions: a rehearsal of the path.
-The sparsifier is global Block-RandK (``kind="block"``, 512-wide blocks),
-the aggregator CWTM, the server banks float32.
+The sparsifier is Block-RandK (``kind="block"``, 512-wide blocks, global
+unless ``--local-masks``), the aggregator CWTM, the server banks float32
+unless ``--momentum-dtype bfloat16``. As the reference's launcher:
+``--algo dasha`` runs Byz-DASHA-PAGE; ``--stream`` draws each step's batch
+from ``np.random.default_rng((seed, t))``, feeds ``--chunk-size`` steps at a
+time through a ``ChunkPrefetcher`` of depth ``--prefetch-depth`` (the
+remainder one step at a time) and prints the host high-water mark;
+``--checkpoint PATH`` saves ``{"params": ...}`` with the step count at the
+end.
 """
 
 from __future__ import annotations
@@ -24,13 +31,15 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch.configs import INPUT_SHAPES, get_arch
 from repro_torch.configs.base import ArchSpec, InputShape
 from repro_torch.core import AggregatorConfig, AttackConfig, SparsifierConfig
 from repro_torch.core import algorithms as alg
+from repro_torch.data.stream import ChunkPrefetcher
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import (TrainState, build_train_step,
-                                      make_train_plan)
+from repro_torch.launch.steps import (TrainState, build_chunked_train_step,
+                                      build_train_step, make_train_plan)
 from repro_torch.models import model_init
 from repro_torch.testing import TorchDraws
 
@@ -47,11 +56,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--attack", default="alie")
     p.add_argument("--gamma", type=float, default=1e-3)
     p.add_argument("--local-masks", action="store_true")
-    p.add_argument("--momentum-dtype", default="float32")
-    p.add_argument("--checkpoint", default=None, help="not ported")
+    p.add_argument("--momentum-dtype", default="float32",
+                   choices=list(alg.BANK_DTYPES))
+    p.add_argument("--checkpoint", default=None,
+                   help="save the final parameters here (.npz + .meta.json)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--stream", action="store_true",
-                   help="not ported (the streamed, chunked step)")
+                   help="feed batches through the prefetched ring buffer "
+                        "(repro_torch.data.stream), --chunk-size steps per "
+                        "chunk")
+    p.add_argument("--chunk-size", type=int, default=8)
+    p.add_argument("--prefetch-depth", type=int, default=2)
     # what one card forces: the cuts, and the device
     p.add_argument("--n-layers", type=int, default=None,
                    help="cut the depth (default: the arch's)")
@@ -79,9 +94,9 @@ def setup(args: argparse.Namespace, *, plain: bool = False) -> Dict:
     """Plan, step function, initial state and batch source for ``args``.
     ``plain`` runs the kernels' plain versions on the same device (the
     dense mask multiply, the plain CWTM sort, ``causal_attention``): the
-    comparison path."""
-    if args.stream or args.checkpoint:
-        raise ValueError("--stream and --checkpoint are not ported")
+    comparison path. ``batch_fn()`` draws the per-step schedule's next
+    batch; ``batch_at(t)`` is the streamed schedule's numpy batch of step
+    ``t``."""
     dev = resolve_device(args.device)
     spec = get_arch(args.arch)
     n = args.n_workers or 8
@@ -132,8 +147,14 @@ def setup(args: argparse.Namespace, *, plain: bool = False) -> Dict:
                           shape.seq_len)
         return {"tokens": torch.from_numpy(toks).to(dev)}
 
+    def batch_at(t: int) -> Dict[str, np.ndarray]:
+        return {"tokens": make_batch(np.random.default_rng((args.seed, t)),
+                                     cfg.vocab_size, n, plan.local_batch,
+                                     shape.seq_len)}
+
     return {"plan": plan, "step": build_train_step(plan, device=dev),
-            "state": state, "batch_fn": batch_fn, "device": dev}
+            "state": state, "batch_fn": batch_fn, "batch_at": batch_at,
+            "device": dev}
 
 
 def sync(dev: torch.device) -> None:
@@ -144,9 +165,11 @@ def sync(dev: torch.device) -> None:
 def run(argv: Optional[List[str]] = None, *, plain: bool = False,
         log=print) -> Dict:
     """Parse ``argv``, train ``--steps`` rounds and print the reference's
-    step lines. Returns the per-step honest loss, |R| and wall ms (host
-    clock around a step that ends in a device synchronise), the peak device
-    memory, and the session (plan, step function, final state, batches)."""
+    step lines. Returns the per-step honest loss and |R|, the wall ms of
+    each step (of each chunk with ``--stream``; host clock around work that
+    ends in a device synchronise), the peak device memory, the stream's
+    host high-water bytes, and the session (plan, step function, final
+    state, batches)."""
     args = parse_args(argv)
     s = setup(args, plain=plain)
     plan, step, state, dev = s["plan"], s["step"], s["state"], s["device"]
@@ -154,30 +177,61 @@ def run(argv: Optional[List[str]] = None, *, plain: bool = False,
         f"D={plan.flat_spec.padded_size:,} n_workers={plan.n_workers} "
         f"f={plan.algo.f} algo={plan.algo.name} k/d={args.ratio} "
         f"seq={plan.shape.seq_len} local_batch={plan.local_batch} "
-        f"device={dev}")
+        f"momentum={plan.algo.momentum_dtype} device={dev}"
+        + (f" stream chunk={args.chunk_size} depth={args.prefetch_depth}"
+           if args.stream else ""))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     losses, norms, step_ms = [], [], []
+    out = {}
     t0 = time.time()
-    for t in range(args.steps):
-        batch = s["batch_fn"]()
-        sync(dev)
-        t1 = time.perf_counter()
-        state, metrics = step(state, batch)
-        sync(dev)
-        step_ms.append((time.perf_counter() - t1) * 1e3)
-        losses.append(float(metrics["loss"]))
-        norms.append(float(metrics["dir_norm"]))
-        if t % 5 == 0 or t == args.steps - 1:
+
+    def record(metrics, t, ms):
+        losses.extend(torch.atleast_1d(metrics["loss"]).tolist())
+        norms.extend(torch.atleast_1d(metrics["dir_norm"]).tolist())
+        step_ms.append(ms)
+        if args.stream or t % 5 == 0 or t == args.steps - 1:
             log(f"[train] step {t:4d} loss={losses[-1]:.4f}"
                 f" |R|={norms[-1]:.3f} ({time.time() - t0:.1f}s)")
+
+    def timed(fn, *a):
+        sync(dev)
+        t1 = time.perf_counter()
+        res = fn(*a)
+        sync(dev)
+        return res, (time.perf_counter() - t1) * 1e3
+
+    first = 0
+    if args.stream:
+        chunk_step = build_chunked_train_step(plan, args.chunk_size,
+                                              device=dev)
+        with ChunkPrefetcher(s["batch_at"], args.steps, args.chunk_size,
+                             args.prefetch_depth, device=dev) as pf:
+            while True:
+                chunks = pf.take(1)
+                if not chunks:
+                    break
+                (state, metrics), ms = timed(chunk_step, state, chunks[0])
+                first += args.chunk_size
+                record(metrics, first - 1, ms)
+            out["host_high_water_bytes"] = pf.high_water_bytes
+            log(f"[train] host high-water: {pf.high_water_bytes:,} B "
+                f"({pf.high_water_chunks} chunks)")
+        batch_for = lambda t: {k: torch.from_numpy(v).to(dev)  # noqa: E731
+                               for k, v in s["batch_at"](t).items()}
+    else:
+        batch_for = lambda t: s["batch_fn"]()  # noqa: E731
+    for t in range(first, args.steps):
+        (state, metrics), ms = timed(step, state, batch_for(t))
+        record(metrics, t, ms)
+    if args.checkpoint:
+        ckpt.save(args.checkpoint, {"params": state.params}, step=args.steps)
+        log(f"[train] checkpoint -> {args.checkpoint}")
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
         else None
     s["state"] = state
-    return {**s, "losses": losses, "dir_norms": norms, "step_ms": step_ms,
-            "peak_bytes": peak,
-            "payload_floats_per_worker": metrics["payload_floats_per_worker"]
-            if args.steps else None}
+    return {**s, **out, "losses": losses, "dir_norms": norms,
+            "step_ms": step_ms, "peak_bytes": peak}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

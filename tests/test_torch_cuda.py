@@ -171,6 +171,117 @@ def test_block_wrappers_reject_what_the_kernels_do_not_take(card):
         block_compress_cuda(g[:, :1000].contiguous(), ids, 128, 1.0)
 
 
+MOMENTUM = [(3, 128 * 7, 128, 1, False, torch.float32, 0.9),
+            (3, 128 * 7, 128, 7, True, torch.float32, 0.0),
+            (2, 512 * 5, 512, 5, False, torch.bfloat16, 0.99),
+            (4, 512 * 9, 512, 4, True, torch.bfloat16, 0.9),
+            (8, 512 * 33, 512, 2, False, torch.float32, 0.99)]
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,bs,kb,local,dtype,beta", MOMENTUM)
+def test_momentum_kernel_bitwise(card, n, d, bs, kb, local, dtype, beta):
+    """The momentum kernel bitwise equal to its plain version (the bank,
+    -0.0 entries included, and a bfloat16 bank's float32 result), one
+    launch each."""
+    from repro_torch.kernels.randk import (momentum_scatter_cuda,
+                                           momentum_scatter_ref)
+    nb = d // bs
+    m0 = _x(1, n, d, 6, card, dtype)[0]
+    m0[:, ::5] = -0.0
+    pay = _x(1, n, kb * bs, 7, card, dtype)[0]
+    rng = np.random.default_rng(kb)
+    ids = torch.tensor(np.stack([rng.permutation(nb)[:kb] for _ in range(n)])
+                       if local else rng.permutation(nb)[:kb],
+                       dtype=torch.int32, device=card)
+    f32_out = dtype == torch.bfloat16
+    K.reset_launches()
+    m_k, m_p = m0.clone(), m0.clone()
+    out_k = momentum_scatter_cuda(m_k, pay, ids, bs, beta, f32_out)
+    out_p = momentum_scatter_ref(m_p, pay, ids, bs, beta, f32_out)
+    torch.cuda.synchronize()
+    assert K.launches()["momentum_scatter"] == 1
+    assert torch.equal(_bits(m_k), _bits(m_p))
+    assert torch.equal(_bits(out_k), _bits(out_p))
+
+
+@pytest.mark.cuda
+def test_momentum_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels.randk import momentum_scatter_cuda
+    m = torch.zeros(2, 1024, device=card)
+    pay = torch.zeros(2, 256, device=card)
+    with pytest.raises(ValueError, match="f32_out"):
+        momentum_scatter_cuda(m, pay, torch.tensor([0, 1]), 128, 0.9, True)
+    with pytest.raises(ValueError, match="block ids"):
+        momentum_scatter_cuda(m, pay, torch.tensor([0]), 128, 0.9)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        momentum_scatter_cuda(m, pay, torch.tensor([0, 1]), 126, 0.9)
+    with pytest.raises(ValueError, match="aligned"):
+        momentum_scatter_cuda(torch.zeros(2049, device=card)[1:].view(2, 1024),
+                              pay, torch.tensor([0, 1]), 128, 0.9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdt", ["float32", "bfloat16"])
+def test_payload_route_is_bitwise_the_dense_route_on_card(card, mdt):
+    """One RoSDHB round on the card: the payload route (compress, ALIE on
+    the payload, the momentum kernel, CWTM) against the dense route
+    (compress and decompress, ALIE on the dense wire, the dense momentum,
+    CWTM) from the same bank, momentum and ids: momentum bitwise, direction
+    within rtol 1e-5."""
+    from repro_torch.core import algorithms as Alg
+    from repro_torch.core import make_aggregator
+    n, bs, nb = 8, 512, 64
+    cfg = AlgorithmConfig(
+        name="rosdhb", n_workers=n, f=1, beta=0.9, momentum_dtype=mdt,
+        sparsifier=SparsifierConfig(kind="block", ratio=0.1, block_size=bs),
+        aggregator=AggregatorConfig(name="cwtm", f=1),
+        attack=AttackConfig(name="alie"))
+    dt = Alg.BANK_DTYPES[mdt]
+    g = _x(1, n, nb * bs, 8, card, dt)[0]
+    m0 = _x(1, n, nb * bs, 9, card, dt)[0]
+    ids = np.random.default_rng(0).permutation(nb)[:6]
+    agg = make_aggregator(cfg.aggregator, device=card)
+    state = Alg.init_state(cfg, nb * bs, device=card)._replace(momentum=m0)
+    wire = Alg._compressed_wire(cfg, g, ReplayDraws(card, permutations=[ids]))
+    r_d, dense = Alg._rosdhb_apply(cfg, agg, state, wire,
+                                   Alg.static_hparams(cfg))
+    K.reset_launches()
+    r_p, fused, _ = Alg.server_round(
+        cfg, state._replace(momentum=m0.clone()), g,
+        ReplayDraws(card, permutations=[ids]), agg=agg)
+    got = K.launches()
+    assert got["block_compress"] == got["momentum_scatter"] == 1
+    assert got["block_decompress"] == 0
+    assert torch.equal(_bits(fused.momentum), _bits(dense.momentum))
+    torch.testing.assert_close(r_p, r_d, rtol=1e-5, atol=1e-5 * float(
+        r_d.abs().max()))
+
+
+@pytest.mark.cuda
+def test_prefetcher_on_card_gives_the_host_chunks(card):
+    """Pinned buffers, a side stream and an event per chunk: the chunks on
+    the card equal the CPU's, in order."""
+    from repro_torch.data.stream import ChunkPrefetcher
+
+    def batch_fn(t):
+        rng = np.random.default_rng((1, t))
+        return {"tokens": rng.integers(0, 50, (4, 2, 16)).astype(np.int32)}
+
+    with ChunkPrefetcher(batch_fn, 9, 2, 2, device=card) as pf, \
+            ChunkPrefetcher(batch_fn, 9, 2, 2, device="cpu") as host:
+        while chunks := pf.take(1):
+            want = host.take(1)[0]
+            got = chunks[0]["tokens"]
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), want["tokens"])
+        assert host.take(1) == []
+
+
 FLASH = [(2, 100, 100, 32, 32, 80, True, None, 0),
          (1, 130, 130, 16, 2, 64, True, None, 0),
          (2, 77, 77, 8, 1, 128, True, None, 0),
@@ -274,16 +385,18 @@ def _reduced_llm_steps(card, plain: bool, steps: int = 2):
 
 @pytest.mark.cuda
 def test_llm_train_steps_kernel_vs_plain(card):
-    """Two steps: the kernel path launches flash fwd/bwd n_layers x
-    n_workers times a step and compress, decompress and CWTM once; it
-    agrees with the plain path (same seed and draws) within rtol 5e-3 on
+    """Two steps (the plan's default bfloat16 banks): the kernel path
+    launches flash fwd/bwd n_layers x n_workers times a step and compress,
+    the momentum kernel and CWTM once (the payload route: no decompress);
+    it agrees with the plain path (same seed and draws) within rtol 5e-3 on
     the honest loss and 2e-2 on |R| (bf16 rounding in the attention
     kernels)."""
     K.reset_launches()
     kern = _reduced_llm_steps(card, plain=False)
     got = K.launches()
     assert got["flash_fwd"] == got["flash_bwd"] == 2 * 8 * 2
-    assert got["block_compress"] == got["block_decompress"] == 2
+    assert got["block_compress"] == got["momentum_scatter"] == 2
+    assert got["block_decompress"] == 0
     assert got["cwtm"] == 2 and got["pairdist"] == 0
     K.reset_launches()
     plain = _reduced_llm_steps(card, plain=True)

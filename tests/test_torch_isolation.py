@@ -93,7 +93,7 @@ def test_llm_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TR.run(["--arch", "stablelm_3b", "--steps", "1"])
     with pytest.raises(ValueError, match="not ported"):
-        TR.run(["--arch", "stablelm_3b", "--device", "cpu", "--stream"])
+        TR.run(["--arch", "gemma_2b", "--device", "cpu", "--stream"])
     out = []
     res = TR.run(["--arch", "stablelm_3b", "--steps", "2", "--f", "1",
                   "--device", "cpu"], log=out.append)

@@ -42,18 +42,19 @@ def _overrides(sp, agg, atk):
             "attack": atk(name="alie")}
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """Three steps of the reference (compiled once) and of the port, from
-    the same parameters, batches and block ids."""
+def _run_both(jov, ov, steps=STEPS, use_pallas=True):
+    """``steps`` steps of the reference (compiled once) and of the port,
+    from the same parameters, batches and block ids; ``jov`` and ``ov``
+    are the two packages' plan overrides."""
     jmodel = jax_get_arch("stablelm_3b").model.reduced(
         n_layers=2, d_model=256).with_overrides(vocab_size=512,
                                                 use_flash_attention=False)
     shape = ("host_train", SEQ, N, "train")
     mesh = make_host_mesh()
-    jov = _overrides(JSp, JAgg, JAtk)
+    jov = dict(jov)
     jov["sparsifier"] = JSp(kind="block", ratio=0.05, block_size=512,
-                            use_pallas=True)
+                            local=jov["sparsifier"].local,
+                            use_pallas=use_pallas)
     jplan = JS.make_train_plan(JArchSpec(jmodel, "test"), JInputShape(*shape),
                                mesh, jov, n_workers=N)
     jstep = jax.jit(JS.build_train_step(jplan, mesh))
@@ -65,18 +66,21 @@ def runs():
                            jnp.zeros((), jnp.int32), key)
     rng = np.random.default_rng(0)
     batches = [TR.make_batch(rng, jmodel.vocab_size, N, 1, SEQ)
-               for _ in range(STEPS)]
+               for _ in range(steps)]
     # the block ids along the reference's key chain: steps.py:131 splits
     # (key, round_key), algorithms.py:819 (mask_key, atk_key),
-    # compression.py:275 permutes the block ids
+    # compression.py:275 permutes the block ids (local masks and dasha:
+    # compression.py:175 splits the mask key per worker first)
     nb = d // 512
     kb = max(1, int(round(0.05 * nb)))
+    local = jplan.algo.sparsifier.local or jplan.algo.name == "dasha"
     ids = []
     ref = {"loss": [], "dir_norm": [], "payload": []}
     for b in batches:
         key, round_key = jax.random.split(key)
         mask_key, _ = jax.random.split(round_key)
-        ids.append(np.asarray(jax.random.permutation(mask_key, nb)[:kb]))
+        keys = jax.random.split(mask_key, N) if local else [mask_key]
+        ids += [np.asarray(jax.random.permutation(k, nb)[:kb]) for k in keys]
         with mesh:
             jstate, m = jstep(jstate, {"tokens": jnp.asarray(b)})
         ref["loss"].append(float(m["loss"]))
@@ -84,12 +88,12 @@ def runs():
         ref["payload"].append(float(m["payload_floats_per_worker"]))
     ref["params"] = [np.asarray(a) for a in
                      jax.tree_util.tree_leaves(jstate.params)]
+    ref["momentum"] = np.asarray(jstate.server.momentum.astype(jnp.float32))
 
     model = get_arch("stablelm_3b").model.reduced(
         n_layers=2, d_model=256).with_overrides(vocab_size=512)
-    plan = S.make_train_plan(ArchSpec(model, "test"), InputShape(*shape),
-                             _overrides(SparsifierConfig, AggregatorConfig,
-                                        AttackConfig), n_workers=N)
+    plan = S.make_train_plan(ArchSpec(model, "test"), InputShape(*shape), ov,
+                             n_workers=N)
     step = S.build_train_step(plan, device="cpu")
     state = S.TrainState(from_jax_params(p0),
                          Alg.init_state(plan.algo, d, device="cpu"), 0,
@@ -101,12 +105,22 @@ def runs():
         port["dir_norm"].append(float(m["dir_norm"]))
         port["payload"].append(m["payload_floats_per_worker"])
     port["params"] = [t.numpy() for t in tree_leaves(state.params)]
+    port["momentum"] = state.server.momentum.float().numpy()
+    port["state"] = state
     port["draws_left"] = state.draws.remaining
     port["plan"] = plan
     ref["plan"] = jplan
     ref["p0"] = jax.tree_util.tree_leaves(p0)
     ref["ids"] = ids
     return ref, port
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Three steps of both packages: RoSDHB, float32 banks."""
+    return _run_both(_overrides(JSp, JAgg, JAtk),
+                     _overrides(SparsifierConfig, AggregatorConfig,
+                                AttackConfig))
 
 
 def test_plans_agree(runs):
@@ -152,3 +166,105 @@ def test_parameters_after_three_steps_match(runs):
     assert 0.8 < untouched.mean() < 0.9
     np.testing.assert_array_equal(got[untouched], p0[untouched])
     np.testing.assert_array_equal(want[untouched], p0[untouched])
+
+
+# ----------------------------------------------------------------------- #
+# the launcher's other options: bfloat16 banks, dasha
+# ----------------------------------------------------------------------- #
+
+
+def test_plan_defaults_to_bf16_banks_as_the_reference():
+    """``make_train_plan`` with no overrides: bfloat16 server banks in both
+    packages (the reference's default, ``steps.py:111``)."""
+    jmodel = jax_get_arch("stablelm_3b").model.reduced(n_layers=1,
+                                                       d_model=64)
+    model = get_arch("stablelm_3b").model.reduced(n_layers=1, d_model=64)
+    shape = ("host_train", 16, N, "train")
+    jplan = JS.make_train_plan(JArchSpec(jmodel, "test"), JInputShape(*shape),
+                               make_host_mesh(), n_workers=N)
+    plan = S.make_train_plan(ArchSpec(model, "test"), InputShape(*shape),
+                             n_workers=N)
+    assert plan.algo.momentum_dtype == jplan.algo.momentum_dtype == "bfloat16"
+    bank = Alg.init_state(plan.algo, 64, device="cpu").momentum
+    jbank = JAlg.init_state(jplan.algo, 64).momentum
+    assert bank.dtype == torch.bfloat16 and str(jbank.dtype) == "bfloat16"
+    assert (plan.algo.name, plan.algo.f, plan.algo.sparsifier.kind) == (
+        jplan.algo.name, jplan.algo.f, jplan.algo.sparsifier.kind)
+
+
+def _launcher_overrides(argv):
+    """The plan overrides the reference's launcher builds from ``argv``
+    (``repro/launch/train.py:76-88``), and the port's plan from the same
+    flags."""
+    args = TR.parse_args(argv + ["--device", "cpu"])
+    jov = {"name": args.algo, "gamma": args.gamma,
+           "momentum_dtype": args.momentum_dtype,
+           "sparsifier": JSp(kind="block", ratio=args.ratio, block_size=512,
+                             local=args.local_masks),
+           "attack": JAtk(name=args.attack),
+           "f": args.f, "aggregator": JAgg(name="cwtm", f=max(args.f, 1))}
+    return jov, TR.setup(args)["plan"]
+
+
+@pytest.mark.parametrize("flags", [["--momentum-dtype", "bfloat16"],
+                                   ["--algo", "dasha"], ["--local-masks"],
+                                   ["--stream", "--chunk-size", "2"]])
+def test_launcher_flags_give_the_reference_plan(flags):
+    jov, plan = _launcher_overrides(["--arch", "stablelm_3b", "--f", "1",
+                                     "--gamma", "0.5"] + flags)
+    a = plan.algo
+    assert (a.name, a.momentum_dtype, a.gamma, a.f, a.sparsifier.local,
+            a.sparsifier.ratio, a.attack.name, a.aggregator.f) == (
+        jov["name"], jov["momentum_dtype"], jov["gamma"], jov["f"],
+        jov["sparsifier"].local, jov["sparsifier"].ratio,
+        jov["attack"].name, jov["aggregator"].f)
+
+
+@pytest.fixture(scope="module")
+def runs_bf16():
+    """Three steps of both packages with bfloat16 banks (the reference's
+    jnp compressor: its default here)."""
+    jov = {**_overrides(JSp, JAgg, JAtk), "momentum_dtype": "bfloat16"}
+    ov = {**_overrides(SparsifierConfig, AggregatorConfig, AttackConfig),
+          "momentum_dtype": "bfloat16"}
+    return _run_both(jov, ov, use_pallas=None)
+
+
+def test_bf16_banks_match_the_reference(runs_bf16):
+    """bfloat16 wire and momentum bank in both packages; the honest loss
+    and |R| within the float32 run's bounds (the bf16 gradients dominate
+    the difference, the banks' rounding adds 2^-9 relative); coordinates in
+    no selected block keep their parameters bitwise."""
+    ref, port = runs_bf16
+    assert port["state"].server.momentum.dtype == torch.bfloat16
+    assert port["draws_left"] == 0
+    np.testing.assert_allclose(port["loss"], ref["loss"], rtol=2e-3)
+    np.testing.assert_allclose(port["dir_norm"], ref["dir_norm"], rtol=2e-2)
+    sel = np.zeros(port["plan"].flat_spec.padded_size // 512, bool)
+    for ids in ref["ids"]:
+        sel[ids] = True
+    untouched = ~np.repeat(sel, 512)
+    assert (port["momentum"][:, untouched] == 0).all()
+    assert (ref["momentum"][:, untouched] == 0).all()
+
+
+@pytest.fixture(scope="module")
+def runs_dasha():
+    jov = {**_overrides(JSp, JAgg, JAtk), "name": "dasha"}
+    ov = {**_overrides(SparsifierConfig, AggregatorConfig, AttackConfig),
+          "name": "dasha"}
+    return _run_both(jov, ov)
+
+
+def test_dasha_steps_match_the_reference(runs_dasha):
+    """Byz-DASHA-PAGE through the train step, per-worker block ids: the
+    honest loss within rtol 2e-3 and |R| within rtol 2e-2 at each step (the
+    float32 run's bounds: bf16 gradients rounded at other places), and the
+    full state (float32 MVR momentum, mirror and previous gradients)."""
+    ref, port = runs_dasha
+    assert port["draws_left"] == 0
+    srv = port["state"].server
+    assert srv.mirror is not None and srv.prev_grad.dtype == torch.float32
+    assert port["payload"] == ref["payload"]
+    np.testing.assert_allclose(port["loss"], ref["loss"], rtol=2e-3)
+    np.testing.assert_allclose(port["dir_norm"], ref["dir_norm"], rtol=2e-2)
