@@ -25,7 +25,10 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    dense round (momentum bitwise, direction within rtol 1e-5); flash
    attention forward and backward against the plain version in float32 at
    awkward shapes (ragged lengths, GQA, MQA, windows, offsets, head dims
-   64/80/128) and at the LLM step's ``[1, 4096, 32, 80]``. Times of the
+   64/80/128, the Hopper kernels' tile edges) and at the LLM step's
+   ``[1, 4096, 32, 80]``, where two backward runs must be bitwise equal;
+   the flash kernels' ptxas registers and spills, and their SASS must hold
+   ``wgmma`` (HGMMA) and TMA (UTMALDG) and no WMMA (HMMA). Times of the
    kernel, the plain version and a PyTorch library call beside the least
    time the card could take;
 4. main path, CNN: the ``fig1-alie`` RoSDHB cell (n=13, f=3, global RandK
@@ -141,6 +144,16 @@ FLASH_AWKWARD = [(2, 100, 100, 32, 32, 80, True, None, 0),
                  (2, 64, 192, 8, 1, 64, True, None, 128),
                  (1, 96, 160, 32, 32, 128, True, 40, 64),
                  (1, 70, 90, 16, 2, 80, False, None, 0)]
+# At the Hopper kernels' tile edges (blocks of 128 rows or keys, streamed
+# tiles of 128 keys forward and 64 rows or keys backward), at each head dim:
+# GQA with B = 2 at a tile + 1, MQA at a tile - 1, a window across a tile
+# boundary, q_offset > 0 with Sq < Sk, and a ragged non-causal case.
+FLASH_AWKWARD += [case for d in (64, 80, 128) for case in (
+    (2, 129, 129, 8, 2, d, True, None, 0),
+    (1, 127, 127, 8, 1, d, True, None, 0),
+    (1, 257, 257, 4, 2, d, True, 100, 0),
+    (2, 65, 193, 4, 1, d, True, 70, 128),
+    (1, 63, 191, 8, 2, d, False, None, 0))]
 FLASH_PATH = (1, LLM_SEQ, LLM_SEQ, 32, 32, 80, True, None, 0)
 # Kernel against the plain version in float32 from the same bf16 inputs,
 # as max |err| / max |plain|: the kernel rounds P (and dS) to bf16 before
@@ -148,6 +161,16 @@ FLASH_PATH = (1, LLM_SEQ, LLM_SEQ, 32, 32, 80, True, None, 0)
 # (relative 2^-9); sums over up to 4096 keys run in float32.
 FLASH_TOL_OUT = 1e-2
 FLASH_TOL_GRAD = 2e-2
+# The same comparison tile by tile: rms(err) / rms(plain) over each block of
+# FLASH_TILE_ROWS query rows (out, dq) or keys (dk, dv) of one head, at the
+# worst block. The largest entries of out and of the gradients sit in the
+# first rows and keys of a causal mask, so the bounds above cannot see one
+# 128-key tile dropped for the last 64 rows of the path: that moves max|err|
+# by less than 1e-2 max|plain|, and these measures by 0.03 (dk, dv) to 0.2
+# (out, dq). The kernels read 0.002 to 0.0053 in every case on an H100.
+FLASH_TILE_ROWS = 64
+FLASH_TILE_TOL_OUT = 1e-2
+FLASH_TILE_TOL_GRAD = 1e-2
 
 
 def log(msg: str) -> None:
@@ -547,6 +570,48 @@ def flash_pairs(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
     return total
 
 
+def tile_rel_err(torch, got, want, rows: int = FLASH_TILE_ROWS) -> float:
+    """Worst block of ``rows`` rows of one head of ``[B, S, heads, D]``
+    tensors: rms(got - want) / rms(want); a block whose plain values are
+    all zero reads 0 if the kernel's are too, else inf."""
+    import torch.nn.functional as Fn
+    diff = got.detach().float() - want.detach().float()
+    err = Fn.pad(diff.pow(2).sum(-1), (0, 0, 0, -want.shape[1] % rows))
+    ref = Fn.pad(want.detach().float().pow(2).sum(-1),
+                 (0, 0, 0, -want.shape[1] % rows))
+    err, ref = (t.unflatten(1, (-1, rows)).sum(2) for t in (err, ref))
+    ratio = torch.where(ref > 0, (err / ref).sqrt(),
+                        torch.where(err > 0, math.inf, 0.0))
+    return float(ratio.max())
+
+
+def flash_fault_readings(torch, case, seed: int,
+                         device: str = "cuda") -> dict:
+    """What :func:`tile_rel_err` reads for out, dq, dk and dv when one tile
+    is dropped: the plain version of one head of ``case``, with and without
+    the pairs of its last 64 query rows and the 128 keys from the last
+    row's first visible key. That is the fault the check must catch: the
+    smallest tile of any of the kernels, where most keys share each row."""
+    from repro_torch.kernels.flash_attention import attention_mask
+    _, sq, sk, _, _, d, causal, window, q_offset = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, dout = (torch.randn((1, s, 1, d), generator=gen, device=device)
+                     .to(torch.bfloat16).float() for s in (sq, sk, sk, sq))
+    mask = attention_mask(sq, sk, causal, window, q_offset, device)
+    first = int(mask[-1].nonzero()[0])
+    drop = mask.clone()
+    drop[max(0, sq - 64):, first:first + 128] = False
+
+    def plain(visible):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        logits = torch.einsum("bqhd,bkhd->bhqk", *leaves[:2]) / math.sqrt(d)
+        probs = torch.softmax(logits.masked_fill(~visible, -1e30), dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", probs, leaves[2])
+        return [o, *torch.autograd.grad(o, leaves, dout)]
+    return {name: tile_rel_err(torch, bad, good) for name, bad, good in
+            zip(("out", "dq", "dk", "dv"), plain(drop), plain(mask))}
+
+
 def flash_case(torch, case, timed: bool, seed: int,
                device: str = "cuda") -> dict:
     """Flash forward and backward against the plain version computed in
@@ -571,23 +636,35 @@ def flash_case(torch, case, timed: bool, seed: int,
     o_ref = attention_ref(*fl, **kw)
     grads_ref = torch.autograd.grad(o_ref, fl, dout.float())
     errs, ok = {}, True
-    for name, got, want, tol in [("out", o, o_ref, FLASH_TOL_OUT)] + [
-            (n_, g_, w_, FLASH_TOL_GRAD) for n_, g_, w_ in
-            zip(("dq", "dk", "dv"), grads, grads_ref)]:
+    for name, got, want, tol, tile_tol in [
+            ("out", o, o_ref, FLASH_TOL_OUT, FLASH_TILE_TOL_OUT)] + [
+            (n_, g_, w_, FLASH_TOL_GRAD, FLASH_TILE_TOL_GRAD) for n_, g_, w_
+            in zip(("dq", "dk", "dv"), grads, grads_ref)]:
         err = float((got.detach().float() - want.detach()).abs().max())
         scale = float(want.detach().abs().max())
         errs[name] = err
-        ok = ok and got.shape == want.shape and math.isfinite(err) and \
-            err <= tol * scale
         errs[name + "_rel"] = err / scale
+        errs[name + "_tile"] = tile_rel_err(torch, got, want)
+        ok = ok and got.shape == want.shape and math.isfinite(err) and \
+            err <= tol * scale and errs[name + "_tile"] <= tile_tol
     del fl, o_ref, grads_ref
     rec = {"case": list(case), "errs": errs, "ok": ok,
            "tolerance": f"max|err| <= {FLASH_TOL_OUT:g} max|plain| (out), "
-                        f"{FLASH_TOL_GRAD:g} max|plain| (dq, dk, dv)"}
+                        f"{FLASH_TOL_GRAD:g} max|plain| (dq, dk, dv); "
+                        f"worst {FLASH_TILE_ROWS}-row tile rms(err) <= "
+                        f"{FLASH_TILE_TOL_OUT:g} rms(plain) (out), "
+                        f"{FLASH_TILE_TOL_GRAD:g} (dq, dk, dv)"}
     if timed:
         from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
                                                          flash_fwd_cuda)
         o_k, lse = flash_fwd_cuda(q, k, v, **kw)
+        # no atomics: two backward runs are bitwise equal
+        runs = [flash_bwd_cuda(q, k, v, o_k, lse, dout, **kw)
+                for _ in range(2)]
+        rec["bwd_bitwise_repeat"] = all(
+            torch.equal(a, b_) for a, b_ in zip(*runs))
+        rec["ok"] = rec["ok"] and rec["bwd_bitwise_repeat"]
+        del runs
         pairs = flash_pairs(sq, sk, causal, window, q_offset)
         fwd_ops = 4 * b * h * d * pairs
         io = q.numel() * 2 * 2 + k.numel() * 2 * 2  # q, o, k, v
@@ -643,7 +720,10 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH) -> list:
         e = rec["errs"]
         line = (f"kernel flash {case}: rel err out {e['out_rel']:.3g} dq "
                 f"{e['dq_rel']:.3g} dk {e['dk_rel']:.3g} dv {e['dv_rel']:.3g}"
-                f" ({rec['tolerance']}) {'ok' if rec['ok'] else 'FAIL'}")
+                f"; tile rel rms out {e['out_tile']:.3g} dq "
+                f"{e['dq_tile']:.3g} dk {e['dk_tile']:.3g} dv "
+                f"{e['dv_tile']:.3g} ({rec['tolerance']}) "
+                f"{'ok' if rec['ok'] else 'FAIL'}")
         for name in ("flash_fwd", "flash_bwd"):
             if name in rec:
                 t = rec[name]
@@ -652,11 +732,43 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH) -> list:
                          f"{t['plain_ms']:.5f} bound_ms={t['bound_ms']:.5f}"
                          f" ({t['bound_by']}) library_ms="
                          f"{'null' if lib is None else f'{lib:.5f}'}")
+                if lib:
+                    line += f" kernel/library={t['ms'] / lib:.3f}"
+                line += f" bound/kernel={t['bound_ms'] / t['ms']:.3f}"
         if "library_fwd_bwd_ms" in rec:
             line += f" | sdpa fwd+bwd ms={rec['library_fwd_bwd_ms']:.5f}"
+        if "bwd_bitwise_repeat" in rec:
+            line += (f" | two backward runs bitwise equal: "
+                     f"{rec['bwd_bitwise_repeat']}")
         log(line)
         if not rec["ok"]:
             failures.append(str(case))
+    # the tile check would fail a kernel that dropped one tile on the path
+    fault = flash_fault_readings(torch, path, seed=499, device=device)
+    tols = {"out": FLASH_TILE_TOL_OUT, "dq": FLASH_TILE_TOL_GRAD,
+            "dk": FLASH_TILE_TOL_GRAD, "dv": FLASH_TILE_TOL_GRAD}
+    log(f"flash {path}: one dropped tile reads tile rel rms " + ", ".join(
+        f"{n} {r:.3g}" for n, r in fault.items()) + " (must exceed twice "
+        "the tile bounds)")
+    failures += [f"a dropped tile reads {n} {r:.3g}, within twice its "
+                 f"bound" for n, r in fault.items() if r <= 2 * tols[n]]
+    for name, regs in sorted(FLASH_PTXAS.items()):
+        log(f"flash ptxas {name}: {regs['registers']} registers, spill "
+            f"stores {regs['spill_stores']} B, spill loads "
+            f"{regs['spill_loads']} B")
+    if device == "cuda":
+        from repro_torch.kernels import build
+        sass = sass_counts(build.library_path("flash_attention"))
+        if not sass:
+            failures.append("no flash kernel in cuobjdump -sass")
+        for name, ops in sorted(sass.items()):
+            log(f"flash sass {name}: " + ", ".join(
+                f"{op} {n}" for op, n in ops.items()))
+            # the attention kernels run on wgmma and TMA, never on WMMA
+            if "delta" not in name and (not ops["HGMMA"] or
+                                        not ops["UTMALDG"] or ops["HMMA"]):
+                failures.append(f"{name} SASS {ops}")
+        FLASH_SASS.update(sass)
     if failures:
         raise AssertionError(f"flash kernels disagree: {failures}")
     return out
@@ -1160,6 +1272,17 @@ def kernel_record(results, randk, flash, cnn, quad, llm) -> dict:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": shape})
+        if name.startswith("flash"):
+            d = shape[5]
+            kernels = (["flash_fwd_kernel"] if name == "flash_fwd" else
+                       ["flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                        "flash_bwd_dq_kernel"])
+            record["kernels"][-1]["kernel_over_library"] = (
+                t["ms"] / t["library_ms"] if t["library_ms"] else None)
+            record["kernels"][-1]["ptxas"] = {
+                k: FLASH_PTXAS.get(f"{k}<{d}>") for k in kernels}
+            record["kernels"][-1]["sass"] = {
+                k: FLASH_SASS.get(f"{k}<{d}>") for k in kernels}
     # decompress runs on the main path no more; the local-mask run keeps it
     decompress = next(k for k in record["kernels"]
                       if k["name"] == "block_decompress")
@@ -1183,23 +1306,64 @@ def kernel_record(results, randk, flash, cnn, quad, llm) -> dict:
     return record
 
 
-def ptxas_summary(report: str) -> list:
-    """One line per compiled kernel from ``-Xptxas -v``: its name (with its
-    first integer template argument), registers, shared memory and any
-    spills."""
+def ptxas_table(report: str) -> dict:
+    """``{kernel<D>: {"registers", "spill_stores", "spill_loads"}}`` from
+    ``-Xptxas -v`` (the registers a thread starts with; ``setmaxnreg`` then
+    moves them between warpgroups)."""
     import re
-    out, name, spill = [], "?", ""
+    out, name, spill = {}, None, (0, 0)
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"\d([a-z][a-z0-9_]*?kernel)(?:IL[ij](\d+)E)?",
-                          line)
-            name = (f"{m[1]}<{m[2]}>" if m[2] else m[1]) if m else line
-            spill = ""
+            m = re.search(r"\d+([a-z_]+_kernel)(?:IL[ij](\d+)E)?", line)
+            name = (f"{m[1]}<{m[2]}>" if m and m[2] else
+                    (m[1] if m else None))
+            spill = (0, 0)
         elif "spill stores" in line:
-            spill = ("" if ", 0 bytes spill stores" in line
-                     else " | " + line.strip())
-        elif "Used" in line and "registers" in line:
-            out.append(f"{name}: {line.split(':', 1)[-1].strip()}{spill}")
+            nums = re.findall(r"(\d+) bytes spill", line)
+            spill = (int(nums[0]), int(nums[1])) if len(nums) == 2 else spill
+        elif "Used" in line and "registers" in line and name:
+            regs = int(re.search(r"Used (\d+) registers", line)[1])
+            key = name
+            while key in out:  # instances that differ only in their types
+                key += "'"
+            out[key] = {"registers": regs, "spill_stores": spill[0],
+                        "spill_loads": spill[1]}
+    return out
+
+
+#: ptxas's registers and spills of the flash kernels, from this run's build.
+FLASH_PTXAS: dict = {}
+#: Hopper instructions in each flash kernel's SASS (``cuobjdump -sass``):
+#: HGMMA (wgmma), UTMALDG (TMA loads), HMMA (mma.sync, what WMMA becomes).
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+FLASH_SASS: dict = {}
+
+
+def sass_counts(library: Path) -> dict:
+    """``{kernel<D>: {op: count}}`` for the flash kernels of ``library``,
+    from ``cuobjdump -sass`` (beside ``nvcc``); raises if the tool is
+    missing or fails."""
+    import re
+    import shutil
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    tool = Path(nvcc).parent / "cuobjdump"
+    if not tool.exists():
+        raise FileNotFoundError(f"no cuobjdump beside {nvcc}: the flash "
+                                f"kernels' instructions cannot be checked")
+    sass = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"\d+([a-z_]+_kernel)ILi(\d+)E", line)
+            name = f"{m[1]}<{m[2]}>" if m and "flash" in m[1] else None
+            if name:
+                out[name] = {op: 0 for op in SASS_OPS}
+        elif name:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    out[name][op] += 1
     return out
 
 
@@ -1229,8 +1393,13 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s wall")
     for name, (secs, report) in build.BUILD_LOG.items():
         log(f"build {name}: {secs:.2f} s")
-        for line in ptxas_summary(report):
-            log(f"  ptxas {line}")
+        table = ptxas_table(report)
+        for kernel, regs in table.items():
+            log(f"  ptxas {kernel}: {regs['registers']} registers, spill "
+                f"stores {regs['spill_stores']} B, spill loads "
+                f"{regs['spill_loads']} B")
+        if name == "flash_attention":
+            FLASH_PTXAS.update(table)
 
     phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else None
 

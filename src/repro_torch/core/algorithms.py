@@ -198,16 +198,21 @@ def _rosdhb_apply(cfg: AlgorithmConfig, agg, state: ServerState,
                   wire: torch.Tensor, hparams) -> Tuple[torch.Tensor,
                                                         ServerState]:
     # Step 5: per-worker momentum m = beta*m_prev + (1-beta)*wire in
-    # float32, written as one fused multiply-add onto (1-beta)*wire:
-    # torch.add with alpha is an FMA on the CPU and on the card, the
-    # rounding XLA's fusion gives the reference's compiled round on float32
-    # banks (on bfloat16 banks it contracts the other product: ROADMAP
-    # Queue 3). The momentum kernel rounds the same way. The add is
-    # in place on the fresh product (one [n, D] buffer fewer); the wire
-    # itself may be the caller's gradients (sparsifier 'none') and is left
-    # alone.
+    # float32, as one fused multiply-add (torch.add with alpha is an FMA on
+    # the CPU and on the card) that rounds as XLA's fusion of the
+    # reference's compiled round does: onto (1-beta)*wire on float32 banks,
+    # fma(beta, m, (1-beta) w); onto beta*m_prev on bfloat16 banks,
+    # fma(1-beta, w, beta m) (ROADMAP Queue 3). The momentum kernel rounds
+    # the same way. The add is in place on the fresh product (one [n, D]
+    # buffer fewer); the wire itself may be the caller's gradients
+    # (sparsifier 'none') and is left alone.
     beta, one_m_beta = hparams[0], hparams[2]
-    m = (wire.float() * one_m_beta).add_(state.momentum.float(), alpha=beta)
+    if state.momentum.dtype == torch.bfloat16:
+        m = (state.momentum.float() * beta).add_(wire.float(),
+                                                 alpha=one_m_beta)
+    else:
+        m = (wire.float() * one_m_beta).add_(state.momentum.float(),
+                                             alpha=beta)
     # Step 6: robust aggregation of the float32 momenta; the bank keeps
     # their rounding to momentum_dtype.
     r = agg(m)

@@ -9,9 +9,10 @@
 //
 //   compress:   payload[r, j*bs + t] = cast(alpha * float(g[r, ids[j]*bs + t]))
 //   decompress: dense[r, i*bs + t]   = slot >= 0 ? payload[r, slot*bs + t] : 0
-//   momentum:   m[r, i*bs + t] = cast(fmaf(beta, m, slot >= 0 ?
-//                                    omb * payload[r, slot*bs + t] : 0.0f))
-//               with slot = slots[r][i] (-1 = block i not selected),
+//   momentum:   m[r, i*bs + t] = cast(fmaf(beta, m, omb * p))     (f32 bank)
+//               m[r, i*bs + t] = cast(fmaf(omb, p, beta * m))     (bf16 bank)
+//               with p = slot >= 0 ? payload[r, slot*bs + t] : 0.0f,
+//               slot = slots[r][i] (-1 = block i not selected),
 //               omb = (float)(1 - beta), everything in float32
 //
 // Ids are one [kb] vector shared by every row (a global mask, row stride 0)
@@ -37,10 +38,12 @@
 // dense wire: every destination block of the bank is read once and written
 // once (decayed, plus (1-beta) * payload where selected), in one thread
 // block per (destination block, row), four values a thread. It rounds as
-// the dense step `(wire * omb).add_(m, alpha=beta)` does with wire = 0 off
-// the selected blocks: one product omb * p, then one fused multiply-add.
-// Off the blocks it is fmaf(beta, m, 0.0f), not beta * m, so that a -0.0
-// momentum gives +0.0 as the dense step's `+0.0 + beta * m` does. A
+// the dense step does with wire = 0 off the selected blocks: one product,
+// then one fused multiply-add; on a float32 bank `(wire * omb).add_(m,
+// alpha=beta)`, on a bfloat16 bank `(m * beta).add_(wire, alpha=omb)`, the
+// two products XLA contracts in the reference's compiled round. Off the
+// blocks the fused add of a +0.0 product stays, not a bare beta * m, so
+// that a -0.0 momentum gives +0.0 as the dense step's does. A
 // bfloat16 bank is updated in float32 and rounded once to nearest even;
 // the unrounded float32 result can be written to a second [n, d] output
 // too (the aggregation reads that one, as the reference aggregates the
@@ -49,6 +52,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -138,14 +143,20 @@ __global__ void momentum_kernel(TM* __restrict__ m,
   const long long at = (r * nb + i) * bs + 4 * threadIdx.x;
   const float4 mv = load4(m + at);
   float4 o;
-  if (slot >= 0) {
-    const float4 p = load4(payload + (r * kb + slot) * (long long)bs +
-                           4 * threadIdx.x);
+  // The dense step's rounding, chosen by the bank's dtype as XLA contracts
+  // the reference's compiled round: fma(beta, m, (1-beta) p) on a float32
+  // bank, fma(1-beta, p, beta m) on a bfloat16 one. Off the selected
+  // blocks p is +0.0, which turns a -0.0 momentum into +0.0 as there.
+  constexpr bool kBf16Bank = std::is_same<TM, __nv_bfloat16>::value;
+  float4 p = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (slot >= 0)
+    p = load4(payload + (r * kb + slot) * (long long)bs + 4 * threadIdx.x);
+  if (kBf16Bank) {
+    o = make_float4(fmaf(omb, p.x, beta * mv.x), fmaf(omb, p.y, beta * mv.y),
+                    fmaf(omb, p.z, beta * mv.z), fmaf(omb, p.w, beta * mv.w));
+  } else {
     o = make_float4(fmaf(beta, mv.x, omb * p.x), fmaf(beta, mv.y, omb * p.y),
                     fmaf(beta, mv.z, omb * p.z), fmaf(beta, mv.w, omb * p.w));
-  } else {
-    o = make_float4(fmaf(beta, mv.x, 0.0f), fmaf(beta, mv.y, 0.0f),
-                    fmaf(beta, mv.z, 0.0f), fmaf(beta, mv.w, 0.0f));
   }
   store4(m + at, o);
   if (out32 != nullptr) store4(out32 + at, o);

@@ -4,9 +4,11 @@ Replaces ``repro/kernels/flash_attention/flash.py:_flash_kernel`` (launched
 by ``flash_attention``). The TPU kernel is forward-only, and ``jax.grad``
 through it fails; the port trains through its kernel, so
 ``csrc/flash_attention.cu`` adds the FlashAttention-2 backward (a ``delta``
-pass, then dk/dv per key tile and dq per query tile, no atomics). Bound by
-operations at the model's shapes: WMMA bf16 tensor-core tiles with float32
-accumulation, one block of 4 warps per 64-row tile and head.
+pass, then dk/dv per 128 keys and dq per 128 query rows, no atomics). Bound
+by operations at the model's shapes: Hopper kernels (``sm_90a``) with TMA
+loads into a 2-stage mbarrier ring, ``wgmma`` products with the
+accumulators in registers, one producer and two consumer warpgroups per
+block.
 
 :class:`FlashAttention` is a ``torch.autograd.Function``: the forward saves
 the per-row log-sum-exp ``[B, H, Sq]`` in float32 for the backward.
@@ -48,6 +50,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash attention kernel takes contiguous "
                              f"[B, S, heads, D], got {name} "
                              f"{tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash attention kernel loads with TMA and "
+                             f"needs 16-byte aligned tensors, got {name}")
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -104,9 +109,10 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t, dt in (("o", o, torch.bfloat16), ("dout", dout,
                                                    torch.bfloat16),
                         ("lse", lse, torch.float32)):
-        if t.device != q.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"flash backward: {name} must be a contiguous "
-                             f"{dt} tensor on {q.device}")
+        if t.device != q.device or t.dtype != dt or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"flash backward: {name} must be a contiguous, "
+                             f"16-byte aligned {dt} tensor on {q.device}")
     if o.shape != q.shape or dout.shape != q.shape:
         raise ValueError("flash backward: o and dout must be shaped like q")
     b, sq, h, _ = q.shape

@@ -38,13 +38,19 @@ def block_decompress_ref(payload: torch.Tensor, ids: torch.Tensor,
 def momentum_scatter_ref(m: torch.Tensor, payload: torch.Tensor,
                          ids: torch.Tensor, block_size: int, beta: float,
                          f32_out: bool = False) -> torch.Tensor:
-    """The fused RoSDHB step 5 as the dense step computes it: the payload
-    times ``1 - beta`` scattered into a zeroed float32 bank, then one fused
-    multiply-add ``wire + beta * m`` (``torch.add`` with ``alpha``). ``m``
-    is updated in place (rounded to its dtype); returns ``m``, or with
-    ``f32_out`` the float32 result."""
-    wire = block_decompress_ref(payload.float() * (1.0 - beta), ids,
-                                block_size, m.shape[1])
-    out = wire.add_(m.float(), alpha=beta)
+    """The fused RoSDHB step 5 as the dense step computes it, one fused
+    multiply-add (``torch.add`` with ``alpha``) in float32: on a float32
+    bank the payload times ``1 - beta`` scattered into a zeroed bank plus
+    ``beta * m``; on a bfloat16 bank ``beta * m`` plus ``1 - beta`` times
+    the scattered payload. ``m`` is updated in place (rounded to its
+    dtype); returns ``m``, or with ``f32_out`` the float32 result."""
+    if m.dtype == torch.bfloat16:
+        wire = block_decompress_ref(payload.float(), ids, block_size,
+                                    m.shape[1])
+        out = (m.float() * beta).add_(wire, alpha=1.0 - beta)
+    else:
+        wire = block_decompress_ref(payload.float() * (1.0 - beta), ids,
+                                    block_size, m.shape[1])
+        out = wire.add_(m.float(), alpha=beta)
     m.copy_(out)
     return out if f32_out else m

@@ -288,6 +288,16 @@ FLASH = [(2, 100, 100, 32, 32, 80, True, None, 0),
          (1, 200, 200, 16, 2, 80, True, 48, 0),
          (2, 64, 192, 8, 1, 64, True, None, 128),
          (1, 70, 90, 16, 2, 80, False, None, 0)]
+# the Hopper kernels' tile edges (blocks of 128, streamed tiles of 128 keys
+# forward and 64 backward) at each head dim: GQA with B = 2 at a tile + 1,
+# MQA at a tile - 1, a window across a tile boundary, q_offset > 0 with
+# Sq < Sk, a ragged non-causal case
+FLASH += [case for d in (64, 80, 128) for case in (
+    (2, 129, 129, 8, 2, d, True, None, 0),
+    (1, 127, 127, 8, 1, d, True, None, 0),
+    (1, 257, 257, 4, 2, d, True, 100, 0),
+    (2, 65, 193, 4, 1, d, True, 70, 128),
+    (1, 63, 191, 8, 2, d, False, None, 0))]
 
 
 @pytest.mark.cuda
