@@ -12,9 +12,15 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
 2. build every CUDA kernel of the port (``nvcc``, one process per source,
    all started together);
 3. kernels: pairdist, CWTM and median against their plain PyTorch versions
-   at awkward shapes and at the main paths' shapes ``[1, 13, 11958]`` (the
-   CNN), ``[1, 13, 1048576]`` (the quadratic testbed), ``[8, 13, 1048576]``
-   and, for CWTM, ``[1, 8, 416179200]`` (the LLM step); Block-RandK
+   at awkward shapes, at the edges of pairdist's launch plan and of the
+   sorted-rank kernel's block sizes, and at the main paths' shapes
+   ``[1, 13, 11958]`` (the CNN), ``[1, 13, 1048576]`` (the quadratic
+   testbed), ``[8, 13, 1048576]`` and, for CWTM, ``[1, 8, 416179200]`` (the
+   LLM step), where each is timed as a loop (CUDA events) and by the host
+   (``perf_counter``), beside ``torch.cdist`` or ``torch.median``; pairdist
+   is bitwise equal across two launches, symmetric with an exact zero
+   diagonal, and leaves its ticket counters at zero; then the wrappers'
+   host cost piece by piece; Block-RandK
    compress and decompress bitwise against theirs at awkward shapes and at
    the LLM step's ``[8, 416179200]`` with 40,642 blocks of 512; the
    momentum update (``momentum_scatter``) bitwise against its plain
@@ -51,7 +57,11 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    ``--local-masks`` (the dense wire: decompress = 2), 4 steps with
    ``--momentum-dtype bfloat16``, and 8 steps with ``--stream --chunk-size
    4 --prefetch-depth 2 --checkpoint``, bitwise equal to a per-step run over
-   the same ``(seed, t)`` batches, its checkpoint restored bitwise.
+   the same ``(seed, t)`` batches, its checkpoint restored bitwise;
+7. the device µs and device kernels per call of pairdist, CWTM, median and
+   their library calls at the main paths' shapes, from the profiler, which
+   runs last (it slows the launches that follow it); pairdist must be one
+   device kernel a call.
 
 TF32 is off for matmuls and cuDNN convolutions throughout: the parity bars
 are float32 ones. The last line is ``{"ok": true, "device": {...}}``; the
@@ -80,6 +90,32 @@ AWKWARD = [(3, 13, 3, 300), (2, 7, 0, 130), (4, 5, 2, 257),
            (1, 19, 9, 128), (5, 4, 1, 64), (2, 16, 3, 1024)]
 PATH_SHAPES = [(1, 13, 11958), (1, 13, 1048576), (8, 13, 1048576)]
 F = 3  # fig1-alie: f = 3 Byzantine workers, CWTM trims max(f, 1) = 3
+# pairdist's launch plan at its edges (``pairdist_plan`` on 132 SMs), as
+# (B, n, d, dtype, reference): d below one tile (one CTA), exactly one
+# cluster's span (16 CTAs of one tile) and one column past it, n = 1 and
+# n = 64, rows of 129 tiles and more (clusters of 8 and the ticket; B = 3
+# with odd d, which takes 4-byte copies and the zero column), bfloat16 with
+# odd d (plain loads) and with 16-, 8- and 4-byte copies. At [1, 13,
+# 1048576] in bfloat16 the float32 plain version (cuBLAS's product) is
+# itself farther than 1e-5 max sq from the float64 distances on an H100,
+# and the kernel is not: that case is held to the float64 version at the
+# same bar, and the line prints how far the plain version is.
+PAIRDIST_EDGES = [(1, 13, 100, "float32", "plain"),
+                  (1, 13, 4096, "float32", "plain"),
+                  (1, 13, 4097, "float32", "plain"),
+                  (2, 1, 77, "float32", "plain"),
+                  (2, 64, 999, "float32", "plain"),
+                  (1, 64, 40000, "float32", "plain"),
+                  (1, 13, 33024, "float32", "plain"),
+                  (3, 13, 33025, "float32", "plain"),
+                  (3, 13, 33025, "bfloat16", "plain"),
+                  (2, 13, 11957, "bfloat16", "plain"),
+                  (1, 13, 11958, "bfloat16", "plain"),
+                  (2, 7, 130, "bfloat16", "plain"),
+                  (1, 13, 1048576, "bfloat16", "float64")]
+# The sorted-rank kernel at each block size: 64 threads (the CNN's shape
+# and the awkward ones), 128 at [1, 13, 20000], 256 at the quadratic's.
+SORT_EDGES = [(1, 13, 3, 20000), (2, 64, 20, 999), (1, 1, 0, 77)]
 
 PEAK_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
 
@@ -186,7 +222,9 @@ def gpu_line() -> str:
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    """Mean time of ``fn`` over ``reps`` back-to-back calls between two CUDA
+    events: the device's time when the device is the slower side, else the
+    host's cost per call (the loop time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -198,6 +236,56 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_us(torch, fn, reps: int) -> tuple:
+    """``(µs, device operations, names)`` per call of ``fn``: the durations
+    of the device operations the profiler (CUPTI) sees over ``reps`` calls,
+    summed and divided by the calls, with their count per call and their
+    names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = sum(e.time_range.end - e.time_range.start for e in ev)
+    return total / reps, len(ev) / reps, sorted({e.name[:60] for e in ev})
+
+
+def host_us(torch, fn, reps: int, warmup: int = 3) -> float:
+    """Host µs per call of ``fn``: ``perf_counter`` around ``reps`` calls
+    with no synchronize inside the window, after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def split_times(torch, fns: dict, reps: int, rounds: int = 5) -> dict:
+    """``{name: {"ms", "host_us"}}``: the loop time and the host µs per call
+    of each function, the median over ``rounds`` rounds in which the
+    functions take turns (forward, then backward order), so that host
+    noise falls on all of them alike; the device µs come later
+    (:func:`profile_cases`)."""
+    names = list(fns)
+    ms = {k: [] for k in names}
+    host = {k: [] for k in names}
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            ms[k].append(time_ms(torch, fns[k], reps))
+            host[k].append(host_us(torch, fns[k], reps))
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    return {k: {"ms": med(ms[k]), "host_us": med(host[k])} for k in names}
 
 
 # ----------------------------------------------------------------------- #
@@ -222,12 +310,29 @@ def bound_ms(name: str, shape, itemsize: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_case(torch, name: str, shape, f: int, dtype, timed: bool,
-                seed: int) -> dict:
+def pairdist_f64(torch, x):
+    """Pairwise squared distances in float64 (the plain version's formula):
+    the exact yardstick where the float32 plain version is not exact
+    enough."""
+    xd = x.double()
+    g = xd @ xd.mT
+    sq = g.diagonal(dim1=-2, dim2=-1)
+    return (sq[..., :, None] + sq[..., None, :] - 2.0 * g).clamp_min(0.0)
+
+
+def case_reps(shape) -> int:
+    """Calls a timing loop makes at one shape: enough for ~1 ms or more."""
+    b, n, d = shape
+    return 200 if b * n * d < 1_000_000 else (
+        20 if b * n * d < 50_000_000 else 5)
+
+
+def case_fns(torch, name: str, shape, f: int, dtype, seed: int) -> tuple:
+    """``(x, kernel, plain, library or None)`` of one case: the input made
+    from ``seed`` and the three calls on it."""
     from repro_torch.kernels.cwtm import cwtm_cuda, cwtm_ref
     from repro_torch.kernels.median import median_cuda, median_ref
     from repro_torch.kernels.pairdist import pairdist_cuda, pairdist_ref
-    b, n, d = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dtype)
     if name == "pairdist":
@@ -239,18 +344,35 @@ def kernel_case(torch, name: str, shape, f: int, dtype, timed: bool,
     else:
         kern, plain = (lambda: median_cuda(x)), (lambda: median_ref(x))
         # torch.median returns the lower middle: the same function for odd n
-        lib = ((lambda: torch.median(x, dim=1).values) if n % 2 else None)
+        lib = ((lambda: torch.median(x, dim=1).values) if shape[1] % 2
+               else None)
+    return x, kern, plain, lib
+
+
+def kernel_case(torch, name: str, shape, f: int, dtype, timed: bool,
+                seed: int, reference: str = "plain") -> dict:
+    """One kernel against its plain version at one shape (pairdist with
+    ``reference="float64"``: against :func:`pairdist_f64`); timed, its loop
+    and host times beside the plain version's and the library call's."""
+    from repro_torch.kernels.pairdist import pairdist_cuda
+    b, n, d = shape
+    x, kern, plain, lib = case_fns(torch, name, shape, f, dtype, seed)
     got = kern()
-    want = plain()
+    want = pairdist_f64(torch, x) if reference == "float64" else plain()
     torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
+    err = float((got.double() - want.double()).abs().max())
     if name == "pairdist":
+        from repro_torch.kernels.pairdist.pairdist import counters
         scale = float((x.float() ** 2).sum(-1).max())
         tol = 1e-5 * scale
         ok = tuple(got.shape) == (b, n, n) and err <= tol
         diag = got.diagonal(dim1=1, dim2=2)
-        ok = ok and bool((diag == 0).all())
-        rule = f"|d| <= 1e-5 * max sq = {tol:.3g}, diagonal exactly 0"
+        ok = ok and bool((diag == 0).all()) and torch.equal(got, got.mT)
+        # every call leaves the ticket counters at zero
+        ok = ok and not bool(counters(x.device).any())
+        rule = (f"|d| <= 1e-5 * max sq = {tol:.3g} of the {reference} "
+                f"version, diagonal exactly 0, symmetric, ticket counters "
+                f"back at 0")
     elif name == "cwtm":
         tol = 1e-5 if dtype == torch.float32 else 5e-2
         ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
@@ -264,14 +386,110 @@ def kernel_case(torch, name: str, shape, f: int, dtype, timed: bool,
     rec = {"name": name, "shape": list(shape), "f": f,
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "tolerance": rule, "ok": ok}
+    if reference == "float64":  # why the float64 version is the yardstick
+        rec["plain_err_vs_float64"] = float(
+            (plain().double() - want).abs().max())
+        rec["tolerance"] += (f"; the plain version is "
+                             f"{rec['plain_err_vs_float64']:.3g} from it")
     if timed:
-        reps = 20 if b * n * d < 50_000_000 else 5
-        rec["ms"] = time_ms(torch, kern, reps)
+        reps = case_reps(shape)
+        if name == "pairdist":
+            # no float atomics: two launches give the same bits
+            rec["bitwise_repeat"] = torch.equal(got, pairdist_cuda(x))
+            rec["ok"] = rec["ok"] and rec["bitwise_repeat"]
+        t = split_times(torch, {"kernel": kern, "library": lib} if lib
+                        else {"kernel": kern}, reps)
+        rec["kernel"], rec["library"] = t["kernel"], t.get("library")
+        rec["ms"] = t["kernel"]["ms"]
+        rec["library_ms"] = t["library"]["ms"] if lib else None
         rec["plain_ms"] = time_ms(torch, plain, reps)
-        rec["library_ms"] = time_ms(torch, lib, reps) if lib else None
+        rec["seed"], rec["reps"] = seed, reps  # for profile_cases
         rec["bound_ms"], rec["bound_by"] = bound_ms(name, shape,
                                                     x.element_size())
     return rec
+
+
+def wrapper_pieces(torch, reps: int = 10_000) -> dict:
+    """Host µs per call of each piece of the pairdist and sorted-weight
+    wrappers at the CNN shape, ``perf_counter`` over ``reps`` calls of each
+    in five rounds (no synchronize inside), beside one PyTorch op and the routes the
+    wrappers do not take (``get_device_properties``, a ``torch.device``
+    argument, ``torch.empty``, a ctypes array built per call, PyTorch's
+    private raw-stream call)."""
+    import ctypes
+    import sys as _sys
+    from repro_torch.kernels import build
+    from repro_torch.kernels.cwtm import cwtm_cuda, cwtm_weights
+    from repro_torch.kernels.median import median_cuda
+    from repro_torch.kernels.pairdist import pairdist_cuda
+    cw = _sys.modules["repro_torch.kernels.cwtm.cwtm"]
+    pd = _sys.modules["repro_torch.kernels.pairdist.pairdist"]
+    x = torch.randn((1, 13, 11958), device="cuda")
+    dev, idx = x.device, x.device.index
+    w = cwtm_weights(13, 3)
+    pairdist_cuda(x), cwtm_cuda(x, 3)  # their launch plans
+    key = (1, 13, 11958, x.dtype, idx)
+    lib = build.entry("pairdist", "pairdist")
+    null_args = [0] * len(lib.argtypes)  # the C entry refuses them at once
+    pieces = {
+        "pairdist_cuda (whole wrapper)": lambda: pairdist_cuda(x),
+        "cwtm_cuda (whole wrapper)": lambda: cwtm_cuda(x, 3),
+        "median_cuda (whole wrapper)": lambda: median_cuda(x),
+        "torch.cdist (one library call)": lambda: torch.cdist(x, x),
+        "torch.median(x, dim=1) (one library call)":
+            lambda: torch.median(x, dim=1),
+        "x.neg() (one PyTorch op)": lambda: x.neg(),
+        "pairdist _check(x)": lambda: pd._check(x),
+        "sorted-weight _check(x, w)": lambda: cw._check(x, w),
+        "x.get_device()": lambda: x.get_device(),
+        "plan lookup (key tuple, dict get)":
+            lambda: pd._LAUNCH.get((1, 13, 11958, x.dtype, idx)),
+        "cwtm_weights(13, 3) (cached)": lambda: cwtm_weights(13, 3),
+        "x.new_empty((1, 13, 13), dtype=float32)":
+            lambda: x.new_empty((1, 13, 13), dtype=torch.float32),
+        "torch.empty((1, 13, 13), device=x.device)": lambda: torch.empty(
+            (1, 13, 13), dtype=torch.float32, device=x.device),
+        "build.entry (bound C function)":
+            lambda: build.entry("pairdist", "pairdist"),
+        "x.data_ptr()": lambda: x.data_ptr(),
+        "build.stream_ptr(index)": lambda: build.stream_ptr(idx),
+        "torch.cuda.current_stream(x.device).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "torch._C._cuda_getCurrentRawStream(index) (private)":
+            lambda: torch._C._cuda_getCurrentRawStream(idx),
+        "torch.cuda.get_device_properties(dev).multi_processor_count":
+            lambda: torch.cuda.get_device_properties(
+                dev).multi_processor_count,
+        "ctypes float[13] from a list": lambda: (ctypes.c_float * 13)(
+            *[float(v) for v in w]),
+        f"ctypes call, no launch ({len(null_args)} arguments)":
+            lambda: lib(*null_args),
+        "ctypes call with the launch (pairdist, no allocation)":
+            lambda: lib(x.data_ptr(), pd_out.data_ptr(), pd_launch[0],
+                        build.stream_ptr(idx)),
+        "ctypes call with the launch (sorted_weight, no allocation)":
+            lambda: sw_lib(x.data_ptr(), sw_out.data_ptr(), sw_launch[0],
+                           build.stream_ptr(idx)),
+        "build.check(0, ...)": lambda: build.check(0, "pairdist"),
+    }
+    pd_out = torch.empty((1, 13, 13), device="cuda")
+    pd_launch = pd._LAUNCH[key]
+    sw_lib = build.entry("sorted_weight", "sorted_weight")
+    sw_out = torch.empty((1, 11958), device="cuda")
+    sw_launch = cw._LAUNCH[key + (w,)]
+    # five rounds of reps / 5 calls of each piece in turn, the median
+    runs = {label: [] for label in pieces}
+    for _ in range(5):
+        for label, fn in pieces.items():
+            runs[label].append(host_us(torch, fn, reps // 5, warmup=100))
+    out = {}
+    for label, v in runs.items():
+        out[label] = sorted(v)[2]
+        log(f"wrapper piece {out[label]:8.3f} us  {label} (median of 5 "
+            f"rounds of {reps // 5} calls)")
+    return out
 
 
 SORT_KERNELS = ("pairdist", "cwtm", "median")
@@ -292,26 +510,112 @@ def kernel_phase(torch) -> dict:
             cases.append((shape, F, torch.float32, True))
         if name == "cwtm":  # the LLM path's aggregation, f = 1
             cases.append(((1, LLM_WORKERS, LLM_D), 1, torch.float32, True))
-        for i, (shape, f, dt, timed) in enumerate(cases):
-            rec = kernel_case(torch, name, shape, f, dt, timed, seed=100 + i)
+        # the redesigned kernels' edges (after the cases above: their seeds
+        # stay as they were)
+        cases = [c + ("plain",) for c in cases]
+        if name == "pairdist":
+            cases += [((b, n, d), 0, getattr(torch, dt), False, ref)
+                      for (b, n, d, dt, ref) in PAIRDIST_EDGES]
+        else:
+            cases += [((b, n, d), f, dt, False, "plain")
+                      for (b, n, f, d) in SORT_EDGES
+                      for dt in (torch.float32, torch.bfloat16)]
+        for i, (shape, f, dt, timed, ref) in enumerate(cases):
+            rec = kernel_case(torch, name, shape, f, dt, timed, seed=100 + i,
+                              reference=ref)
             results[name].append(rec)
-            line = (f"kernel {name:8s} {str(tuple(shape)):22s} "
-                    f"{rec['dtype']:8s} f={f} max_abs_err={rec['max_abs_err']:.3g}"
-                    f" ({rec['tolerance']}) {'ok' if rec['ok'] else 'FAIL'}")
-            if timed:
-                lib = rec["library_ms"]
-                line += (f" | kernel_ms={rec['ms']:.5f} plain_ms="
-                         f"{rec['plain_ms']:.5f} library_ms="
-                         f"{'null' if lib is None else f'{lib:.5f}'}"
-                         f" bound_us={rec['bound_ms'] * 1e3:.3f}"
-                         f" ({rec['bound_by']})")
-            log(line)
+            log_case(rec)
             if not rec["ok"]:
                 failures.append(f"{name} {shape} {rec['dtype']}")
+    # the wrappers' host cost before any profiler runs in this process
+    results["wrapper_pieces"] = wrapper_pieces(torch)
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
     return results
+
+
+def device_times(torch, cases) -> dict:
+    """For each ``(name, shape, f, dtype name, seed, reps)``: the kernel's
+    and the library call's ``(device µs, device operations, names)`` per
+    call (:func:`device_us`), on the input made from the seed; and the host
+    µs of ``x.neg()`` before and after those profiler windows."""
+    x = torch.randn((1, 13, 11958), device="cuda")
+    neg = [host_us(torch, lambda: x.neg(), 10_000, warmup=100)]
+    out = []
+    for name, shape, f, dtype, seed, reps in cases:
+        _, kern, _, lib = case_fns(torch, name, tuple(shape), f,
+                                   getattr(torch, dtype), seed)
+        out.append({who: device_us(torch, fn, reps) for who, fn in
+                    (("kernel", kern), ("library", lib)) if fn is not None})
+        del kern, lib
+        torch.cuda.empty_cache()
+    neg.append(host_us(torch, lambda: x.neg(), 10_000, warmup=100))
+    return {"cases": out, "neg_host_us": neg}
+
+
+def profile_cases(torch, results, fresh_process: bool = False) -> None:
+    """Device µs and device operations per call of each timed case's kernel
+    and library call, after every timed phase: once started, the profiler
+    (CUPTI) slows the launches that follow it, and a process that has run
+    profiler windows before drops some of a later window's kernel events,
+    so ``fresh_process`` measures in a new process (``--device-times``).
+    Fails if a pairdist call is not one device kernel."""
+    cases = [(name, rec["shape"], rec["f"], rec["dtype"], rec["seed"],
+              rec["reps"]) for name in SORT_KERNELS for rec in results[name]
+             if "seed" in rec]
+    if fresh_process:
+        run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--device-times", json.dumps(cases)],
+                             capture_output=True, text=True, timeout=600,
+                             check=True)
+        times = json.loads(run.stdout.strip().splitlines()[-1])
+    else:
+        times = device_times(torch, cases)
+    recs = [rec for name in SORT_KERNELS for rec in results[name]
+            if "seed" in rec]
+    results["neg_host_us"] = times["neg_host_us"]
+    log(f"x.neg() host us per call: {times['neg_host_us'][0]:.3f} before "
+        f"the kernels' profiler windows, {times['neg_host_us'][1]:.3f} "
+        f"after")
+    failures = []
+    for rec, t in zip(recs, times["cases"]):
+        for who, (us, ops, names) in t.items():
+            rec[who].update(device_us=us, device_ops=ops, device_names=names)
+        log_case(rec)
+        if rec["name"] == "pairdist" and rec["kernel"]["device_ops"] != 1:
+            failures.append(f"pairdist {rec['shape']}: "
+                            f"{rec['kernel']['device_ops']} device "
+                            f"operations a call")
+    if failures:
+        raise AssertionError(f"pairdist is not one launch: {failures}")
+
+
+def log_case(rec) -> None:
+    name, shape, f = rec["name"], rec["shape"], rec["f"]
+    line = (f"kernel {name:8s} {str(tuple(shape)):22s} "
+            f"{rec['dtype']:8s} f={f} max_abs_err={rec['max_abs_err']:.3g}"
+            f" ({rec['tolerance']}) {'ok' if rec['ok'] else 'FAIL'}")
+    if "ms" in rec:
+        lib = rec["library_ms"]
+        line += (f" | kernel_ms={rec['ms']:.5f} plain_ms="
+                 f"{rec['plain_ms']:.5f} library_ms="
+                 f"{'null' if lib is None else f'{lib:.5f}'}"
+                 f" bound_us={rec['bound_ms'] * 1e3:.3f}"
+                 f" ({rec['bound_by']})")
+        for who in ("kernel", "library"):
+            t = rec[who]
+            if t is not None:
+                line += f" | {who}: host_us={t['host_us']:.3f}"
+            if t is not None and "device_us" in t:
+                line += (f" device_us={t['device_us']:.3f}"
+                         f" device_ops/call={t['device_ops']:g}"
+                         f" ({', '.join(t['device_names'])})")
+        if "bitwise_repeat" in rec:
+            line += (f" | two launches bitwise equal: "
+                     f"{rec['bitwise_repeat']}")
+    log(line)
+
 
 
 def _bound(nbytes: float, ops: float, ops_rate: float) -> tuple:
@@ -802,13 +1106,19 @@ def sync(torch, device: str) -> None:
         torch.cuda.synchronize()
 
 
+#: The ``__global__`` names of the port's server kernels (``csrc/``): the
+#: pairdist, sorted-weight and Block-RandK kernels.
+PORT_SERVER_KERNELS = ("pairdist_kernel", "sorted_weight_kernel",
+                       "compress_kernel", "decompress_kernel",
+                       "momentum_kernel")
+
+
 def op_kind(name: str) -> str:
     """Coarse kind of a device operation, by its kernel name."""
     low = name.lower()
     if "flash" in low:
         return "flash attention (port)"
-    if any(k in low for k in ("sorted_weight", "pairdist", "compress_kernel",
-                              "decompress_kernel", "momentum_kernel")):
+    if any(k in low for k in PORT_SERVER_KERNELS):
         return "server kernels (port)"
     if "memcpy" in low or "memset" in low:
         return "copies"
@@ -1230,6 +1540,17 @@ def llm_options(torch, device: str = "cuda", local_steps: int = 2,
     return out
 
 
+def split_record(rec) -> dict:
+    """The device and host µs per call of a timed case's kernel and
+    library call."""
+    out = {}
+    for who in ("kernel", "library"):
+        t = rec[who]
+        for k in ("device_us", "device_ops", "host_us"):
+            out[f"{who}_{k}"] = t[k] if t is not None else None
+    return out
+
+
 def kernel_record(results, randk, flash, cnn, quad, llm) -> dict:
     """The ``{"kernels": [...]}`` line: every kernel of the port, its
     launches on the main paths and its numbers at its main path's shape."""
@@ -1248,9 +1569,12 @@ def kernel_record(results, randk, flash, cnn, quad, llm) -> dict:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"],
-            "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms",
-                                          "library_ms", "bound_ms",
-                                          "max_abs_err")} for r in recs]})
+            "device_us": head["kernel"]["device_us"],
+            "host_us": head["kernel"]["host_us"],
+            "shapes": [{**{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                             "library_ms", "bound_ms",
+                                             "max_abs_err")},
+                        **split_record(r)} for r in recs]})
     timed_randk = randk["block"][-1]
     timed_flash = flash[-1]
     for name, rec, err, shape in (
@@ -1381,6 +1705,10 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if len(sys.argv) > 2 and sys.argv[1] == "--device-times":
+        # one JSON line: profile_cases in a fresh process
+        print(json.dumps(device_times(torch, json.loads(sys.argv[2]))))
+        return 0
 
     card = gpu_line()
     log(f"gpu: {card}")
@@ -1412,7 +1740,9 @@ def main() -> int:
                          ("flash", flash_phase), ("quadratic", quadratic_phase),
                          ("llm", llm_phase)):
             if want(name):
-                fn(torch)
+                out = fn(torch)
+                if name == "kernels":
+                    profile_cases(torch, out)
         log(card)
         return 3
     results = kernel_phase(torch)
@@ -1422,6 +1752,8 @@ def main() -> int:
     cnn = cnn_phase(torch)
     quad = quadratic_phase(torch)
     llm = llm_phase(torch)
+    torch.cuda.empty_cache()
+    profile_cases(torch, results, fresh_process=True)  # see profile_cases
     record = kernel_record(results, randk, flash, cnn, quad, llm)
     log(json.dumps({"summary": {
         "cnn": {k: cnn[k] for k in ("rounds", "median_round_ms", "acc",

@@ -9,14 +9,19 @@
 // Bound: device memory. The kernel reads B*n*d values once and writes B*d;
 // the sort costs sort_network_compares(N_PAD) min/max pairs per coordinate,
 // far below the card's rate for that many bytes. Design for that bound:
-//   * one thread per coordinate, 256 threads per block, grid (ceil(d/256), B);
-//     for each worker row, neighbouring threads read neighbouring addresses,
-//     so every load is coalesced;
+//   * one thread per coordinate, grid (ceil(d/threads), B); for each worker
+//     row, neighbouring threads read neighbouring addresses, so every load is
+//     coalesced. The wrapper picks 256 threads a block, or 128 or 64 where
+//     256 would leave SMs idle (the CNN's [1, 13, 11958] is 47 blocks of 256
+//     on 132 SMs, 187 of 64), from its launch plan
+//     (repro_torch/kernels/cwtm/cwtm.py: sorted_weight_threads);
 //   * the n values of a coordinate live in registers, padded with +inf to
 //     N_PAD (a power of two, a template parameter) so the padding sorts last;
 //   * the bitonic network is unrolled at compile time: no data-dependent
 //     branches, no shared memory, no second pass;
-//   * the weights (at most 64 floats) travel by value as a kernel argument.
+//   * the weights (at most 64 floats) travel by value as a kernel argument,
+//     from a plan struct the wrapper builds once per shape and weight tuple,
+//     so a call converts no weights on the host.
 // The sum is taken in rank order in float32, skipping zero weights and
 // multiplying only by weights other than one, as the TPU kernel does.
 
@@ -27,11 +32,26 @@
 namespace {
 
 constexpr int kMaxN = 64;
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;
 
 struct RankWeights {
   float w[kMaxN];
 };
+
+}  // namespace
+
+// The launch plan, built once per (B, n, d, dtype, weights, device) by the
+// wrapper (repro_torch/kernels/cwtm/cwtm.py: PlanStruct).
+struct SortedWeightPlan {
+  long long d;
+  int B;
+  int n;
+  int dtype;    // 0 = float32, 1 = bfloat16
+  int threads;  // 64, 128 or 256 a block
+  RankWeights weights;  // weights.w[i] scales the i-th smallest value
+};
+
+namespace {
 
 __device__ __forceinline__ float load_as_float(const float* p) { return *p; }
 __device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
@@ -64,10 +84,10 @@ __device__ __forceinline__ void bitonic_sort(float (&v)[N_PAD]) {
 }
 
 template <int N_PAD, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 sorted_weight_kernel(const T* __restrict__ x, T* __restrict__ out,
                      RankWeights weights, int n, long long d) {
-  const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= d) return;
   const long long b = blockIdx.y;
   const T* col = x + b * n * d + j;
@@ -88,20 +108,22 @@ sorted_weight_kernel(const T* __restrict__ x, T* __restrict__ out,
 }
 
 template <typename T>
-cudaError_t launch(const void* x, void* out, const RankWeights& w, int B,
-                   int n, long long d, cudaStream_t stream) {
-  const dim3 grid((unsigned)((d + kThreads - 1) / kThreads), (unsigned)B);
+cudaError_t launch(const void* x, void* out, const SortedWeightPlan& p,
+                   cudaStream_t stream) {
+  const unsigned t = (unsigned)p.threads;
+  const dim3 grid((unsigned)((p.d + t - 1) / t), (unsigned)p.B);
   const T* xp = static_cast<const T*>(x);
   T* op = static_cast<T*>(out);
+  const RankWeights& w = p.weights;
   int n_pad = 2;
-  while (n_pad < n) n_pad <<= 1;
+  while (n_pad < p.n) n_pad <<= 1;
   switch (n_pad) {
-    case 2: sorted_weight_kernel<2, T><<<grid, kThreads, 0, stream>>>(xp, op, w, n, d); break;
-    case 4: sorted_weight_kernel<4, T><<<grid, kThreads, 0, stream>>>(xp, op, w, n, d); break;
-    case 8: sorted_weight_kernel<8, T><<<grid, kThreads, 0, stream>>>(xp, op, w, n, d); break;
-    case 16: sorted_weight_kernel<16, T><<<grid, kThreads, 0, stream>>>(xp, op, w, n, d); break;
-    case 32: sorted_weight_kernel<32, T><<<grid, kThreads, 0, stream>>>(xp, op, w, n, d); break;
-    case 64: sorted_weight_kernel<64, T><<<grid, kThreads, 0, stream>>>(xp, op, w, n, d); break;
+    case 2: sorted_weight_kernel<2, T><<<grid, t, 0, stream>>>(xp, op, w, p.n, p.d); break;
+    case 4: sorted_weight_kernel<4, T><<<grid, t, 0, stream>>>(xp, op, w, p.n, p.d); break;
+    case 8: sorted_weight_kernel<8, T><<<grid, t, 0, stream>>>(xp, op, w, p.n, p.d); break;
+    case 16: sorted_weight_kernel<16, T><<<grid, t, 0, stream>>>(xp, op, w, p.n, p.d); break;
+    case 32: sorted_weight_kernel<32, T><<<grid, t, 0, stream>>>(xp, op, w, p.n, p.d); break;
+    case 64: sorted_weight_kernel<64, T><<<grid, t, 0, stream>>>(xp, op, w, p.n, p.d); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -109,22 +131,24 @@ cudaError_t launch(const void* x, void* out, const RankWeights& w, int B,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. weights: n host floats. Returns the
+// x: [B, n, d], out: [B, d], both of plan->dtype, contiguous. plan: the
+// launch plan (see SortedWeightPlan), weights past n zero. Returns the
 // launch's cudaError_t (0 on success); the kernel runs on `stream`.
-extern "C" int sorted_weight(const void* x, void* out, const void* weights,
-                             int B, int n, long long d, int dtype,
+extern "C" int sorted_weight(const void* x, void* out, const void* plan,
                              void* stream) {
-  if (n < 1 || n > kMaxN || B < 1 || d < 1) return (int)cudaErrorInvalidValue;
-  if ((long long)B > 65535) return (int)cudaErrorInvalidValue;
-  RankWeights w;
-  const float* wh = static_cast<const float*>(weights);
-  for (int i = 0; i < kMaxN; ++i) w.w[i] = i < n ? wh[i] : 0.0f;
+  if (x == nullptr || out == nullptr || plan == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const SortedWeightPlan& p = *static_cast<const SortedWeightPlan*>(plan);
+  if (p.n < 1 || p.n > kMaxN || p.B < 1 || p.B > 65535 || p.d < 1)
+    return (int)cudaErrorInvalidValue;
+  if (p.threads != 64 && p.threads != 128 && p.threads != 256)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) {
-    err = launch<float>(x, out, w, B, n, d, s);
-  } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(x, out, w, B, n, d, s);
+  if (p.dtype == 0) {
+    err = launch<float>(x, out, p, s);
+  } else if (p.dtype == 1) {
+    err = launch<__nv_bfloat16>(x, out, p, s);
   } else {
     err = cudaErrorInvalidValue;
   }

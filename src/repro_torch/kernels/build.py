@@ -42,12 +42,12 @@ F = ctypes.c_float
 #: an int (the ``cudaError_t`` of its launches).
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "sorted_weight": {
-        # x, out, weights (host float[n]), B, n, d, dtype, stream
-        "sorted_weight": (P, P, P, I, I, LL, I, P),
+        # x, out, plan (struct SortedWeightPlan), stream
+        "sorted_weight": (P, P, P, P),
     },
     "pairdist": {
-        # x, partial, out, B, n, d, n_splits, tiles_per_split, dtype, stream
-        "pairdist": (P, P, P, I, I, LL, I, I, I, P),
+        # x, out, plan (struct PairdistPlan), stream
+        "pairdist": (P, P, P, P),
     },
     "randk": {
         # g, ids, payload, n, d, kb, bs, ids_stride, alpha, dtype, stream
@@ -160,12 +160,31 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: launch failed with cudaError_t {err}")
 
 
-def float_array(values) -> ctypes.Array:
-    """A host ``float[]`` for a by-value kernel argument."""
-    values = [float(v) for v in values]
-    return (ctypes.c_float * len(values))(*values)
+_ENTRIES: Dict[tuple, object] = {}
+_SM_COUNTS: Dict[int, int] = {}
+
+
+def entry(name: str, fn: str):
+    """The bound C function ``fn`` of ``csrc/<name>.cu`` (built on first
+    use), kept after the first call."""
+    f = _ENTRIES.get((name, fn))
+    if f is None:
+        f = _ENTRIES[(name, fn)] = getattr(load(name), fn)
+    return f
+
+
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, read once."""
+    n = _SM_COUNTS.get(index)
+    if n is None:
+        import torch
+        n = _SM_COUNTS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
 
 
 def stream_ptr(device) -> int:
+    """The handle of the device's current stream (read on every call: the
+    caller may have made another stream current)."""
     import torch
     return torch.cuda.current_stream(device).cuda_stream

@@ -8,6 +8,7 @@ median rank weights. Here too the median is the sorted-weight kernel
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -15,6 +16,7 @@ import torch
 from repro_torch.kernels.cwtm.cwtm import sorted_weighted_cuda
 
 
+@functools.lru_cache(maxsize=None)
 def median_weights(n: int) -> Tuple[float, ...]:
     """1 at the middle sorted row (n odd), 1/2 at each of the two middle
     rows (n even): ``jnp.median``'s midpoint convention."""

@@ -7,6 +7,7 @@ entry of ``src/repro_torch/csrc/*.cu`` is held against
 their plain version tile by tile as well as by the largest entry; here that
 tile measure is shown to fail a dropped tile at every shape it checks."""
 
+import ctypes
 import re
 import sys
 from pathlib import Path
@@ -71,6 +72,72 @@ def test_the_parser_sees_a_mismatch():
     assert len(params) == 15 and _c_type(params[0]) is build.P
     assert _c_type("int q_offset") is build.I
     assert _c_type("long long d") is build.LL
+
+
+def _struct_fields(source: Path, name: str) -> list:
+    """``[(field, C type)]`` of ``struct name { ... };`` in a source."""
+    text = re.sub(r"//[^\n]*", "", source.read_text())
+    body = re.search(rf"struct\s+{name}\s*\{{([^}}]*)\}};", text)[1]
+    out = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        m = re.match(r"(.*?)\s*\b(\w+)(?:\[(\w+)\])?$",
+                     " ".join(decl.split()))
+        out.append((m[2], m[1] + (f"[{m[3]}]" if m[3] else "")))
+    return out
+
+
+def _ctypes_of(c_type: str):
+    if "*" in c_type:
+        return ctypes.c_void_p
+    if c_type == "float[kMaxN]":
+        return ctypes.c_float * 64
+    return {"long long": ctypes.c_longlong, "int": ctypes.c_int,
+            "float": ctypes.c_float}.get(c_type, c_type)
+
+
+@pytest.mark.parametrize("source,struct,py", [
+    ("pairdist", "PairdistPlan", "repro_torch.kernels.pairdist.pairdist"),
+    ("sorted_weight", "SortedWeightPlan", "repro_torch.kernels.cwtm.cwtm")])
+def test_plan_structs_match_the_c_structs(source, struct, py):
+    """The ctypes plan a wrapper hands the C entry by pointer has the C
+    struct's fields, in its order, of its types (a struct field of the
+    source is matched by its ctypes class's name)."""
+    import importlib
+    cls = importlib.import_module(py).PlanStruct
+    want = _struct_fields(build.CSRC / f"{source}.cu", struct)
+    got = [(f, t) for f, t in cls._fields_]
+    assert [f for f, _ in got] == [f for f, _ in want]
+    for (field, t), (_, c_type) in zip(got, want):
+        expect = _ctypes_of(c_type)
+        if isinstance(expect, str):  # a struct: same name, same layout
+            assert t.__name__ == expect, field
+            inner = _struct_fields(build.CSRC / f"{source}.cu", expect)
+            assert [f for f, _ in t._fields_] == [f for f, _ in inner]
+            for (_, tt), (_, ct) in zip(t._fields_, inner):
+                assert tt == _ctypes_of(ct), field
+        else:
+            assert t is expect, field
+    if struct == "SortedWeightPlan":
+        assert ctypes.sizeof(cls) == 24 + 4 * 64
+    else:
+        assert ctypes.sizeof(cls) == 8 * 3 + 4 * 8
+
+
+def test_profile_kinds_name_the_real_kernels():
+    """``chip_smoke.op_kind`` counts every ``__global__`` kernel of the
+    port's sources as a port kernel, by the names the sources give them."""
+    names = set()
+    for source in SOURCES:
+        text = re.sub(r"//[^\n]*", "", source.read_text())
+        names |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                                r"\([^)]*\)\s+)?(\w+)\s*\(", text))
+    assert names
+    server = {n for n in names if "flash" not in n}
+    assert server == set(chip_smoke.PORT_SERVER_KERNELS)
+    for n in names:
+        assert chip_smoke.op_kind(f"void (anonymous namespace)::{n}<16, "
+                                  f"float>(float const*)").endswith("(port)")
+    assert chip_smoke.op_kind("gram_partial_kernel") == "other elementwise"
 
 
 # ----------------------------------------------------------------------- #

@@ -122,6 +122,114 @@ def test_fig1_alie_rounds_card_vs_cpu(card):
     assert float((finals[0] - finals[1]).abs().max()) <= 1e-5 * scale
 
 
+# pairdist's launch plan at its edges: d below one tile, exactly one
+# cluster's span (16 CTAs of one tile) and one column past it, n = 1 and
+# n = 64, clusters of 8 with the ticket (B = 3 with odd d: 4-byte copies
+# and the zero column), bfloat16 with odd d (plain loads) and with 16-, 8-
+# and 4-byte copies, and a row start off 16 bytes (``offset``). At
+# [1, 13, 1048576] in bfloat16 the float32 plain version is itself farther
+# than 1e-5 max sq from the float64 distances (chip_smoke.py prints how
+# far): that case is held to the float64 version at the same bar.
+PAIRDIST_EDGES = [(1, 13, 100, torch.float32, 0),
+                  (1, 13, 4096, torch.float32, 0),
+                  (1, 13, 4097, torch.float32, 0),
+                  (2, 1, 77, torch.float32, 0),
+                  (2, 64, 999, torch.float32, 0),
+                  (1, 64, 40000, torch.float32, 0),
+                  (1, 13, 33024, torch.float32, 0),
+                  (3, 13, 33025, torch.float32, 0),
+                  (3, 13, 33025, torch.bfloat16, 0),
+                  (2, 13, 11957, torch.bfloat16, 0),
+                  (1, 13, 11958, torch.bfloat16, 0),
+                  (2, 7, 130, torch.bfloat16, 0),
+                  (1, 13, 1048576, torch.bfloat16, "float64"),
+                  (2, 13, 20000, torch.float32, 1),
+                  (2, 13, 20000, torch.bfloat16, 3)]
+PATH_SHAPES = [(1, 13, 11958), (1, 13, 1048576), (8, 13, 1048576)]
+
+
+def _pairdist_f64(x):
+    xd = x.double()
+    g = xd @ xd.mT
+    sq = g.diagonal(dim1=-2, dim2=-1)
+    return (sq[..., :, None] + sq[..., None, :] - 2.0 * g).clamp_min(0.0)
+
+
+def _pairdist_ok(got, x, reference="plain"):
+    """Within 1e-5 max sq of the plain (or the float64) version, an exactly
+    zero diagonal, symmetric, and the ticket counters back at zero."""
+    from repro_torch.kernels.pairdist.pairdist import counters
+    want = _pairdist_f64(x) if reference == "float64" else pairdist_ref(x)
+    b, n, _ = x.shape
+    assert got.shape == (b, n, n) and got.dtype == torch.float32
+    assert float((got.double() - want).abs().max()) <= 1e-5 * float(
+        x.float().square().sum(-1).max())
+    assert bool((got.diagonal(dim1=1, dim2=2) == 0).all())
+    assert torch.equal(got, got.mT)
+    assert not bool(counters(x.device).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,dtype,offset", PAIRDIST_EDGES)
+def test_pairdist_edges(card, b, n, d, dtype, offset):
+    """``offset``: values the row start sits past an allocation's start,
+    or "float64": the reference."""
+    skip = offset if isinstance(offset, int) else 0
+    flat = _x(1, 1, b * n * d + skip, 21, card, dtype).reshape(-1)
+    x = flat[skip:].view(b, n, d)
+    assert x.is_contiguous()
+    _pairdist_ok(pairdist_cuda(x), x,
+                 "float64" if offset == "float64" else "plain")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PATH_SHAPES)
+def test_pairdist_path_shapes_repeat_bitwise(card, shape):
+    x = _x(*shape, 22, card)
+    first = pairdist_cuda(x)
+    _pairdist_ok(first, x)
+    assert torch.equal(first, pairdist_cuda(x))
+
+
+@pytest.mark.cuda
+def test_pairdist_is_one_device_kernel_at_the_cnn_shape(card):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = _x(1, 13, 11958, 23, card)
+    pairdist_cuda(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            pairdist_cuda(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 4 and all("pairdist_kernel" in m for m in names)
+
+
+# The sorted-rank kernel at each block size (sorted_weight_threads on an
+# H100's 132 SMs): 64 threads at [1, 13, 11958], 128 at [1, 13, 20000],
+# 256 at [2, 13, 70001].
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,threads", [(11958, 64), (20000, 128),
+                                       (70001, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sorted_weight_block_sizes(card, d, threads, dtype):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.cwtm.cwtm import sorted_weight_threads
+    b = 2 if d == 70001 else 1
+    assert sorted_weight_threads(b, d, build.sm_count(0)) == threads or \
+        build.sm_count(0) != 132
+    x = _x(b, 13, d, 24, card, dtype)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(cwtm_cuda(x, 3).float(),
+                               cwtm_ref(x, 3).float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(median_cuda(x).float(),
+                               median_ref(x).float(), rtol=0,
+                               atol=1e-6 if dtype == torch.float32 else 5e-2)
+
+
 # --------------------------------------------------------------------------
 # Block-RandK, flash attention and the LLM train step
 # --------------------------------------------------------------------------
