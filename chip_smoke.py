@@ -15,8 +15,9 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    at awkward shapes, at the edges of pairdist's launch plan and of the
    sorted-rank kernel's block sizes, and at the main paths' shapes
    ``[1, 13, 11958]`` (the CNN), ``[1, 13, 1048576]`` (the quadratic
-   testbed), ``[8, 13, 1048576]`` and, for CWTM, ``[1, 8, 416179200]`` (the
-   LLM step), where each is timed as a loop (CUDA events) and by the host
+   testbed), ``[8, 13, 1048576]``, for CWTM ``[1, 8, 416179200]`` (the
+   LLM step) and the grid's ``[36, 13, 11958]`` (pairdist) and
+   ``[18, 13, 11958]`` (CWTM, median), where each is timed as a loop (CUDA events) and by the host
    (``perf_counter``), beside ``torch.cdist`` or ``torch.median``; pairdist
    is bitwise equal across two launches, symmetric with an exact zero
    diagonal, and leaves its ticket counters at zero; then the wrappers'
@@ -58,7 +59,22 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    ``--momentum-dtype bfloat16``, and 8 steps with ``--stream --chunk-size
    4 --prefetch-depth 2 --checkpoint``, bitwise equal to a per-step run over
    the same ``(seed, t)`` batches, its checkpoint restored bitwise;
-7. the device µs and device kernels per call of pairdist, CWTM, median and
+7. the Table-1 grid engine (``repro_torch.core.sweep``): the ``table1``
+   product (rosdhb, dasha, robust_dgd, dgd x alie, foe, signflip x cwtm,
+   median; dgd takes the mean: 21 cells) on the CNN, 2 seeds, as 42 lanes
+   of one bank: the plan and the kernels' batched shapes (pairdist over 36
+   lanes, CWTM and the median over 18), every lane's first 3 rounds against
+   the CPU's plain path (rel 1e-4) and against the plain path on the card,
+   100 timed rounds (ms a round, lane-rounds/s, peak memory, one launch of
+   each kernel a round, the fused eval's accuracy, the result rows with
+   bytes to an honest loss of 1), every rosdhb lane's honest loss finite and
+   falling, three lanes against their lone ``Simulator.rollout`` (1e-5 of
+   max |w|) and a profiled window; then ``mimic-iid`` on the CNN (4 lanes,
+   30 rounds) and ``mixed-attacks`` on the quadratic testbed (36 lanes, 20
+   rounds), kernel path against plain path (1e-5 of max |w|), one launch
+   a branch a round whatever the lane count (``python3 chip_smoke.py grid``
+   runs this phase alone);
+8. the device µs and device kernels per call of pairdist, CWTM, median and
    their library calls at the main paths' shapes, from the profiler, which
    runs last (it slows the launches that follow it); pairdist must be one
    device kernel a call.
@@ -116,6 +132,11 @@ PAIRDIST_EDGES = [(1, 13, 100, "float32", "plain"),
 # The sorted-rank kernel at each block size: 64 threads (the CNN's shape
 # and the awkward ones), 128 at [1, 13, 20000], 256 at the quadratic's.
 SORT_EDGES = [(1, 13, 3, 20000), (2, 64, 20, 999), (1, 1, 0, 77)]
+# The table1 grid on the CNN, 21 cells x 2 seeds as lanes of one bank: NNM
+# over the 36 lanes whose rule composes it (every algorithm but dgd), then
+# CWTM and the median over 18 lanes each.
+GRID_SHAPES = {"pairdist": (36, 13, 11958), "cwtm": (18, 13, 11958),
+               "median": (18, 13, 11958)}
 
 PEAK_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
 
@@ -520,6 +541,8 @@ def kernel_phase(torch) -> dict:
             cases += [((b, n, d), f, dt, False, "plain")
                       for (b, n, f, d) in SORT_EDGES
                       for dt in (torch.float32, torch.bfloat16)]
+        # the grid's batched shape (last: the earlier seeds stay)
+        cases.append((GRID_SHAPES[name], F, torch.float32, True, "plain"))
         for i, (shape, f, dt, timed, ref) in enumerate(cases):
             rec = kernel_case(torch, name, shape, f, dt, timed, seed=100 + i,
                               reference=ref)
@@ -1323,6 +1346,316 @@ def quadratic_phase(torch, device: str = "cuda", d: int = 1048576,
     return out
 
 
+GRID_SEEDS = (0, 1)
+GRID_ROUNDS = 100        # timed rounds of the table1 grid on the CNN
+GRID_CHECK_ROUNDS = 3    # rounds held against the CPU and the plain path
+GRID_SINGLE_ROUNDS = 10  # rounds of the three lanes held against lone runs
+GRID_TAU_LOSS = 1.0      # honest-loss threshold of bytes_to_threshold
+# (algorithm, attack, aggregator, seed) of the lanes held against the
+# port's own single-scenario Simulator.rollout
+GRID_SINGLES = (("rosdhb", "alie", "cwtm", 0), ("dasha", "foe", "median", 1),
+                ("dgd", "signflip", "mean", 0))
+
+
+def grid_replay(torch, device, rounds: int, d: int, k: int, n: int,
+                seed: int):
+    """A seed's draws of ``rounds`` table1 rounds (the global mask, then one
+    mask per worker for dasha), from numpy, so that the card and the CPU
+    read the same."""
+    import numpy as np
+    from repro_torch.testing import ReplayDraws
+    rng = np.random.default_rng(1000 + seed)
+    return ReplayDraws(device, permutations=[
+        rng.permutation(d)[:k] for _ in range(rounds * (n + 1))])
+
+
+def grid_cells(spec: str, use_kernels: bool):
+    """The registry spec's cells on the kernel or the plain path."""
+    from repro_torch.adversary import registry as R
+    from repro_torch.core import sweep as SW
+    return SW.with_kernels(R.expand_scenario(spec), use_kernels)
+
+
+def grid_lane_shapes(bank) -> dict:
+    """``{kernel: [lanes, n, D]}`` that one round of ``bank`` hands to
+    pairdist (the lanes whose rule composes NNM), CWTM and the median, per
+    seed times the seeds."""
+    from repro_torch.core import algorithms as Alg
+    entries = bank.cfg.aggregator.bank
+    counts = {"pairdist": 0, "cwtm": 0, "median": 0}
+    for c, e in enumerate(bank.agg_idx):
+        algo = (Alg.ALGO_BANK[bank.algo_idx[c]] if bank.algo_idx is not None
+                else bank.cfg.name)
+        if algo == "dgd":
+            continue  # dgd takes the plain mean
+        name, pre = entries[e]
+        counts["pairdist"] += int(pre and name != "mean")
+        if name in counts:
+            counts[name] += 1
+    return {k: v * len(GRID_SEEDS) for k, v in counts.items()}
+
+
+def grid_run(torch, device, spec: str, use_kernels: bool, rounds: int,
+             draws=None, per_worker: int = 800, testbed: str = "mnist",
+             d: int = 64, timed: bool = False, snapshot: int = 0):
+    """``rounds`` rounds of the spec's one bank, 2 seeds, round by round
+    (each ended by a synchronize when ``timed``). Returns the simulator, the
+    bank, the lanes' final state, per-round honest losses ``[B, rounds]``,
+    round times (ms), the launches and, at round ``snapshot``, the
+    parameters."""
+    from repro_torch import kernels as K
+    from repro_torch.core import sweep as SW
+    plan = SW.plan_grid(grid_cells(spec, use_kernels))
+    if len(plan.banks) != 1 or plan.singles:
+        raise AssertionError(f"grid {spec}: expected one bank, got "
+                             f"{plan.describe()}")
+    bank = plan.banks[0]
+    n = bank.cfg.n_workers
+    if testbed == "mnist":
+        from repro_torch.core import mnist_testbed
+        loss_fn, params0, batch_fn, eval_fn, eval_batch = mnist_testbed(
+            n, per_worker=per_worker, batch=60, seed=0, device=device)
+    else:
+        loss_fn, params0, batch_fn, _ = SW.quadratic_testbed(n, d=d,
+                                                             device=device)
+        eval_fn = eval_batch = None
+    sim = SW.Simulator(loss_fn, params0, bank.cfg, eval_fn=eval_fn,
+                       device=device)
+    state, lanes = SW.grid_lanes(sim, bank.scenario_params(), GRID_SEEDS,
+                                 draws)
+    K.reset_launches()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, round_ms, snap = [], [], None
+    for t in range(rounds):
+        if timed:
+            sync(torch, device)
+        t0 = time.perf_counter()
+        state, m = sim.round(state, batch_fn(t), lanes)
+        if timed:
+            sync(torch, device)
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+        if t + 1 == snapshot:
+            snap = state.params_flat.clone()
+    sync(torch, device)
+    out = {"sim": sim, "bank": bank, "state": state, "lanes": lanes,
+           "loss": torch.stack(losses, dim=-1).cpu(), "round_ms": round_ms,
+           "launches": K.launches(), "snapshot": snap,
+           "batch_fn": batch_fn, "eval_batch": eval_batch,
+           "peak_mib": (torch.cuda.max_memory_allocated() / 2**20
+                        if device == "cuda" else float("nan"))}
+    return out
+
+
+def grid_compare(label: str, bank, a: dict, b: dict, what: str) -> dict:
+    """Two runs of one bank lane by lane: the honest loss of every lane and
+    round within rel 1e-4 (the CNN phase's bar: float32 sums in other
+    orders), and each lane's largest parameter difference over its largest
+    parameter, logged per lane. NNM ranks neighbours by distance, so a
+    near tie that the two paths' float32 distances order differently moves
+    a lane's parameters by more than the sums' rounding: the loss, not the
+    parameters, is held to the bar."""
+    rel = ((a["loss"] - b["loss"]).abs() / b["loss"].abs()).amax(dim=-1)
+    wa, wb = a["state"].params_flat, b["state"].params_flat
+    dw = ((wa - wb).abs().amax(dim=-1) / wb.abs().amax(dim=-1)).cpu()
+    n_s = len(GRID_SEEDS)
+    for i in range(len(rel)):
+        if dw[i] > 1e-5 or rel[i] > 1e-5:
+            log(f"grid {label} lane {bank.scenarios[i // n_s].label} seed "
+                f"{GRID_SEEDS[i % n_s]}: loss rel {float(rel[i]):.3g}, "
+                f"max |d| / max |w| {float(dw[i]):.3g}")
+    worst = float(rel.max())
+    log(f"grid {label}: {what}: honest loss max rel diff {worst:.3g} (bound "
+        f"1e-4), max |d| / max |w| {float(dw.max()):.3g} (median over lanes "
+        f"{float(dw.median()):.3g}), lanes above 1e-5: "
+        f"{int((dw > 1e-5).sum())} of {len(dw)}")
+    if worst > 1e-4:
+        raise AssertionError(f"grid {label}: {what}: the runs disagree")
+    return {"rel_loss": worst, "rel_param_max": float(dw.max()),
+            "rel_param_median": float(dw.median()),
+            "lanes_param_above_1e-5": int((dw > 1e-5).sum())}
+
+
+def grid_check_launches(label: str, launches: dict, rounds: int,
+                        kernels, on_card: bool) -> None:
+    """One launch a round of each of ``kernels`` (none off the card), and
+    none of the others."""
+    want = {k: (rounds if on_card and k in kernels else 0)
+            for k in ("pairdist", "cwtm", "median")}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"grid {label}: launches {got}, expected {want}")
+
+
+def grid_phase(torch, device: str = "cuda", rounds: int = GRID_ROUNDS,
+               check_rounds: int = GRID_CHECK_ROUNDS,
+               single_rounds: int = GRID_SINGLE_ROUNDS,
+               per_worker: int = 800, mimic_rounds: int = 30,
+               mixed_rounds: int = 20) -> dict:
+    """The Table-1 grid engine (``repro_torch.core.sweep``) on the card:
+    (a) the ``table1`` product on the paper's CNN, 21 cells x 2 seeds as
+    42 lanes of one bank; (b) ``mimic-iid`` on the CNN; (c)
+    ``mixed-attacks`` on the quadratic testbed (d = 64). ``cpu`` only to
+    rehearse the script's logic."""
+    import numpy as np
+    from repro_torch.core import sweep as SW
+    from repro_torch.core.simulator import Simulator
+    on_card = device == "cuda"
+    out = {}
+
+    # (a) table1 on the CNN: the plan and the kernels' batched shapes
+    plan = SW.plan_grid(grid_cells("table1", True))
+    log("grid table1 plan: " + plan.describe().replace("\n", "\n  "))
+    bank = plan.banks[0]
+    lanes_b = bank.n_cells * len(GRID_SEEDS)
+    shapes = {k: [v, 13, 11958] for k, v in grid_lane_shapes(bank).items()}
+    log(f"grid table1: {bank.n_cells} cells x {len(GRID_SEEDS)} seeds = "
+        f"{lanes_b} lanes; per round pairdist {shapes['pairdist']}, CWTM "
+        f"{shapes['cwtm']}, median {shapes['median']}")
+    if (len(plan.banks), len(plan.singles), bank.n_cells) != (1, 0, 21) or \
+            {k: tuple(v) for k, v in shapes.items()} != GRID_SHAPES:
+        raise AssertionError(f"grid table1: unexpected plan {shapes}")
+
+    # the first rounds of every lane: card (kernels) against the CPU's
+    # plain path, and against the plain path on the card, same draws
+    d, k, n = 11958, bank.cfg.sparsifier.k(11958), bank.cfg.n_workers
+    runs = {}
+    for dev, kern in {(device, True), (device, False), ("cpu", True)}:
+        draws = [grid_replay(torch, dev, check_rounds, d, k, n, s)
+                 for s in GRID_SEEDS]
+        runs[(dev, kern)] = grid_run(torch, dev, "table1", kern,
+                                     check_rounds, draws=draws,
+                                     per_worker=per_worker)
+    card, cpu = runs[(device, True)], runs[("cpu", True)]
+    rel = float(((card["loss"] - cpu["loss"]).abs()
+                 / cpu["loss"].abs()).max())
+    log(f"grid table1: card vs cpu honest loss, every lane, {check_rounds} "
+        f"rounds: max rel diff {rel:.3g} (bound 1e-4, the CNN phase's)")
+    if rel > 1e-4:
+        raise AssertionError("grid table1: card and cpu disagree")
+    kvp = grid_compare("table1", bank, card, runs[(device, False)],
+                       f"kernel vs plain path "
+                       f"on the {device}, {check_rounds} rounds")
+    out["table1_check"] = {"cpu_rel_loss": rel, **kvp}
+
+    # the timed run: 100 rounds, TorchDraws(seed) per seed
+    run = grid_run(torch, device, "table1", True, rounds, timed=True,
+                   per_worker=per_worker, snapshot=single_rounds)
+    loss, round_ms = run["loss"], run["round_ms"]
+    steady = sorted(round_ms[1:])[len(round_ms[1:]) // 2]
+    per_round = {k: run["launches"][k] / rounds
+                 for k in ("pairdist", "cwtm", "median")}
+    log(f"grid table1 timed: {rounds} rounds, first {round_ms[0]:.3f} ms, "
+        f"median {steady:.3f} ms a round, {lanes_b / steady * 1e3:.1f} "
+        f"lane-rounds/s, peak device memory {run['peak_mib']:.1f} MiB, "
+        f"launches a round {per_round}")
+    grid_check_launches("table1", run["launches"], rounds,
+                        ("pairdist", "cwtm", "median"), on_card)
+    rows, cells = [], bank.scenarios
+    sim, state = run["sim"], run["state"]
+    cells_state = state._replace(params_flat=state.params_flat.reshape(
+        (bank.n_cells, len(GRID_SEEDS), -1)))
+    acc = SW.fused_grid_eval(sim, cells_state, run["eval_batch"])["acc"]
+    lossg = loss.reshape(bank.n_cells, len(GRID_SEEDS), rounds).numpy()
+    for c, sc in enumerate(cells):
+        per_round_bytes = SW.alg.algo_payload_bytes(sc.cfg, sim.d) * n
+        btt = SW.bytes_to_threshold(lossg[c], per_round_bytes, GRID_TAU_LOSS)
+        for i, r in enumerate(SW._result_rows(
+                sc, sim, GRID_SEEDS, lossg[c],
+                {"acc": acc[c].cpu().numpy()}, rounds)):
+            r["bytes_to_loss_1"] = float(btt[i])
+            rows.append(r)
+            log(f"grid row {r['scenario']:30s} seed {r['seed']} final_loss "
+                f"{r['final_loss']:.4f} acc {r['acc']:.4f} comm_bytes "
+                f"{r['comm_bytes']} bytes_to_loss_1 {r['bytes_to_loss_1']}")
+    bad = [sc.label for c, sc in enumerate(cells) if sc.cfg.name == "rosdhb"
+           and not (np.isfinite(lossg[c]).all()
+                    and (lossg[c][:, -1] < lossg[c][:, 0]).all())]
+    if bad:
+        raise AssertionError(f"grid table1: rosdhb honest loss did not fall "
+                             f"or is not finite: {bad}")
+
+    # three lanes against the port's own lone runs of their cells
+    single_err = {}
+    for algo, attack, agg, seed in GRID_SINGLES:
+        c = next(i for i, sc in enumerate(cells)
+                 if sc.label == f"table1/{algo}/{attack}/{agg}")
+        lane = c * len(GRID_SEEDS) + GRID_SEEDS.index(seed)
+        from repro_torch.core import mnist_testbed
+        loss_fn, params0, batch_fn, _, _ = mnist_testbed(
+            n, per_worker=per_worker, batch=60, seed=0, device=device)
+        one = Simulator(loss_fn, params0, cells[c].cfg, device=device)
+        st, _ = one.rollout(one.init(seed), batch_fn, steps=single_rounds)
+        got = run["snapshot"][lane]
+        err = float((st.params_flat - got).abs().max()
+                    / st.params_flat.abs().max())
+        single_err[cells[c].label + f"/seed{seed}"] = err
+        log(f"grid lane {cells[c].label} seed {seed} vs its lone "
+            f"Simulator.rollout, {single_rounds} rounds: max |d| / max |w| "
+            f"= {err:.3g} (bound 1e-5)")
+        if err > 1e-5:
+            raise AssertionError(f"grid lane {cells[c].label}: differs from "
+                                 f"its lone run")
+    out["table1"] = {
+        "lanes": lanes_b, "cells": bank.n_cells, "rounds": rounds,
+        "round_ms": round_ms, "median_round_ms": steady,
+        "lane_rounds_per_s": lanes_b / steady * 1e3,
+        "peak_mib": run["peak_mib"], "launches": run["launches"],
+        "launches_per_round": per_round, "shapes": shapes,
+        "acc": {sc.label: [float(a) for a in acc[c]]
+                for c, sc in enumerate(cells)},
+        "single_lane_rel_err": single_err, "rows": rows}
+
+    # (b) mimic-iid on the CNN, kernel against plain, same TorchDraws
+    fin = {}
+    for kern in (True, False):
+        r = grid_run(torch, device, "mimic-iid", kern, mimic_rounds,
+                     timed=True, per_worker=per_worker)
+        fin[kern] = r
+    mim = grid_compare("mimic-iid", fin[True]["bank"], fin[True],
+                       fin[False], f"kernel vs plain, {mimic_rounds} rounds")
+    ms = sorted(fin[True]["round_ms"][1:])[len(fin[True]["round_ms"]) // 2]
+    log(f"grid mimic-iid: {fin[True]['bank'].n_cells} cells x 2 seeds, "
+        f"median {ms:.3f} ms a round, launches {fin[True]['launches']}")
+    # launches a round do not grow with the lane count: 4 lanes here, 42
+    # in table1, 36 in mixed-attacks, one launch a branch a round in each
+    grid_check_launches("mimic-iid", fin[True]["launches"], mimic_rounds,
+                        ("pairdist", "cwtm"), on_card)
+    out["mimic_iid"] = {**mim, "median_round_ms": ms,
+                        "launches": fin[True]["launches"]}
+
+    # (c) mixed-attacks on the quadratic, kernel against plain
+    fin = {}
+    for kern in (True, False):
+        fin[kern] = grid_run(torch, device, "mixed-attacks", kern,
+                             mixed_rounds, testbed="quadratic", timed=True)
+    wk, wp = fin[True]["state"].params_flat, fin[False]["state"].params_flat
+    mix = float((wk - wp).abs().max() / wp.abs().max())
+    ms = sorted(fin[True]["round_ms"][1:])[len(fin[True]["round_ms"]) // 2]
+    log(f"grid mixed-attacks: {fin[True]['bank'].n_cells} cells x 2 seeds "
+        f"on the quadratic (d = 64), {mixed_rounds} rounds, kernel vs plain "
+        f"max |d| / max |w| = {mix:.3g} (bound 1e-5), median {ms:.3f} ms a "
+        f"round, launches {fin[True]['launches']}")
+    if mix > 1e-5:
+        raise AssertionError("grid mixed-attacks: kernel and plain disagree")
+    grid_check_launches("mixed-attacks", fin[True]["launches"], mixed_rounds,
+                        ("pairdist", "cwtm", "median"), on_card)
+    out["mixed_attacks"] = {"rel_err": mix, "median_round_ms": ms,
+                            "launches": fin[True]["launches"]}
+
+    # last: the profiler's window over steady table1 rounds
+    if on_card:
+        box = [run["state"]]
+
+        def one_round(i):
+            box[0], _ = run["sim"].round(box[0], run["batch_fn"](rounds + i),
+                                         run["lanes"])
+        out["table1"]["profile"] = profile_window(torch, one_round, 5,
+                                                  "grid table1")
+    return out
+
+
 LLM_GAMMA = 0.5      # large enough that 8 steps move the honest loss
 LLM_STEPS = 8
 LLM_CHECK_STEPS = 2
@@ -1551,16 +1884,24 @@ def split_record(rec) -> dict:
     return out
 
 
-def kernel_record(results, randk, flash, cnn, quad, llm) -> dict:
+def kernel_record(results, randk, flash, cnn, quad, llm, grid) -> dict:
     """The ``{"kernels": [...]}`` line: every kernel of the port, its
-    launches on the main paths and its numbers at its main path's shape."""
+    launches on the main paths and its numbers at its main path's shape.
+    ``launches`` is the CNN path's count (the median's first path is the
+    grid: its ``launches`` is the grid's)."""
     record = {"kernels": []}
     for name in SORT_KERNELS:
         recs = [r for r in results[name] if "ms" in r]
         head = recs[0]  # the CNN path's shape
+        grid_launches = grid["table1"]["launches"][name]
         record["kernels"].append({
             "name": name, "route": "cuda", **KERNELS[name],
-            "launches": cnn["launches"][name],
+            "launches": (grid_launches if name == "median"
+                         else cnn["launches"][name]),
+            "launches_cnn": cnn["launches"][name],
+            "launches_grid": grid_launches,
+            "launches_grid_per_round": grid["table1"]["launches_per_round"][
+                name],
             "launches_quadratic": quad["rosdhb"]["kernel"]["launches"][name],
             "launches_quadratic_dasha": quad["dasha"]["kernel"][
                 "launches"][name],
@@ -1738,7 +2079,7 @@ def main() -> int:
         # a partial run (kernel bring-up): no ok line
         for name, fn in (("kernels", kernel_phase), ("randk", randk_phase),
                          ("flash", flash_phase), ("quadratic", quadratic_phase),
-                         ("llm", llm_phase)):
+                         ("llm", llm_phase), ("grid", grid_phase)):
             if want(name):
                 out = fn(torch)
                 if name == "kernels":
@@ -1753,8 +2094,10 @@ def main() -> int:
     quad = quadratic_phase(torch)
     llm = llm_phase(torch)
     torch.cuda.empty_cache()
+    grid = grid_phase(torch)
+    torch.cuda.empty_cache()
     profile_cases(torch, results, fresh_process=True)  # see profile_cases
-    record = kernel_record(results, randk, flash, cnn, quad, llm)
+    record = kernel_record(results, randk, flash, cnn, quad, llm, grid)
     log(json.dumps({"summary": {
         "cnn": {k: cnn[k] for k in ("rounds", "median_round_ms", "acc",
                                     "cpu_rel_diff", "profile")},
@@ -1767,7 +2110,12 @@ def main() -> int:
                                     "median_step_ms", "peak_mib",
                                     "plain_rel_loss", "plain_rel_dir",
                                     "plain_step_ms", "profile", "options")},
-        "flash_sdpa_fwd_bwd_ms": flash[-1].get("library_fwd_bwd_ms")}}))
+        "flash_sdpa_fwd_bwd_ms": flash[-1].get("library_fwd_bwd_ms"),
+        "grid": {"table1": {k: v for k, v in grid["table1"].items()
+                            if k not in ("round_ms", "rows")},
+                 "table1_check": grid["table1_check"],
+                 "mimic_iid": grid["mimic_iid"],
+                 "mixed_attacks": grid["mixed_attacks"]}}}))
     log(json.dumps(record))
     log(card)
     print(json.dumps({"ok": True, "device": {

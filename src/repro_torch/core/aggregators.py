@@ -2,10 +2,11 @@
 ``repro.core.aggregators``).
 
 Every rule maps per-worker vectors ``x: [..., n, d]`` (worker axis -2; the
-batched ``[B, n, d]`` shape is first-class) to ``[..., d]``. Ported: the mean,
-coordinate-wise trimmed mean (CWTM), coordinate-wise median, (Multi-)Krum and
-the NNM pre-aggregation; the geometric median and the switch bank are still
-to be ported.
+batched ``[B, n, d]`` shape is first-class) to ``[..., d]``: the mean,
+coordinate-wise trimmed mean (CWTM), coordinate-wise median, the geometric
+median (smoothed Weiszfeld), (Multi-)Krum and the NNM pre-aggregation, and
+the aggregator bank (:func:`make_aggregator_bank`), which gives each lane of
+a ``[B, n, d]`` batch its own rule and runs each rule once on its lanes.
 
 :func:`make_aggregator` builds either the kernel path (the counterpart of
 the reference's Pallas path: ``repro_torch.kernels`` for pairdist, CWTM and
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -29,10 +30,16 @@ from repro_torch.kernels.pairdist.ops import pairdist
 
 Aggregator = Callable[[torch.Tensor], torch.Tensor]
 
+#: ``(name, pre_nnm)`` branches of the default aggregator bank, in the
+#: reference's switch order. ``(mean, True)`` is absent: NNM composition
+#: skips the non-robust mean (:func:`bank_index` maps it onto plain mean).
 BANK_NAMES: Tuple[str, ...] = ("mean", "cwtm", "median", "geomed", "krum",
                                "multikrum")
-PORTED_RULES: Tuple[str, ...] = ("mean", "cwtm", "median", "krum",
-                                 "multikrum")
+DEFAULT_BANK: Tuple[Tuple[str, bool], ...] = (
+    tuple((n, False) for n in BANK_NAMES)
+    + tuple((n, True) for n in BANK_NAMES if n != "mean"))
+#: Every rule of the reference is ported.
+PORTED_RULES: Tuple[str, ...] = BANK_NAMES
 
 
 def mean(x: torch.Tensor) -> torch.Tensor:
@@ -69,6 +76,21 @@ def trimmed_mean(x: torch.Tensor, f: int) -> torch.Tensor:
 
 
 _SORT_COLS = 1 << 22
+
+
+def geometric_median(x: torch.Tensor, iters: int = 8,
+                     eps: float = 1e-8) -> torch.Tensor:
+    """Smoothed Weiszfeld iteration for the geometric median, from the mean,
+    ``iters`` times: weights ``1 / sqrt(||x_i - z||^2 + eps)``, normalised.
+    Plain PyTorch (the reference has no kernel for it)."""
+    z = x.mean(dim=-2)
+    for _ in range(iters):
+        dist = torch.sqrt(torch.sum(torch.square(x - z.unsqueeze(-2)),
+                                    dim=-1) + eps)
+        w = 1.0 / dist
+        w = w / w.sum(dim=-1, keepdim=True)
+        z = torch.sum(w.unsqueeze(-1) * x, dim=-2)
+    return z
 
 
 def _pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
@@ -111,10 +133,13 @@ class AggregatorConfig:
     """Named robust-aggregation rule.
 
     Attributes:
-      name: ``mean`` | ``cwtm`` | ``median`` | ``krum`` | ``multikrum``
-        (``geomed`` is known to :meth:`kappa_bound` but not ported).
+      name: ``mean`` | ``cwtm`` | ``median`` | ``geomed`` | ``krum`` |
+        ``multikrum`` | ``bank`` (:func:`make_aggregator_bank`).
       f: number of tolerated Byzantine workers.
       pre_nnm: compose with NNM pre-aggregation.
+      geomed_iters: Weiszfeld iterations for ``geomed``.
+      bank: the bank's branches ``((name, pre_nnm), ...)`` when
+        ``name='bank'`` (``None``: :data:`DEFAULT_BANK`).
       use_kernels: the kernel path (``repro_torch.kernels``) for cwtm,
         median, (multi)krum and NNM — the counterpart of the reference's
         ``use_pallas``. ``False`` runs the plain rules of this module.
@@ -123,6 +148,8 @@ class AggregatorConfig:
     name: str = "cwtm"
     f: int = 0
     pre_nnm: bool = False
+    geomed_iters: int = 8
+    bank: Optional[Tuple[Tuple[str, bool], ...]] = None
     use_kernels: bool = True
 
     def kappa_bound(self, n: int) -> float:
@@ -191,19 +218,21 @@ def _kernel_base_rule(name: str, f: int) -> Optional[Aggregator]:
     return None
 
 
-def _base_rule(name: str, f: int) -> Aggregator:
+def _base_rule(name: str, f: int, geomed_iters: int = 8) -> Aggregator:
     if name == "mean":
         return mean
     if name == "cwtm":
         return functools.partial(trimmed_mean, f=f)
     if name == "median":
         return coordinate_median
+    if name == "geomed":
+        return functools.partial(geometric_median, iters=geomed_iters)
     if name == "krum":
         return functools.partial(krum, f=f, m=1)
     if name == "multikrum":
         return lambda x: krum(x, f=f, m=max(1, x.shape[-2] - f))
-    raise ValueError(f"aggregator {name!r} is not ported "
-                     f"(ported: {'|'.join(PORTED_RULES)})")
+    raise ValueError(f"unknown aggregator: {name!r} (expected one of "
+                     f"{'|'.join(BANK_NAMES)})")
 
 
 def make_aggregator(cfg: AggregatorConfig,
@@ -216,8 +245,10 @@ def make_aggregator(cfg: AggregatorConfig,
     """
     dev = resolve_device(device)
     f = cfg.f
-    base = (_kernel_base_rule(cfg.name, f) if cfg.use_kernels else None) \
-        or _base_rule(cfg.name, f)
+    if cfg.name == "bank":
+        raise ValueError("name='bank' is the aggregator bank: build it with "
+                         "make_aggregator_bank")
+    base = _rule(cfg.name, f, cfg.geomed_iters, cfg.use_kernels)
     pre = None
     if cfg.pre_nnm and cfg.name != "mean":
         pre = _kernel_nnm(f) if cfg.use_kernels else functools.partial(nnm,
@@ -230,3 +261,136 @@ def make_aggregator(cfg: AggregatorConfig,
         return base(pre(x) if pre is not None else x)
 
     return agg
+
+
+def _rule(name: str, f: int, geomed_iters: int, use_kernels: bool
+          ) -> Aggregator:
+    return ((_kernel_base_rule(name, f) if use_kernels else None)
+            or _base_rule(name, f, geomed_iters))
+
+
+# --------------------------------------------------------------------------
+# The aggregator bank (the grid's per-lane rule)
+# --------------------------------------------------------------------------
+
+#: Lanes of one group: a slice when they are contiguous, else an index.
+Lanes = Union[slice, torch.Tensor]
+
+
+@functools.lru_cache(maxsize=256)
+def _groups_cached(values: Tuple, device: torch.device
+                   ) -> Tuple[Tuple[object, Lanes, int], ...]:
+    by: Dict[object, List[int]] = {}
+    for i, v in enumerate(values):
+        by.setdefault(v, []).append(i)
+    out = []
+    for v, lanes in by.items():
+        if lanes == list(range(lanes[0], lanes[-1] + 1)):
+            sel: Lanes = slice(lanes[0], lanes[-1] + 1)
+        else:
+            sel = torch.tensor(lanes, dtype=torch.long, device=device)
+        out.append((v, sel, len(lanes)))
+    return tuple(out)
+
+
+def lane_groups(values: Sequence, device) -> Tuple[Tuple[object, Lanes, int],
+                                                   ...]:
+    """``((value, lanes, count), ...)``: the lanes holding each distinct
+    value of ``values`` (host values, one per lane), in first-seen order.
+    Cached: a grid asks for the same grouping every round."""
+    return _groups_cached(tuple(values), torch.device(device))
+
+
+def take(t: torch.Tensor, lanes: Lanes) -> torch.Tensor:
+    """The rows ``lanes`` of ``t`` (a view for a slice, a copy for an
+    index)."""
+    return t[lanes] if isinstance(lanes, slice) else t.index_select(0, lanes)
+
+
+def host_values(v) -> Tuple:
+    """Per-lane values on the host: a tensor's ``tolist``, or a sequence."""
+    if isinstance(v, torch.Tensor):
+        return tuple(v.reshape(-1).tolist())
+    if isinstance(v, (int, float)):
+        return (v,)
+    return tuple(v)
+
+
+def bank_index(cfg: AggregatorConfig,
+               bank: Optional[Sequence[Tuple[str, bool]]] = None) -> int:
+    """Branch index of ``cfg`` inside ``bank`` (default the full bank).
+    ``(mean, pre_nnm=True)`` maps to the plain-mean branch, as
+    :func:`make_aggregator` skips NNM for the mean."""
+    bank = tuple(bank) if bank is not None else DEFAULT_BANK
+    entry = (cfg.name, bool(cfg.pre_nnm) and cfg.name != "mean")
+    try:
+        return bank.index(entry)
+    except ValueError:
+        raise ValueError(
+            f"aggregator {entry} is not a branch of the bank {bank}") from None
+
+
+BankAggregator = Callable[[torch.Tensor, Sequence[int]], torch.Tensor]
+
+
+def make_aggregator_bank(cfg: AggregatorConfig,
+                         device: DeviceLike = None) -> BankAggregator:
+    """Build the aggregator bank ``bank(x, idx) -> [B, d]``.
+
+    ``x`` is ``[B, n, d]`` (or one lane ``[n, d]``) and ``idx`` the branch of
+    each lane (host ints, or a tensor), one ``(rule, pre_nnm)`` entry of
+    ``cfg.bank`` (default :data:`DEFAULT_BANK`). Each lane gets its own
+    rule, as the reference's ``lax.switch`` gives it, but the rules run on
+    their lanes only: every lane whose branch composes NNM goes through ONE
+    NNM (one pairdist launch on the kernel path), then each base rule runs
+    once, batched, on its lanes (one CWTM, one median launch). So the
+    launches per call do not grow with ``B``. ``cfg.f``,
+    ``cfg.geomed_iters`` and ``cfg.use_kernels`` hold for every branch.
+    """
+    dev = resolve_device(device)
+    entries = tuple(cfg.bank) if cfg.bank is not None else DEFAULT_BANK
+    if not entries:
+        raise ValueError("aggregator bank needs at least one entry")
+    f = cfg.f
+    for name, _ in entries:
+        if name not in BANK_NAMES:
+            raise ValueError(f"unknown aggregator in bank: {name!r} "
+                             f"(expected one of {'|'.join(BANK_NAMES)})")
+    bases = [_rule(name, f, cfg.geomed_iters, cfg.use_kernels)
+             for name, _ in entries]
+    nnm_of = [bool(pre) and name != "mean" for name, pre in entries]
+    pre = _kernel_nnm(f) if cfg.use_kernels else functools.partial(nnm, f=f)
+
+    def apply(x: torch.Tensor, idx) -> torch.Tensor:
+        if x.device.type != dev.type:
+            raise ValueError(f"aggregator bank built for {dev.type} got a "
+                             f"tensor on {x.device}")
+        if x.ndim == 2:
+            return apply(x[None], host_values(idx)[:1])[0]
+        idx = host_values(idx)
+        if len(idx) != x.shape[0]:
+            raise ValueError(f"{len(idx)} branch indices for {x.shape[0]} "
+                             f"lanes")
+        if any(not 0 <= i < len(entries) for i in idx):
+            raise ValueError(f"branch index outside the bank's "
+                             f"{len(entries)} entries: {idx}")
+        # NNM once over every lane whose branch composes it
+        mixed_of = tuple(nnm_of[i] for i in idx)
+        src = x
+        if any(mixed_of):
+            if all(mixed_of):
+                src = pre(x)
+            else:
+                src = x.clone()
+                for is_nnm, lanes, _ in lane_groups(mixed_of, x.device):
+                    if is_nnm:
+                        src[lanes] = pre(take(x, lanes))
+        groups = lane_groups(idx, x.device)
+        if len(groups) == 1:
+            return bases[groups[0][0]](src)
+        out = x.new_empty((x.shape[0], x.shape[-1]))
+        for branch, lanes, _ in groups:
+            out[lanes] = bases[branch](take(src, lanes))
+        return out
+
+    return apply

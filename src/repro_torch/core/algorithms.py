@@ -4,8 +4,10 @@
 Ported: ``rosdhb`` (the paper's Algorithm 1, global or local sparsification),
 ``dasha`` (Byz-DASHA-PAGE with p = 1, the baseline the paper measures
 RoSDHB against), ``robust_dgd`` (robust aggregation of raw gradients) and
-``dgd`` (compressed, non-robust mean). The algorithm bank is still to be
-ported.
+``dgd`` (compressed, non-robust mean), and ``bank``: the algorithm bank of
+the Table-1 grid (:func:`make_algorithm_bank`), which runs ``B`` lanes at
+once, each with its own algorithm, attack, aggregator and hyperparameters
+(:class:`ScenarioParams`).
 
 Every function works on ``[n_workers, D]`` banks. The random draws of a round
 (RandK masks) come from a draws provider (``repro_torch.testing``). The
@@ -17,14 +19,25 @@ builds the dense wire: the Byzantine overwrite runs on the
 ``[n, kb * block_size]`` payload and the momentum kernel
 (``repro_torch.kernels.randk.momentum_update``) decays the bank and adds
 the payload into the selected blocks in one pass, bitwise the dense round.
+
+The lanes of a grid (``grads [B, n, D]``, :func:`_lanes_round`) carry an
+explicit leading lane axis. Each lane's values are those of its lone round:
+the round groups the lanes by algorithm (and hyperparameter values), runs
+each algorithm's wire step on its lanes, the attack bank once over all
+lanes, and the aggregator bank once over all lanes, so the kernels launch
+once per branch whatever ``B``. The per-lane values a compiled JAX bank
+traces (branch indices, hyperparameters, step sizes) are plan data here,
+read on the host once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import aggregators as G
@@ -34,9 +47,9 @@ from repro_torch.core import wire as W
 from repro_torch.device import resolve_device
 from repro_torch.kernels.randk import ops as RK
 
-#: Algorithm names of the reference, and the ones this port can run.
+#: Branch order of the full algorithm bank (and the known algorithms).
 ALGO_BANK: Tuple[str, ...] = ("rosdhb", "dasha", "robust_dgd", "dgd")
-PORTED_ALGORITHMS: Tuple[str, ...] = ALGO_BANK
+PORTED_ALGORITHMS: Tuple[str, ...] = ALGO_BANK + ("bank",)
 
 #: Server bank dtypes the port keeps (``AlgorithmConfig.momentum_dtype``).
 BANK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -66,7 +79,9 @@ class AlgorithmConfig:
     """Specification of a Byzantine-robust compressed training run.
 
     Attributes:
-      name: ``rosdhb`` | ``dasha`` | ``robust_dgd`` | ``dgd``.
+      name: ``rosdhb`` | ``dasha`` | ``robust_dgd`` | ``dgd`` | ``bank``
+        (the algorithm bank: each lane's algorithm from
+        ``ScenarioParams.algo_idx``, see :func:`make_algorithm_bank`).
       n_workers: total workers n.
       f: number of Byzantine workers (the first ``f`` indices).
       gamma: learning rate.
@@ -79,8 +94,13 @@ class AlgorithmConfig:
         ``bfloat16``; dasha's previous gradients stay float32).
       server_compute_dtype: dtype of the server's arithmetic; only
         ``float32`` is ported.
+      clip_norm: per-worker L2 clip of the gradients before compression
+        (``None``: no clip).
+      bank: the algorithm branches when ``name='bank'`` (``None``: the full
+        :data:`ALGO_BANK`); each lane's hyperparameters then come from its
+        ``ScenarioParams``.
       state_layout: an explicit :class:`StateLayout`, or ``None`` for the
-        minimal layout of the algorithm.
+        minimal layout of the algorithms the config can run.
     """
 
     name: str = "rosdhb"
@@ -98,16 +118,25 @@ class AlgorithmConfig:
         default_factory=lambda: A.AttackConfig(name="none"))
     momentum_dtype: str = "float32"
     server_compute_dtype: str = "float32"
+    clip_norm: Optional[float] = None
+    bank: Optional[Tuple[str, ...]] = None
     state_layout: Optional[StateLayout] = None
 
     @property
     def honest(self) -> int:
         return self.n_workers - self.f
 
+    def algorithms(self) -> Tuple[str, ...]:
+        """The algorithm branches this config can run: the bank's entries
+        for ``name='bank'``, else the one algorithm."""
+        if self.name == "bank":
+            return tuple(self.bank) if self.bank else ALGO_BANK
+        return (self.name,)
+
     def resolved_state_layout(self) -> StateLayout:
         if self.state_layout is not None:
             return self.state_layout
-        return StateLayout.for_algorithms((self.name,))
+        return StateLayout.for_algorithms(self.algorithms())
 
     def resolved_beta(self) -> float:
         if self.beta is not None:
@@ -126,10 +155,48 @@ class AlgorithmConfig:
         return 1.0 - (self.beta if self.beta is not None else 0.9)
 
 
+def theorem1_hparams(L: float, ratio: float,
+                     c: float = 23200.0) -> Tuple[float, float]:
+    """Theorem 1's (gamma, beta): gamma = (k/d)/(cL), beta = sqrt(1-24 gamma L)
+    (c = 23200 is the paper's conservative analysis constant)."""
+    gamma = ratio / (c * L)
+    beta = math.sqrt(1.0 - 24.0 * gamma * L)
+    return gamma, beta
+
+
+class ScenarioParams(NamedTuple):
+    """Per-lane scenario values of a grid bank (the reference's traced
+    ``ScenarioParams``): each present field has a leading lane (or cell)
+    axis and overrides the static config. Host tensors: the round reads
+    them once to group the lanes.
+
+    ``attack_coeffs``: ``[B, 2]`` attack parameters (the linear family's
+    ``(a, b)``, or an attack-bank branch's vector).
+    ``attack_idx``: ``[B]`` attack-bank branch (``cfg.attack.name='bank'``).
+    ``agg_idx``: ``[B]`` aggregator-bank branch.
+    ``ratio``: ``[B]`` keep-ratio (``compression.TRACED_RATIO_KINDS``).
+    ``algo_idx``: ``[B]`` algorithm-bank branch (``cfg.name='bank'``).
+    ``hparams``: ``[B, 4]`` ``(beta, mvr_a, 1-beta, 1-mvr_a)``, float32,
+    the complements computed in double precision at plan time
+    (:func:`static_hparams`), so a bank lane rounds as its lone algorithm.
+    ``gamma``: ``[B]`` step size, used by the simulator's update.
+    """
+
+    attack_coeffs: Optional[torch.Tensor] = None
+    attack_idx: Optional[torch.Tensor] = None
+    agg_idx: Optional[torch.Tensor] = None
+    ratio: Optional[torch.Tensor] = None
+    algo_idx: Optional[torch.Tensor] = None
+    hparams: Optional[torch.Tensor] = None
+    gamma: Optional[torch.Tensor] = None
+
+
 class ServerState(NamedTuple):
     """Server-side state: the ``[n, D]`` momentum bank, DASHA's optional
     banks (``None`` under the pruned layout), the round counter, and the
-    adversary's memory (``None`` for the stateless attacks)."""
+    adversary's memory (``repro_torch.adversary.AttackState``; ``None`` for
+    the stateless attacks). A grid's lanes add a leading ``[B]`` axis to
+    every tensor; the counter is shared."""
 
     momentum: torch.Tensor
     mirror: Optional[torch.Tensor]
@@ -138,13 +205,19 @@ class ServerState(NamedTuple):
     attack: Optional[Any] = None
 
 
+def _adversary():
+    # local import: repro_torch.adversary imports the sweep engine, which
+    # imports this module
+    from repro_torch.adversary import core as adv
+    return adv
+
+
 def _check_ported(cfg: AlgorithmConfig) -> torch.dtype:
     """Raise on what the port cannot run; returns the bank dtype."""
     if cfg.name not in PORTED_ALGORITHMS:
         raise ValueError(
-            f"algorithm {cfg.name!r} is not ported (ported: "
-            f"{'|'.join(PORTED_ALGORITHMS)}; the reference also knows "
-            f"'bank')")
+            f"unknown algorithm: {cfg.name!r} (expected one of "
+            f"{'|'.join(PORTED_ALGORITHMS)})")
     if cfg.momentum_dtype not in BANK_DTYPES:
         raise ValueError(f"momentum_dtype {cfg.momentum_dtype!r} is not "
                          f"ported (ported: {'|'.join(BANK_DTYPES)})")
@@ -154,65 +227,101 @@ def _check_ported(cfg: AlgorithmConfig) -> torch.dtype:
     return BANK_DTYPES[cfg.momentum_dtype]
 
 
-def init_state(cfg: AlgorithmConfig, d: int, device=None) -> ServerState:
+def init_state(cfg: AlgorithmConfig, d: int, device=None,
+               lanes: Optional[int] = None) -> ServerState:
     """Initial server state under ``cfg``'s resolved layout, on ``device``
     (default the card): the momentum bank (and dasha's mirrors) in
-    ``momentum_dtype``, dasha's previous gradients in float32. A layout
-    that prunes dasha's slots raises."""
+    ``momentum_dtype``, dasha's previous gradients in float32, and the
+    adversary's memory where the attack needs it
+    (``adversary.needs_attack_state``). ``lanes`` adds the leading lane
+    axis of a grid. A layout that prunes dasha's slots from a config that
+    can run dasha raises."""
     mdt = _check_ported(cfg)
     dev = resolve_device(device)
     layout = cfg.resolved_state_layout()
-    if cfg.name == "dasha" and not layout.is_full:
+    if "dasha" in cfg.algorithms() and not layout.is_full:
         raise ValueError(
-            "state layout prunes mirror/prev_grad but dasha needs them (its "
-            "MVR mirror state cannot be pruned)")
-    zeros = torch.zeros((cfg.n_workers, d), dtype=mdt, device=dev)
+            "state layout prunes mirror/prev_grad but the config can run a "
+            f"dasha branch (algorithms={cfg.algorithms()}): dasha's MVR "
+            "mirror state cannot be pruned")
+    lead = () if lanes is None else (int(lanes),)
+    shape = lead + (cfg.n_workers, d)
+    zeros = torch.zeros(shape, dtype=mdt, device=dev)
+    adv = _adversary()
+    atk = (adv.init_attack_state(d, device=dev, lanes=lanes)
+           if adv.needs_attack_state(cfg.attack.name, cfg.f) else None)
     return ServerState(
         momentum=zeros,
         mirror=zeros.clone() if layout.mirror else None,
-        prev_grad=torch.zeros((cfg.n_workers, d), device=dev)
+        prev_grad=torch.zeros(shape, device=dev)
         if layout.prev_grad else None,
-        step=0)
+        step=0, attack=atk)
+
+
+def _attack(cfg: AlgorithmConfig, atk_state, wire: torch.Tensor, draws,
+            attack_params=None) -> Tuple[torch.Tensor, Any]:
+    """Replace rows [0, f) of the wire with the attack computed from the
+    honest rows [f, n): the stateful adversaries (the tracked mimic,
+    spectral, ipm_greedy) step their carried memory; the rest are the
+    stateless dispatch (gauss draws its noise from ``draws``). Returns the
+    new wire and the adversary's new memory."""
+    name = cfg.attack.name
+    if cfg.f == 0 or name == "none":
+        return wire, atk_state
+    honest = wire[cfg.f:]
+    adv = _adversary()
+    if name == "bank":
+        raise ValueError("the attack bank runs over lanes: call server_round "
+                         "with a ScenarioParams (see sweep.FusedBank)")
+    if adv.is_stateful(name):
+        if atk_state is None:
+            raise ValueError(
+                f"stateful attack {name!r} needs the adversary memory: build "
+                "the server state with init_state(cfg, d) (ServerState.attack)")
+        coeffs = (attack_params if attack_params is not None
+                  else adv.static_coeffs(cfg.attack, cfg.n_workers, cfg.f))
+        atk_state, byz = adv.ADVERSARIES[name].step(atk_state, honest, cfg.f,
+                                                    draws, coeffs)
+    else:
+        byz = A.apply_attack(cfg.attack, honest, cfg.f, params=attack_params,
+                             draws=draws)
+    return torch.cat([byz.to(wire.dtype), honest], dim=0), atk_state
 
 
 def _byzantine_overwrite(cfg: AlgorithmConfig, wire: torch.Tensor,
-                         attack_params=None) -> torch.Tensor:
-    """Replace rows [0, f) of the wire with the attack computed from the
-    honest rows [f, n) (stateless attacks)."""
-    if cfg.f == 0 or cfg.attack.name == "none":
-        return wire
-    honest = wire[cfg.f:]
-    byz = A.apply_attack(cfg.attack, honest, cfg.f, params=attack_params)
-    return torch.cat([byz.to(wire.dtype), honest], dim=0)
+                         attack_params=None, draws=None) -> torch.Tensor:
+    """:func:`_attack` for the attacks that keep no memory."""
+    return _attack(cfg, None, wire, draws, attack_params)[0]
 
 
 def _compressed_wire(cfg: AlgorithmConfig, grads: torch.Tensor, draws,
                      attack_params=None) -> torch.Tensor:
     # Steps 1-4: the round's masks and the unbiased reconstruction, then the
-    # Byzantine overwrite of the wire quantity.
+    # Byzantine overwrite of the wire quantity (stateless attacks).
     g_tilde = C.compressed_estimate(grads, draws, cfg.sparsifier)
-    return _byzantine_overwrite(cfg, g_tilde, attack_params)
+    return _byzantine_overwrite(cfg, g_tilde, attack_params, draws)
+
+
+def _momentum_fma(m_prev: torch.Tensor, wire: torch.Tensor, beta: float,
+                  one_m_beta: float) -> torch.Tensor:
+    """``beta * m_prev + (1 - beta) * wire`` in float32 as one fused
+    multiply-add rounding as XLA's fusion of the reference's compiled round
+    does: onto ``(1-beta)*wire`` on float32 banks, ``fma(beta, m, (1-beta)
+    w)``; onto ``beta*m_prev`` on bfloat16 banks, ``fma(1-beta, w, beta m)``
+    (ROADMAP Queue 3). In place on the fresh product (the wire may be the
+    caller's gradients)."""
+    if m_prev.dtype == torch.bfloat16:
+        return (m_prev.float() * beta).add_(wire.float(), alpha=one_m_beta)
+    return (wire.float() * one_m_beta).add_(m_prev.float(), alpha=beta)
 
 
 def _rosdhb_apply(cfg: AlgorithmConfig, agg, state: ServerState,
                   wire: torch.Tensor, hparams) -> Tuple[torch.Tensor,
                                                         ServerState]:
     # Step 5: per-worker momentum m = beta*m_prev + (1-beta)*wire in
-    # float32, as one fused multiply-add (torch.add with alpha is an FMA on
-    # the CPU and on the card) that rounds as XLA's fusion of the
-    # reference's compiled round does: onto (1-beta)*wire on float32 banks,
-    # fma(beta, m, (1-beta) w); onto beta*m_prev on bfloat16 banks,
-    # fma(1-beta, w, beta m) (ROADMAP Queue 3). The momentum kernel rounds
-    # the same way. The add is in place on the fresh product (one [n, D]
-    # buffer fewer); the wire itself may be the caller's gradients
-    # (sparsifier 'none') and is left alone.
-    beta, one_m_beta = hparams[0], hparams[2]
-    if state.momentum.dtype == torch.bfloat16:
-        m = (state.momentum.float() * beta).add_(wire.float(),
-                                                 alpha=one_m_beta)
-    else:
-        m = (wire.float() * one_m_beta).add_(state.momentum.float(),
-                                             alpha=beta)
+    # float32, one fused multiply-add (torch.add with alpha is an FMA on the
+    # CPU and on the card; the momentum kernel rounds the same way).
+    m = _momentum_fma(state.momentum, wire, hparams[0], hparams[2])
     # Step 6: robust aggregation of the float32 momenta; the bank keeps
     # their rounding to momentum_dtype.
     r = agg(m)
@@ -243,7 +352,7 @@ def _rosdhb_payload_round(cfg: AlgorithmConfig, agg, state: ServerState,
     # aggregates the float32 momenta.
     sp = cfg.sparsifier
     payload, ids = C.compressed_payload(grads, draws, sp)
-    payload = _byzantine_overwrite(cfg, payload, attack_params)
+    payload = _byzantine_overwrite(cfg, payload, attack_params, draws)
     m = RK.momentum_update(state.momentum, payload, ids,
                            block_size=sp.block_size, beta=hparams[0],
                            f32_out=state.momentum.dtype != torch.float32)
@@ -251,37 +360,47 @@ def _rosdhb_payload_round(cfg: AlgorithmConfig, agg, state: ServerState,
     return agg(m), state._replace(step=state.step + 1)
 
 
+def _dasha_wire(state_m: torch.Tensor, state_h: torch.Tensor,
+                state_prev: torch.Tensor, grads: torch.Tensor, step: int,
+                one_m_a: float, b: float, compress
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Byz-DASHA-PAGE's wire before the attack, p = 1 (the reference's
+    ``_dasha_step``):
+      m_i = g_i + (1-a)(m_i' - g_i')         (m_i = g_i on the first step)
+      c_i = C((m_i - m_i') + b (m_i' - h_i')),  b = 1/(2 alpha)
+      h_i = h_i' + c_i
+    ``compress`` is C on ``[..., n, D]``. a*b + c terms are single FMAs, as
+    XLA contracts them in the reference's compiled round. Returns
+    ``(h, m, g32)``."""
+    g32 = grads.float()
+    m_prev = state_m.float()
+    h_prev = state_h.float()
+    if step == 0:
+        m = g32
+    else:
+        m = torch.add(g32, m_prev - state_prev, alpha=one_m_a)
+    x = torch.add(m - m_prev, m_prev - h_prev, alpha=b)
+    return compress(x).add_(h_prev), m, g32
+
+
 def _dasha_round(cfg: AlgorithmConfig, agg, state: ServerState,
                  grads: torch.Tensor, draws, hparams,
                  attack_params=None) -> Tuple[torch.Tensor, ServerState]:
-    # Byz-DASHA-PAGE, p = 1 (the reference's _dasha_step):
-    #   m_i = g_i + (1-a)(m_i' - g_i')         (m_i = g_i on the first step)
-    #   c_i = C((m_i - m_i') + b (m_i' - h_i')),  b = 1/(2 alpha)
-    #   h_i = h_i' + c_i, Byzantine rows overwritten; R = F(h_1 .. h_n)
     # Each worker draws its own mask whatever the sparsifier's `local` flag
-    # (independent compressors). a*b + c terms are single FMAs, as XLA
-    # contracts them in the reference's compiled round.
+    # (independent compressors).
     if state.mirror is None or state.prev_grad is None:
         raise ValueError("dasha needs the mirror/prev_grad state slots: "
                          "init the state with a dasha config")
     sp = dataclasses.replace(cfg.sparsifier, local=True)
-    g32 = grads.float()
-    m_prev = state.momentum.float()
-    h_prev = state.mirror.float()
-    if state.step == 0:
-        m = g32
-    else:
-        m = torch.add(g32, m_prev - state.prev_grad, alpha=hparams[3])
-    b = 1.0 / (2.0 * sp.alpha)
-    x = torch.add(m - m_prev, m_prev - h_prev, alpha=b)
-    h = C.compressed_estimate(x, draws, sp).add_(h_prev)
-    del x
-    h = _byzantine_overwrite(cfg, h, attack_params)
+    h, m, g32 = _dasha_wire(
+        state.momentum, state.mirror, state.prev_grad, grads, state.step,
+        hparams[3], 1.0 / (2.0 * sp.alpha),
+        lambda x: C.compressed_estimate(x, draws, sp))
+    h, atk = _attack(cfg, state.attack, h, draws, attack_params)
     r = agg(h)
     mdt = state.momentum.dtype
     return r, ServerState(momentum=m.to(mdt), mirror=h.to(mdt),
-                          prev_grad=g32, step=state.step + 1,
-                          attack=state.attack)
+                          prev_grad=g32, step=state.step + 1, attack=atk)
 
 
 def _dgd_apply(cfg, agg, state, wire):
@@ -297,10 +416,23 @@ def _robust_dgd_apply(cfg, agg, state, wire):
 
 def static_hparams(cfg: AlgorithmConfig) -> Tuple[float, float, float, float]:
     """``(beta, mvr_a, 1-beta, 1-mvr_a)``, complements in double precision
-    (the constants the reference folds in)."""
+    (the constants the reference folds in); the slots an algorithm does not
+    use are 0 and 1."""
     beta = cfg.resolved_beta() if cfg.name == "rosdhb" else 0.0
     a = cfg.resolved_mvr_a() if cfg.name == "dasha" else 0.0
     return (beta, a, 1.0 - beta, 1.0 - a)
+
+
+def algo_index(name: str, entries: Optional[Sequence[str]] = None) -> int:
+    """Branch index of algorithm ``name`` inside ``entries`` (default the
+    full :data:`ALGO_BANK`)."""
+    entries = tuple(entries) if entries is not None else ALGO_BANK
+    try:
+        return entries.index(name)
+    except ValueError:
+        raise ValueError(
+            f"algorithm {name!r} is not a branch of the algorithm bank "
+            f"{entries}") from None
 
 
 def server_state_bytes(cfg: AlgorithmConfig, d: int) -> int:
@@ -326,35 +458,57 @@ def algo_payload_bytes(cfg: AlgorithmConfig, d: int,
                                       bytes_per_value=bytes_per_value)
 
 
+def _clip(grads: torch.Tensor, clip_norm: float) -> torch.Tensor:
+    """Per-worker L2 clip of ``[..., n, D]`` gradients to ``clip_norm``."""
+    norms = torch.linalg.vector_norm(grads.float(), dim=-1, keepdim=True)
+    scale = torch.clamp(clip_norm / torch.clamp(norms, min=1e-12), max=1.0)
+    return grads * scale.to(grads.dtype)
+
+
 def server_round(cfg: AlgorithmConfig, state: ServerState,
                  grads: torch.Tensor, draws, agg=None,
-                 attack_params=None) -> Tuple[torch.Tensor, ServerState,
-                                              dict]:
+                 attack_params=None, scenario: Optional[ScenarioParams] = None
+                 ) -> Tuple[torch.Tensor, ServerState, dict]:
     """Execute one server round.
 
     Args:
       cfg: algorithm configuration.
       state: current server state (its momentum is consumed: the payload
         route updates it in place).
-      grads: per-worker gradients ``[n, D]``; the Byzantine rows are
-        replaced by the attack.
-      draws: the draws provider for this round's masks.
-      agg: the aggregator (default ``make_aggregator(cfg.aggregator)`` on
-        the gradients' device).
+      grads: per-worker gradients ``[n, D]``, or ``[B, n, D]`` for the
+        lanes of a grid; the Byzantine rows are replaced by the attack.
+      draws: the draws provider for this round (a
+        ``testing.GridDraws`` for lanes).
+      agg: the aggregator (default ``make_round_aggregator(cfg.aggregator)``
+        on the gradients' device).
       attack_params: the ``[2]`` coefficients of ``attack.name='linear'``.
+      scenario: the lanes' :class:`ScenarioParams` (banks of attacks,
+        aggregators, algorithms, ratios). Required by ``name='bank'``.
 
     Returns:
-      (direction R [D] to descend, next state, aux dict).
+      (direction R [D] (or [B, D]) to descend, next state, aux dict).
     """
     _check_ported(cfg)
-    n, d = grads.shape
+    n, d = grads.shape[-2:]
     if n != cfg.n_workers:
         raise ValueError(f"grads has {n} rows, cfg.n_workers={cfg.n_workers}")
+    if cfg.clip_norm is not None:
+        grads = _clip(grads, cfg.clip_norm)
+    if grads.ndim == 3 or scenario is not None or "bank" in (
+            cfg.name, cfg.attack.name, cfg.aggregator.name):
+        run = (make_algorithm_bank(cfg) if cfg.name == "bank"
+               else functools.partial(_lanes_round, cfg))
+        if grads.ndim == 3:
+            return run(state, grads, draws, agg, scenario, attack_params)
+        r, new, aux = run(_lift(state), grads[None], draws, agg,
+                          _lift_scenario(scenario), attack_params)
+        return r[0], _drop(new), {k: v[0] for k, v in aux.items()}
     if agg is None:
         agg = G.make_aggregator(cfg.aggregator, device=grads.device)
     if cfg.name == "robust_dgd":
-        wire = _byzantine_overwrite(cfg, grads, attack_params)
-        r, new = _robust_dgd_apply(cfg, agg, state, wire)
+        wire, atk = _attack(cfg, state.attack, grads, draws, attack_params)
+        r, new = _robust_dgd_apply(cfg, agg, state._replace(attack=atk),
+                                   wire)
         return r, new, {"payload_floats_per_worker": d}
     aux = {"payload_floats_per_worker": C.payload_floats(d, cfg.sparsifier)}
     if cfg.name == "dasha":
@@ -364,12 +518,390 @@ def server_round(cfg: AlgorithmConfig, state: ServerState,
         r, new = _rosdhb_payload_round(cfg, agg, state, grads, draws,
                                        static_hparams(cfg), attack_params)
     else:
-        wire = _compressed_wire(cfg, grads, draws, attack_params)
+        # no name holds the unattacked wire: at an LLM's D each [n, D]
+        # float32 bank is 13.3 GB
+        wire, atk = _attack(cfg, state.attack, C.compressed_estimate(
+            grads, draws, cfg.sparsifier), draws, attack_params)
+        state = state._replace(attack=atk)
         if cfg.name == "rosdhb":
             r, new = _rosdhb_apply(cfg, agg, state, wire, static_hparams(cfg))
         else:
             r, new = _dgd_apply(cfg, agg, state, wire)
     return r, new, aux
+
+
+def make_round_aggregator(cfg: G.AggregatorConfig, device=None):
+    """The aggregator a round takes: the bank for ``name='bank'``
+    (``agg(x, idx)``), else the rule (``agg(x)``)."""
+    if cfg.name == "bank":
+        return G.make_aggregator_bank(cfg, device=device)
+    return G.make_aggregator(cfg, device=device)
+
+
+# --------------------------------------------------------------------------
+# Lanes: the grid's [B, n, D] round
+# --------------------------------------------------------------------------
+
+
+class LaneDraws(NamedTuple):
+    """One round's draws read per lane: the global masks ``[B, D]``, the
+    per-worker masks ``[B, n, D]`` and the attack's draws (``None`` where no
+    lane needs them; a mask is ``None`` too when it draws nothing)."""
+
+    global_mask: Optional[torch.Tensor]
+    local_mask: Optional[torch.Tensor]
+    attack: Any
+
+
+class _LanePlan(NamedTuple):
+    algos: Tuple[str, ...]
+    hparams: Tuple[Tuple[float, ...], ...]
+    attack_entries: Optional[Tuple[str, ...]]
+    attack_idx: Optional[Tuple[int, ...]]
+    coeffs: Optional[torch.Tensor]
+    agg_idx: Optional[Tuple[int, ...]]
+    ratio: Optional[torch.Tensor]
+
+
+def _per_lane(v, b: int, what: str) -> Tuple:
+    vals = G.host_values(v)
+    if len(vals) != b:
+        raise ValueError(f"{what}: {len(vals)} values for {b} lanes")
+    return vals
+
+
+def _lane_plan(cfg: AlgorithmConfig, sc: Optional[ScenarioParams], b: int,
+               device, attack_params) -> _LanePlan:
+    """The lanes' algorithm, hyperparameters, attack branch and parameters,
+    aggregator branch and ratio, from the scenario or the static config."""
+    sc = sc if sc is not None else ScenarioParams()
+    entries = cfg.algorithms()
+    if cfg.name == "bank":
+        if sc.algo_idx is None:
+            raise ValueError(
+                "algorithm bank needs a per-lane branch selector: pass a "
+                "ScenarioParams with algo_idx (and hparams) — see "
+                "sweep.FusedBank.scenario_params")
+        if sc.hparams is None:
+            raise ValueError(
+                "algorithm bank needs per-lane hyperparameters: pass a "
+                "ScenarioParams with hparams=[beta, mvr_a, 1-beta, 1-mvr_a] "
+                "(see algorithms.static_hparams)")
+        algos = tuple(entries[i] for i in _per_lane(sc.algo_idx, b,
+                                                    "algo_idx"))
+    else:
+        algos = (cfg.name,) * b
+    if sc.hparams is not None:
+        rows = torch.as_tensor(sc.hparams).reshape(-1, 4).tolist()
+        if len(rows) != b:
+            raise ValueError(f"hparams: {len(rows)} rows for {b} lanes")
+        hparams = tuple(tuple(r) for r in rows)
+    else:
+        hparams = (static_hparams(cfg),) * b
+    coeffs = sc.attack_coeffs if sc.attack_coeffs is not None \
+        else attack_params
+    a_entries = a_idx = None
+    if cfg.f > 0 and cfg.attack.name != "none":
+        adv = _adversary()
+        if cfg.attack.name == "bank":
+            a_entries = tuple(cfg.attack.bank or adv.DEFAULT_ATTACK_BANK)
+            if sc.attack_idx is None or coeffs is None:
+                raise ValueError(
+                    "bank attack needs per-lane branch selectors: pass a "
+                    "ScenarioParams with attack_idx and attack_coeffs (see "
+                    "sweep.FusedBank.scenario_params)")
+            a_idx = _per_lane(sc.attack_idx, b, "attack_idx")
+        else:
+            if cfg.attack.name == "linear":
+                if coeffs is None:
+                    raise ValueError("linear attack needs a coeffs vector")
+                branch = "linear"
+            else:
+                entry = adv.bank_entry(cfg.attack, cfg.n_workers, cfg.f)
+                if entry is None:
+                    raise ValueError(f"unknown attack: {cfg.attack.name!r}")
+                branch = entry[0]
+                coeffs = entry[1] if coeffs is None else coeffs
+            a_entries, a_idx = (branch,), (0,) * b
+        coeffs = torch.as_tensor(coeffs, dtype=torch.float32).reshape(-1, 2)
+        coeffs = coeffs.to(device).expand((b, 2)) if len(coeffs) == 1 \
+            else coeffs.to(device)
+    agg_idx = None
+    if cfg.aggregator.name == "bank" or sc.agg_idx is not None:
+        if sc.agg_idx is None:
+            raise ValueError("aggregator bank needs per-lane branch indices: "
+                             "pass a ScenarioParams with agg_idx")
+        agg_idx = _per_lane(sc.agg_idx, b, "agg_idx")
+    ratio = None
+    if sc.ratio is not None:
+        ratio = torch.as_tensor(sc.ratio, dtype=torch.float32).reshape(-1)
+        ratio = (ratio.expand(b) if len(ratio) == 1 else ratio).to(device)
+    return _LanePlan(algos, hparams, a_entries, a_idx, coeffs, agg_idx,
+                     ratio)
+
+
+def _lane_draws(cfg: AlgorithmConfig, lp: _LanePlan, draws, n: int, d: int,
+                dtype: torch.dtype) -> LaneDraws:
+    """Each kind of draw the lanes need, once per seed, read per lane."""
+    from repro_torch.testing import GridDraws
+    if isinstance(draws, LaneDraws):
+        return draws
+    b = len(lp.algos)
+    grid = draws if isinstance(draws, GridDraws) else GridDraws([draws],
+                                                                (0,) * b)
+    if grid.lanes != b:
+        raise ValueError(f"draws for {grid.lanes} lanes, grads for {b}")
+    sp = cfg.sparsifier
+    ratio = lp.ratio
+    algos = set(lp.algos)
+    compressed = algos & {"rosdhb", "dgd"}
+
+    def masks(spx, local):
+        if C._draws_nothing(spx, ratio):
+            return None
+        raw = grid.per_lane(lambda p: C.mask_draw(
+            p, d, spx, local_workers=n if local else 0, ratio=ratio))
+        return C.mask_from_draw(raw, d, spx, dtype, ratio)
+
+    global_mask = masks(sp, False) if compressed and not sp.local else None
+    local_mask = (masks(dataclasses.replace(sp, local=True), True)
+                  if "dasha" in algos or (compressed and sp.local) else None)
+    atk = None
+    if lp.attack_idx is not None:
+        adv = _adversary()
+        used = {lp.attack_entries[i] for i in set(lp.attack_idx)}
+        kinds = {k for e in used for k in adv.ADVERSARIES[e].draws}
+        f = cfg.f
+        atk = adv.AttackDraws(
+            normal=grid.per_lane(lambda p: p.normal((f, d), stream="attack"))
+            if "normal" in kinds else None,
+            uniform=grid.per_lane(lambda p: p.uniform((2,), stream="attack"))
+            if "uniform" in kinds else None)
+    return LaneDraws(global_mask, local_mask, atk)
+
+
+class _CopyOnWrite:
+    """A ``[B, ...]`` state tensor written group by group: a group that
+    covers every lane replaces it, the first partial write copies it."""
+
+    def __init__(self, t: Optional[torch.Tensor]):
+        self.t, self._own = t, False
+
+    def put(self, lanes: G.Lanes, count: int, v: torch.Tensor) -> None:
+        if count == self.t.shape[0]:
+            self.t, self._own = v, True
+            return
+        if not self._own:
+            self.t, self._own = self.t.clone(), True
+        self.t[lanes] = v
+
+
+def _lanes_round(cfg: AlgorithmConfig, state: ServerState,
+                 grads: torch.Tensor, draws, agg,
+                 scenario: Optional[ScenarioParams], attack_params
+                 ) -> Tuple[torch.Tensor, ServerState, dict]:
+    """One round of ``B`` lanes (``grads [B, n, D]``), each lane its lone
+    round: the wire of each algorithm group (steps 1-4 before the attack),
+    the attack bank over every lane, then momentum/mirrors per group and the
+    aggregator bank over every lane (dgd lanes take the plain mean)."""
+    b, n, d = grads.shape
+    dev = grads.device
+    lp = _lane_plan(cfg, scenario, b, dev, attack_params)
+    ld = _lane_draws(cfg, lp, draws, n, d, grads.dtype)
+    sp = cfg.sparsifier
+    f = cfg.f
+    if "dasha" in lp.algos and (state.mirror is None
+                                or state.prev_grad is None):
+        raise ValueError("dasha needs the mirror/prev_grad state slots: "
+                         "init the state with a dasha-capable config")
+    ratios = None if lp.ratio is None else G.host_values(lp.ratio)
+
+    def group_key(i):
+        algo, hp = lp.algos[i], lp.hparams[i]
+        if algo == "rosdhb":
+            return (algo, hp[0], hp[2])
+        if algo == "dasha":
+            # b = 1/(2 alpha): with a lane's ratio, alpha = 1/ratio in
+            # float32 as the reference traces it
+            b_ = (1.0 / (2.0 * sp.alpha) if ratios is None else float(
+                np.float32(1.0) / (np.float32(2.0) * (
+                    np.float32(1.0) / np.float32(ratios[i])))))
+            return (algo, hp[3], b_)
+        return (algo,)
+
+    groups = G.lane_groups(tuple(group_key(i) for i in range(b)), dev)
+    # steps 1-4 (before the attack), per group
+    parts = []
+    for key, lanes, count in groups:
+        algo = key[0]
+        g = G.take(grads, lanes)
+        ratio = None if lp.ratio is None else G.take(lp.ratio, lanes)
+        extra = None
+        if algo == "robust_dgd":
+            w = g
+        elif algo == "dasha":
+            mask = (None if ld.local_mask is None
+                    else G.take(ld.local_mask, lanes))
+            spl = dataclasses.replace(sp, local=True)
+            w, m, g32 = _dasha_wire(
+                G.take(state.momentum, lanes), G.take(state.mirror, lanes),
+                G.take(state.prev_grad, lanes), g, state.step, key[1], key[2],
+                lambda x: C.compress(x, mask, spl, ratio)
+                if mask is not None else x)
+            extra = (m, g32)
+        else:
+            src = ld.local_mask if sp.local else ld.global_mask
+            if src is None:  # the mask draws nothing: no compression
+                w = g
+            else:
+                mask = G.take(src, lanes)
+                w = C.compress(g, mask if sp.local else mask.unsqueeze(-2),
+                               sp, ratio)
+        parts.append((key, lanes, count, w, extra))
+    if len(parts) == 1:
+        wire = parts[0][3]
+    else:
+        wire = grads.new_empty((b, n, d))
+        for _, lanes, _, w, _ in parts:
+            wire[lanes] = w
+    # step 4: the attack bank over every lane
+    atk = state.attack
+    if lp.attack_idx is not None:
+        adv = _adversary()
+        if atk is None and any(adv.is_stateful(lp.attack_entries[i])
+                               for i in set(lp.attack_idx)):
+            raise ValueError(
+                "the attack needs the adversary memory: build the server "
+                "state with init_state(cfg, d, lanes=B) (ServerState.attack)")
+        atk, byz = adv.make_attack_bank(lp.attack_entries, f)(
+            atk, wire[:, f:], ld.attack, lp.attack_idx, lp.coeffs)
+        wire = torch.cat([byz.to(wire.dtype), wire[:, f:]], dim=1)
+    # step 5 per group, then step 6 over every lane
+    mdt = state.momentum.dtype
+    mom, mir, prev = (_CopyOnWrite(state.momentum), _CopyOnWrite(state.mirror),
+                      _CopyOnWrite(state.prev_grad))
+    x = wire
+    for key, lanes, count, _, extra in parts:
+        if key[0] == "rosdhb":
+            m = _momentum_fma(G.take(state.momentum, lanes),
+                              G.take(wire, lanes), key[1], key[2])
+            if count == b:
+                x = m
+            else:  # several groups: the wire was assembled afresh
+                x[lanes] = m
+            mom.put(lanes, count, m.to(mdt))
+        elif key[0] == "dasha":
+            m, g32 = extra
+            mom.put(lanes, count, m.to(mdt))
+            mir.put(lanes, count, G.take(wire, lanes).to(mdt))
+            prev.put(lanes, count, g32)
+    if agg is None and lp.algos.count("dgd") < b:
+        agg = make_round_aggregator(cfg.aggregator, device=dev)
+    if lp.agg_idx is not None and cfg.aggregator.name != "bank":
+        agg = G.make_aggregator_bank(cfg.aggregator, device=dev)
+    robust = tuple(a != "dgd" for a in lp.algos)
+    r = None
+    for is_robust, lanes, count in G.lane_groups(robust, dev):
+        xs = x if count == b else G.take(x, lanes)
+        if not is_robust:
+            rr = xs.mean(dim=-2)
+        elif lp.agg_idx is not None:
+            idx = lp.agg_idx if count == b else tuple(
+                lp.agg_idx[i] for i in range(b) if robust[i])
+            rr = agg(xs, idx)
+        else:
+            rr = agg(xs)
+        if count == b:
+            r = rr
+        else:
+            if r is None:
+                r = x.new_empty((b, d))
+            r[lanes] = rr
+    new = ServerState(momentum=mom.t, mirror=mir.t, prev_grad=prev.t,
+                      step=state.step + 1, attack=atk)
+    k = C.payload_floats(d, sp)
+    if lp.ratio is not None:
+        kk = torch.clamp(torch.round(lp.ratio * d), min=1.0)
+        payload = torch.where(torch.tensor([a == "robust_dgd"
+                                            for a in lp.algos], device=dev),
+                              torch.full_like(kk, float(d)), kk)
+    else:
+        payload = torch.tensor([float(d) if a == "robust_dgd" else float(k)
+                                for a in lp.algos], device=dev)
+    return r, new, {"payload_floats_per_worker": payload}
+
+
+def _lift(state: ServerState) -> ServerState:
+    """One lane: a leading axis of 1 on every tensor of the state."""
+    lift = lambda t: None if t is None else t[None]  # noqa: E731
+    atk = state.attack
+    if atk is not None:
+        atk = type(atk)(*(t[None] for t in atk))
+    return ServerState(lift(state.momentum), lift(state.mirror),
+                       lift(state.prev_grad), state.step, atk)
+
+
+def _drop(state: ServerState) -> ServerState:
+    drop = lambda t: None if t is None else t[0]  # noqa: E731
+    atk = state.attack
+    if atk is not None:
+        atk = type(atk)(*(t[0] for t in atk))
+    return ServerState(drop(state.momentum), drop(state.mirror),
+                       drop(state.prev_grad), state.step, atk)
+
+
+def _lift_scenario(sc: Optional[ScenarioParams]
+                   ) -> Optional[ScenarioParams]:
+    if sc is None:
+        return None
+    return ScenarioParams(*(None if v is None else torch.as_tensor(v)[None]
+                            for v in sc))
+
+
+def make_algorithm_bank(cfg: AlgorithmConfig,
+                        entries: Optional[Sequence[str]] = None):
+    """Build the algorithm bank ``step(state, grads, draws, agg, scenario,
+    attack_params=None) -> (R [B, D], state, aux)``: lane ``i`` runs
+    algorithm
+    ``entries[scenario.algo_idx[i]]`` with its ``scenario.hparams[i]``, over
+    the shared state layout (a bank with dasha keeps its mirrors, one
+    without prunes them, :class:`StateLayout`). Each algorithm's steps run
+    once, on its lanes (:func:`_lanes_round`)."""
+    entries = tuple(entries if entries is not None
+                    else (cfg.bank or ALGO_BANK))
+    if not entries:
+        raise ValueError("algorithm bank needs at least one entry")
+    unknown = [e for e in entries if e not in ALGO_BANK]
+    if unknown:
+        raise ValueError(
+            f"unknown algorithm-bank entries {unknown} (known algorithms: "
+            f"{'|'.join(ALGO_BANK)})")
+    if "dasha" in entries and not cfg.resolved_state_layout().is_full:
+        raise ValueError(
+            "algorithm bank contains a dasha branch but cfg's StateLayout "
+            "prunes mirror/prev_grad — dasha's variance-reduction state "
+            "cannot be pruned (use StateLayout(True, True) or drop dasha)")
+    bank_cfg = dataclasses.replace(cfg, name="bank", bank=entries)
+
+    def apply(state: ServerState, grads: torch.Tensor, draws, agg,
+              scenario: ScenarioParams, attack_params=None):
+        return _lanes_round(bank_cfg, state, grads, draws, agg, scenario,
+                            attack_params)
+
+    return apply
+
+
+def _bank_payload_floats(entries: Sequence[str], d: int,
+                         sp: C.SparsifierConfig, ratio=None) -> torch.Tensor:
+    """``[n_entries]`` float32 payload floats per worker of each branch
+    (``[n_entries, B]`` for a ``[B]`` ratio)."""
+    if ratio is not None:
+        k = torch.clamp(torch.round(torch.as_tensor(
+            ratio, dtype=torch.float32) * d), min=1.0)
+    else:
+        k = torch.tensor(float(C.payload_floats(d, sp)))
+    return torch.stack([torch.full_like(k, float(d)) if e == "robust_dgd"
+                        else k for e in entries])
 
 
 def apply_direction(params_flat: torch.Tensor, r: torch.Tensor,

@@ -3,8 +3,12 @@
 Every attack maps the stacked honest vectors ``honest: [h, d]`` to ``f``
 Byzantine vectors ``[f, d]`` (colluding, omniscient attackers). Ported: the
 stateless mean/std family (``alie``, ``signflip``, ``ipm``, ``foe``,
-``zero`` and the coefficient form ``linear``) and the fixed-target
-``mimic``; ``gauss`` and the stateful adversaries are still to be ported.
+``zero`` and the coefficient form ``linear``), the fixed-target ``mimic``
+and ``gauss`` (honest mean plus noise from the draws provider). The stateful
+adversaries, and the tracked ``mimic`` that ``core.algorithms`` runs, live in
+``repro_torch.adversary``. The statistics take any leading axes before the
+worker axis (``[..., h, d]``): a grid bank runs every lane at once, each lane
+bitwise its lone run.
 
 The worker-axis statistics reproduce the reference's rounding: the mean is a
 sequential row sum times ``1/h`` and the population variance (no Bessel
@@ -36,12 +40,13 @@ def _alie_z(n: int, f: int) -> float:
 
 
 def _mean32(x: torch.Tensor) -> torch.Tensor:
-    """Mean over the worker axis in float32: rows summed in order, times
-    ``1/h`` (the reference upcasts bfloat16 rows to float32 for it)."""
-    acc = x[0].to(torch.float32, copy=True)
-    for row in x[1:]:
+    """Mean over the worker axis (-2) in float32: rows summed in order,
+    times ``1/h`` (the reference upcasts bfloat16 rows to float32 for it)."""
+    rows = x.unbind(-2)
+    acc = rows[0].to(torch.float32, copy=True)
+    for row in rows[1:]:
         acc += row
-    return acc * (1.0 / x.shape[0])
+    return acc * (1.0 / x.shape[-2])
 
 
 def _row_mean(x: torch.Tensor) -> torch.Tensor:
@@ -58,10 +63,10 @@ def _row_std(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     CPU is not). For bfloat16 rows the reference rounds the float32
     variance to bfloat16, takes its float32 root and rounds that."""
     acc = torch.zeros_like(mu)
-    for row in x:
+    for row in x.unbind(-2):
         c = (row - mu).double()
         acc = torch.addcmul(acc.double(), c, c).to(mu.dtype)
-    var = acc / x.shape[0]
+    var = acc / x.shape[-2]
     if x.dtype != torch.float32:
         var = var.to(x.dtype)
     return torch.sqrt(var.double()).to(torch.float32).to(x.dtype)
@@ -81,23 +86,32 @@ def _as_dtype(c: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(c, dtype=dtype))
 
 
+def _rows(byz: torch.Tensor, f: int) -> torch.Tensor:
+    """``[..., d]`` -> ``f`` copies ``[..., f, d]``."""
+    return byz.unsqueeze(-2).expand(byz.shape[:-1] + (f, byz.shape[-1]))
+
+
 def alie(honest: torch.Tensor, f: int, z: float | None = None
          ) -> torch.Tensor:
     """A Little Is Enough: send mean - z * std, coordinate-wise."""
-    h = honest.shape[0]
+    h = honest.shape[-2]
     if z is None:
         z = _alie_z(h + f, f)
     mu, sd = _row_stats(honest)
     byz = mu - _as_dtype(z, mu.dtype) * sd
-    return byz.expand((f,) + byz.shape)
+    return _rows(byz, f)
 
 
 def linear_attack(honest: torch.Tensor, f: int,
                   coeffs) -> torch.Tensor:
-    """The (a, b)-parameterised mean/std family: ``byz = a*mu + b*sd``."""
+    """The (a, b)-parameterised mean/std family: ``byz = a*mu + b*sd``.
+    ``coeffs`` is ``[2]`` (or ``[..., 2]``, one pair per lane)."""
     mu, sd = _row_stats(honest)
-    byz = coeffs[0] * mu + coeffs[1] * sd
-    return byz.expand((f,) + byz.shape)
+    if isinstance(coeffs, torch.Tensor) and coeffs.ndim > 1:
+        byz = coeffs[..., 0:1] * mu + coeffs[..., 1:2] * sd
+    else:
+        byz = coeffs[0] * mu + coeffs[1] * sd
+    return _rows(byz, f)
 
 
 def linear_coeffs(cfg: "AttackConfig", n: int, f: int):
@@ -122,7 +136,7 @@ def sign_flip(honest: torch.Tensor, f: int, scale: float = 1.0
     """Send the negated honest mean (scaled)."""
     mu = _row_mean(honest)
     byz = _as_dtype(-scale, mu.dtype) * mu
-    return byz.expand((f,) + byz.shape)
+    return _rows(byz, f)
 
 
 def ipm(honest: torch.Tensor, f: int, eps: float = 0.5) -> torch.Tensor:
@@ -137,12 +151,23 @@ def foe(honest: torch.Tensor, f: int, scale: float = 10.0) -> torch.Tensor:
 
 def mimic(honest: torch.Tensor, f: int, target: int = 0) -> torch.Tensor:
     """All Byzantine workers copy one honest worker (fixed target)."""
-    byz = honest[target]
-    return byz.expand((f,) + byz.shape)
+    return _rows(honest[..., target, :], f)
+
+
+def gauss(honest: torch.Tensor, f: int, noise, std=1.0) -> torch.Tensor:
+    """Random Gaussian noise around the honest mean (weak baseline):
+    ``mu + std * noise``. ``noise`` is the ``[..., f, d]`` N(0, 1) draw, or a
+    draws provider to take it from (its ``attack`` stream); ``std`` a float
+    or a per-lane tensor shaped to broadcast."""
+    mu = _row_mean(honest)
+    if not isinstance(noise, torch.Tensor):
+        noise = noise.normal(honest.shape[:-2] + (f, honest.shape[-1]),
+                             stream="attack").to(honest.dtype)
+    return mu.unsqueeze(-2) + std * noise
 
 
 def zero(honest: torch.Tensor, f: int) -> torch.Tensor:
-    return honest.new_zeros((f,) + honest.shape[1:])
+    return honest.new_zeros(honest.shape[:-2] + (f, honest.shape[-1]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,26 +176,39 @@ class AttackConfig:
 
     Attributes:
       name: ``none`` | ``alie`` | ``signflip`` | ``ipm`` | ``foe`` |
-        ``mimic`` | ``zero`` | ``linear`` (coefficients arrive through
-        :func:`apply_attack`'s ``params``).
-      scale: magnitude parameter (signflip/foe/ipm).
+        ``mimic`` | ``gauss`` | ``zero`` | ``spectral`` | ``ipm_greedy`` |
+        ``linear`` (coefficients arrive through :func:`apply_attack`'s
+        ``params``) | ``bank`` (the attack bank of ``repro_torch.adversary``,
+        its branch chosen per lane). The stateful adversaries (the tracked
+        ``mimic``, ``spectral``, ``ipm_greedy``) run in
+        ``repro_torch.adversary`` with their memory in
+        ``ServerState.attack``; :func:`apply_attack` is the stateless
+        dispatch (its ``mimic`` is the fixed-target variant).
+      scale: magnitude parameter (signflip/foe/ipm/gauss/spectral/
+        ipm_greedy).
       z: optional override of the ALIE z-score.
+      bank: branch names when ``name='bank'`` (``None``: the full
+        ``repro_torch.adversary.DEFAULT_ATTACK_BANK``).
     """
 
     name: str = "alie"
     scale: float | None = None
     z: float | None = None
+    bank: tuple | None = None
 
 
-#: Ported attacks whose Byzantine vectors are zero on every coordinate where
-#: all honest rows are zero (the mean/std family and mimic; all stateless).
+#: Attacks whose Byzantine vectors are zero on every coordinate where all
+#: honest rows are zero and that keep no state (the mean/std family). The
+#: server round's ``mimic`` is the tracked one, whose memory is a ``[D]``
+#: vector: it is not among them.
 ZERO_PRESERVING = ("none", "linear", "alie", "signflip", "ipm", "foe",
-                   "mimic", "zero")
+                   "zero")
 
 
 def apply_attack(cfg: AttackConfig, honest: torch.Tensor, f: int,
-                 params=None) -> torch.Tensor:
-    """Produce the ``[f, d]`` Byzantine payload from honest ``[h, d]``."""
+                 params=None, draws=None) -> torch.Tensor:
+    """Produce the ``[f, d]`` Byzantine payload from honest ``[h, d]``
+    (stateless attacks; ``gauss`` takes its noise from ``draws``)."""
     if f == 0 or cfg.name == "none":
         return honest.new_zeros((f,) + honest.shape[1:])
     if cfg.name == "linear":
@@ -187,8 +225,13 @@ def apply_attack(cfg: AttackConfig, honest: torch.Tensor, f: int,
         return foe(honest, f, scale=cfg.scale or 10.0)
     if cfg.name == "mimic":
         return mimic(honest, f)
+    if cfg.name == "gauss":
+        if draws is None:
+            raise ValueError("gauss attack needs a draws provider")
+        return gauss(honest, f, draws, std=cfg.scale or 1.0)
     if cfg.name == "zero":
         return zero(honest, f)
     raise ValueError(
-        f"attack {cfg.name!r} is not ported (ported: none|linear|alie|"
-        "signflip|ipm|foe|mimic|zero)")
+        f"unknown attack: {cfg.name!r} (apply_attack handles the stateless "
+        "attacks none|linear|alie|signflip|ipm|foe|mimic|gauss|zero; "
+        "stateful adversaries live in repro_torch.adversary)")

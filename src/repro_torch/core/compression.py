@@ -23,14 +23,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.randk import ops as RK
 
-#: Kinds this module can sample; the reference's ``natural`` kind and its
-#: traced ratios are still to be ported.
+#: Kinds this module can sample; the reference's ``natural`` kind is still
+#: to be ported.
 PORTED_KINDS = ("randk", "bernoulli", "block", "block_hash", "none")
 
 
@@ -67,26 +67,21 @@ class SparsifierConfig:
         return max(1, int(round(self.ratio * d)))
 
 
-def _block_mask(draws, d: int, ratio: float, block: int,
-                dtype: torch.dtype) -> torch.Tensor:
-    """``kb = round(ratio * nb)`` of the ``nb = ceil(d / block)`` blocks,
-    from a permutation prefix of the block ids."""
-    nb = -(-d // block)
-    kb = max(1, int(round(ratio * nb)))
-    bmask = torch.zeros((nb,), dtype=dtype, device=draws.device)
-    bmask[draws.permutation_prefix(nb, kb)] = 1
-    return bmask.repeat_interleave(block)[:d]
-
-
 _U32 = 0xFFFFFFFF
 
+#: Kinds whose keep-ratio may differ per lane of a grid bank: the mask is an
+#: elementwise function of the ratio and of a draw that does not depend on
+#: it, so lanes of one seed share the draw. ``randk`` and ``block`` cannot:
+#: their ``k`` fixes how many indices are drawn.
+TRACED_RATIO_KINDS = ("bernoulli", "block_hash")
 
-def _block_hash_mask(seed: int, d: int, ratio: float, block: int,
-                     dtype: torch.dtype, device) -> torch.Tensor:
-    """Counter-based Bernoulli(ratio) block mask: the reference's murmur-style
-    uint32 hash of (block id, per-round seed), bit for bit. The hash depends
-    on the block id only, so it is taken once per block (int64 arithmetic
-    kept to the low 32 bits) and repeated over the block."""
+
+def _block_hash_uniform(seed: int, d: int, block: int, device
+                        ) -> torch.Tensor:
+    """``[nb]`` U[0, 1) per block: the reference's murmur-style uint32 hash
+    of (block id, per-round seed), bit for bit. The hash depends on the block
+    id only, so it is taken once per block (int64 arithmetic kept to the low
+    32 bits) and repeated over the block by the mask."""
     nb = -(-d // block)
     h = torch.arange(nb, dtype=torch.int64, device=device)
     h = (h * 0x9E3779B1 + int(seed)) & _U32
@@ -95,48 +90,123 @@ def _block_hash_mask(seed: int, d: int, ratio: float, block: int,
     h ^= h >> 13
     h = (h * 0xC2B2AE35) & _U32
     h ^= h >> 16
-    u = h.to(torch.float32) * (1.0 / 4294967296.0)
-    keep = (u < torch.tensor(ratio, dtype=torch.float32)).to(dtype)
-    return keep.repeat_interleave(block)[:d]
+    return h.to(torch.float32) * (1.0 / 4294967296.0)
 
 
-def make_mask(draws, d: int, cfg: SparsifierConfig,
-              dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """One sparsification mask ``[d]`` on the draws provider's device."""
-    dev = draws.device
-    if cfg.kind == "none" or cfg.ratio >= 1.0:
-        return torch.ones((d,), dtype=dtype, device=dev)
-    if cfg.kind == "randk":
-        idx = draws.permutation_prefix(d, cfg.k(d))
-        mask = torch.zeros((d,), dtype=dtype, device=dev)
-        mask[idx] = 1
-        return mask
+def _draws_nothing(cfg: SparsifierConfig, ratio) -> bool:
+    return cfg.kind == "none" or (ratio is None and cfg.ratio >= 1.0)
+
+
+def _check_ratio(cfg: SparsifierConfig, ratio) -> None:
+    if ratio is not None and cfg.kind not in TRACED_RATIO_KINDS:
+        raise ValueError(
+            f"sparsifier kind {cfg.kind!r} does not support a per-lane ratio "
+            f"(supported: {TRACED_RATIO_KINDS})")
+
+
+def mask_draw(draws, d: int, cfg: SparsifierConfig, local_workers: int = 0,
+              ratio=None) -> Optional[torch.Tensor]:
+    """The round's raw mask draw, from the ``mask`` stream (one global
+    mask) or, with ``local_workers = n``, the ``local`` stream (one per
+    worker, in worker order): the RandK indices, the Block-RandK block ids,
+    the Bernoulli uniforms or the ``block_hash`` per-block uniforms. ``None``
+    when the mask draws nothing (``kind='none'``, a static ratio of 1)."""
+    _check_ratio(cfg, ratio)
+    if _draws_nothing(cfg, ratio):
+        return None
+    m = local_workers
+    stream = "local" if m else "mask"
+    if cfg.kind in ("randk", "block"):
+        nb = d if cfg.kind == "randk" else -(-d // cfg.block_size)
+        kb = cfg.k(d) if cfg.kind == "randk" else max(
+            1, int(round(cfg.ratio * nb)))
+        if m:
+            return draws.permutation_prefixes(m, nb, kb, stream=stream)
+        return draws.permutation_prefix(nb, kb, stream=stream)
     if cfg.kind == "bernoulli":
-        return (draws.uniform((d,)) < cfg.ratio).to(dtype)
-    if cfg.kind == "block":
-        return _block_mask(draws, d, cfg.ratio, cfg.block_size, dtype)
+        if m:
+            return torch.stack([draws.uniform((d,), stream=stream)
+                                for _ in range(m)])
+        return draws.uniform((d,), stream=stream)
     if cfg.kind == "block_hash":
-        return _block_hash_mask(draws.bits_u32(), d, cfg.ratio,
-                                cfg.block_size, dtype, dev)
+        seeds = [draws.bits_u32(stream=stream) for _ in range(max(m, 1))]
+        u = torch.stack([_block_hash_uniform(b, d, cfg.block_size,
+                                             draws.device) for b in seeds])
+        return u if m else u[0]
     raise ValueError(f"sparsifier kind {cfg.kind!r} is not ported "
                      f"(ported: {'|'.join(PORTED_KINDS)})")
 
 
+def _lead(ratio: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A ``[B]`` ratio shaped to broadcast over the leading axis of an
+    ``ndim``-dimensional tensor."""
+    return ratio.reshape(ratio.shape + (1,) * (ndim - ratio.ndim))
+
+
+def mask_from_draw(raw: Optional[torch.Tensor], d: int, cfg: SparsifierConfig,
+                   dtype: torch.dtype = torch.float32, ratio=None,
+                   device=None) -> torch.Tensor:
+    """The masks ``[..., d]`` of raw draws ``[..., x]`` (:func:`mask_draw`;
+    any leading axes: workers, lanes). ``ratio``, a ``[B]`` float32 tensor,
+    is each lane's keep-ratio (:data:`TRACED_RATIO_KINDS`), compared in
+    float32 as the reference compares its traced ratio."""
+    _check_ratio(cfg, ratio)
+    if raw is None:
+        return torch.ones((d,), dtype=dtype, device=device)
+    if cfg.kind in ("randk", "block"):
+        n_ids = d if cfg.kind == "randk" else -(-d // cfg.block_size)
+        m = torch.zeros(raw.shape[:-1] + (n_ids,), dtype=dtype,
+                        device=raw.device).scatter_(-1, raw, 1)
+        if cfg.kind == "randk":
+            return m
+        return m.repeat_interleave(cfg.block_size, dim=-1)[..., :d]
+    r = (torch.tensor(cfg.ratio, dtype=torch.float32) if ratio is None
+         else _lead(torch.as_tensor(ratio, dtype=torch.float32,
+                                    device=raw.device), raw.ndim))
+    keep = (raw < r).to(dtype)
+    if cfg.kind == "bernoulli":
+        return keep
+    return keep.repeat_interleave(cfg.block_size, dim=-1)[..., :d]
+
+
+def make_mask(draws, d: int, cfg: SparsifierConfig,
+              dtype: torch.dtype = torch.float32, ratio=None) -> torch.Tensor:
+    """One sparsification mask ``[d]`` on the draws provider's device
+    (``[B, d]`` for a ``[B]`` tensor of per-lane ratios, from one draw)."""
+    raw = _per_lane(mask_draw(draws, d, cfg, ratio=ratio), ratio)
+    return mask_from_draw(raw, d, cfg, dtype, ratio, draws.device)
+
+
+def _per_lane(raw: Optional[torch.Tensor], ratio) -> Optional[torch.Tensor]:
+    """One draw read by every lane of a ``[B]`` ratio."""
+    if raw is None or ratio is None or not torch.as_tensor(ratio).ndim:
+        return raw
+    return raw.expand((len(ratio),) + raw.shape)
+
+
 def make_masks(draws, n_workers: int, d: int, cfg: SparsifierConfig,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+               dtype: torch.dtype = torch.float32, ratio=None
+               ) -> torch.Tensor:
     """Masks for ``n_workers``: ``[d]`` for a global mask (broadcast over the
     worker axis by :func:`compress`), ``[n_workers, d]`` for local masks (one
-    draw per worker, in worker order)."""
+    draw per worker, in worker order). A ``[B]`` tensor of per-lane ratios
+    adds a leading lane axis."""
     if not cfg.local:
-        return make_mask(draws, d, cfg, dtype)
-    return torch.stack([make_mask(draws, d, cfg, dtype)
-                        for _ in range(n_workers)])
+        return make_mask(draws, d, cfg, dtype, ratio)
+    raw = _per_lane(mask_draw(draws, d, cfg, local_workers=n_workers,
+                              ratio=ratio), ratio)
+    m = mask_from_draw(raw, d, cfg, dtype, ratio, draws.device)
+    return m if raw is not None else m.expand((n_workers, d))
 
 
 def compress(g: torch.Tensor, mask: torch.Tensor,
-             cfg: SparsifierConfig) -> torch.Tensor:
+             cfg: SparsifierConfig, ratio=None) -> torch.Tensor:
     """Server-side unbiased reconstruction ``(alpha * g) * mask``, in the
-    reference's operation order (so the result is bitwise the same)."""
+    reference's operation order (so the result is bitwise the same). A
+    ``[B]`` tensor of per-lane ratios gives ``(g / ratio) * mask``, the
+    reference's traced-ratio rescale, over ``g``'s leading lane axis."""
+    if ratio is not None:
+        return (g / _lead(ratio, g.ndim)) * mask
     if cfg.kind == "none" or cfg.ratio >= 1.0:
         return g
     return (cfg.alpha * g) * mask
@@ -155,12 +225,7 @@ def block_ids(draws, n: int, d: int, cfg: SparsifierConfig
     :func:`_block_mask` draws them: ``[kb]`` (one permutation prefix shared
     by every row) for a global mask, ``[n, kb]`` (one per worker, in worker
     order) for local masks. ``d`` is a multiple of the block."""
-    nb = d // cfg.block_size
-    kb = max(1, int(round(cfg.ratio * nb)))
-    if cfg.local:
-        return torch.stack([draws.permutation_prefix(nb, kb)
-                            for _ in range(n)])
-    return draws.permutation_prefix(nb, kb)
+    return mask_draw(draws, d, cfg, local_workers=n if cfg.local else 0)
 
 
 def compressed_payload(grads: torch.Tensor, draws, cfg: SparsifierConfig
@@ -175,7 +240,7 @@ def compressed_payload(grads: torch.Tensor, draws, cfg: SparsifierConfig
 
 
 def compressed_estimate(grads: torch.Tensor, draws,
-                        cfg: SparsifierConfig) -> torch.Tensor:
+                        cfg: SparsifierConfig, ratio=None) -> torch.Tensor:
     """Steps 1+4: sample the round's masks and return the unbiased
     reconstruction of the ``[n, d]`` gradient bank.
 
@@ -184,11 +249,12 @@ def compressed_estimate(grads: torch.Tensor, draws,
     real wire payload instead (:func:`compressed_payload`), and the
     decompress kernel scatters it back into a dense bank. Bitwise the dense
     path on finite gradients (the kernel writes +0.0 where
-    ``(alpha * g) * 0`` may give -0.0)."""
+    ``(alpha * g) * 0`` may give -0.0). A ``ratio`` (a float32 scalar
+    tensor, :data:`TRACED_RATIO_KINDS`) overrides ``cfg.ratio``."""
     n, d = grads.shape
-    if not _kernel_eligible(cfg, d):
-        return compress(grads, make_masks(draws, n, d, cfg,
-                                          dtype=grads.dtype), cfg)
+    if ratio is not None or not _kernel_eligible(cfg, d):
+        return compress(grads, make_masks(draws, n, d, cfg, grads.dtype,
+                                          ratio), cfg, ratio)
     payload, ids = compressed_payload(grads, draws, cfg)
     return RK.decompress(payload, ids, block_size=cfg.block_size, d=d)
 

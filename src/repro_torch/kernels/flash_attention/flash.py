@@ -37,39 +37,64 @@ def fully_masked_rows(sq: int, sk: int, causal: bool, window: Optional[int],
     return window is not None and q_offset + sq - 1 > sk + window - 2
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool, window: Optional[int], q_offset: int) -> None:
+def refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool = True, window: Optional[int] = None,
+            q_offset: int = 0) -> Optional[Tuple[type, str]]:
+    """Why the kernel cannot take these inputs, as ``(exception type,
+    message)``, or ``None`` when it can: bfloat16 ``[B, S, heads, D]``
+    contiguous tensors, 16-byte aligned (TMA), D in :data:`HEAD_DIMS`, GQA
+    heads, no query row without a visible key, on a CUDA device (checked
+    last, so the other reasons read the same on the CPU)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError(f"flash attention kernel needs CUDA tensors, "
-                             f"got {name} on {t.device}")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash attention kernel takes bfloat16, got "
-                            f"{name} {t.dtype}")
+            return TypeError, (f"flash attention kernel takes bfloat16, got "
+                               f"{name} {t.dtype}")
         if t.ndim != 4 or not t.is_contiguous():
-            raise ValueError(f"flash attention kernel takes contiguous "
-                             f"[B, S, heads, D], got {name} "
-                             f"{tuple(t.shape)}")
+            return ValueError, (f"flash attention kernel takes contiguous "
+                                f"[B, S, heads, D], got {name} "
+                                f"{tuple(t.shape)}")
         if t.data_ptr() % 16:
-            raise ValueError(f"flash attention kernel loads with TMA and "
-                             f"needs 16-byte aligned tensors, got {name}")
+            return ValueError, (f"flash attention kernel loads with TMA and "
+                                f"needs 16-byte aligned tensors, got {name}")
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
-                         f"fit q {tuple(q.shape)}")
+        return ValueError, (f"k {tuple(k.shape)} and v {tuple(v.shape)} do "
+                            f"not fit q {tuple(q.shape)}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel is built for head dims "
-                         f"{HEAD_DIMS}, got {d}")
+        return ValueError, (f"flash attention kernel is built for head dims "
+                            f"{HEAD_DIMS}, got {d}")
     if h % kv or b > 65535 or h > 65535:
-        raise ValueError(f"H={h} must be a multiple of KV={kv}; B, H <= 65535")
+        return ValueError, (f"H={h} must be a multiple of KV={kv}; B, H <= "
+                            f"65535")
     if window is not None and window < 1:
-        raise ValueError(f"window must be positive, got {window}")
+        return ValueError, f"window must be positive, got {window}"
     if fully_masked_rows(sq, sk, causal, window, q_offset):
-        raise ValueError(
+        return ValueError, (
             f"query rows with no visible key (Sq={sq}, Sk={sk}, causal="
             f"{causal}, window={window}, q_offset={q_offset}): the kernel "
             f"does not take them")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            return ValueError, (f"flash attention kernel needs CUDA tensors, "
+                                f"got {name} on {t.device}")
+    return None
+
+
+def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool = True, window: Optional[int] = None,
+             q_offset: int = 0) -> bool:
+    """Whether the kernel takes these inputs (:func:`refusal` is None): the
+    model's attention asks before it calls, and takes the plain attention
+    where the kernel cannot run."""
+    return refusal(q, k, v, causal, window, q_offset) is None
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool, window: Optional[int], q_offset: int) -> None:
+    why = refusal(q, k, v, causal, window, q_offset)
+    if why is not None:
+        raise why[0](why[1])
 
 
 def _problem(q, k, causal, window, q_offset) -> tuple:

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import flash as FK
 from repro_torch.kernels.flash_attention import ops as FA
 
 Params = Dict[str, Any]
@@ -166,9 +167,13 @@ def attn_apply(p: Params, cfg, x: torch.Tensor, *, mode: str = "train",
                pos: int = 0) -> torch.Tensor:
     """Train-mode GQA self-attention of ``x [B, S, d_model]``.
 
-    ``cfg.use_flash_attention`` None or True takes the flash-attention
-    kernel path (the CUDA kernels on the card, the plain dense version on
-    the CPU); False the plain ``causal_attention``."""
+    ``cfg.use_flash_attention``: ``None`` takes the flash-attention kernels
+    where they take the inputs (``flash.supports``: bfloat16, head dims 64,
+    80 and 128, on the card) and the plain ``causal_attention`` elsewhere, a
+    choice made before the call, as the reference takes its kernel only for
+    what it runs; ``True`` asks for the kernel path (the plain dense version
+    on the CPU) and raises on the card where the kernel cannot run; ``False``
+    is ``causal_attention``."""
     if mode != "train":
         raise ValueError(f"attention mode {mode!r} is not ported (train "
                          f"only; the prefill and decode caches wait)")
@@ -181,12 +186,19 @@ def attn_apply(p: Params, cfg, x: torch.Tensor, *, mode: str = "train",
     qpos = pos + torch.arange(s, device=x.device)
     q = apply_rope(q, qpos, cfg.rope_theta)
     k = apply_rope(k, qpos, cfg.rope_theta)
-    if cfg.use_flash_attention is False:
-        out = causal_attention(q, k, v, q_offset=pos,
-                               window=cfg.sliding_window)
-    else:
+    flash = cfg.use_flash_attention
+    if flash is not False and q.is_cuda:
+        why = FK.refusal(q, k, v, True, cfg.sliding_window, pos)
+        if why is not None and flash:
+            raise ValueError(f"use_flash_attention=True, but the flash "
+                             f"kernel cannot take these inputs: {why[1]}")
+        flash = why is None
+    if flash:
         out = FA.flash_attention(q, k, v, causal=True,
                                  window=cfg.sliding_window, q_offset=pos)
+    else:
+        out = causal_attention(q, k, v, q_offset=pos,
+                               window=cfg.sliding_window)
     return dense_apply(p["wo"], out.reshape(b, s, h * hd))
 
 

@@ -151,3 +151,43 @@ def stacked_unravel(flat: torch.Tensor, spec: FlatSpec) -> Any:
               for shape, dtype, size, off in zip(spec.shapes, spec.dtypes,
                                                  spec.sizes, spec.offsets)]
     return tree_unflatten(spec.treedef, leaves)
+
+
+def tree_size(tree: Any) -> int:
+    """Total number of scalar elements across all leaves."""
+    return int(sum(math.prod(l.shape) if hasattr(l, "shape") else 1
+                   for l in tree_leaves(tree)))
+
+
+def tree_cast(tree: Any, dtype: torch.dtype) -> Any:
+    return tree_map(lambda l: l.to(dtype), tree)
+
+
+def tree_add(a: Any, b: Any) -> Any:
+    leaves_a, treedef = tree_flatten(a)
+    return tree_unflatten(treedef, [x + y for x, y in
+                                    zip(leaves_a, tree_leaves(b))])
+
+
+def tree_scale(a: Any, s) -> Any:
+    return tree_map(lambda l: l * s, a)
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """``sqrt`` of the sum over leaves of each leaf's float32 sum of
+    squares, leaf by leaf in leaf order (the reference's Python ``sum``)."""
+    total = sum(torch.sum(torch.square(l.to(torch.float32)))
+                for l in tree_leaves(tree))
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def lanes_ravel(tree: Any, spec: FlatSpec, lead: int = 2,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Flatten a tree whose leaves carry ``lead`` leading axes (lanes, then
+    workers) into ``[*lead_shape, spec.padded_size]``."""
+    leaves = tree_leaves(tree)
+    shape = tuple(leaves[0].shape[:lead])
+    parts = [l.reshape(shape + (-1,)).to(dtype) for l in leaves]
+    if spec.pad:
+        parts.append(parts[0].new_zeros(shape + (spec.pad,)))
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]

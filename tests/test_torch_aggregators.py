@@ -120,8 +120,10 @@ def test_kappa_bound_matches(name, pre, n, f):
 
 
 def test_unported_rule_and_wrong_device_raise():
-    with pytest.raises(ValueError, match="not ported"):
-        G.make_aggregator(G.AggregatorConfig(name="geomed", f=1), "cpu")
+    """Every reference rule is ported (geomed since the grid slice): an
+    unknown name raises."""
+    with pytest.raises(ValueError, match="unknown aggregator"):
+        G.make_aggregator(G.AggregatorConfig(name="trimmed", f=1), "cpu")
     agg = _port("cwtm", True, True)
     with pytest.raises(ValueError, match="built for cpu"):
         agg(torch.zeros(5, 4, device="meta"))

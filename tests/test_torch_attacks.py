@@ -59,5 +59,7 @@ def test_alie_z_and_linear_coeffs(n, f):
 
 
 def test_unported_attack_raises():
-    with pytest.raises(ValueError, match="not ported"):
-        A.apply_attack(A.AttackConfig(name="gauss"), torch.zeros(4, 3), 2)
+    """The stateless dispatch refuses the stateful adversaries (they run in
+    ``repro_torch.adversary`` with their memory)."""
+    with pytest.raises(ValueError, match="stateless"):
+        A.apply_attack(A.AttackConfig(name="spectral"), torch.zeros(4, 3), 2)

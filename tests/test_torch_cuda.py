@@ -522,3 +522,125 @@ def test_llm_train_steps_kernel_vs_plain(card):
     for (lk, rk), (lp, rp) in zip(kern, plain):
         assert lk == pytest.approx(lp, rel=5e-3)
         assert rk == pytest.approx(rp, rel=2e-2)
+
+
+# ----------------------------------------------------------------------- #
+# the attention's dispatch: the kernel only where it takes the inputs
+# ----------------------------------------------------------------------- #
+
+
+def _lm_loss_and_grads(card, cfg, seed=0):
+    from repro_torch.models import lm_loss, model_init
+    from repro_torch.utils.tree import tree_leaves
+    params = model_init(cfg, torch.Generator(device=card).manual_seed(seed))
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (2, 128))).to(card)
+    loss = lm_loss(params, cfg, {"tokens": toks})
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["float32", "head_dim_256"])
+def test_attention_takes_the_plain_path_where_the_kernel_cannot(card, case):
+    """A float32 config and a head dim of 256 (gemma_2b's) run forward and
+    backward on the card through ``causal_attention``, equal to the plain
+    path, with no flash launch; asking for the kernel raises."""
+    from repro_torch.configs import get_arch
+    base = get_arch("stablelm_3b").model.reduced(n_layers=1, d_model=256)
+    cfg = (base.with_overrides(dtype="float32") if case == "float32"
+           else base.with_overrides(head_dim=256))
+    K.reset_launches()
+    loss, grads = _lm_loss_and_grads(card, cfg)
+    assert K.launches()["flash_fwd"] == K.launches()["flash_bwd"] == 0
+    ploss, pgrads = _lm_loss_and_grads(
+        card, cfg.with_overrides(use_flash_attention=False))
+    assert torch.equal(loss, ploss)
+    assert all(torch.equal(a, b) for a, b in zip(grads, pgrads))
+    assert torch.isfinite(loss)
+    with pytest.raises(ValueError, match="use_flash_attention=True"):
+        _lm_loss_and_grads(card, cfg.with_overrides(use_flash_attention=True))
+
+
+@pytest.mark.cuda
+def test_default_attention_launches_the_kernel_on_bf16(card):
+    from repro_torch.configs import get_arch
+    cfg = get_arch("stablelm_3b").model.reduced(n_layers=2, d_model=256)
+    K.reset_launches()
+    _lm_loss_and_grads(card, cfg)
+    assert K.launches()["flash_fwd"] == K.launches()["flash_bwd"] == 2
+
+
+# ----------------------------------------------------------------------- #
+# the grid: its kernel shapes, and launches that do not grow with B
+# ----------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,b", [("pairdist", 36), ("cwtm", 18),
+                                    ("median", 18)])
+def test_grid_kernel_shapes_match_plain(card, name, b):
+    """The table1 CNN grid's shapes (2 seeds): pairdist over its 36 NNM
+    lanes, CWTM and median over 18 lanes each, D = 11,958."""
+    x = _x(b, 13, 11958, 31, card)
+    if name == "pairdist":
+        got, want = pairdist_cuda(x), pairdist_ref(x)
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            x.square().sum(-1).max())
+        assert bool((got.diagonal(dim1=1, dim2=2) == 0).all())
+    elif name == "cwtm":
+        torch.testing.assert_close(cwtm_cuda(x, 3), cwtm_ref(x, 3),
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(median_cuda(x), median_ref(x), rtol=0,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [4, 12])
+def test_aggregator_bank_launches_once_per_branch(card, b):
+    """A 2-branch bank (NNM+CWTM, NNM+median) over B lanes: one pairdist,
+    one CWTM and one median launch a call, whatever B; each lane equals its
+    lone rule."""
+    from repro_torch.core import aggregators as G
+    x = _x(b, 13, 777, 5, card)
+    bank = G.make_aggregator_bank(G.AggregatorConfig(
+        name="bank", f=3, bank=(("cwtm", True), ("median", True))),
+        device=card)
+    idx = [i % 2 for i in range(b)]
+    K.reset_launches()
+    out = bank(x, idx)
+    got = K.launches()
+    assert (got["pairdist"], got["cwtm"], got["median"]) == (1, 1, 1)
+    for i in (0, 1):
+        name = ("cwtm", "median")[idx[i]]
+        lone = G.make_aggregator(G.AggregatorConfig(
+            name=name, f=3, pre_nnm=True), device=card)
+        torch.testing.assert_close(out[i], lone(x[i]), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_grid_rollout_on_the_card_matches_the_cpu(card):
+    """table1-mini on the quadratic (d = 64), 2 seeds, 3 rounds, the same
+    draws on both sides: every lane within 1e-5 of max |w| of the CPU's
+    plain path; pairdist and CWTM launch once a round."""
+    from repro_torch.core import sweep as SW
+    from repro_torch.adversary import registry as R
+    bank, = SW.plan_grid(R.expand_scenario("table1-mini")).banks
+    k, n = bank.cfg.sparsifier.k(64), bank.cfg.n_workers
+    out = {}
+    for dev in (card, "cpu"):
+        loss, p0, batch, _ = SW.quadratic_testbed(n, d=64, device=dev)
+        sim = Simulator(loss, p0, bank.cfg, device=dev)
+        draws = []
+        for s in (0, 1):
+            rng = np.random.default_rng(s)
+            draws.append(ReplayDraws(dev, permutations=[
+                rng.permutation(64)[:k] for _ in range(3 * (n + 1))]))
+        K.reset_launches()
+        st, m = SW.fused_grid_rollout(sim, bank.scenario_params(), (0, 1),
+                                      batch, 3, draws=draws)
+        out[str(dev)] = (st.params_flat.cpu(), K.launches())
+    (gpu, launches), (cpu, _) = out[str(card)], out["cpu"]
+    assert launches["pairdist"] == launches["cwtm"] == 3
+    assert float((gpu - cpu).abs().max()) <= 1e-5 * float(cpu.abs().max())

@@ -123,3 +123,65 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         flash_fwd_cuda(q, q, q)
     with pytest.raises(ValueError, match="cpu or cuda"):
         flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+def _qkv(dtype=torch.bfloat16, d=64, sq=8, sk=8, h=2, kv=2):
+    q = torch.zeros(1, sq, h, d, dtype=dtype)
+    k = torch.zeros(1, sk, kv, d, dtype=dtype)
+    return q, k, k.clone()
+
+
+@pytest.mark.parametrize("case,match", [
+    ("float32", "bfloat16"),
+    ("head_dim_256", "head dims"),
+    ("head_dim_48", "head dims"),
+    ("strided", "contiguous"),
+    ("no_visible_key", "no visible key"),
+    ("heads", "multiple of KV"),
+    ("window", "window must be positive"),
+    ("cpu", "needs CUDA"),
+])
+def test_supports_states_each_refusal(case, match):
+    """``flash.supports`` holds exactly where ``_check`` passes: each input
+    the kernel refuses, read on the CPU (the device is checked last)."""
+    from repro_torch.kernels.flash_attention import flash as FK
+    q, k, v = _qkv()
+    kw = {}
+    if case == "float32":
+        q, k, v = _qkv(torch.float32)
+    elif case == "head_dim_256":
+        q, k, v = _qkv(d=256)
+    elif case == "head_dim_48":
+        q, k, v = _qkv(d=48)
+    elif case == "strided":
+        q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)[:, :, ::2]
+    elif case == "no_visible_key":
+        kw = {"q_offset": -1}
+    elif case == "heads":
+        q, k, v = _qkv(h=3, kv=2)
+    elif case == "window":
+        kw = {"window": 0}
+    why = FK.refusal(q, k, v, True, kw.get("window"), kw.get("q_offset", 0))
+    assert why is not None and match in why[1]
+    assert not FK.supports(q, k, v, True, kw.get("window"),
+                           kw.get("q_offset", 0))
+    with pytest.raises(why[0], match=match):
+        FK._check(q, k, v, True, kw.get("window"), kw.get("q_offset", 0))
+
+
+def test_default_attention_takes_the_plain_path_where_the_kernel_cannot():
+    """``use_flash_attention=None`` on CPU tensors (where no kernel runs) is
+    the chunked ``causal_attention``; ``True`` asks for the kernel path, its
+    plain dense version on the CPU; the two agree."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    cfg = get_arch("stablelm_3b").model.reduced(n_layers=1, d_model=64) \
+        .with_overrides(dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    p = L.attn_init(gen, cfg)
+    x = torch.randn(2, 16, cfg.d_model, generator=gen)
+    plain = L.attn_apply(p, cfg.with_overrides(use_flash_attention=False), x)
+    default = L.attn_apply(p, cfg, x)
+    asked = L.attn_apply(p, cfg.with_overrides(use_flash_attention=True), x)
+    assert torch.equal(default, plain)
+    torch.testing.assert_close(asked, plain, rtol=1e-5, atol=1e-5)

@@ -126,3 +126,34 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
             continue  # on a card the repository's copy is expected to pass
         assert p.returncode != 0
         assert '"ok"' not in p.stdout
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core.sweep",
+                                    "repro_torch.adversary.core",
+                                    "repro_torch.adversary.registry"])
+def test_grid_modules_import_neither_jax_nor_repro(module):
+    """The grid engine, the adversaries and the scenario registry keep their
+    own copies of what they need from the reference (a fresh interpreter
+    that imports only the module)."""
+    code = (f"import sys, {module}\n"
+            "print(sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or "
+            "k.startswith('repro.')))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
+
+
+def test_grid_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    from repro_torch.core import sweep as SW
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SW.main(["--scenario", "table1-mini", "--steps", "1", "--seeds",
+                 "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        G.make_aggregator_bank(G.AggregatorConfig(name="bank", f=1))
+    rows = SW.main(["--scenario", "table1-mini", "--steps", "1", "--seeds",
+                    "1", "--device", "cpu"])
+    assert len(rows) == 8

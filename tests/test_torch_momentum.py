@@ -112,8 +112,7 @@ def _cfg(attack="alie", f=1, dtype="float32", local=False, name="rosdhb"):
         attack=A.AttackConfig(name=attack))
 
 
-ATTACKS = ["none", "linear", "alie", "signflip", "ipm", "foe", "mimic",
-           "zero"]
+ATTACKS = ["none", "linear", "alie", "signflip", "ipm", "foe", "zero"]
 
 
 def test_every_zero_preserving_attack_is_tested():

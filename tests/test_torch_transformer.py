@@ -89,10 +89,12 @@ def test_lm_loss_and_gradients_match(model):
 
 def test_plain_attention_path_matches_kernel_path(model):
     """``use_flash_attention=False`` (chunked ``causal_attention``) and the
-    kernel path (its dense plain version on the CPU) give the same loss."""
+    kernel path asked for with ``True`` (its dense plain version on the
+    CPU) give the same loss."""
     params = from_jax_params(model["params"])
     batch = {"tokens": torch.tensor(model["tokens"])}
-    a = T.lm_loss(params, model["cfg"], batch)
+    a = T.lm_loss(params, model["cfg"].with_overrides(
+        use_flash_attention=True), batch)
     b = T.lm_loss(params, model["cfg"].with_overrides(
         use_flash_attention=False), batch)
     assert float(a) == pytest.approx(float(b), rel=1e-6)

@@ -74,3 +74,49 @@ def test_stacked_ravel_bitwise():
     np.testing.assert_array_equal(got.numpy(), want)
     back = T.stacked_unravel(got, T.make_flat_spec(cnn_init(0)))
     np.testing.assert_array_equal(T.stacked_ravel(back).numpy(), want)
+
+
+def _cnn_pair():
+    params = jax_cnn_init(jax.random.PRNGKey(1))
+    return params, from_jax_params(_np_tree(params))
+
+
+def test_tree_size_cast_add_scale_match():
+    params, ported = _cnn_pair()
+    assert T.tree_size(ported) == JT.tree_size(params) == 11958
+    half = T.tree_cast(ported, torch.bfloat16)
+    jhalf = JT.tree_cast(params, jnp.bfloat16)
+    for got, want in zip(T.tree_leaves(half), jax.tree_util.tree_leaves(jhalf)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want, np.float32))
+    summed = T.tree_add(ported, ported)
+    scaled = T.tree_scale(ported, 0.3)
+    jsum = JT.tree_add(params, params)
+    jscaled = JT.tree_scale(params, 0.3)
+    for got, want in zip(T.tree_leaves(summed) + T.tree_leaves(scaled),
+                         jax.tree_util.tree_leaves(jsum)
+                         + jax.tree_util.tree_leaves(jscaled)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_global_norm_matches():
+    """Leaf by leaf float32 sums of squares, summed in leaf order: rtol
+    1e-6 (the leaves' reductions run in other orders)."""
+    params, ported = _cnn_pair()
+    np.testing.assert_allclose(float(T.global_norm(ported)),
+                               float(JT.global_norm(params)), rtol=1e-6)
+    assert T.global_norm(T.tree_cast(ported, torch.bfloat16)).dtype == \
+        torch.float32
+
+
+def test_lanes_ravel_is_stacked_ravel_per_lane():
+    _, ported = _cnn_pair()
+    spec = T.make_flat_spec(ported, pad_to=16)
+    lanes = T.tree_map(lambda l: torch.stack([l * i for i in range(6)])
+                       .reshape((2, 3) + l.shape), ported)
+    flat = T.lanes_ravel(lanes, spec)
+    assert flat.shape == (2, 3, spec.padded_size)
+    for i in range(6):
+        assert torch.equal(flat.reshape(6, -1)[i], T.tree_ravel(
+            T.tree_map(lambda l: l * i, ported), spec))
