@@ -74,7 +74,23 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    rounds), kernel path against plain path (1e-5 of max |w|), one launch
    a branch a round whatever the lane count (``python3 chip_smoke.py grid``
    runs this phase alone);
-8. the device µs and device kernels per call of pairdist, CWTM, median and
+8. the streaming parameter server (``repro_torch.serve``) at d =
+   1,048,576: ``fig1-alie`` served in process for 20 rounds, each round's
+   parameters bitwise ``Simulator.rollout``'s on the same draws, one
+   pairdist and one CWTM launch a round; the ``rosdhb/foe/median`` cell
+   (one median launch a round), kernel path against plain path (1e-5 of
+   max |w|); the loopback and TCP transports bitwise the in-process server;
+   30 rounds of partial participation (drop 0.2, late 0.1, staleness window
+   2, timeout 50 ms) with one pairdist and one CWTM launch per fired round,
+   a falling honest loss and a spread participation histogram, then the
+   same behaviour driven lock-step, kernel path against plain path; the
+   ``combined`` chaos scenario over TCP (every round terminated, a step
+   built per server instance, injected faults, client retries) and the
+   kill-restart resuming bitwise; bfloat16 server arithmetic, kernel path
+   against plain path; rounds/s, updates/s, round latency, step time and
+   peak memory of each transport, and one round split into its host pieces
+   (``python3 chip_smoke.py serve`` runs this phase alone);
+9. the device µs and device kernels per call of pairdist, CWTM, median and
    their library calls at the main paths' shapes, from the profiler, which
    runs last (it slows the launches that follow it); pairdist must be one
    device kernel a call.
@@ -1873,6 +1889,456 @@ def llm_options(torch, device: str = "cuda", local_steps: int = 2,
     return out
 
 
+# ----------------------------------------------------------------------- #
+# the streaming parameter server
+# ----------------------------------------------------------------------- #
+
+SERVE_D = 1048576         # the quadratic phase's width
+SERVE_ROUNDS = 20         # fig1-alie in process, each round held bitwise
+SERVE_SHORT_ROUNDS = 10   # the median cell, the transports, bfloat16
+SERVE_PARTIAL_ROUNDS = 30
+SERVE_CHAOS_ROUNDS = 12
+SERVE_MEDIAN_CELL = "stateless-linear/rosdhb/foe/median"
+SERVE_WAIT_S = 120.0
+
+
+def serve_cfg(use_kernels: bool = True, label=None, **over):
+    """fig1-alie (or a registry cell by label) with the kernels or the
+    plain rules, and ``over`` replacing config fields."""
+    if label is None:
+        cfg = fig1_alie(use_kernels)
+    else:
+        from repro_torch.adversary import registry as R
+        cfg = next(sc.cfg for sc in R.expand_scenario(label.split("/")[0])
+                   if sc.label == label)
+        cfg = dataclasses.replace(cfg, aggregator=dataclasses.replace(
+            cfg.aggregator, use_kernels=use_kernels))
+    return dataclasses.replace(cfg, **over)
+
+
+def serve_testbed(d: int, device: str):
+    from repro_torch.core import quadratic_testbed
+    return quadratic_testbed(13, d=d, seed=0, device=device)
+
+
+def honest_loss(torch, w, tg) -> float:
+    """The honest workers' mean quadratic loss at ``w``."""
+    return float(0.5 * torch.square(w[None, :tg.shape[1]] - tg[F:]).sum(
+        dim=-1).mean())
+
+
+def serve_check_launches(label: str, launches: dict, fired: int,
+                         names, device: str) -> None:
+    want = fired if device == "cuda" else 0
+    got = {k: launches[k] for k in names}
+    if any(v != want for v in got.values()):
+        raise AssertionError(f"serve {label}: launches {got}, expected "
+                             f"{want} each ({fired} fired rounds)")
+
+
+def serve_run(torch, device: str, cfg, rounds: int, runner=None,
+              behavior=None, serve=None, draws_for=None, snapshots=False,
+              d: int = SERVE_D, wrap_step=None) -> dict:
+    """Serve ``rounds`` rounds in process with the launch counts set to 0
+    just before and read just after (after ``stop()``: the batcher thread
+    launches). ``snapshots`` keeps each round's parameters (a lock-step
+    full-participation loop); ``wrap_step`` wraps the server's step."""
+    from repro_torch import kernels as K
+    from repro_torch.serve import (ByzantineRobustServer, ClientPool,
+                                   ServeConfig, run_service)
+    loss_fn, params0, batch_fn, tg = serve_testbed(d, device)
+    server = ByzantineRobustServer(cfg, params0, serve or ServeConfig(),
+                                   seed=0, device=device)
+    pool = ClientPool(loss_fn, params0, cfg, batch_fn, behavior=behavior,
+                      device=device, draws_for=draws_for)
+    if wrap_step is not None:
+        server.step = wrap_step(server.step)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    params = []
+    if snapshots:
+        server.start()
+        t0 = time.perf_counter()
+        try:
+            for t in range(rounds):
+                ann = server.announce(timeout=SERVE_WAIT_S)
+                for s in pool.round_payloads(ann):
+                    server.submit(s.update)
+                server.wait_round(t, timeout=SERVE_WAIT_S)
+                params.append(server.params_flat)
+        finally:
+            server.metrics.span(t0, time.perf_counter())
+            server.stop()
+        results = None
+    else:
+        results = (runner or run_service)(server, pool, rounds)
+    launches = K.launches()
+    peak = (torch.cuda.max_memory_allocated() / 2**20
+            if device == "cuda" else float("nan"))
+    return {"server": server, "pool": pool, "results": results,
+            "params": params, "launches": launches, "peak_mib": peak,
+            "summary": server.metrics.summary(), "targets": tg,
+            "params0": params0}
+
+
+def serve_times(summary: dict) -> dict:
+    return {k: summary[k] for k in ("rounds", "rounds_per_sec",
+                                    "updates_per_sec", "latency_p50_ms",
+                                    "latency_p99_ms", "step_p50_ms")}
+
+
+def serve_log_times(label: str, rec: dict) -> None:
+    log(f"serve {label}: {rec['rounds']} rounds, {rec['rounds_per_sec']:.2f}"
+        f" rounds/s, {rec['updates_per_sec']:.1f} updates/s, round latency "
+        f"p50 {rec['latency_p50_ms']:.3f} ms p99 {rec['latency_p99_ms']:.3f}"
+        f" ms, median step {rec['step_p50_ms']:.3f} ms, peak device memory "
+        f"{rec['peak_mib']:.1f} MiB")
+
+
+def serve_bf16(torch, device: str, rounds: int, d: int = SERVE_D) -> dict:
+    """fig1-alie with ``server_compute_dtype="bfloat16"`` served on
+    ``device``; each round's step inputs are replayed through the same step
+    on the CPU, where the wrappers run the kernels' plain versions: the
+    momentum bank bitwise, the parameters within ``gamma`` times one
+    bfloat16 ulp of max |R| (the bar of the bfloat16 test against the
+    reference; the plain rules, ``use_kernels=False``, are no yardstick
+    here: they compute NNM's distances in bfloat16)."""
+    from repro_torch.serve import ByzantineRobustServer
+    cfg = serve_cfg(server_compute_dtype="bfloat16")
+    steps = []
+
+    def recorded(step):
+        def run_step(params, state, wire, present, discount):
+            new_p, new_s = step(params, state, wire, present, discount)
+            steps.append([t.cpu() for t in (params, state.momentum, wire,
+                                            present, discount, new_p,
+                                            new_s.momentum)])
+            return new_p, new_s
+        return run_step
+
+    run = serve_run(torch, device, cfg, rounds, d=d, wrap_step=recorded)
+    serve_check_launches("bfloat16", run["launches"], rounds,
+                         ("pairdist", "cwtm"), device)
+    _, params0, _, _ = serve_testbed(d, "cpu")
+    plain = ByzantineRobustServer(cfg, params0, device="cpu")
+    worst, mom_equal = 0.0, True
+    for p, m, wire, present, disc, new_p, new_m in steps:
+        st = plain.server_state._replace(momentum=m)
+        want_p, want_s = plain.step(p, st, wire, present, disc)
+        mom_equal &= bool(torch.equal(want_s.momentum, new_m))
+        max_r = float((p - new_p).abs().max()) / cfg.gamma
+        ulp = 2.0 ** (math.floor(math.log2(max_r)) - 7)
+        worst = max(worst, float((want_p - new_p).abs().max())
+                    / (cfg.gamma * ulp))
+    log(f"serve bfloat16 compute: launches "
+        f"{ {k: run['launches'][k] for k in ('pairdist', 'cwtm')} }, each of "
+        f"{len(steps)} steps against the plain versions on the cpu: momentum "
+        f"bitwise {mom_equal}, parameters within {worst:.3g} x gamma x one "
+        f"bfloat16 ulp of max |R| (bound 1)")
+    if len(steps) != rounds or not mom_equal or worst > 1.0:
+        raise AssertionError("serve bfloat16: the card's step and the plain "
+                             "versions disagree")
+    return {"rounds": rounds, "launches": run["launches"],
+            "momentum_bitwise": mom_equal, "worst_in_bf16_ulps": worst}
+
+
+def serve_pieces(torch, device: str, d: int = SERVE_D, reps: int = 5
+                 ) -> dict:
+    """One served round split into its host pieces (median ms of ``reps``):
+    the announcement's device-to-host copy, the pool's gradients and wire,
+    the wire's device-to-host copy, 13 update frames encoded (CRC32 over
+    each payload) and decoded, the padded bank filled on the host and
+    copied to the device, and the aggregate-and-apply step."""
+    import numpy as np
+    from repro_torch.serve import ByzantineRobustServer, ClientPool, protocol
+    cfg = fig1_alie()
+    loss_fn, params0, batch_fn, _ = serve_testbed(d, device)
+    server = ByzantineRobustServer(cfg, params0, seed=0, device=device)
+    pool = ClientPool(loss_fn, params0, cfg, batch_fn, device=device)
+    ann = server.announce(timeout=1.0)
+    n, p = cfg.n_workers, server.spec.padded_size
+    box = {}
+
+    def grads_wire():
+        box["wire"] = pool.wire(ann)[0]
+
+    def wire_d2h():
+        box["host"] = box["wire"].cpu().numpy()
+
+    def encode():
+        box["frames"] = [protocol.encode_update(protocol.make_update(
+            cfg, server.d, c, ann, box["host"][c])) for c in range(n)]
+
+    def decode():
+        box["updates"] = []
+        for raw in box["frames"]:
+            _, sender, payload = protocol.decode_frame(raw)
+            box["updates"].append(protocol.decode_update(payload, sender))
+
+    def bank_fill():
+        bank = np.zeros((n, p), np.float32)
+        for u in box["updates"]:
+            bank[u.client_id] = u.values
+        box["bank"] = bank
+
+    def bank_h2d():
+        box["bank_t"] = torch.from_numpy(box["bank"]).to(device)
+        box["present"] = torch.ones(n, dtype=torch.bool, device=device)
+        box["discount"] = torch.ones(n, device=device)
+
+    def step():
+        server.step(server.params_flat, server.server_state, box["bank_t"],
+                    box["present"], box["discount"])
+
+    pieces = {"announce_d2h": server._host_params,
+              "pool_grads_wire": grads_wire, "wire_d2h": wire_d2h,
+              "encode_crc32": encode, "decode_crc32": decode,
+              "bank_fill": bank_fill, "bank_h2d": bank_h2d, "step": step}
+    out = {}
+    for name, fn in pieces.items():
+        times = []
+        for _ in range(reps + 1):
+            sync(torch, device)
+            t0 = time.perf_counter()
+            fn()
+            sync(torch, device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = sorted(times[1:])[len(times[1:]) // 2]
+    log("serve round pieces (median ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out.items()) + f"; total "
+        f"{sum(out.values()):.3f}")
+    return out
+
+
+def serve_profile(torch, device: str, d: int = SERVE_D,
+                  rounds: int = 5) -> dict:
+    """Device busy and idle share of in-process served rounds (after a
+    warm-up round), from ``profile_window``; the batcher thread's kernels
+    are on the card's timeline like the pool's."""
+    from repro_torch.serve import (ByzantineRobustServer, ClientPool,
+                                   run_service)
+    cfg = fig1_alie()
+    loss_fn, params0, batch_fn, _ = serve_testbed(d, device)
+    server = ByzantineRobustServer(cfg, params0, seed=0, device=device)
+    pool = ClientPool(loss_fn, params0, cfg, batch_fn, device=device)
+    run_service(server, pool, 1, stop=False)
+    try:
+        return profile_window(
+            torch, lambda i: run_service(server, pool, 1, stop=False),
+            rounds, "serve")
+    finally:
+        server.stop()
+
+
+def serve_phase(torch, device: str = "cuda", d: int = SERVE_D,
+                rounds: int = SERVE_ROUNDS, short: int = SERVE_SHORT_ROUNDS,
+                partial_rounds: int = SERVE_PARTIAL_ROUNDS,
+                chaos_rounds: int = SERVE_CHAOS_ROUNDS) -> dict:
+    """The streaming parameter server (``repro_torch.serve``) at d =
+    1,048,576: (1) fig1-alie in process, each round bitwise
+    ``Simulator.rollout`` on the same draws, one pairdist and one CWTM
+    launch a round; (2) the ``rosdhb/foe/median`` cell, kernel path against
+    plain path; (3) loopback and TCP bitwise the in-process server; (4)
+    partial participation under the clock, then kernel against plain path
+    driven lock-step; (5) ``combined`` chaos over TCP and the kill-restart
+    resuming bitwise; (6) bfloat16 server arithmetic, kernel against plain;
+    (7) times. ``cpu`` only to rehearse the script's logic."""
+    import numpy as np
+    from repro_torch.core import Simulator
+    from repro_torch.serve import (ClientBehavior, ServeConfig, get_chaos,
+                                   run_chaos, run_lockstep)
+    from repro_torch.testing import RecordingDraws, SeedWordDraws
+    on_card = device == "cuda"
+    out = {}
+
+    # (1) fig1-alie, in process, full participation: round by round the
+    # simulator's trajectory on the same draws
+    recs = []
+
+    def recording(ann):
+        recs.append(RecordingDraws(SeedWordDraws(ann.mask_key, ann.atk_key,
+                                                 device)))
+        return recs[-1]
+
+    run = serve_run(torch, device, serve_cfg(), rounds, draws_for=recording,
+                    snapshots=True, d=d)
+    serve_check_launches("fig1-alie", run["launches"], rounds,
+                         ("pairdist", "cwtm"), device)
+    loss_fn, params0, batch_fn, tg = serve_testbed(d, device)
+    sim = Simulator(loss_fn, params0, serve_cfg(), device=device)
+    st = sim.init(seed=0)
+    unequal = []
+    for t, rec in enumerate(recs):
+        st, _ = sim.round(st._replace(draws=rec.replay()), batch_fn(t))
+        if not torch.equal(st.params_flat, run["params"][t]):
+            unequal.append(t)
+    log(f"serve fig1-alie d={d}: {rounds} rounds in process, launches "
+        f"{ {k: run['launches'][k] for k in ('pairdist', 'cwtm')} }, rounds"
+        f" not bitwise the simulator's: {unequal}")
+    if unequal:
+        raise AssertionError(f"serve fig1-alie: rounds {unequal} differ from "
+                             f"Simulator.rollout")
+    out["parity"] = {"rounds": rounds, "launches": run["launches"],
+                     "bitwise_rounds": rounds - len(unequal)}
+
+    # (2) rosdhb/foe/median: the median kernel once a round
+    finals = {}
+    for use_kernels in (True, False):
+        run = serve_run(torch, device, serve_cfg(use_kernels,
+                                                 SERVE_MEDIAN_CELL), short,
+                        d=d)
+        if use_kernels:
+            serve_check_launches("median cell", run["launches"], short,
+                                 ("pairdist", "median"), device)
+            med_launches = run["launches"]
+        finals[use_kernels] = run["server"].params_flat
+    diff = float((finals[True] - finals[False]).abs().max())
+    scale = float(finals[False].abs().max())
+    log(f"serve {SERVE_MEDIAN_CELL}: launches "
+        f"{ {k: med_launches[k] for k in ('pairdist', 'median')} }, kernel vs "
+        f"plain path after {short} rounds max |d| {diff:.3g} of max |w| "
+        f"{scale:.4f} (bound 1e-5 relative, the quadratic phase's)")
+    if diff > 1e-5 * scale:
+        raise AssertionError("serve median cell: kernel and plain paths "
+                             "disagree")
+    out["median"] = {"rounds": short, "launches": med_launches,
+                     "max_abs_diff": diff}
+
+    # (3) + (7) the transports, timed: in process, loopback, TCP
+    from repro_torch import kernels as K
+    run = serve_run(torch, device, serve_cfg(), short, d=d)
+    serve_check_launches("in-process", run["launches"], short,
+                         ("pairdist", "cwtm"), device)
+    want = run["server"].params_flat.cpu().numpy()
+    transports = {"in_process": {**serve_times(run["summary"]),
+                                 "peak_mib": run["peak_mib"],
+                                 "launches": run["launches"]}}
+    serve_log_times("in-process", transports["in_process"])
+    for kind in ("loopback", "tcp"):
+        sc = dataclasses.replace(get_chaos("fault-free"), transport=kind)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        res = run_chaos(serve_cfg(), params0, batch_fn, loss_fn, sc, short,
+                        seed=0, device=device)
+        launches = K.launches()
+        serve_check_launches(kind, launches, short, ("pairdist", "cwtm"),
+                             device)
+        transports[kind] = {
+            **serve_times(res.summaries[0]), "launches": launches,
+            "peak_mib": (torch.cuda.max_memory_allocated() / 2**20
+                         if device == "cuda" else float("nan")),
+            "bitwise": bool(np.array_equal(res.final_params, want))}
+        serve_log_times(kind, transports[kind])
+        if not transports[kind]["bitwise"] or res.step_traces != [1]:
+            raise AssertionError(f"serve {kind}: not bitwise the in-process "
+                                 f"server (step_traces {res.step_traces})")
+    out["transports"] = transports
+    # (7) one round's host pieces
+    out["pieces"] = serve_pieces(torch, device, d)
+
+    # (4) partial participation under the clock
+    beh = dict(drop_prob=0.2, late_prob=0.1, seed=0)
+    run = serve_run(torch, device, serve_cfg(), partial_rounds,
+                    behavior=ClientBehavior(**beh),
+                    serve=ServeConfig(timeout_s=0.05, staleness_window=2),
+                    d=d)
+    s = run["summary"]
+    fired = s["rounds"]
+    serve_check_launches("partial", run["launches"], fired,
+                         ("pairdist", "cwtm"), device)
+    loss0 = honest_loss(torch, run["server"].params_flat.new_zeros(
+        run["server"].params_flat.shape), run["targets"])
+    loss1 = honest_loss(torch, run["server"].params_flat, run["targets"])
+    log(f"serve partial participation: {fired} rounds, fired_by "
+        f"{s['fired_by']}, participation {s['participation_histogram']}, "
+        f"staleness {s['staleness_histogram']}, launches "
+        f"{ {k: run['launches'][k] for k in ('pairdist', 'cwtm')} }, honest "
+        f"loss {loss0:.4f} -> {loss1:.4f}")
+    if not (math.isfinite(loss1) and loss1 < loss0):
+        raise AssertionError("serve partial: honest loss did not fall")
+    if len(s["participation_histogram"]) < 2:
+        raise AssertionError("serve partial: participation did not spread")
+    partial = {**serve_times(s), "peak_mib": run["peak_mib"],
+               "launches": run["launches"], "loss0": loss0, "loss": loss1,
+               "participation_histogram": s["participation_histogram"],
+               "fired_by": s["fired_by"]}
+    # the same behaviour driven lock-step (the rows each round fixed by the
+    # pool's fates, not the clock): kernel path against plain path
+    finals, rows = {}, {}
+    for use_kernels in (True, False):
+        run = serve_run(torch, device, serve_cfg(use_kernels), partial_rounds,
+                        runner=run_lockstep, behavior=ClientBehavior(**beh),
+                        serve=ServeConfig(staleness_window=2), d=d)
+        if use_kernels:
+            serve_check_launches("partial lock-step", run["launches"],
+                                 partial_rounds, ("pairdist", "cwtm"),
+                                 device)
+        finals[use_kernels] = run["server"].params_flat
+        rows[use_kernels] = [(r.client_ids, r.staleness)
+                             for r in run["results"]]
+    diff = float((finals[True] - finals[False]).abs().max())
+    scale = float(finals[False].abs().max())
+    log(f"serve partial lock-step: participation "
+        f"{sorted({len(r[0]) for r in rows[True]})}, kernel vs plain path "
+        f"after {partial_rounds} rounds max |d| {diff:.3g} of max |w| "
+        f"{scale:.4f} (bound 1e-5 relative, the quadratic phase's)")
+    if rows[True] != rows[False] or diff > 1e-5 * scale:
+        raise AssertionError("serve partial lock-step: kernel and plain "
+                             "paths disagree")
+    partial["lockstep_max_abs_diff"] = diff
+    out["partial"] = partial
+
+    # (5) chaos over TCP: combined faults, then the kill-restart bitwise
+    sc = dataclasses.replace(get_chaos("combined"), transport="tcp")
+    K.reset_launches()
+    res = run_chaos(serve_cfg(), params0, batch_fn, loss_fn, sc,
+                    chaos_rounds, seed=0, device=device)
+    launches = K.launches()
+    fired = sum(x["rounds"] for x in res.summaries)
+    log(f"serve chaos combined over tcp: {chaos_rounds} rounds, terminated "
+        f"{res.all_rounds_terminated()}, restarts {res.restarts}, "
+        f"step_traces {res.step_traces}, injected {res.injected}, clients "
+        f"{res.client_stats}, fired {fired}, launches "
+        f"{ {k: launches[k] for k in ('pairdist', 'cwtm')} }")
+    if not (res.all_rounds_terminated() and res.step_traces == [1, 1]
+            and sum(res.injected.values()) > 0
+            and res.client_stats["retries"] > 0):
+        raise AssertionError("serve chaos combined: failed its checks")
+    serve_check_launches("chaos", launches, fired, ("pairdist", "cwtm"),
+                         device)
+    kill = {}
+    for name in ("fault-free", "kill-restart"):
+        kill[name] = run_chaos(
+            serve_cfg(), params0, batch_fn, loss_fn,
+            dataclasses.replace(get_chaos(name), transport="tcp"),
+            chaos_rounds, seed=0, device=device)
+    bitwise = bool(np.array_equal(kill["kill-restart"].final_params,
+                                  kill["fault-free"].final_params))
+    log(f"serve kill-restart over tcp: restarts "
+        f"{kill['kill-restart'].restarts}, bitwise the uninterrupted run: "
+        f"{bitwise}")
+    if not bitwise or kill["kill-restart"].restarts != 1:
+        raise AssertionError("serve kill-restart: did not resume bitwise")
+    out["chaos"] = {"rounds": chaos_rounds, "fired": fired,
+                    "launches": launches, "injected": res.injected,
+                    "client_stats": res.client_stats,
+                    "step_traces": res.step_traces,
+                    "kill_restart_bitwise": bitwise}
+
+    # (6) bfloat16 server arithmetic: each round's step on the card (the
+    # kernels) against the kernels' plain versions on the CPU, same inputs
+    out["bf16"] = serve_bf16(torch, device, short, d)
+    # a profiled window of served rounds last (a profiler slows the
+    # launches that follow it in the process)
+    out["profile"] = serve_profile(torch, device, d) if on_card else None
+
+    return out
+
+
 def split_record(rec) -> dict:
     """The device and host µs per call of a timed case's kernel and
     library call."""
@@ -1884,11 +2350,14 @@ def split_record(rec) -> dict:
     return out
 
 
-def kernel_record(results, randk, flash, cnn, quad, llm, grid) -> dict:
+def kernel_record(results, randk, flash, cnn, quad, llm, grid,
+                  serve) -> dict:
     """The ``{"kernels": [...]}`` line: every kernel of the port, its
     launches on the main paths and its numbers at its main path's shape.
     ``launches`` is the CNN path's count (the median's first path is the
-    grid: its ``launches`` is the grid's)."""
+    grid: its ``launches`` is the grid's); ``launches_serve`` the served
+    fig1-alie path's (20 rounds in process; the median's from the
+    ``rosdhb/foe/median`` cell)."""
     record = {"kernels": []}
     for name in SORT_KERNELS:
         recs = [r for r in results[name] if "ms" in r]
@@ -1906,6 +2375,8 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid) -> dict:
             "launches_quadratic_dasha": quad["dasha"]["kernel"][
                 "launches"][name],
             "launches_llm": llm["launches"][name],
+            "launches_serve": (serve["median"] if name == "median"
+                               else serve["parity"])["launches"][name],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -2079,7 +2550,8 @@ def main() -> int:
         # a partial run (kernel bring-up): no ok line
         for name, fn in (("kernels", kernel_phase), ("randk", randk_phase),
                          ("flash", flash_phase), ("quadratic", quadratic_phase),
-                         ("llm", llm_phase), ("grid", grid_phase)):
+                         ("llm", llm_phase), ("grid", grid_phase),
+                         ("serve", serve_phase)):
             if want(name):
                 out = fn(torch)
                 if name == "kernels":
@@ -2096,8 +2568,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     grid = grid_phase(torch)
     torch.cuda.empty_cache()
+    serve = serve_phase(torch)
+    torch.cuda.empty_cache()
     profile_cases(torch, results, fresh_process=True)  # see profile_cases
-    record = kernel_record(results, randk, flash, cnn, quad, llm, grid)
+    record = kernel_record(results, randk, flash, cnn, quad, llm, grid,
+                           serve)
     log(json.dumps({"summary": {
         "cnn": {k: cnn[k] for k in ("rounds", "median_round_ms", "acc",
                                     "cpu_rel_diff", "profile")},
@@ -2115,7 +2590,8 @@ def main() -> int:
                             if k not in ("round_ms", "rows")},
                  "table1_check": grid["table1_check"],
                  "mimic_iid": grid["mimic_iid"],
-                 "mixed_attacks": grid["mixed_attacks"]}}}))
+                 "mixed_attacks": grid["mixed_attacks"]},
+        "serve": serve}}, default=str))
     log(json.dumps(record))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -188,9 +188,6 @@ for _spec in (
 #: Specs whose run needs a part of the system that is not ported yet, and
 #: the ``ROADMAP.md`` item that ports it.
 NOT_PORTED: Dict[str, str] = {
-    "chaos-serve": "the parameter server and its chaos harness "
-                   "(repro.serve) are not ported yet: ROADMAP.md Queue 1 "
-                   "item 4 (parameter server)",
     "transformer-table1": "the transformer testbed and streamed grid "
                           "rollouts are not ported yet: ROADMAP.md Queue 1 "
                           "items 3 (streamed rollouts) and 5 "

@@ -11,8 +11,14 @@ once, each with its own algorithm, attack, aggregator and hyperparameters
 
 Every function works on ``[n_workers, D]`` banks. The random draws of a round
 (RandK masks) come from a draws provider (``repro_torch.testing``). The
-server banks are float32 or bfloat16 (``momentum_dtype``); the server's
-arithmetic is float32.
+server banks are float32 or bfloat16 (``momentum_dtype``); RoSDHB's
+momentum and aggregation run in ``server_compute_dtype`` (float32 or
+bfloat16).
+
+The streaming parameter server (``repro_torch.serve``) runs the memoryless
+algorithms split in two: the clients' wire half (:func:`make_wire_fn`) and
+the server's apply half (:func:`make_serve_apply_fn`), which also takes a
+``present`` row mask and a staleness ``discount`` per row.
 
 For RoSDHB on global Block-RandK (:func:`_payload_route`) the round never
 builds the dense wire: the Byzantine overwrite runs on the
@@ -51,7 +57,9 @@ from repro_torch.kernels.randk import ops as RK
 ALGO_BANK: Tuple[str, ...] = ("rosdhb", "dasha", "robust_dgd", "dgd")
 PORTED_ALGORITHMS: Tuple[str, ...] = ALGO_BANK + ("bank",)
 
-#: Server bank dtypes the port keeps (``AlgorithmConfig.momentum_dtype``).
+#: Server bank dtypes the port keeps (``AlgorithmConfig.momentum_dtype``),
+#: also the dtypes of RoSDHB's server arithmetic
+#: (``AlgorithmConfig.server_compute_dtype``).
 BANK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -92,8 +100,8 @@ class AlgorithmConfig:
       sparsifier, aggregator, attack: the round's components.
       momentum_dtype: dtype of the server banks (``float32`` or
         ``bfloat16``; dasha's previous gradients stay float32).
-      server_compute_dtype: dtype of the server's arithmetic; only
-        ``float32`` is ported.
+      server_compute_dtype: dtype of RoSDHB's momentum and aggregation
+        (``float32`` or ``bfloat16``, :func:`_momentum`).
       clip_norm: per-worker L2 clip of the gradients before compression
         (``None``: no clip).
       bank: the algorithm branches when ``name='bank'`` (``None``: the full
@@ -221,9 +229,10 @@ def _check_ported(cfg: AlgorithmConfig) -> torch.dtype:
     if cfg.momentum_dtype not in BANK_DTYPES:
         raise ValueError(f"momentum_dtype {cfg.momentum_dtype!r} is not "
                          f"ported (ported: {'|'.join(BANK_DTYPES)})")
-    if cfg.server_compute_dtype != "float32":
+    if cfg.server_compute_dtype not in BANK_DTYPES:
         raise ValueError(f"server_compute_dtype {cfg.server_compute_dtype!r}"
-                         f" is not ported (the server computes in float32)")
+                         f" is not ported (ported: "
+                         f"{'|'.join(BANK_DTYPES)})")
     return BANK_DTYPES[cfg.momentum_dtype]
 
 
@@ -315,17 +324,52 @@ def _momentum_fma(m_prev: torch.Tensor, wire: torch.Tensor, beta: float,
     return (wire.float() * one_m_beta).add_(m_prev.float(), alpha=beta)
 
 
+def _momentum(m_prev: torch.Tensor, wire: torch.Tensor, beta: float,
+              one_m_beta: float, cdt: torch.dtype, present=None,
+              discount=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step 5 in the compute dtype ``cdt``: ``beta * m_prev + (1 - beta) *
+    discount * wire`` on the rows that reported, ``m_prev`` on the others.
+    Returns ``(m, keep)``: the momenta the aggregation takes and what the
+    bank keeps before its rounding to ``momentum_dtype``.
+
+    float32: one fused multiply-add (:func:`_momentum_fma`). bfloat16 rounds
+    as the reference's compiled round does (``test_torch_momentum.py::
+    test_bf16_compute_dtype_matches_the_reference``): ``beta``, ``1-beta``,
+    the operands and each product are bfloat16, the sum is one float32 add;
+    the aggregation takes it rounded to bfloat16, a float32 bank keeps it
+    unrounded (XLA elides the round trip where ``m`` is widened)."""
+    if cdt == torch.float32:
+        w = wire if discount is None else wire.float() * discount[:, None]
+        m = _momentum_fma(m_prev, w, beta, one_m_beta)
+        if present is not None:
+            m = torch.where(present[:, None], m, m_prev.float())
+        return m, m
+    lowp = lambda v: float(torch.tensor(v, dtype=cdt))  # noqa: E731
+    mp = m_prev.to(cdt)
+    w = wire.to(cdt)
+    if discount is not None:
+        w = w * discount.to(cdt)[:, None]
+    keep = (mp * lowp(beta)).float() + (w * lowp(one_m_beta)).float()
+    if present is not None:
+        keep = torch.where(present[:, None], keep, mp.float())
+    return keep.to(cdt), keep
+
+
 def _rosdhb_apply(cfg: AlgorithmConfig, agg, state: ServerState,
-                  wire: torch.Tensor, hparams) -> Tuple[torch.Tensor,
-                                                        ServerState]:
+                  wire: torch.Tensor, hparams, present=None,
+                  discount=None) -> Tuple[torch.Tensor, ServerState]:
     # Step 5: per-worker momentum m = beta*m_prev + (1-beta)*wire in
-    # float32, one fused multiply-add (torch.add with alpha is an FMA on the
-    # CPU and on the card; the momentum kernel rounds the same way).
-    m = _momentum_fma(state.momentum, wire, hparams[0], hparams[2])
-    # Step 6: robust aggregation of the float32 momenta; the bank keeps
-    # their rounding to momentum_dtype.
+    # server_compute_dtype (float32: one fused multiply-add, as torch.add
+    # with alpha is on the CPU and on the card; the momentum kernel rounds
+    # the same way). The streaming server's rows that did not report keep
+    # their momentum; late rows are weighted by their discount. Step 6:
+    # robust aggregation of the momenta; the bank keeps their rounding to
+    # momentum_dtype.
+    m, keep = _momentum(state.momentum, wire, hparams[0], hparams[2],
+                        BANK_DTYPES[cfg.server_compute_dtype], present,
+                        discount)
     r = agg(m)
-    new = state._replace(momentum=m.to(state.momentum.dtype),
+    new = state._replace(momentum=keep.to(state.momentum.dtype),
                          step=state.step + 1)
     return r, new
 
@@ -337,7 +381,8 @@ def _payload_route(cfg: AlgorithmConfig, d: int) -> bool:
     Byzantine rows are too, and the dense wire adds nothing there."""
     sp = cfg.sparsifier
     return (cfg.name == "rosdhb" and C._kernel_eligible(sp, d)
-            and not sp.local and cfg.attack.name in A.ZERO_PRESERVING)
+            and not sp.local and cfg.attack.name in A.ZERO_PRESERVING
+            and cfg.server_compute_dtype == "float32")
 
 
 def _rosdhb_payload_round(cfg: AlgorithmConfig, agg, state: ServerState,
@@ -403,15 +448,33 @@ def _dasha_round(cfg: AlgorithmConfig, agg, state: ServerState,
                           prev_grad=g32, step=state.step + 1, attack=atk)
 
 
-def _dgd_apply(cfg, agg, state, wire):
+def _row_mask(wire: torch.Tensor, prev: torch.Tensor, present: torch.Tensor,
+              discount: torch.Tensor) -> torch.Tensor:
+    """The streaming server's row bank: rows that did not report keep
+    ``prev``; the others take ``discount * wire`` (1.0 for a fresh row, an
+    exact multiply, so full participation is the unmasked round)."""
+    eff = wire * discount[:, None].to(wire.dtype)
+    return torch.where(present[:, None], eff, prev)
+
+
+def _dgd_apply(cfg, agg, state, wire, present=None, discount=None):
     # Compressed DGD, non-robust: the plain mean (the aggregator is unused).
     del agg
-    return wire.mean(dim=0), state._replace(step=state.step + 1)
+    if present is None:
+        return wire.mean(dim=0), state._replace(step=state.step + 1)
+    # streamed: the momentum slot doubles as the last-received wire bank
+    bank = _row_mask(wire, state.momentum.to(wire.dtype), present, discount)
+    return bank.mean(dim=0), state._replace(
+        momentum=bank.to(state.momentum.dtype), step=state.step + 1)
 
 
-def _robust_dgd_apply(cfg, agg, state, wire):
+def _robust_dgd_apply(cfg, agg, state, wire, present=None, discount=None):
     # Robust DGD without compression: aggregate the raw gradients.
-    return agg(wire), state._replace(step=state.step + 1)
+    if present is None:
+        return agg(wire), state._replace(step=state.step + 1)
+    bank = _row_mask(wire, state.momentum.to(wire.dtype), present, discount)
+    return agg(bank), state._replace(
+        momentum=bank.to(state.momentum.dtype), step=state.step + 1)
 
 
 def static_hparams(cfg: AlgorithmConfig) -> Tuple[float, float, float, float]:
@@ -421,6 +484,71 @@ def static_hparams(cfg: AlgorithmConfig) -> Tuple[float, float, float, float]:
     beta = cfg.resolved_beta() if cfg.name == "rosdhb" else 0.0
     a = cfg.resolved_mvr_a() if cfg.name == "dasha" else 0.0
     return (beta, a, 1.0 - beta, 1.0 - a)
+
+
+#: Algorithms the streaming parameter server (``repro_torch.serve``) runs:
+#: the memoryless-wire rules, whose client payload depends only on the
+#: current gradient and the round's broadcast draws. ``dasha`` is excluded:
+#: its wire is a compressed difference against server-side mirrors and
+#: per-client momentum, so its control variates go stale the moment a
+#: client misses a round.
+SERVE_ALGORITHMS: Tuple[str, ...] = ("rosdhb", "robust_dgd", "dgd")
+
+_SERVE_APPLY = {"rosdhb": _rosdhb_apply, "robust_dgd": _robust_dgd_apply,
+                "dgd": _dgd_apply}
+
+
+def _check_serveable(name: str) -> None:
+    if name not in SERVE_ALGORITHMS:
+        raise ValueError(
+            f"algorithm {name!r} cannot run as a streaming service "
+            f"(serveable: {'|'.join(SERVE_ALGORITHMS)})"
+            + (": dasha's wire is a compressed difference against "
+               "server-side mirrors — its per-client control variates go "
+               "stale under partial participation" if name == "dasha"
+               else ""))
+
+
+def make_wire_fn(cfg: AlgorithmConfig):
+    """The clients' half of a serveable algorithm's round: ``wire_fn(
+    atk_state, grads, draws) -> (wire [n, D], new_atk_state)``, the ops
+    :func:`server_round` runs before the server's apply (after the clip),
+    so a client pool streaming these rows reproduces the simulator's
+    trajectory bitwise."""
+    _check_serveable(cfg.name)
+    _check_ported(cfg)
+    if cfg.name == "robust_dgd":
+        def wire_fn(atk_state, grads, draws):
+            return _attack(cfg, atk_state, grads, draws)  # raw gradients
+    else:
+        def wire_fn(atk_state, grads, draws):
+            return _attack(cfg, atk_state, C.compressed_estimate(
+                grads, draws, cfg.sparsifier), draws)
+    return wire_fn
+
+
+def make_serve_apply_fn(cfg: AlgorithmConfig, agg):
+    """The server's half: ``apply_fn(state, wire, present, discount) ->
+    (direction [D], new ServerState)``. ``present`` is the ``[n]`` bool row
+    mask of the clients that reported this round and ``discount`` their
+    ``[n]`` float32 staleness weights. With every row present and
+    ``discount == 1`` it computes the simulator's round bitwise (a multiply
+    by 1.0 and ``where(True, ...)`` are exact)."""
+    _check_serveable(cfg.name)
+    _check_ported(cfg)
+    hparams = static_hparams(cfg)
+    apply_half = _SERVE_APPLY[cfg.name]
+
+    def apply_fn(state: ServerState, wire: torch.Tensor,
+                 present: torch.Tensor, discount: torch.Tensor
+                 ) -> Tuple[torch.Tensor, ServerState]:
+        if cfg.name == "rosdhb":
+            return apply_half(cfg, agg, state, wire, hparams,
+                              present=present, discount=discount)
+        return apply_half(cfg, agg, state, wire, present=present,
+                          discount=discount)
+
+    return apply_fn
 
 
 def algo_index(name: str, entries: Optional[Sequence[str]] = None) -> int:
@@ -778,18 +906,19 @@ def _lanes_round(cfg: AlgorithmConfig, state: ServerState,
         wire = torch.cat([byz.to(wire.dtype), wire[:, f:]], dim=1)
     # step 5 per group, then step 6 over every lane
     mdt = state.momentum.dtype
+    cdt = BANK_DTYPES[cfg.server_compute_dtype]
     mom, mir, prev = (_CopyOnWrite(state.momentum), _CopyOnWrite(state.mirror),
                       _CopyOnWrite(state.prev_grad))
     x = wire
     for key, lanes, count, _, extra in parts:
         if key[0] == "rosdhb":
-            m = _momentum_fma(G.take(state.momentum, lanes),
-                              G.take(wire, lanes), key[1], key[2])
+            m, keep = _momentum(G.take(state.momentum, lanes),
+                                G.take(wire, lanes), key[1], key[2], cdt)
             if count == b:
                 x = m
             else:  # several groups: the wire was assembled afresh
                 x[lanes] = m
-            mom.put(lanes, count, m.to(mdt))
+            mom.put(lanes, count, keep.to(mdt))
         elif key[0] == "dasha":
             m, g32 = extra
             mom.put(lanes, count, m.to(mdt))

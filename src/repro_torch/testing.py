@@ -7,7 +7,11 @@ draw a round consumes from a *draws provider*:
   (normal use);
 * :class:`ReplayDraws` — a queue of pre-computed draws, consumed in order.
   Parity tests fill it with the reference's own draws (computed with JAX by
-  the test), so both packages see identical masks.
+  the test), so both packages see identical masks;
+* :class:`SeedWordDraws` — one served round's draws from the seed words of
+  its announcement (``repro_torch.serve``);
+* :class:`RecordingDraws` — another provider's draws, kept on the host to be
+  replayed.
 
 The reference's key chain per round, for a test that wants to replay it:
 ``key, mask_key = split(state.key)`` (``simulator.py:142``);
@@ -49,6 +53,18 @@ import torch
 from repro_torch.utils.tree import tree_map
 
 
+def _derive(seed: int, stream: str, kind: str) -> int:
+    return (seed * 1_000_003 + zlib.crc32(f"{stream}/{kind}".encode())) \
+        % 2 ** 63
+
+
+def fold_words(words) -> int:
+    """Two uint32 seed words as one 64-bit integer, the first word high
+    (``repro_torch.serve.protocol.mask_id``; one word is the low half)."""
+    raw = np.asarray(words, np.uint32).reshape(-1)
+    return ((int(raw[0]) << 32) if raw.size > 1 else 0) | int(raw[-1])
+
+
 class TorchDraws:
     """Draws from seeded ``torch.Generator`` objects living on ``device``, one per
     stream and kind of draw (see the module docstring). The global mask's
@@ -59,15 +75,17 @@ class TorchDraws:
         self.device = torch.device(device)
         self._gens = {}
 
+    def _seed(self, stream: str, kind: str) -> int:
+        if (stream, kind) == ("mask", "perm"):
+            return self.seed
+        return _derive(self.seed, stream, kind)
+
     def generator(self, stream: str, kind: str) -> torch.Generator:
         key = (stream, kind)
         gen = self._gens.get(key)
         if gen is None:
-            seed = self.seed if key == ("mask", "perm") else (
-                (self.seed * 1_000_003 + zlib.crc32(f"{stream}/{kind}".encode()))
-                % 2 ** 63)
             gen = self._gens[key] = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
+            gen.manual_seed(self._seed(stream, kind))
         return gen
 
     def permutation_prefix(self, d: int, k: int, stream: str = "mask"
@@ -101,6 +119,72 @@ class TorchDraws:
         """One uniform uint32 (the per-round seed of ``block_hash``)."""
         return int(torch.randint(0, 2 ** 32, (), generator=self.generator(
             stream, "bits"), device=self.device))
+
+
+class SeedWordDraws(TorchDraws):
+    """The draws of one round of the streaming parameter server
+    (``repro_torch.serve``), from the seed words its announcement carries:
+    the ``mask`` and ``local`` streams from the mask words, the ``attack``
+    stream from the attack words. Every client re-derives the same draws
+    from the same announcement, as the reference's clients re-derive the
+    global mask from the broadcast mask key."""
+
+    def __init__(self, mask_words, atk_words, device: torch.device):
+        super().__init__(fold_words(mask_words) % 2 ** 63, device)
+        self.atk_seed = fold_words(atk_words) % 2 ** 63
+
+    def _seed(self, stream: str, kind: str) -> int:
+        if stream == "attack":
+            return _derive(self.atk_seed, stream, kind)
+        return super()._seed(stream, kind)
+
+
+class RecordingDraws:
+    """A provider that hands out ``inner``'s draws and keeps a host copy of
+    each, so :meth:`replay` gives a :class:`ReplayDraws` of the same draws
+    in the same order (a served run's draws, replayed into
+    ``Simulator.rollout``)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.device = inner.device
+        self.permutations, self.uniforms, self.normals, self.bits = \
+            [], [], [], []
+
+    def permutation_prefix(self, d: int, k: int, stream: str = "mask"
+                           ) -> torch.Tensor:
+        out = self.inner.permutation_prefix(d, k, stream)
+        self.permutations.append(out.cpu().numpy())
+        return out
+
+    def permutation_prefixes(self, m: int, d: int, k: int,
+                             stream: str = "local") -> torch.Tensor:
+        out = self.inner.permutation_prefixes(m, d, k, stream)
+        self.permutations += list(out.cpu().numpy())
+        return out
+
+    def uniform(self, shape: Sequence[int], stream: str = "mask"
+                ) -> torch.Tensor:
+        out = self.inner.uniform(shape, stream)
+        self.uniforms.append(out.cpu().numpy())
+        return out
+
+    def normal(self, shape: Sequence[int], stream: str = "attack"
+               ) -> torch.Tensor:
+        out = self.inner.normal(shape, stream)
+        self.normals.append(out.cpu().numpy())
+        return out
+
+    def bits_u32(self, stream: str = "mask") -> int:
+        out = self.inner.bits_u32(stream)
+        self.bits.append(out)
+        return out
+
+    def replay(self, device: Optional[torch.device] = None) -> "ReplayDraws":
+        return ReplayDraws(self.device if device is None else device,
+                           permutations=self.permutations,
+                           uniforms=self.uniforms, bits=self.bits,
+                           normals=self.normals)
 
 
 class ReplayDraws:

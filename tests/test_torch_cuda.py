@@ -644,3 +644,78 @@ def test_grid_rollout_on_the_card_matches_the_cpu(card):
     (gpu, launches), (cpu, _) = out[str(card)], out["cpu"]
     assert launches["pairdist"] == launches["cwtm"] == 3
     assert float((gpu - cpu).abs().max()) <= 1e-5 * float(cpu.abs().max())
+
+
+def _fig1(**over):
+    import dataclasses
+    cfg = AlgorithmConfig(
+        name="rosdhb", n_workers=13, f=3, gamma=0.05, beta=0.9,
+        sparsifier=SparsifierConfig(kind="randk", ratio=0.1),
+        aggregator=AggregatorConfig(name="cwtm", f=3, pre_nnm=True),
+        attack=AttackConfig(name="alie", z=1.5))
+    return dataclasses.replace(cfg, **over)
+
+
+@pytest.mark.cuda
+def test_two_servers_in_one_process_serve_bitwise(card):
+    """Two streaming servers in one process, their batcher threads
+    launching pairdist and CWTM at once (on the default stream, which the
+    kernels' shared ticket counters and scratch rely on): each ends
+    bitwise a lone server's run, and every fired round launched once."""
+    import threading
+    from repro_torch.serve import (ByzantineRobustServer, ClientPool,
+                                   run_service)
+    d, rounds = 65536, 8
+    cfg = _fig1()
+
+    def serve(seed, out):
+        loss, p0, batch, _ = quadratic_testbed(13, d=d, seed=0, device=card)
+        server = ByzantineRobustServer(cfg, p0, seed=seed, device=card)
+        run_service(server, ClientPool(loss, p0, cfg, batch, device=card),
+                    rounds)
+        out[seed] = server.params_flat.cpu()
+
+    lone, both = {}, {}
+    for seed in (0, 1):
+        serve(seed, lone)
+    K.reset_launches()
+    threads = [threading.Thread(target=serve, args=(s, both))
+               for s in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    launches = K.launches()
+    assert launches["pairdist"] == launches["cwtm"] == 2 * rounds
+    for seed in (0, 1):
+        assert torch.equal(both[seed], lone[seed])
+    assert not torch.equal(both[0], both[1])
+
+
+@pytest.mark.cuda
+def test_bf16_compute_round_on_the_card_matches_the_cpu(card):
+    """One RoSDHB round computing in bfloat16, kernels on the card against
+    the kernels' plain versions on the CPU, the same inputs and draws: the
+    bank bitwise, the direction within one bfloat16 ulp of max |R|."""
+    from repro_torch.core import algorithms as Alg
+    d = 200_000
+    cfg = _fig1(server_compute_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    g = rng.normal(size=(13, d)).astype(np.float32)
+    m0 = rng.normal(size=(13, d)).astype(np.float32)
+    perm = rng.permutation(d)[:cfg.sparsifier.k(d)]
+    out = {}
+    for dev in (card, "cpu"):
+        st = Alg.init_state(cfg, d, device=dev)._replace(
+            momentum=torch.tensor(m0, device=dev))
+        K.reset_launches()
+        r, new, _ = Alg.server_round(cfg, st, torch.tensor(g, device=dev),
+                                     ReplayDraws(dev, permutations=[perm]))
+        out[str(dev)] = (r.float().cpu(), new.momentum.cpu(), K.launches())
+    (r, m, launches), (r_cpu, m_cpu, _) = out[str(card)], out["cpu"]
+    assert r.dtype == torch.float32 and launches["pairdist"] == 1
+    assert launches["cwtm"] == 1
+    assert torch.equal(m, m_cpu)
+    scale = float(r_cpu.abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert float((r - r_cpu).abs().max()) <= ulp

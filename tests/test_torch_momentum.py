@@ -257,3 +257,61 @@ def test_bf16_block_round_matches_the_compiled_reference():
     np.testing.assert_array_equal(o["tmom"], o["mom"])
     np.testing.assert_allclose(o["tr"], o["r"], rtol=1e-5,
                                atol=1e-5 * np.abs(o["r"]).max())
+
+
+# ----------------------------------------------------------------------- #
+# server_compute_dtype="bfloat16"
+# ----------------------------------------------------------------------- #
+
+
+def _fig1_pair(cdt, mdt):
+    """The fig1-alie cell (NNM + CWTM, ALIE, global RandK 0.1) in both
+    packages, computing in ``cdt`` over ``mdt`` banks."""
+    kw = dict(name="rosdhb", n_workers=13, f=3, gamma=0.05, beta=0.9,
+              momentum_dtype=mdt, server_compute_dtype=cdt)
+    ref = JAlg.AlgorithmConfig(
+        sparsifier=JC.SparsifierConfig(kind="randk", ratio=0.1),
+        aggregator=JG.AggregatorConfig(name="cwtm", f=3, pre_nnm=True),
+        attack=JA.AttackConfig(name="alie", z=1.5), **kw)
+    port = Alg.AlgorithmConfig(
+        sparsifier=C.SparsifierConfig(kind="randk", ratio=0.1),
+        aggregator=G.AggregatorConfig(name="cwtm", f=3, pre_nnm=True),
+        attack=A.AttackConfig(name="alie", z=1.5), **kw)
+    return ref, port
+
+
+@pytest.mark.parametrize("mdt", ["float32", "bfloat16"])
+def test_bf16_compute_dtype_matches_the_reference(mdt):
+    """One RoSDHB round computing in bfloat16 against the reference's
+    compiled ``server_round``: the bank bitwise (the rounding of
+    ``algorithms._momentum``), the direction within one bfloat16 ulp of
+    max |R|, at most 2% of its coordinates off (5 of 500 here)."""
+    ref, port = _fig1_pair("bfloat16", mdt)
+    d = 500
+    rng = np.random.default_rng(0)
+    g = rng.normal(size=(13, d)).astype(np.float32)
+    m0 = rng.normal(size=(13, d)).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    perm = np.asarray(jax.random.permutation(jax.random.split(key)[0], d)[
+        :ref.sparsifier.k(d)])
+    st = JAlg.init_state(ref, d)._replace(
+        momentum=jnp.asarray(m0).astype(mdt))
+    r, new, _ = jax.jit(lambda st, g: JAlg.server_round(ref, st, g, key))(
+        st, g)
+    want_m = np.asarray(new.momentum.astype(jnp.float32))
+    tst = Alg.init_state(port, d, device="cpu")._replace(
+        momentum=torch.tensor(m0).to(Alg.BANK_DTYPES[mdt]))
+    tr, tnew, _ = Alg.server_round(port, tst, torch.tensor(g),
+                                   ReplayDraws("cpu", permutations=[perm]))
+    assert tr.dtype == torch.bfloat16 and str(r.dtype) == "bfloat16"
+    got_m = tnew.momentum.float().numpy()
+    np.testing.assert_array_equal(got_m, want_m)
+    want_r = np.asarray(r.astype(jnp.float32))
+    got_r = tr.float().numpy()
+    # NNM's float32 mixing product sums in another order, so a few
+    # coordinates round across a bfloat16 midpoint (and CWTM then trims a
+    # neighbour): within one bfloat16 ulp of max |R|
+    scale = np.abs(want_r).max()
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert np.abs(got_r - want_r).max() <= ulp
+    assert (got_r != want_r).mean() <= 0.02

@@ -309,8 +309,35 @@ def test_main_runs_table1_mini_on_the_cpu(capsys):
     assert [r["attack"] for r in plain] == ["alie", "mimic"]
 
 
+def test_chaos_serve_runs_as_the_references_sweep():
+    """The chaos-harness serving cell runs through the grid CLI, and its
+    result rows on the reference's draws and targets match the reference's
+    sweep (rtol 1e-5, the grid rows' bar)."""
+    rows = S.main(["--scenario", "chaos-serve", "--device", "cpu",
+                   "--seeds", "1", "--steps", "3"])
+    assert [r["scenario"] for r in rows] == ["chaos-serve/rosdhb/alie/cwtm"]
+    assert np.isfinite(rows[0]["final_loss"])
+    steps = 5
+    cells, jcells = R.expand_scenario("chaos-serve"), \
+        JR.expand_scenario("chaos-serve")
+    (jloss, jp0, jbatch), (loss, p0, batch), _ = _testbeds(13)
+    jrows = JS.run_scenarios(jcells, loss_fn=jloss, params0=jp0,
+                             batches=jbatch, seeds=SEEDS, steps=steps)
+    rows = S.run_scenarios(
+        cells, loss_fn=loss, params0=p0, batches=batch, seeds=SEEDS,
+        steps=steps, device="cpu",
+        draws_fn=lambda s: _lone_draws(cells[0].cfg, steps, QD, s))
+    assert len(rows) == len(jrows) == len(SEEDS)
+    for r, jr in zip(rows, jrows):
+        assert set(r) == set(jr)
+        for k, v in jr.items():
+            if isinstance(v, float):
+                np.testing.assert_allclose(r[k], v, rtol=1e-5, err_msg=k)
+            else:
+                assert r[k] == v, k
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--scenario", "chaos-serve"], "Queue 1 item 4"),
     (["--scenario", "transformer-table1"], "transformer testbed"),
     (["--testbed", "transformer"], "transformer testbed"),
     (["--stream"], "streamed"),
