@@ -32,8 +32,9 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    dense round (momentum bitwise, direction within rtol 1e-5); flash
    attention forward and backward against the plain version in float32 at
    awkward shapes (ragged lengths, GQA, MQA, windows, offsets, head dims
-   64/80/128, the Hopper kernels' tile edges) and at the LLM step's
-   ``[1, 4096, 32, 80]``, where two backward runs must be bitwise equal;
+   64/80/128, the Hopper kernels' tile edges), at transformer-table1's
+   folded ``[288, 32, 2, 64]`` and at the LLM step's ``[1, 4096, 32,
+   80]``, where two backward runs must be bitwise equal;
    the flash kernels' ptxas registers and spills, and their SASS must hold
    ``wgmma`` (HGMMA) and TMA (UTMALDG) and no WMMA (HMMA). Times of the
    kernel, the plain version and a PyTorch library call beside the least
@@ -90,10 +91,31 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    against plain path; rounds/s, updates/s, round latency, step time and
    peak memory of each transport, and one round split into its host pieces
    (``python3 chip_smoke.py serve`` runs this phase alone);
-9. the device µs and device kernels per call of pairdist, CWTM, median and
-   their library calls at the main paths' shapes, from the profiler, which
-   runs last (it slows the launches that follow it); pairdist must be one
-   device kernel a call.
+9. streamed rollouts (``Simulator.rollout_streaming``), the transformer
+   testbed and the cost model: ``fig1-alie`` on the CNN for 100 rounds
+   (chunks of 16, 2 prefetched, a 4-round tail), pre-stacked and then from
+   a pure batch function through the prefetch thread, each bitwise
+   ``Simulator.rollout`` with one pairdist and one CWTM launch a round; the
+   time and bytes to accuracy 0.85 with one eval a 10-round chunk (capped
+   at 600 rounds), its metrics bitwise the prefix of a fixed run whose
+   per-chunk eval first reaches 0.85 where the stream stopped; the
+   ``table1`` grid streamed (42 lanes, 40 rounds, chunks of 8) bitwise the
+   materialised grid, one launch of each kernel a round; the
+   ``transformer-table1`` spec streamed through ``run_scenarios`` (8 lanes
+   of 9 workers, 16 rounds, chunks of 4): one flash forward and one
+   backward launch a layer a round over all lanes and workers (the fused
+   eval adds one forward a layer), one pairdist and one CWTM a round, and
+   every lane's first 2 rounds against the plain path on the card and on
+   the CPU (rel 5e-3 loss); the host-memory gate (``stack_batches`` of 48
+   rounds under 128 KiB refused, the stream completing under it); and the
+   cost model's calibration (``python3 chip_smoke.py stream`` runs this
+   phase alone);
+10. the device µs and device kernels per call of pairdist, CWTM, median,
+   the flash forward and backward (at ``[1, 4096, 32, 80]`` and
+   transformer-table1's folded ``[288, 32, 2, 64]``) and their library
+   calls at the main paths' shapes, from the profiler, which runs last (it
+   slows the launches that follow it); pairdist must be one device kernel
+   a call.
 
 TF32 is off for matmuls and cuDNN convolutions throughout: the parity bars
 are float32 ones. The last line is ``{"ok": true, "device": {...}}``; the
@@ -228,6 +250,9 @@ FLASH_AWKWARD += [case for d in (64, 80, 128) for case in (
     (2, 65, 193, 4, 1, d, True, 70, 128),
     (1, 63, 191, 8, 2, d, False, None, 0))]
 FLASH_PATH = (1, LLM_SEQ, LLM_SEQ, 32, 32, 80, True, None, 0)
+# transformer-table1's folded call: 8 lanes x 9 workers x 4 sequences of 32
+# tokens, 2 heads of 64 (the stream phase's grid under torch.func)
+FLASH_TT1 = (288, 32, 32, 2, 2, 64, True, None, 0)
 # Kernel against the plain version in float32 from the same bf16 inputs,
 # as max |err| / max |plain|: the kernel rounds P (and dS) to bf16 before
 # the tensor-core products (relative 2^-9 each) and writes bf16 outputs
@@ -574,11 +599,13 @@ def kernel_phase(torch) -> dict:
     return results
 
 
-def device_times(torch, cases) -> dict:
+def device_times(torch, cases, flash_cases=()) -> dict:
     """For each ``(name, shape, f, dtype name, seed, reps)``: the kernel's
     and the library call's ``(device µs, device operations, names)`` per
-    call (:func:`device_us`), on the input made from the seed; and the host
-    µs of ``x.neg()`` before and after those profiler windows."""
+    call (:func:`device_us`), on the input made from the seed; the same for
+    the flash forward and backward of each ``(case, seed)`` of
+    ``flash_cases`` (:func:`flash_fns`); and the host µs of ``x.neg()``
+    before and after those profiler windows."""
     x = torch.randn((1, 13, 11958), device="cuda")
     neg = [host_us(torch, lambda: x.neg(), 10_000, warmup=100)]
     out = []
@@ -589,28 +616,53 @@ def device_times(torch, cases) -> dict:
                     (("kernel", kern), ("library", lib)) if fn is not None})
         del kern, lib
         torch.cuda.empty_cache()
+    flash = []
+    for case, seed in flash_cases:
+        fns = flash_fns(torch, tuple(case), seed)
+        flash.append({name: {who: device_us(torch, fn, 10) for who, fn in
+                             zip(("kernel", "library"), pair)
+                             if fn is not None}
+                      for name, pair in fns.items()})
+        del fns
+        torch.cuda.empty_cache()
     neg.append(host_us(torch, lambda: x.neg(), 10_000, warmup=100))
-    return {"cases": out, "neg_host_us": neg}
+    return {"cases": out, "flash": flash, "neg_host_us": neg}
 
 
-def profile_cases(torch, results, fresh_process: bool = False) -> None:
+def profile_cases(torch, results, fresh_process: bool = False,
+                  flash=()) -> None:
     """Device µs and device operations per call of each timed case's kernel
     and library call, after every timed phase: once started, the profiler
     (CUPTI) slows the launches that follow it, and a process that has run
     profiler windows before drops some of a later window's kernel events,
     so ``fresh_process`` measures in a new process (``--device-times``).
-    Fails if a pairdist call is not one device kernel."""
+    ``flash``: the flash phase's records; the timed ones get the device µs
+    of their forward and backward and of SDPA's. Fails if a pairdist call
+    is not one device kernel."""
     cases = [(name, rec["shape"], rec["f"], rec["dtype"], rec["seed"],
               rec["reps"]) for name in SORT_KERNELS for rec in results[name]
              if "seed" in rec]
+    timed_flash = [rec for rec in flash if "flash_fwd" in rec]
+    flash_cases = [(rec["case"], rec["seed"]) for rec in timed_flash]
     if fresh_process:
         run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                              "--device-times", json.dumps(cases)],
+                              "--device-times", json.dumps(
+                                  {"sort": cases, "flash": flash_cases})],
                              capture_output=True, text=True, timeout=600,
                              check=True)
         times = json.loads(run.stdout.strip().splitlines()[-1])
     else:
-        times = device_times(torch, cases)
+        times = device_times(torch, cases, flash_cases)
+    for rec, t in zip(timed_flash, times["flash"]):
+        for name, by_who in t.items():
+            for who, (us, ops, names) in by_who.items():
+                key = "" if who == "kernel" else "library_"
+                rec[name].update({f"{key}device_us": us,
+                                  f"{key}device_ops": ops})
+            log(f"flash {name} {rec['case']}: device us "
+                f"{rec[name]['device_us']:.3f} ({rec[name]['device_ops']:g}"
+                f" kernels a call), host us {rec[name]['host_us']:.3f}, "
+                f"SDPA device us {rec[name].get('library_device_us')}")
     recs = [rec for name in SORT_KERNELS for rec in results[name]
             if "seed" in rec]
     results["neg_host_us"] = times["neg_host_us"]
@@ -961,7 +1013,6 @@ def flash_case(torch, case, timed: bool, seed: int,
     float32 from the same bf16 inputs: out, dq, dk, dv."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
-    import torch.nn.functional as Fn
     b, sq, sk, h, kv, d, causal, window, q_offset = case
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -1007,18 +1058,22 @@ def flash_case(torch, case, timed: bool, seed: int,
         rec["bwd_bitwise_repeat"] = all(
             torch.equal(a, b_) for a, b_ in zip(*runs))
         rec["ok"] = rec["ok"] and rec["bwd_bitwise_repeat"]
-        del runs
+        del runs, o_k, lse
+        rec["seed"] = seed  # for profile_cases
         pairs = flash_pairs(sq, sk, causal, window, q_offset)
         fwd_ops = 4 * b * h * d * pairs
         io = q.numel() * 2 * 2 + k.numel() * 2 * 2  # q, o, k, v
-        rec["flash_fwd"] = {
-            "ms": time_ms(torch, lambda: flash_fwd_cuda(q, k, v, **kw), 10),
-            "plain_ms": time_ms(torch, lambda: attention_ref(q, k, v, **kw),
-                                5)}
+        lse_bytes = b * h * sq * 4
+        fns = flash_fns(torch, case, seed)
+        for name, (kern, lib) in fns.items():
+            rec[name] = {"ms": time_ms(torch, kern, 10),
+                         "host_us": host_us(torch, kern, 100),
+                         "library_ms": (time_ms(torch, lib, 10)
+                                        if lib is not None else None)}
+        rec["flash_fwd"]["plain_ms"] = time_ms(
+            torch, lambda: attention_ref(q, k, v, **kw), 5)
         rec["flash_fwd"]["bound_ms"], rec["flash_fwd"]["bound_by"] = _bound(
-            io + lse.numel() * 4, fwd_ops, PEAK_BF16_OPS_PER_S)
-        rec["flash_bwd"] = {"ms": time_ms(torch, lambda: flash_bwd_cuda(
-            q, k, v, o_k, lse, dout, **kw), 10)}
+            io + lse_bytes, fwd_ops, PEAK_BF16_OPS_PER_S)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         o_p = attention_ref(*leaves, **kw)
         rec["flash_bwd"]["plain_ms"] = time_ms(torch, lambda: torch.autograd
@@ -1026,36 +1081,64 @@ def flash_case(torch, case, timed: bool, seed: int,
                                                      retain_graph=True), 5)
         del o_p
         rec["flash_bwd"]["bound_ms"], rec["flash_bwd"]["bound_by"] = _bound(
-            io + dout.numel() * 2 + lse.numel() * 4 + q.numel() * 2
+            io + dout.numel() * 2 + lse_bytes + q.numel() * 2
             + 2 * k.numel() * 2, 2.5 * fwd_ops, PEAK_BF16_OPS_PER_S)
-        # yardstick only: PyTorch's fused attention on [B, H, S, D]
-        lib = None
-        if causal and window is None and q_offset == 0 and sq == sk \
-                and h == kv:
-            qt, kt, vt, dt_ = (t.transpose(1, 2).contiguous()
-                               for t in (q, k, v, dout))
-            sdpa = lambda *a: Fn.scaled_dot_product_attention(  # noqa: E731
-                *a, is_causal=True)
-            lib = time_ms(torch, lambda: sdpa(qt, kt, vt), 10)
+        if rec["flash_fwd"]["library_ms"] is not None:
+            sdpa, (qt, kt, vt, dt_) = sdpa_inputs(torch, q, k, v, dout)
             lt = [t.clone().requires_grad_() for t in (qt, kt, vt)]
-            o_l = sdpa(*lt)
-            lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-                o_l, lt, dt_, retain_graph=True), 10)
 
             def fwd_bwd():
                 o2 = sdpa(*lt)
                 torch.autograd.grad(o2, lt, dt_)
             rec["library_fwd_bwd_ms"] = time_ms(torch, fwd_bwd, 10)
-            del o_l
-        rec["flash_fwd"]["library_ms"] = lib
-        rec["flash_bwd"]["library_ms"] = lib_bwd if lib is not None else None
+        del fns
     return rec
 
 
+def sdpa_inputs(torch, q, k, v, dout):
+    """PyTorch's fused attention (the yardstick, never used by the port)
+    and the inputs in its ``[B, H, S, D]`` layout."""
+    import torch.nn.functional as Fn
+    sdpa = lambda *a: Fn.scaled_dot_product_attention(  # noqa: E731
+        *a, is_causal=True)
+    return sdpa, [t.transpose(1, 2).contiguous() for t in (q, k, v, dout)]
+
+
+def flash_fns(torch, case, seed: int, device: str = "cuda") -> dict:
+    """``{"flash_fwd": (kernel, library), "flash_bwd": (kernel, library)}``
+    calls on the inputs :func:`flash_case` makes from ``seed``; the library
+    call is SDPA's forward or backward where it computes the same function
+    (causal, full window, Sq = Sk, H = KV), else None."""
+    from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
+                                                     flash_fwd_cuda)
+    b, sq, sk, h, kv, d, causal, window, q_offset = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, dout = (torch.randn(s, generator=gen, device=device).to(
+        torch.bfloat16) for s in ((b, sq, h, d), (b, sk, kv, d),
+                                  (b, sk, kv, d), (b, sq, h, d)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = flash_fwd_cuda(q, k, v, **kw)
+    lib_fwd = lib_bwd = None
+    if causal and window is None and q_offset == 0 and sq == sk \
+            and h == kv:
+        sdpa, (qt, kt, vt, dt_) = sdpa_inputs(torch, q, k, v, dout)
+        lt = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+        o_l = sdpa(*lt)
+        lib_fwd = lambda: sdpa(qt, kt, vt)  # noqa: E731
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            o_l, lt, dt_, retain_graph=True)
+    return {"flash_fwd": (lambda: flash_fwd_cuda(q, k, v, **kw), lib_fwd),
+            "flash_bwd": (lambda: flash_bwd_cuda(q, k, v, o, lse, dout, **kw),
+                          lib_bwd)}
+
+
 def flash_phase(torch, device: str = "cuda", path=FLASH_PATH) -> list:
-    """Flash attention kernel cases: awkward shapes, then the LLM path's."""
+    """Flash attention kernel cases: awkward shapes, then
+    transformer-table1's folded call and the LLM path's (timed; the LLM
+    path's last)."""
     out, failures = [], []
-    cases = [(c, False) for c in FLASH_AWKWARD] + [(path, True)]
+    cases = [(c, False) for c in FLASH_AWKWARD] + [(FLASH_TT1, True),
+                                                  (path, True)]
     for i, (case, timed) in enumerate(cases):
         rec = flash_case(torch, case, timed and device == "cuda",
                          seed=500 + i, device=device)
@@ -2339,6 +2422,391 @@ def serve_phase(torch, device: str = "cuda", d: int = SERVE_D,
     return out
 
 
+STREAM_ROUNDS = 100      # fig1-alie on the CNN, pre-stacked and streamed
+STREAM_CHUNK, STREAM_DEPTH = 16, 2   # 6 chunks and a 4-round tail
+STREAM_TAU = 0.85        # the paper's accuracy target
+STREAM_TAU_CHUNK = 10
+STREAM_TAU_CAP = 600
+STREAM_GRID_ROUNDS, STREAM_GRID_CHUNK = 40, 8
+TT1_SEEDS = (0, 1)       # transformer-table1: 4 cells x 2 seeds = 8 lanes
+TT1_ROUNDS, TT1_CHUNK, TT1_CHECK = 16, 4, 2
+TT1_TOL_LOSS = 5e-3      # the LLM check's bfloat16 bar (relative)
+GATE_BYTES, GATE_ROUNDS, GATE_CHUNK = 128 * 1024, 48, 4
+COST_STEPS = 100         # rounds of each calibration probe
+COST_MODEL_OUT = ROOT / "build" / "chip_smoke" / "COST_MODEL_torch.json"
+
+
+def pure_mnist_batches(ds, batch: int, seed: int = 0):
+    """A batch function of the dataset that is a pure function of the round
+    (``np.random.default_rng((seed, t))``), so a stream and a stacked
+    schedule, or two banks, see the same rounds."""
+    import numpy as np
+
+    def batch_fn(t):
+        rng = np.random.default_rng((seed, int(t)))
+        idx = rng.integers(0, ds.per_worker, size=(ds.n_workers, batch))
+        return {"images": np.stack([ds.images[w, idx[w]]
+                                    for w in range(ds.n_workers)]),
+                "labels": np.stack([ds.labels[w, idx[w]]
+                                    for w in range(ds.n_workers)])}
+    return batch_fn
+
+
+def same_run(torch, label: str, a, am: dict, b, bm: dict) -> None:
+    """Two runs bitwise: parameters, server banks, every per-round metric
+    (bit patterns: a lane that diverged holds NaN, which ``torch.equal``
+    never calls equal)."""
+    def same(x, y):
+        return x.shape == y.shape and (
+            torch.equal(bits(torch, x), bits(torch, y))
+            if x.is_floating_point() else torch.equal(x, y))
+    diffs = [] if same(a.params_flat, b.params_flat) else ["params"]
+    diffs += [f"server.{i}" for i, (x, y) in enumerate(zip(a.server,
+                                                           b.server))
+              if isinstance(x, torch.Tensor) and not same(x, y)]
+    diffs += [k for k in bm if not same(am[k], bm[k])]
+    if set(am) != set(bm) or diffs:
+        raise AssertionError(f"stream {label}: not bitwise: {diffs}")
+
+
+def check_launch_counts(label: str, got: dict, want: dict) -> None:
+    got = {k: got[k] for k in want}
+    if got != want:
+        raise AssertionError(f"stream {label}: launches {got}, expected "
+                             f"{want}")
+
+
+def stream_split(torch, sim, stacked, rounds: int, device, timed) -> dict:
+    """Where a streamed round's time goes: the chunks' copies to the card
+    (every chunk taken at once), then ``rounds`` rounds on batches already
+    on the card, against the same rounds on host batches that each round
+    copies (the materialised rollout's way)."""
+    from repro_torch.data.stream import StackedChunkSource
+    from repro_torch.utils import tree as T
+    n = rounds // STREAM_CHUNK
+    src = StackedChunkSource(stacked, rounds, STREAM_CHUNK, device=device)
+    chunks, take_s = timed(lambda: src.take(n))
+    on_card = [T.tree_map(lambda l: l[i], c) for c in chunks
+               for i in range(STREAM_CHUNK)]
+    on_host = [T.tree_map(lambda l: l[t], stacked)
+               for t in range(n * STREAM_CHUNK)]
+
+    def run(batches):
+        st = sim.init(0)
+        for b in batches:
+            st, _ = sim.round(st, b)
+        return st
+    times = {}
+    for label, batches in (("host", on_host), ("card", on_card),
+                           ("card", on_card), ("host", on_host)):
+        times.setdefault(label, []).append(
+            timed(lambda: run(batches))[1] / len(batches) * 1e3)
+    out = {"take_ms_per_chunk": take_s / n * 1e3,
+           "round_ms_batch_on_card": min(times["card"]),
+           "round_ms_batch_on_host": min(times["host"])}
+    log(f"stream cnn split: {n} chunks of {STREAM_CHUNK} rounds copied to "
+        f"the {device} in {take_s * 1e3:.3f} ms "
+        f"({out['take_ms_per_chunk']:.3f} a chunk); a round on a batch "
+        f"already there {out['round_ms_batch_on_card']:.3f} ms, on a host "
+        f"batch it copies {out['round_ms_batch_on_host']:.3f} ms (best of 2 "
+        f"each, in turns host, card, card, host)")
+    return out
+
+
+def stream_phase(torch, device: str = "cuda", rounds: int = STREAM_ROUNDS,
+                 tau_cap: int = STREAM_TAU_CAP,
+                 grid_rounds: int = STREAM_GRID_ROUNDS,
+                 tt1_rounds: int = TT1_ROUNDS, gate_rounds: int = GATE_ROUNDS,
+                 cost_steps: int = COST_STEPS, per_worker: int = 800,
+                 card: str = "") -> dict:
+    """Streamed rollouts (``Simulator.rollout_streaming``) with early exit
+    at tau, the streamed grid, the transformer testbed and the cost model
+    on the card: (1) fig1-alie on the CNN, 100 rounds pre-stacked and then
+    from a pure batch function, bitwise ``Simulator.rollout``; (2) time to
+    accuracy 0.85, checked against a fixed run evaluated every chunk; (3)
+    the ``table1`` grid streamed, bitwise the materialised grid; (4)
+    ``transformer-table1`` streamed through ``run_scenarios`` (flash under
+    ``torch.func``), its first rounds against the plain path and the CPU;
+    (5) the host-memory gate; (6) the cost model's calibration. cuDNN keeps
+    to its deterministic algorithms here: the bitwise checks compare two
+    runs of the same convolutions. ``cpu`` only to rehearse the script's
+    logic."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _stream_phase(torch, device, rounds, tau_cap, grid_rounds,
+                             tt1_rounds, gate_rounds, cost_steps,
+                             per_worker, card)
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def _stream_phase(torch, device, rounds, tau_cap, grid_rounds, tt1_rounds,
+                  gate_rounds, cost_steps, per_worker, card) -> dict:
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.adversary import registry as R
+    from repro_torch.core import costmodel as CM
+    from repro_torch.core import mnist_testbed
+    from repro_torch.core import sweep as SW
+    from repro_torch.core.simulator import Simulator, stack_batches
+    on_card = device == "cuda"
+    out = {}
+
+    def timed(fn):
+        sync(torch, device)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(torch, device)
+        return res, time.perf_counter() - t0
+
+    # (1) fig1-alie on the CNN: stacked, then from a pure batch function
+    cfg = fig1_alie()
+    loss_fn, params0, bf, eval_fn, eval_batch = mnist_testbed(
+        13, per_worker=per_worker, batch=60, seed=0, device=device)
+    pure = pure_mnist_batches(bf.ds, 60)
+    sim = Simulator(loss_fn, params0, cfg, eval_fn=eval_fn, device=device)
+    stacked = stack_batches(pure, rounds)
+    sim.rollout(sim.init(0), stack_batches(pure, 2))  # warm-up
+    (want, wm), mat_s = timed(lambda: sim.rollout(sim.init(0), stacked))
+    runs = {}
+    for label, feed in (("stacked", stacked), ("prefetcher", pure)):
+        K.reset_launches()
+        (st, m, info), secs = timed(lambda: sim.rollout_streaming(
+            sim.init(0), feed, rounds, chunk_size=STREAM_CHUNK,
+            prefetch_depth=STREAM_DEPTH))
+        launches = K.launches()
+        same_run(torch, f"cnn {label}", st, m, want, wm)
+        n = rounds if on_card else 0
+        check_launch_counts(f"cnn {label}", launches,
+                            {"pairdist": n, "cwtm": n})
+        runs[label] = {"ms_per_round": secs / rounds * 1e3,
+                       "launches": launches, "bitwise": True,
+                       **{k: info[k] for k in (
+                           "rounds_run", "dispatches", "chunk_bytes",
+                           "host_high_water_bytes",
+                           "device_buffer_bytes")}}
+        log(f"stream cnn {label}: {rounds} rounds (chunk {STREAM_CHUNK}, "
+            f"depth {STREAM_DEPTH}, tail {rounds % STREAM_CHUNK}) bitwise "
+            f"Simulator.rollout (params, momentum, every metric), "
+            f"{secs / rounds * 1e3:.3f} ms a round against "
+            f"{mat_s / rounds * 1e3:.3f} materialised, launches "
+            f"{ {k: launches[k] for k in ('pairdist', 'cwtm')} }, "
+            f"dispatches {info['dispatches']}, host high water "
+            f"{info['host_high_water_bytes']} B")
+    out["cnn"] = {"rounds": rounds, "materialised_ms_per_round":
+                  mat_s / rounds * 1e3, **runs,
+                  "split": stream_split(torch, sim, stacked, rounds,
+                                        device, timed)}
+
+    # (2) time to tau: accuracy 0.85, one eval a chunk, capped
+    K.reset_launches()
+    (st, m, info), wall = timed(lambda: sim.rollout_streaming(
+        sim.init(0), pure, tau_cap, chunk_size=STREAM_TAU_CHUNK,
+        prefetch_depth=STREAM_DEPTH, tau=STREAM_TAU, eval_batch=eval_batch))
+    r = info["rounds_run"]
+    per_round_bytes = sim.payload_bytes_per_round()
+    # the fixed run: rollout over the same schedule, chunk by chunk, with
+    # the same eval after each chunk (no early exit)
+    fixed, accs, state = [], [], sim.init(0)
+    ev = sim._on_device(eval_batch)
+    for c in range(r // STREAM_TAU_CHUNK):
+        state, fm = sim.rollout(state, stack_batches(
+            pure, STREAM_TAU_CHUNK, start=c * STREAM_TAU_CHUNK))
+        fixed.append(fm)
+        with torch.no_grad():
+            accs.append(float(eval_fn(sim.params(state), ev)["acc"]))
+    fixed = {k: torch.cat([f[k] for f in fixed]) for k in fixed[0]}
+    for k in m:
+        if not torch.equal(m[k], fixed[k][:r]):
+            raise AssertionError(f"stream tau: {k} is not the fixed run's "
+                                 f"prefix")
+    hits = [i for i, a in enumerate(accs) if a >= STREAM_TAU]
+    first = (hits[0] + 1) * STREAM_TAU_CHUNK if hits else None
+    if info["early_exit"] != bool(hits) or (hits and first != r) or (
+            not hits and r != tau_cap):
+        raise AssertionError(f"stream tau: stopped at {r} (early exit "
+                             f"{info['early_exit']}), the fixed run first "
+                             f"reaches {STREAM_TAU} at {first}")
+    if info["last_metric"] != accs[-1]:
+        raise AssertionError("stream tau: last_metric is not the fixed "
+                             "run's last eval")
+    out["tau"] = {"tau": STREAM_TAU, "cap": tau_cap,
+                  "rounds_run": r, "early_exit": info["early_exit"],
+                  "cap_first": not info["early_exit"],
+                  "last_metric": info["last_metric"],
+                  "dispatches": info["dispatches"], "wall_s": wall,
+                  "bytes_per_round": per_round_bytes,
+                  "bytes_to_tau": per_round_bytes * r,
+                  "acc_per_chunk": accs, "launches": K.launches()}
+    log(f"stream time to tau: acc >= {STREAM_TAU} "
+        + (f"at round {r}" if info["early_exit"] else
+           f"not reached by the cap of {tau_cap} rounds")
+        + f" (early_exit {info['early_exit']}, last_metric "
+        f"{info['last_metric']:.4f}, dispatches {info['dispatches']}), "
+        f"{wall:.3f} s wall, {per_round_bytes * r} bytes "
+        f"({per_round_bytes} a round); the metrics are the fixed run's "
+        f"prefix and its per-chunk eval first reaches tau at {first}")
+
+    # (3) the table1 grid on the CNN, streamed against materialised
+    plan = SW.plan_grid(grid_cells("table1", True))
+    bank = plan.banks[0]
+    gsim = Simulator(loss_fn, params0, bank.cfg, eval_fn=eval_fn,
+                     device=device)
+    params = bank.scenario_params()
+    gstacked = stack_batches(pure, grid_rounds)
+    SW.fused_grid_rollout(gsim, params, GRID_SEEDS, gstacked, 1)  # warm-up
+    (want, wm), mat_s = timed(lambda: SW.fused_grid_rollout(
+        gsim, params, GRID_SEEDS, gstacked))
+    K.reset_launches()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    state, lanes = SW.grid_lanes(gsim, params, GRID_SEEDS)
+    (st, m, info), secs = timed(lambda: gsim.rollout_streaming(
+        state, pure, grid_rounds, chunk_size=STREAM_GRID_CHUNK,
+        prefetch_depth=STREAM_DEPTH, scenario=lanes))
+    launches = K.launches()
+    got, gm = SW._by_cell(st, m, bank.n_cells, len(GRID_SEEDS))
+    same_run(torch, "grid table1", got, gm, want, wm)
+    grid_check_launches("stream table1", launches, grid_rounds,
+                        ("pairdist", "cwtm", "median"), on_card)
+    out["grid"] = {"lanes": bank.n_cells * len(GRID_SEEDS),
+                   "rounds": grid_rounds, "chunk": STREAM_GRID_CHUNK,
+                   "ms_per_round": secs / grid_rounds * 1e3,
+                   "materialised_ms_per_round": mat_s / grid_rounds * 1e3,
+                   "launches": launches, "bitwise": True,
+                   "peak_mib": (torch.cuda.max_memory_allocated() / 2**20
+                                if on_card else None),
+                   **{k: info[k] for k in ("dispatches", "chunk_bytes",
+                                           "host_high_water_bytes")}}
+    log(f"stream grid table1: {out['grid']['lanes']} lanes x {grid_rounds} "
+        f"rounds (chunk {STREAM_GRID_CHUNK}, depth {STREAM_DEPTH}) bitwise "
+        f"the materialised fused_grid_rollout, "
+        f"{out['grid']['ms_per_round']:.3f} ms a round against "
+        f"{out['grid']['materialised_ms_per_round']:.3f} materialised, "
+        f"launches {launches}, host high water "
+        f"{info['host_high_water_bytes']} B (the materialised schedule: "
+        f"{grid_rounds * info['chunk_bytes'] // STREAM_GRID_CHUNK} B)")
+    del gsim, want, st, got
+
+    # (4) transformer-table1 streamed through run_scenarios
+    spec = R.get_spec("transformer-table1")
+    cells = spec.expand()
+    tloss, tp0, tbatch, teval, teval_batch = SW._transformer_testbed(
+        spec.n_workers, device=device)
+    sims = {}
+
+    def tt1_run(steps):
+        return SW.run_scenarios(
+            cells, loss_fn=tloss, params0=tp0, batches=tbatch,
+            seeds=TT1_SEEDS, steps=steps, eval_fn=teval,
+            eval_batch=teval_batch, device=device, streaming=True,
+            stream_chunk_size=TT1_CHUNK, prefetch_depth=STREAM_DEPTH,
+            sim_cache=sims)
+    tt1_run(TT1_CHUNK)  # warm-up: the simulator and the libraries' set-up
+    K.reset_launches()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    rows, wall = timed(lambda: tt1_run(tt1_rounds))
+    launches = K.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else None
+    layers = 2
+    want_l = ({"flash_fwd": layers * tt1_rounds + layers,
+               "flash_bwd": layers * tt1_rounds, "pairdist": tt1_rounds,
+               "cwtm": tt1_rounds} if on_card else
+              {k: 0 for k in ("flash_fwd", "flash_bwd", "pairdist",
+                              "cwtm")})
+    check_launch_counts("transformer-table1", launches, want_l)
+    bad = [r["scenario"] for r in rows
+           if not (math.isfinite(r["final_loss"]) and 0.0 <= r["acc"] <= 1.0)]
+    if bad or len(rows) != len(cells) * len(TT1_SEEDS):
+        raise AssertionError(f"stream transformer-table1: bad rows {bad}")
+    for r in rows:
+        log(f"stream transformer-table1 row {r['scenario']:40s} seed "
+            f"{r['seed']} final_loss {r['final_loss']:.4f} acc "
+            f"{r['acc']:.4f} comm_bytes {r['comm_bytes']}")
+    # every lane's first rounds: kernels on the card against the plain
+    # path on the card and on the CPU, the same parameters and draws
+    tplan = SW.plan_grid(cells)
+    if len(tplan.banks) != 1 or tplan.singles:
+        raise AssertionError(f"transformer-table1: {tplan.describe()}")
+    losses = {}
+    for dev, kern in ((device, True), (device, False), ("cpu", False)):
+        lf = SW._transformer_testbed(spec.n_workers, device=dev,
+                                     use_kernels=kern)[0]
+        bank = SW.plan_grid(SW.with_kernels(cells, kern)).banks[0]
+        s = Simulator(lf, tp0, bank.cfg, device=dev)
+        k = bank.cfg.sparsifier.k(s.d)
+        draws = [grid_replay(torch, dev, TT1_CHECK, s.d, k, 0, sd)
+                 for sd in TT1_SEEDS]
+        _, tm = SW.fused_grid_rollout(s, bank.scenario_params(), TT1_SEEDS,
+                                      tbatch, TT1_CHECK, draws=draws)
+        losses[(dev, kern)] = tm["loss"].float().cpu()
+    kern = losses[(device, True)]
+    rel_plain = float(((kern - losses[(device, False)]).abs()
+                       / losses[(device, False)].abs()).max())
+    rel_cpu = float(((kern - losses[("cpu", False)]).abs()
+                     / losses[("cpu", False)].abs()).max())
+    log(f"stream transformer-table1: {len(cells)} cells x {len(TT1_SEEDS)} "
+        f"seeds = {len(cells) * len(TT1_SEEDS)} lanes of {spec.n_workers} "
+        f"workers, {tt1_rounds} rounds (chunk {TT1_CHUNK}, depth "
+        f"{STREAM_DEPTH}), {wall:.3f} s wall with the plan and the eval "
+        f"({wall / tt1_rounds * 1e3:.3f} ms a round), peak "
+        f"{peak} MiB, launches {launches}; first {TT1_CHECK} rounds of every "
+        f"lane, kernels vs plain path on the card max rel loss "
+        f"{rel_plain:.3g}, vs the cpu {rel_cpu:.3g} (bound {TT1_TOL_LOSS:g})")
+    if max(rel_plain, rel_cpu) > TT1_TOL_LOSS:
+        raise AssertionError("stream transformer-table1: the kernel path "
+                             "disagrees with the plain path")
+    out["transformer_table1"] = {
+        "lanes": len(cells) * len(TT1_SEEDS), "workers": spec.n_workers,
+        "rounds": tt1_rounds, "chunk": TT1_CHUNK, "wall_s": wall,
+        "ms_per_round": wall / tt1_rounds * 1e3, "peak_mib": peak,
+        "launches": launches, "rel_loss_plain": rel_plain,
+        "rel_loss_cpu": rel_cpu,
+        "rows": [{k: r[k] for k in ("scenario", "seed", "final_loss",
+                                    "acc")} for r in rows]}
+
+    # (5) the host-memory gate on the transformer testbed
+    cell = cells[0]
+    s = Simulator(tloss, tp0, cell.cfg, device=device)
+    try:
+        stack_batches(tbatch, gate_rounds, max_bytes=GATE_BYTES)
+        raise AssertionError("stream gate: stack_batches did not refuse")
+    except ValueError as e:
+        refusal = str(e).split(", over the")[0]
+    _, gm, info = s.rollout_streaming(s.init(0), tbatch, gate_rounds,
+                                      chunk_size=GATE_CHUNK,
+                                      prefetch_depth=STREAM_DEPTH)
+    ok = (info["rounds_run"] == gate_rounds
+          and info["host_high_water_bytes"] <= GATE_BYTES
+          and bool(torch.isfinite(gm["loss"]).all()))
+    log(f"stream gate ({cell.label}): stack_batches of {gate_rounds} rounds "
+        f"under {GATE_BYTES} B refused ({refusal}); rollout_streaming "
+        f"(chunk {GATE_CHUNK}, depth {STREAM_DEPTH}) ran "
+        f"{info['rounds_run']} rounds, host high water "
+        f"{info['host_high_water_bytes']} B")
+    if not ok:
+        raise AssertionError(f"stream gate: {info}")
+    out["gate"] = {"limit_bytes": GATE_BYTES, "rounds": gate_rounds,
+                   **{k: info[k] for k in ("rounds_run", "chunk_bytes",
+                                           "host_high_water_bytes")}}
+
+    # (6) the cost model's calibration
+    source = (f"chip_smoke.py stream phase: costmodel.calibrate, table1 on "
+              f"the quadratic (d = 64), {cost_steps} rounds, 4 seeds, "
+              f"{card or device}")
+    model, probes = CM.calibrate(steps=cost_steps, device=device,
+                                 source=source)
+    if on_card:
+        model.save(str(COST_MODEL_OUT))
+    fit = dataclasses.asdict(model)
+    log(f"stream cost model: probes {json.dumps(probes)}; fit "
+        f"{json.dumps(fit)}")
+    out["cost_model"] = {"probes": probes, "fit": fit}
+    return out
+
+
 def split_record(rec) -> dict:
     """The device and host µs per call of a timed case's kernel and
     library call."""
@@ -2351,13 +2819,15 @@ def split_record(rec) -> dict:
 
 
 def kernel_record(results, randk, flash, cnn, quad, llm, grid,
-                  serve) -> dict:
+                  serve, stream) -> dict:
     """The ``{"kernels": [...]}`` line: every kernel of the port, its
     launches on the main paths and its numbers at its main path's shape.
     ``launches`` is the CNN path's count (the median's first path is the
     grid: its ``launches`` is the grid's); ``launches_serve`` the served
     fig1-alie path's (20 rounds in process; the median's from the
-    ``rosdhb/foe/median`` cell)."""
+    ``rosdhb/foe/median`` cell); ``launches_stream`` the streamed paths'
+    (the CNN's 100 rounds, the table1 grid's 40, transformer-table1's 16
+    rounds and its eval)."""
     record = {"kernels": []}
     for name in SORT_KERNELS:
         recs = [r for r in results[name] if "ms" in r]
@@ -2377,6 +2847,11 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
             "launches_llm": llm["launches"][name],
             "launches_serve": (serve["median"] if name == "median"
                                else serve["parity"])["launches"][name],
+            "launches_stream": {
+                "cnn": stream["cnn"]["stacked"]["launches"][name],
+                "grid": stream["grid"]["launches"][name],
+                "transformer_table1": stream["transformer_table1"][
+                    "launches"][name]},
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -2389,6 +2864,7 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
                         **split_record(r)} for r in recs]})
     timed_randk = randk["block"][-1]
     timed_flash = flash[-1]
+    flash_shapes = [rec for rec in flash if "flash_fwd" in rec]
     for name, rec, err, shape in (
             ("block_compress", timed_randk,
              timed_randk["max_abs_err"]["block_compress"],
@@ -2409,6 +2885,15 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": shape})
         if name.startswith("flash"):
+            record["kernels"][-1].update(
+                device_us=t.get("device_us"), host_us=t["host_us"],
+                library_device_us=t.get("library_device_us"),
+                launches_stream=stream["transformer_table1"]["launches"][
+                    name],
+                shapes=[{"shape": r["case"], **{k: r[name].get(k) for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "device_us", "host_us", "library_device_us")}}
+                    for r in flash_shapes])
             d = shape[5]
             kernels = (["flash_fwd_kernel"] if name == "flash_fwd" else
                        ["flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
@@ -2519,7 +3004,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if len(sys.argv) > 2 and sys.argv[1] == "--device-times":
         # one JSON line: profile_cases in a fresh process
-        print(json.dumps(device_times(torch, json.loads(sys.argv[2]))))
+        cases = json.loads(sys.argv[2])
+        print(json.dumps(device_times(torch, cases["sort"],
+                                      cases["flash"])))
         return 0
 
     card = gpu_line()
@@ -2551,7 +3038,8 @@ def main() -> int:
         for name, fn in (("kernels", kernel_phase), ("randk", randk_phase),
                          ("flash", flash_phase), ("quadratic", quadratic_phase),
                          ("llm", llm_phase), ("grid", grid_phase),
-                         ("serve", serve_phase)):
+                         ("serve", serve_phase),
+                         ("stream", lambda t: stream_phase(t, card=card))):
             if want(name):
                 out = fn(torch)
                 if name == "kernels":
@@ -2570,9 +3058,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = serve_phase(torch)
     torch.cuda.empty_cache()
-    profile_cases(torch, results, fresh_process=True)  # see profile_cases
+    stream = stream_phase(torch, card=card)
+    torch.cuda.empty_cache()
+    profile_cases(torch, results, fresh_process=True,  # see profile_cases
+                  flash=flash)
     record = kernel_record(results, randk, flash, cnn, quad, llm, grid,
-                           serve)
+                           serve, stream)
     log(json.dumps({"summary": {
         "cnn": {k: cnn[k] for k in ("rounds", "median_round_ms", "acc",
                                     "cpu_rel_diff", "profile")},
@@ -2591,7 +3082,8 @@ def main() -> int:
                  "table1_check": grid["table1_check"],
                  "mimic_iid": grid["mimic_iid"],
                  "mixed_attacks": grid["mixed_attacks"]},
-        "serve": serve}}, default=str))
+        "serve": serve,
+        "stream": stream}}, default=str))
     log(json.dumps(record))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 * ``core``          — the :class:`Adversary` API, the uniformly-shaped
                       :class:`AttackState` and :func:`make_attack_bank`,
                       which gives each lane of a grid its own attack.
-* ``heterogeneity`` — the Dirichlet(alpha) label split of the testbed
-                      (ported: :func:`dirichlet_mnist`).
+* ``heterogeneity`` — Dirichlet(alpha) label partitioners and the empirical
+                      (G, B)-gradient-dissimilarity probe.
 * ``registry``      — named composed scenarios (attack x heterogeneity x
                       byzantine fraction) for the sweep CLI (``--scenario``).
 """
@@ -14,7 +14,10 @@ from repro_torch.adversary.core import (
     KNOWN_ATTACKS, attack_index, bank_entry, init_attack_state, is_stateful,
     make_attack_bank, needs_attack_state, static_coeffs,
 )
-from repro_torch.adversary.heterogeneity import dirichlet_mnist
+from repro_torch.adversary.heterogeneity import (
+    GBEstimate, dirichlet_mnist, dirichlet_proportions, gb_probe,
+    label_histograms, label_skew, partition_pool,
+)
 from repro_torch.adversary.registry import (
     REGISTRY, ScenarioSpec, describe, expand_scenario, get_spec, register,
 )
@@ -24,7 +27,8 @@ __all__ = [
     "DEFAULT_ATTACK_BANK", "KNOWN_ATTACKS", "attack_index", "bank_entry",
     "init_attack_state", "is_stateful", "make_attack_bank",
     "needs_attack_state", "static_coeffs",
-    "dirichlet_mnist",
+    "GBEstimate", "dirichlet_mnist", "dirichlet_proportions", "gb_probe",
+    "label_histograms", "label_skew", "partition_pool",
     "REGISTRY", "ScenarioSpec", "describe", "expand_scenario", "get_spec",
     "register",
 ]

@@ -11,9 +11,8 @@ banks. The sweep CLI exposes it as ``--scenario NAME`` /
 
     PYTHONPATH=src python -m repro_torch.core.sweep --scenario mixed-attacks
 
-Two specs need parts of the system that are not ported yet
-(:data:`NOT_PORTED`): they are listed and expand, and the CLI refuses to
-run them.
+Every spec runs; ``transformer-table1`` streams its batches
+(``--testbed transformer`` implies ``--stream``).
 """
 
 from __future__ import annotations
@@ -183,20 +182,3 @@ for _spec in (
         testbed="transformer"),
 ):
     register(_spec)
-
-
-#: Specs whose run needs a part of the system that is not ported yet, and
-#: the ``ROADMAP.md`` item that ports it.
-NOT_PORTED: Dict[str, str] = {
-    "transformer-table1": "the transformer testbed and streamed grid "
-                          "rollouts are not ported yet: ROADMAP.md Queue 1 "
-                          "items 3 (streamed rollouts) and 5 "
-                          "(core/sweep.py:_transformer_testbed)",
-}
-
-
-def check_ported(name: str) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a spec
-    this port cannot run yet."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"scenario {name!r}: {NOT_PORTED[name]}")

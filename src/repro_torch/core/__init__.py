@@ -5,7 +5,9 @@
   algorithms   - steps 5-7 (momentum bank, robust aggregation, update)
   aggregators  - the (f, kappa)-robust rules
   attacks      - the Byzantine adversary
-  simulator    - the single-device training loop
+  simulator    - the single-device training loop, streamed rollouts with
+                 early exit at tau
+  costmodel    - the measured fuse-or-partition model of the grid plan
   testbeds     - the quadratic and CNN testbeds
 """
 
@@ -20,7 +22,8 @@ from repro_torch.core.algorithms import (
     apply_direction, init_state, server_round, server_state_bytes,
 )
 from repro_torch.core.wire import per_worker_payload_bytes, round_payload_bytes
-from repro_torch.core.simulator import Simulator, SimState
+from repro_torch.core.costmodel import CostModel, DEFAULT_COST_MODEL
+from repro_torch.core.simulator import Simulator, SimState, stack_batches
 from repro_torch.core.testbeds import mnist_testbed, quadratic_testbed
 
 __all__ = [
@@ -32,6 +35,7 @@ __all__ = [
     "algo_payload_bytes", "apply_direction", "init_state", "server_round",
     "server_state_bytes",
     "per_worker_payload_bytes", "round_payload_bytes",
-    "Simulator", "SimState",
+    "CostModel", "DEFAULT_COST_MODEL",
+    "Simulator", "SimState", "stack_batches",
     "mnist_testbed", "quadratic_testbed",
 ]

@@ -1,10 +1,12 @@
 """Coordinated and local gradient sparsification (counterpart of
 ``repro.core.compression``).
 
-Ported kinds: ``randk`` (exact RandK, ``k`` distinct coordinates), ``bernoulli``
+Kinds: ``randk`` (exact RandK, ``k`` distinct coordinates), ``bernoulli``
 (per-coordinate Bernoulli(k/d)), ``block`` (Block-RandK: ``kb`` of the
 ``d/block_size`` aligned blocks), ``block_hash`` (each block kept with
-probability ``ratio`` by an integer hash of its id and a per-round seed) and
+probability ``ratio`` by an integer hash of its id and a per-round seed),
+``natural`` (the paper's Appendix-C natural compression: stochastic
+power-of-two rounding, whose "mask" is a uniform ``[d]`` draw) and
 ``none``. Masks are **global** (one per round, shared by every worker:
 Algorithm 1) or **local** (one per worker: RoSDHB-Local). The random draws
 come from a draws provider (``repro_torch.testing``), never from a global
@@ -29,9 +31,8 @@ import torch
 
 from repro_torch.kernels.randk import ops as RK
 
-#: Kinds this module can sample; the reference's ``natural`` kind is still
-#: to be ported.
-PORTED_KINDS = ("randk", "bernoulli", "block", "block_hash", "none")
+#: Kinds this module can sample.
+KINDS = ("randk", "bernoulli", "block", "block_hash", "natural", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +41,7 @@ class SparsifierConfig:
 
     Attributes:
       kind: ``randk`` | ``bernoulli`` | ``block`` | ``block_hash`` |
-        ``none``.
+        ``natural`` | ``none``.
       ratio: compression ratio ``k/d`` in (0, 1]; ``alpha = 1/ratio``.
       block_size: block width of the ``block`` and ``block_hash`` kinds.
       local: each worker samples its own mask (RoSDHB-Local) instead of one
@@ -94,7 +95,8 @@ def _block_hash_uniform(seed: int, d: int, block: int, device
 
 
 def _draws_nothing(cfg: SparsifierConfig, ratio) -> bool:
-    return cfg.kind == "none" or (ratio is None and cfg.ratio >= 1.0)
+    return cfg.kind == "none" or (ratio is None and cfg.ratio >= 1.0
+                                  and cfg.kind != "natural")
 
 
 def _check_ratio(cfg: SparsifierConfig, ratio) -> None:
@@ -109,7 +111,8 @@ def mask_draw(draws, d: int, cfg: SparsifierConfig, local_workers: int = 0,
     """The round's raw mask draw, from the ``mask`` stream (one global
     mask) or, with ``local_workers = n``, the ``local`` stream (one per
     worker, in worker order): the RandK indices, the Block-RandK block ids,
-    the Bernoulli uniforms or the ``block_hash`` per-block uniforms. ``None``
+    the Bernoulli and ``natural`` uniforms or the ``block_hash`` per-block
+    uniforms. ``None``
     when the mask draws nothing (``kind='none'``, a static ratio of 1)."""
     _check_ratio(cfg, ratio)
     if _draws_nothing(cfg, ratio):
@@ -123,7 +126,7 @@ def mask_draw(draws, d: int, cfg: SparsifierConfig, local_workers: int = 0,
         if m:
             return draws.permutation_prefixes(m, nb, kb, stream=stream)
         return draws.permutation_prefix(nb, kb, stream=stream)
-    if cfg.kind == "bernoulli":
+    if cfg.kind in ("bernoulli", "natural"):
         if m:
             return torch.stack([draws.uniform((d,), stream=stream)
                                 for _ in range(m)])
@@ -133,8 +136,8 @@ def mask_draw(draws, d: int, cfg: SparsifierConfig, local_workers: int = 0,
         u = torch.stack([_block_hash_uniform(b, d, cfg.block_size,
                                              draws.device) for b in seeds])
         return u if m else u[0]
-    raise ValueError(f"sparsifier kind {cfg.kind!r} is not ported "
-                     f"(ported: {'|'.join(PORTED_KINDS)})")
+    raise ValueError(f"unknown sparsifier kind: {cfg.kind!r} (known: "
+                     f"{'|'.join(KINDS)})")
 
 
 def _lead(ratio: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -153,6 +156,8 @@ def mask_from_draw(raw: Optional[torch.Tensor], d: int, cfg: SparsifierConfig,
     _check_ratio(cfg, ratio)
     if raw is None:
         return torch.ones((d,), dtype=dtype, device=device)
+    if cfg.kind == "natural":
+        return raw.to(dtype)
     if cfg.kind in ("randk", "block"):
         n_ids = d if cfg.kind == "randk" else -(-d // cfg.block_size)
         m = torch.zeros(raw.shape[:-1] + (n_ids,), dtype=dtype,
@@ -199,14 +204,32 @@ def make_masks(draws, n_workers: int, d: int, cfg: SparsifierConfig,
     return m if raw is not None else m.expand((n_workers, d))
 
 
+def _exp2(x: torch.Tensor) -> torch.Tensor:
+    """``2^x`` as the reference's compiled ``jnp.exp2`` rounds it:
+    ``exp(x * ln 2)`` in float32, not the exact power of two (``2^-15``
+    comes out 3.0517593e-05)."""
+    return torch.exp(x * math.log(2.0))
+
+
 def compress(g: torch.Tensor, mask: torch.Tensor,
              cfg: SparsifierConfig, ratio=None) -> torch.Tensor:
     """Server-side unbiased reconstruction ``(alpha * g) * mask``, in the
     reference's operation order (so the result is bitwise the same). A
     ``[B]`` tensor of per-lane ratios gives ``(g / ratio) * mask``, the
-    reference's traced-ratio rescale, over ``g``'s leading lane axis."""
+    reference's traced-ratio rescale, over ``g``'s leading lane axis.
+    ``natural`` rounds each coordinate stochastically to a power of two:
+    ``|x|`` in ``[2^e, 2^(e+1))`` rounds up where the uniform ``mask`` is
+    below ``|x| / 2^e - 1`` (unbiased; the reference's operations in its
+    order)."""
     if ratio is not None:
         return (g / _lead(ratio, g.ndim)) * mask
+    if cfg.kind == "natural":
+        a = g.abs()
+        safe = torch.where(a > 0, a, torch.ones_like(a))
+        lo = _exp2(torch.floor(torch.log2(safe)))
+        up = (mask < safe / lo - 1.0).to(g.dtype)
+        out = torch.sign(g) * lo * _exp2(up)
+        return torch.where(a > 0, out, torch.zeros_like(out)).to(g.dtype)
     if cfg.kind == "none" or cfg.ratio >= 1.0:
         return g
     return (cfg.alpha * g) * mask
@@ -278,7 +301,10 @@ def payload_bytes(d: int, cfg: SparsifierConfig, bytes_per_value: int = 4,
                   with_mask_indices: bool = False) -> int:
     """Per-worker uplink bytes per round. A global mask is a shared draw and
     costs no index bytes; a local mask charges :func:`index_bytes` per index
-    when ``with_mask_indices``."""
+    when ``with_mask_indices``; ``natural`` sends a sign and an 8-bit
+    exponent a coordinate (9 bits)."""
+    if cfg.kind == "natural":
+        return int(d * 9 / 8 / 4 * bytes_per_value)
     k = payload_floats(d, cfg)
     b = k * bytes_per_value
     if with_mask_indices and cfg.local and cfg.ratio < 1.0:

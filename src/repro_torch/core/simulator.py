@@ -6,6 +6,12 @@ compute gradients on their local batches, the algorithm compresses, attacks
 and aggregates, and the server updates the model. PyTorch runs eagerly, so a
 trajectory is a Python loop over rounds (:meth:`Simulator.rollout`); per-round
 metrics stay on the device until the caller reads them.
+:meth:`Simulator.rollout_streaming` runs the same round body over chunks of
+rounds from a prefetched ring buffer (``repro_torch.data.stream``), reads
+one early-exit metric a chunk and stops at the first chunk boundary past
+``tau``; :meth:`Simulator.rollout_with_snapshots` keeps the parameters after
+listed rounds; :meth:`Simulator.run_per_round` is the reference's one round
+at a time loop with its eval records and early stop.
 
 A state whose parameters are ``[B, D]`` holds ``B`` lanes (the grid engine's
 cells x seeds, ``repro_torch.core.sweep``): a round computes every lane's
@@ -17,6 +23,7 @@ each lane's update with its own step size.
 
 from __future__ import annotations
 
+import os
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
                     Sequence, Tuple)
 
@@ -25,6 +32,7 @@ import torch
 
 from repro_torch.core import aggregators as G
 from repro_torch.core import algorithms as alg
+from repro_torch.data import stream as DS
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.testing import GridDraws, TorchDraws
 from repro_torch.utils import tree as T
@@ -37,8 +45,18 @@ class SimState(NamedTuple):
 
 
 #: Sanity ceiling on the host-side bytes :func:`stack_batches` materialises
-#: (2 GiB), as the reference's ``STACK_BYTES_LIMIT``.
+#: (2 GiB), as the reference's ``STACK_BYTES_LIMIT``. Override per call with
+#: ``max_bytes=`` or with the ``REPRO_STACK_BYTES_LIMIT`` environment
+#: variable (``0`` disables the check); past it, stream the batches
+#: (:meth:`Simulator.rollout_streaming`).
 STACK_BYTES_LIMIT = 2 * 1024 ** 3
+
+
+def _stack_limit(max_bytes: Optional[int]) -> int:
+    if max_bytes is not None:
+        return max_bytes
+    env = os.environ.get("REPRO_STACK_BYTES_LIMIT")
+    return int(env) if env is not None else STACK_BYTES_LIMIT
 
 
 def _batch_bytes(batch: Any) -> int:
@@ -52,19 +70,25 @@ def stack_batches(batch_fn: Callable[[int], Any], steps: int,
     """``batch_fn(start) .. batch_fn(start + steps - 1)`` stacked on a
     leading step axis, called in step order (a stateful ``batch_fn``
     reproduces the per-round stream). Raises ``ValueError`` when the
-    estimated footprint exceeds ``max_bytes`` (default
-    :data:`STACK_BYTES_LIMIT`; 0 disables the check)."""
-    limit = STACK_BYTES_LIMIT if max_bytes is None else max_bytes
+    estimated footprint exceeds the limit (``max_bytes``, else
+    ``REPRO_STACK_BYTES_LIMIT``, else :data:`STACK_BYTES_LIMIT`; 0 disables
+    the check), pointing at the streaming path."""
+    limit = _stack_limit(max_bytes)
     per_step: List[Any] = []
     for i, t in enumerate(range(start, start + steps)):
         b = batch_fn(t)
         if i == 0 and limit:
-            est = _batch_bytes(b) * steps
+            per = _batch_bytes(b)
+            est = per * steps
             if est > limit:
                 raise ValueError(
                     f"stack_batches would materialise ~{est / 1e9:.2f} GB "
-                    f"({steps} steps), over the {limit / 1e9:.2f} GB sanity "
-                    "limit: pass a batch_fn to the rollout instead")
+                    f"host-side ({steps} steps x {per} bytes/step), over the "
+                    f"{limit / 1e9:.2f} GB sanity limit. Stream the batches "
+                    "instead — Simulator.rollout_streaming / "
+                    "repro_torch.data.stream.ChunkPrefetcher hold only "
+                    "O(prefetch_depth) chunks — or raise the limit via "
+                    "max_bytes= / REPRO_STACK_BYTES_LIMIT (0 disables).")
         per_step.append(b)
     treedef = T.tree_flatten(per_step[0])[1]
     cols = zip(*(T.tree_leaves(b) for b in per_step))
@@ -81,6 +105,57 @@ def ensure_stacked(batches: Any, steps: Optional[int]) -> Any:
             raise ValueError("steps is required when batches is callable")
         return stack_batches(batches, steps)
     return batches
+
+
+def _chunk_source(batches: Any, steps: Optional[int], chunk_size: int,
+                 prefetch_depth: int, device: torch.device):
+    """The chunk source of a streamed rollout, with the number of rounds:
+    ``(source, steps)``. A ``batch_fn`` callable streams through a
+    ``ChunkPrefetcher`` (``steps`` required); a stacked ``[steps, ...]``
+    tree is sliced chunk by chunk (``StackedChunkSource``). Either leaves
+    the ``steps % chunk_size`` tail to :func:`_stream_tail`."""
+    if chunk_size <= 0 or prefetch_depth <= 0:
+        raise ValueError("chunk_size and prefetch_depth must be positive")
+    if callable(batches):
+        if steps is None:
+            raise ValueError("steps is required when batches is callable")
+        return DS.ChunkPrefetcher(batches, steps, chunk_size, prefetch_depth,
+                                  device=device), steps
+    n_avail = T.tree_leaves(batches)[0].shape[0]
+    steps = n_avail if steps is None else min(steps, n_avail)
+    return DS.StackedChunkSource(batches, steps, chunk_size,
+                                 device=device), steps
+
+
+def _stream_tail(batches: Any, steps: int, chunk_size: int) -> Any:
+    """The last ``steps % chunk_size`` rounds' batches, stacked."""
+    start = steps - steps % chunk_size
+    if callable(batches):
+        return stack_batches(batches, steps - start, start=start)
+    return T.tree_map(lambda l: l[start:steps], batches)
+
+
+def _concat_metrics(parts: Sequence[Dict[str, torch.Tensor]]
+                    ) -> Dict[str, torch.Tensor]:
+    parts = [p for p in parts if p]
+    if not parts:
+        return {}
+    return {k: torch.cat([p[k] for p in parts], dim=-1) for k in parts[0]}
+
+
+def _record(history: Dict[str, list], rec: Dict[str, float], t: int
+            ) -> None:
+    history["step"].append(t)
+    for k, v in rec.items():
+        history.setdefault(k, []).append(v)
+
+
+def _stack_rounds(per_round: Sequence[Dict[str, torch.Tensor]]
+                  ) -> Dict[str, torch.Tensor]:
+    if not per_round:
+        return {}
+    return {k: torch.stack([m[k] for m in per_round], dim=-1)
+            for k in per_round[0]}
 
 
 class Simulator:
@@ -236,10 +311,166 @@ class Simulator:
         for t in range(steps):
             state, m = self.round(state, batch_at(t), scenario)
             per_round.append(m)
-        if not per_round:
-            return state, {}
-        return state, {k: torch.stack([m[k] for m in per_round], dim=-1)
-                       for k in per_round[0]}
+        return state, _stack_rounds(per_round)
+
+    def rollout_with_snapshots(self, state: SimState, batches: Any,
+                               eval_rounds: Any,
+                               steps: Optional[int] = None,
+                               scenario: Optional[alg.ScenarioParams] = None
+                               ) -> Tuple[SimState, Dict[str, torch.Tensor],
+                                          torch.Tensor]:
+        """:meth:`rollout` that also returns ``snaps``: ``params_flat``
+        after each round of ``eval_rounds`` (strictly increasing round
+        indices), ``[len(eval_rounds), D]`` (``[B, len, D]`` for lanes)."""
+        batches = ensure_stacked(batches, steps)
+        n_steps = T.tree_leaves(batches)[0].shape[0]
+        rounds = np.asarray(eval_rounds, np.int64)
+        if (rounds.ndim != 1 or np.any(np.diff(rounds) <= 0)
+                or (rounds.size
+                    and (rounds[0] < 0 or rounds[-1] >= n_steps))):
+            # rows are taken in round order, so an unsorted or duplicated
+            # schedule (or a wrapping negative index) would misalign them
+            raise ValueError(
+                "eval_rounds must be strictly increasing round indices in "
+                f"[0, {n_steps}), got {rounds}")
+        wanted = set(int(r) for r in rounds)
+        per_round: List[Dict[str, torch.Tensor]] = []
+        snaps: List[torch.Tensor] = []
+        for t in range(n_steps):
+            state, m = self.round(state, T.tree_map(lambda l: l[t], batches),
+                                  scenario)
+            per_round.append(m)
+            if t in wanted:
+                snaps.append(state.params_flat.clone())
+        flat = state.params_flat
+        out = (torch.stack(snaps, dim=-2) if snaps else flat.new_zeros(
+            flat.shape[:-1] + (0, flat.shape[-1])))
+        return state, _stack_rounds(per_round), out
+
+    def _stream(self, state: SimState, source: Any, chunk_size: int,
+                prefetch_depth: int,
+                scenario: Optional[alg.ScenarioParams] = None,
+                exit_check: Optional[Callable[[SimState, Dict], Tuple[
+                    bool, float]]] = None):
+        """Rounds over the chunks of ``source``, up to ``prefetch_depth``
+        chunks a ``take``, each round :meth:`round`'s body. After each chunk
+        ``exit_check(state, last_round_metrics) -> (hit, metric)`` (if
+        given) may stop the run at that chunk boundary. Returns ``(state,
+        per-round metrics, takes, hit, last metric or None)``."""
+        per_round: List[Dict[str, torch.Tensor]] = []
+        takes, hit, last = 0, False, None
+        try:
+            while not hit:
+                chunks = source.take(prefetch_depth)
+                if not chunks:
+                    break
+                takes += 1
+                for chunk in chunks:
+                    for i in range(chunk_size):
+                        state, m = self.round(
+                            state, T.tree_map(lambda l: l[i], chunk),
+                            scenario)
+                        per_round.append(m)
+                    if exit_check is not None:
+                        hit, last = exit_check(state, per_round[-1])
+                        if hit:
+                            break
+        finally:
+            source.close()
+        return state, per_round, takes, hit, last
+
+    def rollout_streaming(self, state: SimState, batches: Any,
+                          steps: Optional[int] = None, *,
+                          chunk_size: int = 32, prefetch_depth: int = 4,
+                          tau: Optional[float] = None,
+                          tau_metric: Optional[str] = None,
+                          tau_mode: Optional[str] = None,
+                          eval_batch: Any = None,
+                          scenario: Optional[alg.ScenarioParams] = None
+                          ) -> Tuple[SimState, Dict[str, torch.Tensor],
+                                     Dict[str, Any]]:
+        """Streamed trajectory with early exit at ``tau`` (the reference's
+        ``rollout_streaming``).
+
+        Chunks of ``chunk_size`` rounds come from a ``ChunkPrefetcher``
+        (``batches`` a ``batch_fn``; ``steps`` required) or are sliced from
+        a stacked ``[steps, ...]`` tree, up to ``prefetch_depth`` at a time,
+        on the simulator's device; each round is :meth:`round`, so with
+        ``tau=None`` the trajectory is bitwise :meth:`rollout`'s. Host
+        residency is O(prefetch_depth * chunk_bytes) whatever the length.
+
+        Early exit: after each chunk the metric is read once (one
+        device-to-host copy a chunk): ``eval_fn(params,
+        eval_batch)[tau_metric]`` when ``eval_batch`` is given (default
+        ``'acc'``, mode ``'>='``), else the chunk's last per-round
+        ``tau_metric`` (default ``'loss'``, mode ``'<='``), compared in
+        float32 with ``tau``. The run stops at the first chunk boundary past
+        the crossing; the rounds after it are never computed. The ``steps %
+        chunk_size`` tail runs through :meth:`rollout` unless the run
+        stopped. A lane state (``[B, D]``) streams only with ``tau=None``.
+
+        Returns ``(state, metrics, info)``: ``metrics`` holds ``[rounds_run]``
+        tensors (``[B, rounds_run]`` for lanes); ``info`` the reference's
+        keys ``rounds_run``, ``early_exit``, ``last_metric``, ``tau``,
+        ``tau_metric``, ``tau_mode``, ``dispatches`` (takes of up to
+        ``prefetch_depth`` chunks), ``chunk_size``, ``prefetch_depth``,
+        ``chunk_bytes``, ``host_high_water_bytes``,
+        ``device_buffer_bytes``.
+        """
+        use_eval = (tau is not None and eval_batch is not None
+                    and self.eval_fn is not None)
+        metric = tau_metric or ("acc" if use_eval else "loss")
+        mode = tau_mode or (">=" if use_eval else "<=")
+        if mode not in (">=", "<="):
+            raise ValueError(f"tau_mode must be '>=' or '<=', got {mode!r}")
+        if tau is not None and state.params_flat.ndim != 1:
+            raise ValueError("early exit at tau needs a single run; lanes "
+                             "stream with tau=None")
+        source, steps = _chunk_source(batches, steps, chunk_size,
+                                     prefetch_depth, self.device)
+        exit_check = None
+        if tau is not None:
+            # the reference compares its float32 metric with float32(tau)
+            tau32 = float(np.float32(tau))
+            eval_dev = self._on_device(eval_batch) if use_eval else None
+
+            def exit_check(st: SimState, m: Dict[str, torch.Tensor]):
+                if use_eval:
+                    with torch.no_grad():
+                        ev = self.eval_fn(self.params(st), eval_dev)[metric]
+                else:
+                    ev = m[metric]
+                v = float(ev)
+                return (v >= tau32 if mode == ">=" else v <= tau32), v
+
+        state, per_round, takes, early, last = self._stream(
+            state, source, chunk_size, prefetch_depth, scenario, exit_check)
+        if last is None and per_round and state.params_flat.ndim == 1:
+            last = float(per_round[-1][metric])
+        parts = [_stack_rounds(per_round)]
+        if steps % chunk_size and not early:
+            state, tail = self.rollout(state, _stream_tail(batches, steps,
+                                                          chunk_size),
+                                       scenario=scenario)
+            parts.append(tail)
+        metrics = _concat_metrics(parts)
+        rounds_run = (int(next(iter(metrics.values())).shape[-1])
+                      if metrics else 0)
+        info = {
+            "rounds_run": rounds_run,
+            "early_exit": early,
+            "last_metric": float("nan") if last is None else last,
+            "tau": tau,
+            "tau_metric": metric,
+            "tau_mode": mode,
+            "dispatches": takes,
+            "chunk_size": chunk_size,
+            "prefetch_depth": prefetch_depth,
+            "chunk_bytes": source.chunk_bytes,
+            "host_high_water_bytes": source.high_water_bytes,
+            "device_buffer_bytes": prefetch_depth * source.chunk_bytes,
+        }
+        return state, metrics, info
 
     def run(self, state: SimState, batch_fn: Callable[[int], Any],
             steps: int, eval_every: int = 0, eval_batch: Any = None,
@@ -258,18 +489,42 @@ class Simulator:
             if stopped or not eval_every:
                 continue
             if t % eval_every == 0 or t == steps - 1:
-                rec = {k: float(v) for k, v in m.items()}
-                rec["comm_bytes"] = per_round_bytes * (t + 1)
-                if self.eval_fn is not None and eval_batch is not None:
-                    with torch.no_grad():
-                        em = self.eval_fn(self.params(state),
-                                          self._on_device(eval_batch))
-                    rec.update({k: float(v) for k, v in em.items()})
-                history["step"].append(t)
-                for k, v in rec.items():
-                    history.setdefault(k, []).append(v)
+                rec = self._eval_record(state, m, t, per_round_bytes,
+                                        eval_batch)
+                _record(history, rec, t)
                 if stop_fn is not None and stop_fn(rec):
                     stopped = True
+        return state, history
+
+    def _eval_record(self, state: SimState, m: Dict[str, torch.Tensor],
+                     t: int, per_round: int, eval_batch: Any
+                     ) -> Dict[str, float]:
+        rec = {k: float(v) for k, v in m.items()}
+        rec["comm_bytes"] = per_round * (t + 1)
+        if self.eval_fn is not None and eval_batch is not None:
+            with torch.no_grad():
+                em = self.eval_fn(self.params(state),
+                                  self._on_device(eval_batch))
+            rec.update({k: float(v) for k, v in em.items()})
+        return rec
+
+    def run_per_round(self, state: SimState, batch_fn: Callable[[int], Any],
+                      steps: int, eval_every: int = 0, eval_batch: Any = None,
+                      stop_fn: Optional[Callable[[Dict[str, float]], bool]]
+                      = None) -> Tuple[SimState, Dict[str, list]]:
+        """The reference's one-round-at-a-time loop: eval records at rounds
+        ``t % eval_every == 0`` and the last round, and the run stops at the
+        first record where ``stop_fn(record)`` fires (the returned state is
+        that round's)."""
+        history: Dict[str, list] = {"step": [], "loss": [], "comm_bytes": []}
+        per_round = self.payload_bytes_per_round()
+        for t in range(steps):
+            state, m = self.round(state, batch_fn(t))
+            if eval_every and (t % eval_every == 0 or t == steps - 1):
+                rec = self._eval_record(state, m, t, per_round, eval_batch)
+                _record(history, rec, t)
+                if stop_fn is not None and stop_fn(rec):
+                    break
         return state, history
 
     def server_state_bytes(self) -> int:

@@ -18,19 +18,28 @@ grids. Two stages, as in the reference:
   branch once on its lanes: the pairdist, CWTM and median kernels launch
   once a round whatever ``B``. Eval is one call over the lanes
   (:func:`fused_grid_eval`). A single runs its seeds as the lanes of its
-  own simulator (:func:`rollout_over_seeds`).
+  own simulator (:func:`rollout_over_seeds`). With ``streaming=True`` the
+  rounds' batches come chunk by chunk from a prefetched ring buffer
+  (:func:`fused_grid_rollout_streaming`, :func:`rollout_over_seeds_streaming`:
+  ``Simulator.rollout_streaming`` over the lanes), bitwise the materialised
+  run, with O(prefetch_depth) chunks on the host.
 
-Early stopping is post-hoc (:func:`bytes_to_threshold`).
+With a measured :class:`~repro_torch.core.costmodel.CostModel` the plan
+keeps a multi-algorithm bank fused only where the model predicts it is no
+slower than the per-algorithm partition. Early stopping of a grid is
+post-hoc (:func:`bytes_to_threshold`).
 
 CLI::
 
     PYTHONPATH=src python -m repro_torch.core.sweep --scenario table1-mini \\
         --device cpu
     PYTHONPATH=src python -m repro_torch.core.sweep --list-scenarios
+    PYTHONPATH=src python -m repro_torch.core.sweep \
+        --scenario transformer-table1 --stream --stream-chunk 4 \
+        --prefetch-depth 2 --seeds 1 --steps 8 --device cpu
 
 The reference's device sharding has no meaning on one card (``--shard`` is
-accepted and does nothing); its measured cost model, streamed rollouts and
-transformer testbed are not ported yet (``ROADMAP.md``).
+accepted and does nothing).
 """
 
 from __future__ import annotations
@@ -47,7 +56,10 @@ from repro_torch.core import aggregators as G
 from repro_torch.core import algorithms as alg
 from repro_torch.core import attacks as A
 from repro_torch.core import compression as C
-from repro_torch.core.simulator import SimState, Simulator, ensure_stacked
+from repro_torch.core.costmodel import CostModel
+from repro_torch.core.simulator import (SimState, Simulator, ensure_stacked,
+                                        stack_batches)
+from repro_torch.device import resolve_device
 from repro_torch.testing import GridDraws
 from repro_torch.utils import tree as T
 
@@ -62,15 +74,6 @@ class Scenario:
 
 #: Algorithms the grid runner can build (the algorithm bank's branches).
 KNOWN_ALGORITHMS: Tuple[str, ...] = alg.ALGO_BANK
-
-_NOT_PORTED_ROADMAP = {
-    "cost_model": "the measured cost model (core/costmodel.py) is not "
-                  "ported yet: ROADMAP.md Queue 1 item 2",
-    "stream": "streamed grid rollouts are not ported yet: ROADMAP.md "
-              "Queue 1 item 3",
-    "transformer": "the transformer testbed is not ported yet: ROADMAP.md "
-                   "Queue 1 item 5 (core/sweep.py:_transformer_testbed)",
-}
 
 
 def _validate_grid_names(algos: Sequence[str], attacks: Sequence[str],
@@ -164,6 +167,22 @@ def rollout_over_seeds(sim: Simulator, seeds: Sequence[int], batches: Any,
     return sim.rollout(init_states(sim, seeds, draws), batches)
 
 
+def rollout_over_seeds_streaming(sim: Simulator, seeds: Sequence[int],
+                                 batches: Any, steps: Optional[int] = None,
+                                 *, chunk_size: int = 32,
+                                 prefetch_depth: int = 4,
+                                 draws: Optional[Sequence[Any]] = None
+                                 ) -> Tuple[SimState, dict]:
+    """:func:`rollout_over_seeds` fed chunk by chunk from a prefetched ring
+    buffer (``Simulator.rollout_streaming``, no early exit): bitwise the
+    materialised run. A callable ``batches`` must be a pure function of the
+    round index (it is streamed anew for each bank and single)."""
+    state, metrics, _ = sim.rollout_streaming(
+        init_states(sim, seeds, draws), batches, steps,
+        chunk_size=chunk_size, prefetch_depth=prefetch_depth)
+    return state, metrics
+
+
 def _cell_axis(params: alg.ScenarioParams) -> int:
     present = [torch.as_tensor(v) for v in params if v is not None]
     if not present:
@@ -231,10 +250,40 @@ def fused_grid_rollout(sim: Simulator, params: alg.ScenarioParams,
     batches = ensure_stacked(batches, steps)
     n_c, n_s = _cell_axis(params), len(seeds)
     state, lanes = grid_lanes(sim, params, seeds, draws)
-    out, metrics = sim.rollout(state, batches, scenario=lanes)
+    return _by_cell(*sim.rollout(state, batches, scenario=lanes), n_c, n_s)
+
+
+def _by_cell(out: SimState, metrics: dict, n_c: int, n_s: int
+             ) -> Tuple[SimState, dict]:
+    """A grid's lane axis split into ``[n_cells, n_seeds]`` (parameters and
+    metrics; the server state keeps its flat lane axis)."""
     cells = lambda t: t.reshape((n_c, n_s) + t.shape[1:])  # noqa: E731
     return (out._replace(params_flat=cells(out.params_flat)),
             {k: cells(v) for k, v in metrics.items()})
+
+
+def fused_grid_rollout_streaming(sim: Simulator,
+                                 params: alg.ScenarioParams,
+                                 seeds: Sequence[int], batches: Any,
+                                 steps: Optional[int] = None, *,
+                                 chunk_size: int = 32,
+                                 prefetch_depth: int = 4,
+                                 shard: bool = True,
+                                 devices: Optional[Sequence[Any]] = None,
+                                 draws: Optional[Sequence[Any]] = None
+                                 ) -> Tuple[SimState, dict]:
+    """:func:`fused_grid_rollout` fed chunk by chunk from a prefetched ring
+    buffer: the same lanes, the same round, bitwise the same trajectories;
+    the host never holds the ``[steps, ...]`` batch schedule. No early exit
+    (grid tables need whole trajectories: :func:`bytes_to_threshold` stays
+    the grid's protocol)."""
+    del shard, devices
+    n_c, n_s = _cell_axis(params), len(seeds)
+    state, lanes = grid_lanes(sim, params, seeds, draws)
+    out, metrics, _ = sim.rollout_streaming(
+        state, batches, steps, chunk_size=chunk_size,
+        prefetch_depth=prefetch_depth, scenario=lanes)
+    return _by_cell(out, metrics, n_c, n_s)
 
 
 def fused_attack_rollout(sim: Simulator,
@@ -396,7 +445,8 @@ def _build_bank(group: Sequence[_GroupEntry], *,
 
 def plan_grid(scenarios: Sequence[Scenario], *,
               fuse: bool = True, cross_algo: bool = True,
-              cost_model: Any = None, rounds: Optional[int] = None,
+              cost_model: Optional[CostModel] = None,
+              rounds: Optional[int] = None,
               n_seeds: int = 1, sharded: bool = False) -> GridPlan:
     """Partition ``scenarios`` into maximal fusible banks (the reference's
     ``plan_grid``): cells fuse when they share every static field of their
@@ -404,12 +454,17 @@ def plan_grid(scenarios: Sequence[Scenario], *,
     parameters), the rule +/- NNM, the algorithm and its hyperparameters
     (``cross_algo``) and, for ``TRACED_RATIO_KINDS``, the keep-ratio. Groups
     of one and ``none`` attacks are singles. Duplicate labels raise.
-    ``cost_model`` is not ported (``None`` only); ``sharded`` has nothing
-    to shard on one card."""
+
+    With ``cost_model`` (and the grid's ``rounds`` and ``n_seeds``), a
+    multi-algorithm group stays one bank only where
+    :meth:`CostModel.fused_s` is no more than
+    :meth:`CostModel.partitioned_s`; else it splits into single-algorithm
+    banks. Decisions are recorded in ``GridPlan.notes``. ``sharded`` adds
+    the model's multi-device first-call overhead (one card: ``False``)."""
     from repro_torch.adversary import core as adv
-    del rounds, n_seeds, sharded
-    if cost_model is not None:
-        raise NotImplementedError(_NOT_PORTED_ROADMAP["cost_model"])
+    if cost_model is not None and rounds is None:
+        raise ValueError("plan_grid(cost_model=...) needs rounds= (the run "
+                         "length) to predict per-bank runtime")
     label_counts = collections.Counter(sc.label for sc in scenarios)
     dupes = sorted(l for l, c in label_counts.items() if c > 1)
     if dupes:
@@ -440,12 +495,34 @@ def plan_grid(scenarios: Sequence[Scenario], *,
                 mvr_a=None, gamma=0.0)
         groups.setdefault(key, []).append((sc, entry))
     banks: List[FusedBank] = []
+    notes: List[str] = []
     for group in groups.values():
         if len(group) == 1:
             singles.append(group[0][0])
             continue
+        cells = collections.Counter(sc.cfg.name for sc, _ in group)
+        if cross_algo and cost_model is not None and len(cells) > 1:
+            fused_s = cost_model.fused_s(dict(cells), n_seeds, rounds,
+                                         sharded=sharded)
+            part_s = cost_model.partitioned_s(dict(cells), n_seeds, rounds,
+                                              sharded=sharded)
+            verdict = "fused" if fused_s <= part_s else "partitioned"
+            notes.append(
+                f"cost-model[{cost_model.source}] {verdict} "
+                f"{'+'.join(sorted(cells))} x{len(group)} cells x{n_seeds} "
+                f"seeds x{rounds} rounds: fused {fused_s:.1f}s vs "
+                f"partitioned {part_s:.1f}s")
+            if fused_s > part_s:
+                for algo in cells:
+                    sub = [g for g in group if g[0].cfg.name == algo]
+                    if len(sub) == 1:
+                        singles.append(sub[0][0])
+                    else:
+                        banks.append(_build_bank(sub, cross_algo=True))
+                continue
         banks.append(_build_bank(group, cross_algo=cross_algo))
-    return GridPlan(banks=tuple(banks), singles=tuple(singles))
+    return GridPlan(banks=tuple(banks), singles=tuple(singles),
+                    notes=tuple(notes))
 
 
 def eval_over_seeds(sim: Simulator, states: SimState,
@@ -535,7 +612,10 @@ def execute_plan(plan: GridPlan, *,
                  sim_cache: Optional[Dict[alg.AlgorithmConfig,
                                           Simulator]] = None,
                  device=None,
-                 draws_fn: Optional[Callable[[int], Any]] = None
+                 draws_fn: Optional[Callable[[int], Any]] = None,
+                 streaming: bool = False,
+                 stream_chunk_size: int = 32,
+                 prefetch_depth: int = 4
                  ) -> Dict[str, List[Dict[str, Any]]]:
     """Execute a :class:`GridPlan` on ``device`` (default the card); return
     rows keyed by scenario label. Each bank is one lane rollout
@@ -544,10 +624,28 @@ def execute_plan(plan: GridPlan, *,
     across calls with the same ``loss_fn`` / ``params0`` / ``eval_fn``.
     ``draws_fn(seed)`` makes a seed's draws provider for each bank and
     single (default ``TorchDraws(seed)``; parity tests replay the
-    reference's)."""
+    reference's).
+
+    With ``streaming=True`` the batches are not materialised: every bank
+    and single streams ``stream_chunk_size``-round chunks from a
+    ``prefetch_depth``-deep ring buffer (:func:`fused_grid_rollout_streaming`,
+    :func:`rollout_over_seeds_streaming`), bitwise the same rows. A callable
+    ``batches`` is then streamed anew from round 0 for each of them, so it
+    must be a pure function of the round index (pre-stack a stateful one,
+    such as the MNIST ``BatchFn``)."""
     del shard, devices
-    batches = ensure_stacked(batches, steps)
-    n_steps = T.tree_leaves(batches)[0].shape[0]
+    if streaming:
+        if callable(batches):
+            if steps is None:
+                raise ValueError("steps is required when batches is callable")
+            n_steps = steps
+        else:
+            n_avail = T.tree_leaves(batches)[0].shape[0]
+            n_steps = n_avail if steps is None else min(steps, n_avail)
+    else:
+        batches = ensure_stacked(batches, steps)
+        n_steps = T.tree_leaves(batches)[0].shape[0]
+    stream = dict(chunk_size=stream_chunk_size, prefetch_depth=prefetch_depth)
     rows_by_label: Dict[str, List[Dict[str, Any]]] = {}
     if sim_cache is None:
         sim_cache = {}
@@ -572,9 +670,14 @@ def execute_plan(plan: GridPlan, *,
     evaluate = eval_fn is not None and eval_batch is not None
     for bank in plan.banks:
         sim = get_sim(bank.cfg)
-        states, metrics = fused_grid_rollout(sim, bank.scenario_params(),
-                                             seeds, batches,
-                                             draws=seed_draws())
+        if streaming:
+            states, metrics = fused_grid_rollout_streaming(
+                sim, bank.scenario_params(), seeds, batches, n_steps,
+                draws=seed_draws(), **stream)
+        else:
+            states, metrics = fused_grid_rollout(
+                sim, bank.scenario_params(), seeds, batches,
+                draws=seed_draws())
         loss = metrics["loss"].cpu().numpy()  # [n_cells, n_seeds, steps]
         emet = ({k: v.cpu().numpy() for k, v in
                  fused_grid_eval(sim, states, eval_batch).items()}
@@ -585,8 +688,12 @@ def execute_plan(plan: GridPlan, *,
                                     n_steps))
     for sc in plan.singles:
         sim = get_sim(sc.cfg)
-        states, metrics = rollout_over_seeds(sim, seeds, batches,
-                                             draws=seed_draws())
+        if streaming:
+            states, metrics = rollout_over_seeds_streaming(
+                sim, seeds, batches, n_steps, draws=seed_draws(), **stream)
+        else:
+            states, metrics = rollout_over_seeds(sim, seeds, batches,
+                                                 draws=seed_draws())
         emet = ({k: v.cpu().numpy() for k, v in
                  eval_over_seeds(sim, states, eval_batch).items()}
                 if evaluate else {})
@@ -606,26 +713,38 @@ def run_scenarios(scenarios: Sequence[Scenario], *,
                   cross_algo: bool = True,
                   shard: bool = True,
                   devices: Optional[Sequence[Any]] = None,
-                  cost_model: Any = None,
+                  cost_model: Optional[CostModel] = None,
                   sim_cache: Optional[Dict[alg.AlgorithmConfig,
                                            Simulator]] = None,
                   device=None,
-                  draws_fn: Optional[Callable[[int], Any]] = None
+                  draws_fn: Optional[Callable[[int], Any]] = None,
+                  streaming: bool = False,
+                  stream_chunk_size: int = 32,
+                  prefetch_depth: int = 4
                   ) -> List[Dict[str, Any]]:
     """Run every scenario x seed cell (plan, then execute) and return the
     flat results table in the caller's scenario order: label and config
     fields, seed, final and min honest loss, total uplink bytes under each
     algorithm's wire format and, with ``eval_fn``, the final eval
-    metrics."""
-    batches = ensure_stacked(batches, steps)
-    rounds = T.tree_leaves(batches)[0].shape[0]
+    metrics. ``cost_model`` decides fused or partitioned multi-algorithm
+    banks (:func:`plan_grid`); ``streaming`` feeds every bank from the
+    prefetched ring buffer (:func:`execute_plan`)."""
+    if streaming and callable(batches):
+        if steps is None:
+            raise ValueError("steps is required when batches is callable")
+        rounds = steps
+    else:
+        batches = ensure_stacked(batches, steps)
+        rounds = T.tree_leaves(batches)[0].shape[0]
     plan = plan_grid(scenarios, fuse=fuse_attacks, cross_algo=cross_algo,
                      cost_model=cost_model, rounds=rounds,
                      n_seeds=len(seeds))
     rows_by_label = execute_plan(
         plan, loss_fn=loss_fn, params0=params0, batches=batches, seeds=seeds,
-        eval_fn=eval_fn, eval_batch=eval_batch, shard=shard, devices=devices,
-        sim_cache=sim_cache, device=device, draws_fn=draws_fn)
+        steps=rounds, eval_fn=eval_fn, eval_batch=eval_batch, shard=shard,
+        devices=devices, sim_cache=sim_cache, device=device,
+        draws_fn=draws_fn, streaming=streaming,
+        stream_chunk_size=stream_chunk_size, prefetch_depth=prefetch_depth)
     return [row for sc in scenarios for row in rows_by_label[sc.label]]
 
 
@@ -655,17 +774,56 @@ def _mnist_testbed(n_workers: int, per_worker: int = 800, batch: int = 60,
                                   alpha_het=alpha_het, device=device)
 
 
-def _check_runnable(scenario: Optional[str], testbed: str, stream: bool,
-                    cost_model: Optional[str]) -> None:
-    if scenario is not None:
-        from repro_torch.adversary import registry as R
-        R.check_ported(scenario)
-    if testbed == "transformer":
-        raise NotImplementedError(_NOT_PORTED_ROADMAP["transformer"])
-    if stream:
-        raise NotImplementedError(_NOT_PORTED_ROADMAP["stream"])
-    if cost_model is not None:
-        raise NotImplementedError(_NOT_PORTED_ROADMAP["cost_model"])
+def _transformer_testbed(n_workers: int, local_batch: int = 4,
+                         seq_len: int = 32, seed: int = 0,
+                         n_layers: int = 2, d_model: int = 256, device=None,
+                         use_kernels: bool = True):
+    """Reduced ``configs/stablelm_3b`` causal LM on synthetic token streams
+    (the reference's ``_transformer_testbed``): ``stablelm_3b`` cut to
+    ``n_layers`` layers and ``d_model`` (2 heads of 64, vocab 512),
+    parameters from a ``torch.Generator`` seeded with ``seed``.
+
+    The batch schedule is a pure function of the round index
+    (``np.random.default_rng((seed, t))``), so streamed banks can each
+    re-stream it. Eval is next-token accuracy on a held-out stream of
+    ``8 * local_batch`` sequences. On the card the attention takes the
+    flash kernels (bfloat16, head dim 64), under ``torch.func`` too;
+    ``use_kernels=False`` takes the plain ``causal_attention``.
+
+    Returns ``(loss_fn, params0, batch_fn, eval_fn, eval_batch)``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synthetic_token_batch
+    from repro_torch.models import transformer as TR
+
+    dev = resolve_device(device)
+    cfg = get_arch("stablelm_3b").model.reduced(
+        n_layers=n_layers, d_model=d_model).with_overrides(
+            use_flash_attention=None if use_kernels else False)
+    params0 = TR.model_init(cfg, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+
+    def loss_fn(p, b):
+        return TR.lm_loss(p, cfg, b)
+
+    def batch_fn(t: int):
+        rng = np.random.default_rng((seed, int(t)))
+        return synthetic_token_batch(rng, n_workers, local_batch, seq_len,
+                                     cfg.vocab_size)
+
+    def eval_fn(p, b):
+        hidden, _, _ = TR.forward(p, cfg, b, mode="train")
+        logits = TR.logits_fn(p, cfg, hidden[:, :-1]).float()
+        pred = logits.argmax(dim=-1)
+        return {"acc": (pred == b["tokens"][:, 1:]).float().mean()}
+
+    # held-out stream: one "worker" with a bigger batch, keyed past the
+    # training rounds' indices (t < 2**32)
+    hold = np.random.default_rng((seed, 2 ** 32))
+    eval_batch = {k: torch.as_tensor(v[0], device=dev)
+                  for k, v in synthetic_token_batch(
+                      hold, 1, 8 * local_batch, seq_len,
+                      cfg.vocab_size).items()}
+    return loss_fn, params0, batch_fn, eval_fn, eval_batch
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
@@ -690,13 +848,18 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
     p.add_argument("--ratio", type=float, default=0.1)
     p.add_argument("--gamma", type=float, default=0.05)
     p.add_argument("--testbed", default="quadratic",
-                   choices=["quadratic", "mnist", "transformer"],
-                   help="'transformer' is not ported yet (ROADMAP.md)")
+                   choices=["quadratic", "mnist", "transformer"])
     p.add_argument("--stream", action=argparse.BooleanOptionalAction,
                    default=False,
-                   help="streamed rollouts: not ported yet (ROADMAP.md)")
-    p.add_argument("--stream-chunk", type=int, default=32)
-    p.add_argument("--prefetch-depth", type=int, default=4)
+                   help="feed rollouts from the prefetched ring buffer "
+                        "(repro_torch.data.stream) instead of materialising "
+                        "the [steps, ...] batch schedule; implied by "
+                        "--testbed transformer")
+    p.add_argument("--stream-chunk", type=int, default=32,
+                   help="rounds per streamed chunk")
+    p.add_argument("--prefetch-depth", type=int, default=4,
+                   help="ring-buffer depth: peak host residency is "
+                        "O(prefetch_depth * chunk_bytes)")
     p.add_argument("--fuse", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="fuse the attack / aggregator / algorithm / ratio "
@@ -711,18 +874,28 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
                         "the port runs on one card")
     p.add_argument("--kernels", default="auto",
                    choices=["auto", "cuda", "plain"],
-                   help="aggregation backend: 'auto' takes the CUDA kernels "
+                   help="aggregation (and the transformer testbed's "
+                        "attention) backend: 'auto' takes the CUDA kernels "
                         "on the card (their plain versions on the CPU); "
                         "'cuda' the kernels (needs --device cuda); 'plain' "
-                        "the plain PyTorch rules")
+                        "the plain PyTorch versions")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--cost-model", default=None, metavar="PATH|auto",
-                   help="not ported yet (ROADMAP.md)")
+                   help="decide fused or per-algorithm banks with a "
+                        "measured cost model: a JSON path, or 'auto' for "
+                        "results/COST_MODEL_torch.json (else the pinned "
+                        "default); calibrate with "
+                        "repro_torch.core.costmodel.calibrate")
     p.add_argument("--plan", action="store_true",
                    help="print the grid plan and exit")
     p.add_argument("--out", default=None, help="optional JSON output path")
     args = p.parse_args(argv)
 
+    cost_model = None
+    if args.cost_model == "auto":
+        cost_model = CostModel.load_or_default()
+    elif args.cost_model is not None:
+        cost_model = CostModel.load(args.cost_model)
     if args.list_scenarios:
         from repro_torch.adversary import registry as R
         print(R.describe())
@@ -744,24 +917,36 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, Any]]:
             ratio=args.ratio, gamma=args.gamma, use_kernels=use_kernels)
         n = args.n_honest + args.f
         testbed = args.testbed
-    _check_runnable(args.scenario, testbed, args.stream, args.cost_model)
     if args.plan:
         print(plan_grid(scenarios, fuse=args.fuse,
-                        cross_algo=args.cross_algo).describe())
+                        cross_algo=args.cross_algo, cost_model=cost_model,
+                        rounds=args.steps, n_seeds=args.seeds).describe())
         return []
     seeds = list(range(args.seeds))
+    streaming = args.stream or testbed == "transformer"
     if testbed == "quadratic":
         loss_fn, params0, batch_fn, _ = quadratic_testbed(n,
                                                           device=args.device)
         eval_fn = eval_batch = None
+    elif testbed == "transformer":
+        loss_fn, params0, batch_fn, eval_fn, eval_batch = \
+            _transformer_testbed(n, device=args.device,
+                                 use_kernels=use_kernels)
     else:
         loss_fn, params0, batch_fn, eval_fn, eval_batch = _mnist_testbed(
             n, alpha_het=alpha_het, device=args.device)
+        if streaming:
+            # the MNIST BatchFn is stateful (its own generator): stack it
+            # once so every bank streams the same schedule
+            batch_fn = stack_batches(batch_fn, args.steps)
     rows = run_scenarios(scenarios, loss_fn=loss_fn, params0=params0,
                          batches=batch_fn, seeds=seeds, steps=args.steps,
                          eval_fn=eval_fn, eval_batch=eval_batch,
                          fuse_attacks=args.fuse, cross_algo=args.cross_algo,
-                         device=args.device)
+                         cost_model=cost_model, device=args.device,
+                         streaming=streaming,
+                         stream_chunk_size=args.stream_chunk,
+                         prefetch_depth=args.prefetch_depth)
     cols = list(rows[0].keys())
     print(",".join(cols))
     for r in rows:

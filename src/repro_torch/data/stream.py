@@ -54,10 +54,13 @@ def stack_chunk(batch_fn: Callable[[int], Any], start: int,
                 length: int, pin: bool = False) -> Any:
     """``length`` consecutive batches stacked on a leading round axis: one
     chunk of the stream, host-side numpy (with ``pin``, torch tensors in
-    pinned host memory, for a non-blocking copy to the card)."""
+    pinned host memory, for a non-blocking copy to the card); torch leaves
+    are stacked where they lie."""
     rows = [batch_fn(t) for t in range(start, start + length)]
     cols = zip(*(tree_leaves(r) for r in rows))
-    it = iter([_stack_pinned(xs) if pin else np.stack(xs) for xs in cols])
+    it = iter([torch.stack(xs) if isinstance(xs[0], torch.Tensor)
+               else _stack_pinned(xs) if pin else np.stack(xs)
+               for xs in cols])
     return tree_map(lambda _: next(it), rows[0])
 
 
@@ -101,9 +104,9 @@ class StackedChunkSource:
         out: List[Any] = []
         for _ in range(max(0, min(k, self.n_chunks - self._taken))):
             c = self._taken
-            host = tree_map(lambda l: np.asarray(
-                l[c * self.chunk_size:(c + 1) * self.chunk_size]),
-                self._batches)
+            rows = slice(c * self.chunk_size, (c + 1) * self.chunk_size)
+            host = tree_map(lambda l: l[rows] if isinstance(l, torch.Tensor)
+                            else np.asarray(l[rows]), self._batches)
             if not self.chunk_bytes:
                 self.chunk_bytes = batch_bytes(host)
             out.append(_to_device(host, self._device))

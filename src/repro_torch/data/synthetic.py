@@ -1,6 +1,9 @@
-"""Synthetic MNIST-like data (a copy of ``repro.data.synthetic``'s image
-generator: numpy only, so the same seed gives the same data and batches in
-both packages).
+"""Synthetic data (a copy of ``repro.data.synthetic``: numpy only, so the
+same seed gives the same data and batches in both packages).
+
+Two generators: token streams for the transformer testbed
+(:func:`synthetic_token_batch`) and a class-separable MNIST-like image
+dataset.
 
 Each class has a smooth random 28x28 prototype; samples are prototype +
 Gaussian noise. Heterogeneity across workers is a Dirichlet(alpha_het) label
@@ -13,6 +16,17 @@ import dataclasses
 from typing import Dict
 
 import numpy as np
+
+
+def synthetic_token_batch(rng: np.random.Generator, n_workers: int,
+                          local_batch: int, seq_len: int,
+                          vocab: int) -> Dict[str, np.ndarray]:
+    """Markov-ish synthetic token stream (learnable bigram structure):
+    ``{"tokens": int32 [n_workers, local_batch, seq_len]}``."""
+    base = rng.integers(0, vocab, size=(n_workers, local_batch, seq_len))
+    # inject predictable structure: every other token repeats its neighbor
+    base[..., 1::2] = (base[..., 0::2] + 1) % vocab
+    return {"tokens": base.astype(np.int32)}
 
 
 @dataclasses.dataclass

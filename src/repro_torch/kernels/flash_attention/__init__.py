@@ -1,10 +1,13 @@
 from repro_torch.kernels.flash_attention.flash import (
-    HEAD_DIMS, FlashAttention, flash_bwd_cuda, flash_fwd_cuda,
+    HEAD_DIMS, FlashAttention, FlashBackward, flash_bwd_cuda, flash_fwd_cuda,
     fully_masked_rows)
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import (attention_mask,
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_fwd_ref,
+                                                     attention_mask,
                                                      attention_ref)
 
-__all__ = ["HEAD_DIMS", "FlashAttention", "flash_attention",
+__all__ = ["HEAD_DIMS", "FlashAttention", "FlashBackward", "flash_attention",
            "flash_bwd_cuda", "flash_fwd_cuda", "fully_masked_rows",
-           "attention_mask", "attention_ref"]
+           "attention_bwd_ref", "attention_fwd_ref", "attention_mask",
+           "attention_ref"]

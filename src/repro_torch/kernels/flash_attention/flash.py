@@ -10,17 +10,27 @@ loads into a 2-stage mbarrier ring, ``wgmma`` products with the
 accumulators in registers, one producer and two consumer warpgroups per
 block.
 
-:class:`FlashAttention` is a ``torch.autograd.Function``: the forward saves
-the per-row log-sum-exp ``[B, H, Sq]`` in float32 for the backward.
+:class:`FlashAttention` is a ``torch.autograd.Function`` whose backward is
+a second Function, :class:`FlashBackward`: the forward saves the per-row
+log-sum-exp ``[B, H, Sq]`` in float32 for the backward. Both carry a
+``setup_context`` and a ``vmap`` rule, so they run under ``torch.func``
+(``grad`` and ``vmap``, nested to any depth: the simulator takes
+per-worker gradients under ``vmap`` over workers and over lanes). The vmap
+rule folds the mapped axis into the batch axis ``B`` and calls the
+Function again, so however many levels map it, one kernel launches over
+``[lanes x workers x B, S, H, D]``. On CPU tensors both Functions run the
+plain versions (``ref.attention_fwd_ref``, ``ref.attention_bwd_ref``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_fwd_ref)
 
 HEAD_DIMS = (64, 80, 128)
 
@@ -42,9 +52,12 @@ def refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q_offset: int = 0) -> Optional[Tuple[type, str]]:
     """Why the kernel cannot take these inputs, as ``(exception type,
     message)``, or ``None`` when it can: bfloat16 ``[B, S, heads, D]``
-    contiguous tensors, 16-byte aligned (TMA), D in :data:`HEAD_DIMS`, GQA
-    heads, no query row without a visible key, on a CUDA device (checked
-    last, so the other reasons read the same on the CPU)."""
+    contiguous tensors, D in :data:`HEAD_DIMS`, GQA heads, no query row
+    without a visible key, on a CUDA device (checked last, so the other
+    reasons read the same on the CPU). It reads only what a tensor under
+    ``torch.func.vmap`` still has (shape, dtype, layout, device), so it
+    answers for a batched tensor as for the real one; the 16-byte alignment
+    TMA needs is checked at the launch (:func:`_check`)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             return TypeError, (f"flash attention kernel takes bfloat16, got "
@@ -53,9 +66,6 @@ def refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return ValueError, (f"flash attention kernel takes contiguous "
                                 f"[B, S, heads, D], got {name} "
                                 f"{tuple(t.shape)}")
-        if t.data_ptr() % 16:
-            return ValueError, (f"flash attention kernel loads with TMA and "
-                                f"needs 16-byte aligned tensors, got {name}")
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -92,9 +102,15 @@ def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool, window: Optional[int], q_offset: int) -> None:
+    """What the launch needs: :func:`refusal`, then the 16-byte alignment
+    of the real tensors (TMA)."""
     why = refusal(q, k, v, causal, window, q_offset)
     if why is not None:
         raise why[0](why[1])
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash attention kernel loads with TMA and "
+                             f"needs 16-byte aligned tensors, got {name}")
 
 
 def _problem(q, k, causal, window, q_offset) -> tuple:
@@ -110,13 +126,13 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the forward: ``(o [B, Sq, H, D] bf16, lse [B, H, Sq] f32)``."""
     _check(q, k, v, causal, window, q_offset)
     b, sq, h, _ = q.shape
+    idx = q.get_device()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = build.load("flash_attention")
-    err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), lse.data_ptr(),
-                        *_problem(q, k, causal, window, q_offset),
-                        build.stream_ptr(q.device))
+    err = build.entry("flash_attention", "flash_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), *_problem(q, k, causal, window, q_offset),
+        build.stream_ptr(idx))
     build.check(err, "flash_fwd")
     flash_fwd_cuda.launches += 1
     return o, lse
@@ -141,17 +157,16 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if o.shape != q.shape or dout.shape != q.shape:
         raise ValueError("flash backward: o and dout must be shaped like q")
     b, sq, h, _ = q.shape
+    idx = q.get_device()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = build.load("flash_attention")
-    err = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                        dv.data_ptr(),
-                        *_problem(q, k, causal, window, q_offset),
-                        build.stream_ptr(q.device))
+    err = build.entry("flash_attention", "flash_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        *_problem(q, k, causal, window, q_offset), build.stream_ptr(idx))
     build.check(err, "flash_bwd")
     flash_bwd_cuda.launches += 1
     return dq, dk, dv
@@ -161,19 +176,89 @@ flash_fwd_cuda.launches = 0
 flash_bwd_cuda.launches = 0
 
 
-class FlashAttention(torch.autograd.Function):
-    """Flash attention on the card, differentiable through its backward
-    kernels."""
+def fold(tensors: Sequence[torch.Tensor], in_dims: Sequence[Optional[int]],
+         size: int) -> list:
+    """One level of ``vmap`` folded into the batch axis: each tensor's
+    mapped axis (``None``: not mapped, expanded to ``size``) moved to the
+    front and merged with the batch axis that follows it, contiguous."""
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = t.expand((size,) + t.shape) if d is None else t.movedim(d, 0)
+        out.append(t.reshape((size * t.shape[1],) + t.shape[2:])
+                   .contiguous())
+    return out
+
+
+def unfold(t: torch.Tensor, size: int) -> torch.Tensor:
+    """The folded batch axis split back into ``[size, B, ...]``."""
+    return t.reshape((size, t.shape[0] // size) + t.shape[1:])
+
+
+def _device_of(q: torch.Tensor) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cpu or cuda tensors, got "
+                         f"{q.device}")
+    return q.device.type
+
+
+class FlashBackward(torch.autograd.Function):
+    """``(dq, dk, dv)`` of flash attention: the backward kernels on CUDA
+    tensors, the plain backward on CPU tensors. Not differentiable again."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset):
-        o, lse = flash_fwd_cuda(q, k, v, causal, window, q_offset)
+    def forward(q, k, v, o, lse, dout, causal, window, q_offset):
+        if _device_of(q) == "cpu":
+            return attention_bwd_ref(q, k, v, o, lse, dout, causal=causal,
+                                     window=window, q_offset=q_offset)
+        return flash_bwd_cuda(q, k, v, o, lse, dout, causal, window,
+                              q_offset)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, dout, causal, window,
+             q_offset):
+        n = info.batch_size
+        args = fold((q, k, v, o, lse, dout), in_dims[:6], n)
+        grads = FlashBackward.apply(*args, causal, window, q_offset)
+        return tuple(unfold(g, n) for g in grads), (0, 0, 0)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``(o, lse)`` of flash attention, differentiable in q, k and v through
+    :class:`FlashBackward`: the forward kernel on CUDA tensors, the plain
+    forward on CPU tensors."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, q_offset):
+        if _device_of(q) == "cpu":
+            return attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+        return flash_fwd_cuda(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, q_offset = inputs
+        o, lse = output
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = (causal, window, q_offset)
-        return o
+        ctx.mark_non_differentiable(lse)
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, dout, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd_cuda(q, k, v, o, lse, dout, *ctx.mask)
+        dq, dk, dv = FlashBackward.apply(q, k, v, o, lse, dout, *ctx.mask)
         return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, q_offset):
+        n = info.batch_size
+        o, lse = FlashAttention.apply(*fold((q, k, v), in_dims[:3], n),
+                                      causal, window, q_offset)
+        return (unfold(o, n), unfold(lse, n)), (0, 0)

@@ -1,5 +1,6 @@
 """Dispatch for flash attention: the plain version for CPU tensors, the
-CUDA kernels (forward and backward) for CUDA tensors."""
+CUDA kernels (forward and backward, under ``torch.func`` too) for CUDA
+tensors."""
 
 from __future__ import annotations
 
@@ -22,4 +23,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda tensors, got "
                          f"{q.device}")
-    return FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return FlashAttention.apply(q, k, v, causal, window, q_offset)[0]

@@ -77,9 +77,34 @@ def test_torch_draws_randk_mask_is_exact_k():
 
 
 def test_unported_kind_raises():
-    with pytest.raises(ValueError, match="not ported"):
+    """A kind neither package has raises the reference's error."""
+    with pytest.raises(ValueError, match="unknown sparsifier kind"):
         C.make_mask(TorchDraws(0, "cpu"), 64,
-                    C.SparsifierConfig(kind="natural", ratio=0.5))
+                    C.SparsifierConfig(kind="topk", ratio=0.5))
+    with pytest.raises(ValueError, match="unknown sparsifier kind"):
+        JC.make_mask(jax.random.PRNGKey(0), 64,
+                     JC.SparsifierConfig(kind="topk", ratio=0.5))
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_natural_compression_bitwise(local):
+    """Natural compression (stochastic power-of-two rounding) from the
+    reference's uniform draws: bitwise, exact zeros and powers of two among
+    the inputs, and the reference's rounding of ``exp2`` (not an exact power
+    of two) included; its 9-bit-a-coordinate payload the reference's."""
+    jcfg, cfg = _cfg("natural", 1.0, local)
+    g = _grads(4)
+    g[0, :6] = [0.0, -0.0, 1.0, -2.0, 0.5, 3.0]
+    key = jax.random.PRNGKey(11)
+    want = np.asarray(JC.compressed_estimate(g, key, jcfg))
+    keys = jax.random.split(key, N) if local else [key]
+    unif = [np.asarray(jax.random.uniform(kk, (D,))) for kk in keys]
+    draws = ReplayDraws("cpu", uniforms=unif)
+    got = C.compressed_estimate(torch.tensor(g), draws, cfg).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert draws.remaining == 0
+    for d in (1, 64, 11958, 1048576):
+        assert C.payload_bytes(d, cfg) == JC.payload_bytes(d, jcfg)
 
 
 @pytest.mark.parametrize("d", [1, 2, 255, 256, 11958, 65537, 1048576])

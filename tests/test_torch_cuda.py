@@ -719,3 +719,85 @@ def test_bf16_compute_round_on_the_card_matches_the_cpu(card):
     scale = float(r_cpu.abs().max())
     ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
     assert float((r - r_cpu).abs().max()) <= ulp
+
+
+# ----------------------------------------------------------------------- #
+# flash attention under torch.func, and streamed rollouts
+# ----------------------------------------------------------------------- #
+
+
+@pytest.mark.cuda
+def test_flash_under_vmap_of_vmap_of_grad_is_one_launch_each(card):
+    """``vmap`` over lanes of ``vmap`` over workers of ``grad`` through the
+    kernels at [2 lanes, 3 workers, 4, 32, 2, 64] bf16: one forward and one
+    backward launch a call, over the folded [24, 32, 2, 64]; out within
+    1e-2 and the gradients within 2e-2 of the plain version's largest
+    entry (the bars of ``test_flash_kernels_match_plain``), the plain
+    version in float32 under the same transforms."""
+    from torch.func import grad, vmap
+
+    from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                     attention_ref)
+    gen = torch.Generator(device=card).manual_seed(7)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=card)  # noqa
+    q, k, v = (rnd(2, 3, 4, 32, 2, 64).to(torch.bfloat16) for _ in range(3))
+    w = rnd(2, 3, 4, 32, 2, 64)
+
+    def kernel(q, k, v):
+        return FlashAttention.apply(q, k, v, True, None, 0)[0]
+
+    def loss(attend):
+        return lambda q, k, v, w: (attend(q, k, v).float() * w).sum()
+
+    transformed = lambda f: vmap(vmap(grad(loss(f), argnums=(0, 1, 2))))  # noqa
+    K.reset_launches()
+    with torch.no_grad():
+        out = vmap(vmap(kernel))(q, k, v)
+    assert K.launches()["flash_fwd"] == 1
+    K.reset_launches()
+    grads = transformed(kernel)(q, k, v, w)
+    assert K.launches()["flash_fwd"] == K.launches()["flash_bwd"] == 1
+    fq, fk, fv = (t.float() for t in (q, k, v))
+    ref = vmap(vmap(attention_ref))(fq, fk, fv)
+    ref_grads = transformed(attention_ref)(fq, fk, fv, w)
+    for got, want, tol in [(out, ref, 1e-2)] + [
+            (g, r, 2e-2) for g, r in zip(grads, ref_grads)]:
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        err = (got.float() - want).abs().max()
+        assert float(err) <= tol * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["stacked", "callable"])
+def test_streamed_cnn_run_is_bitwise_rollout_on_the_card(card, source):
+    """fig1-alie on the CNN (D = 11,958), 20 rounds through
+    ``rollout_streaming`` (chunk 8, depth 2, a 4-round tail) against
+    ``Simulator.rollout`` on the same schedule and draws: parameters,
+    momentum and every per-round metric bitwise, one pairdist and one CWTM
+    launch a round (cuDNN held to its deterministic algorithms)."""
+    from repro_torch.core import mnist_testbed
+    from repro_torch.core.simulator import stack_batches
+    from repro_torch.testing import TorchDraws
+    steps = 20
+    loss, p0, batch_fn, _, _ = mnist_testbed(13, per_worker=100,
+                                             device=card)
+    batches = stack_batches(batch_fn, steps)
+    sim = Simulator(loss, p0, _fig1(), device=card)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want, wm = sim.rollout(sim.init(draws=TorchDraws(3, card)), batches)
+        K.reset_launches()
+        feed = ((lambda t: {k: v[t] for k, v in batches.items()})
+                if source == "callable" else batches)
+        got, gm, info = sim.rollout_streaming(
+            sim.init(draws=TorchDraws(3, card)), feed, steps, chunk_size=8,
+            prefetch_depth=2)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert K.launches()["pairdist"] == K.launches()["cwtm"] == steps
+    assert info["rounds_run"] == steps and not info["early_exit"]
+    assert torch.equal(got.params_flat, want.params_flat)
+    assert torch.equal(got.server.momentum, want.server.momentum)
+    for k in wm:
+        assert torch.equal(gm[k], wm[k]), k

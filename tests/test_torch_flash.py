@@ -185,3 +185,149 @@ def test_default_attention_takes_the_plain_path_where_the_kernel_cannot():
     asked = L.attn_apply(p, cfg.with_overrides(use_flash_attention=True), x)
     assert torch.equal(default, plain)
     torch.testing.assert_close(asked, plain, rtol=1e-5, atol=1e-5)
+
+
+# ----------------------------------------------------------------------- #
+# the kernels' Functions under torch.func: the vmap rule folds each mapped
+# axis into the batch axis (on CPU tensors the Functions run the plain
+# forward and backward, so the plumbing the card runs is exercised here)
+# ----------------------------------------------------------------------- #
+
+
+def _function(q, k, v, window=None, q_offset=0):
+    from repro_torch.kernels.flash_attention import FlashAttention
+    return FlashAttention.apply(q, k, v, True, window, q_offset)[0]
+
+
+def _plain(q, k, v, window=None, q_offset=0):
+    return attention_ref(q, k, v, causal=True, window=window,
+                         q_offset=q_offset)
+
+
+def _grad_bar(want):
+    """Float32 gradients summed in another order: within 1e-5 of the
+    largest entry."""
+    return 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_backward_matches_autograd_of_the_plain_forward(case):
+    """``attention_bwd_ref`` (what the backward kernels compute, and what
+    ``FlashBackward`` runs on CPU tensors) and ``attention_fwd_ref``'s
+    ``lse`` give autograd's gradients of ``attention_ref``."""
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_fwd_ref)
+    b, sq, sk, h, kv, d, window, q_offset = case
+    q, k, v, dout = map(torch.tensor, _inputs(b, sq, sk, h, kv, d, 7))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    o, lse = attention_fwd_ref(q, k, v, **kw)
+    assert torch.equal(o, attention_ref(q, k, v, **kw))
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*leaves, **kw), leaves, dout)
+    got = attention_bwd_ref(q, k, v, o, lse, dout, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=_grad_bar(w))
+
+
+@pytest.mark.parametrize("dims", [(0, 0, 0), (2, None, None), (None, 1, 0),
+                                  (3, 3, 3)])
+def test_vmap_rule_folds_as_vmap_of_the_plain_version(dims):
+    """One level of ``vmap``, with q, k or v unmapped and the mapped axis
+    not first: the Function's fold-and-unfold rule gives ``vmap`` of the
+    plain version, and ``grad`` through it the plain gradient."""
+    from torch.func import grad, vmap
+    gen = torch.Generator().manual_seed(sum(d or 0 for d in dims))
+    shapes = {"q": (2, 24, 4, 64), "k": (2, 24, 2, 64)}
+
+    def arg(name, dim):
+        shape = shapes["q" if name == "q" else "k"]
+        if dim is None:
+            return torch.randn(shape, generator=gen)
+        return torch.randn(shape[:dim] + (3,) + shape[dim:], generator=gen)
+
+    q, k, v = (arg(n, d) for n, d in zip("qkv", dims))
+    w = torch.randn((3,) + shapes["q"], generator=gen)
+    got = vmap(_function, in_dims=dims)(q, k, v)
+    want = vmap(_plain, in_dims=dims)(q, k, v)
+    assert got.shape == want.shape == (3,) + shapes["q"]
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+    def loss(attend):
+        return lambda q, k, v: (vmap(attend, in_dims=dims)(q, k, v)
+                                * w).sum()
+
+    g = grad(loss(_function), argnums=(0, 1, 2))(q, k, v)
+    gw = grad(loss(_plain), argnums=(0, 1, 2))(q, k, v)
+    for a, b in zip(g, gw):
+        torch.testing.assert_close(a, b, rtol=0, atol=_grad_bar(b))
+
+
+def test_nested_vmap_of_grad_is_one_call_each_way():
+    """``vmap`` over lanes of ``vmap`` over workers of ``grad_and_value``,
+    as the simulator takes per-worker gradients: the plain forward and
+    backward run once each, over the folded [lanes x workers x B] batch, and
+    agree with the plain version under the same transforms."""
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch.kernels.flash_attention import flash as FK
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(3, 4, 16, 2, 64, generator=gen)      # workers
+    p = torch.randn(2, 64, generator=gen)                # lanes
+    calls = {"fwd": [], "bwd": []}
+    fwd, bwd = FK.attention_fwd_ref, FK.attention_bwd_ref
+
+    def spy(name, fn):
+        def run(q, *args, **kw):
+            calls[name].append(tuple(q.shape))
+            return fn(q, *args, **kw)
+        return run
+
+    def loss(attend):
+        def f(pl, xw):
+            q = xw * pl
+            return (attend(q, xw, xw + pl) ** 2).sum()
+        return f
+
+    def lanes(attend):
+        return vmap(vmap(grad_and_value(loss(attend)), in_dims=(None, 0)),
+                    in_dims=(0, None))
+
+    FK.attention_fwd_ref, FK.attention_bwd_ref = spy("fwd", fwd), spy(
+        "bwd", bwd)
+    try:
+        (g, val) = lanes(_function)(p, x)
+    finally:
+        FK.attention_fwd_ref, FK.attention_bwd_ref = fwd, bwd
+    assert calls == {"fwd": [(24, 16, 2, 64)], "bwd": [(24, 16, 2, 64)]}
+    gw, vw = lanes(_plain)(p, x)
+    assert g.shape == gw.shape == (2, 3, 64)
+    torch.testing.assert_close(val, vw, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(g, gw, rtol=0, atol=_grad_bar(gw))
+
+
+@pytest.mark.parametrize("case", ["ok", "float32", "head_dim_48", "strided",
+                                  "window"])
+def test_refusal_reads_the_same_under_vmap(case):
+    """``refusal`` on a tensor under ``vmap`` (no storage, no data
+    pointer) says what it says on the real tensor it stands for."""
+    from torch.func import vmap
+
+    from repro_torch.kernels.flash_attention import flash as FK
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    d = 48 if case == "head_dim_48" else 64
+    q = torch.zeros(3, 1, 8, 2, d, dtype=dtype)
+    k = torch.zeros(3, 1, 8, 2, d, dtype=dtype)
+    dim = 3 if case == "strided" else 0
+    if case == "strided":
+        q = q.movedim(0, 3).contiguous()  # [1, 8, 2, 3, d]: lane axis 3
+    window = 0 if case == "window" else None
+    seen = []
+    vmap(lambda q, k: seen.append(FK.refusal(q, k, k, True, window))
+         or q.sum(), in_dims=(dim, 0))(q, k)
+    real = FK.refusal(q.select(dim, 0), k[0], k[0], True, window)
+    assert seen == [real]
+    assert real is not None  # on the CPU every case is refused, for a reason
+    if case == "ok":
+        assert "needs CUDA" in real[1]

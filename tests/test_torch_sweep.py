@@ -145,8 +145,18 @@ def test_grid_names_and_labels_are_checked():
     cells = S.grid_scenarios()
     with pytest.raises(ValueError, match="duplicate scenario labels"):
         S.plan_grid(cells + cells)
-    with pytest.raises(NotImplementedError, match="cost model"):
-        S.plan_grid(cells, cost_model=object())
+    # a cost model partitions as the reference's does on the same cells
+    from repro.core.costmodel import CostModel as JCostModel
+    from repro_torch.core.costmodel import CostModel
+    rates = dict(compile_s=0.0, compile_s_per_branch=0.0, cell_round_us=1.0,
+                 cell_round_us_per_branch=50.0, source="partitions")
+    grid = S.grid_scenarios(["rosdhb", "dasha"], ["alie", "foe"])
+    jgrid = JS.grid_scenarios(["rosdhb", "dasha"], ["alie", "foe"])
+    plan = S.plan_grid(grid, cost_model=CostModel(**rates), rounds=100,
+                       n_seeds=2)
+    jplan = JS.plan_grid(jgrid, cost_model=JCostModel(**rates), rounds=100,
+                         n_seeds=2)
+    assert len(plan.banks) == 2 and plan.describe() == jplan.describe()
 
 
 @pytest.mark.parametrize("mode,thr", [("<=", 0.5), (">=", 0.5), ("<=", -1.0)])
@@ -337,15 +347,48 @@ def test_chaos_serve_runs_as_the_references_sweep():
                 assert r[k] == v, k
 
 
-@pytest.mark.parametrize("argv,match", [
+@pytest.mark.parametrize("argv,part", [
     (["--scenario", "transformer-table1"], "transformer testbed"),
     (["--testbed", "transformer"], "transformer testbed"),
     (["--stream"], "streamed"),
     (["--cost-model", "auto"], "cost model"),
 ])
-def test_unported_parts_raise_naming_the_roadmap(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        S.main(argv + ["--device", "cpu", "--steps", "1", "--seeds", "1"])
+def test_unported_parts_raise_naming_the_roadmap(argv, part, capsys):
+    """The parts that raised before this slice ported them (``part``) now
+    run on the CPU for 1 step and 1 seed: the transformer testbed
+    (streamed), the streamed grid and the cost model, each printing finite
+    rows."""
+    rows = S.main(argv + ["--device", "cpu", "--steps", "1", "--seeds",
+                          "1"])
+    prefix = ("transformer-table1/" if "--scenario" in argv
+              else "rosdhb/alie/cwtm")
+    assert rows and all(r["scenario"].startswith(prefix) for r in rows)
+    assert all(np.isfinite(r["final_loss"]) for r in rows)
+    if "transformer" in " ".join(argv):
+        assert all(0.0 <= r["acc"] <= 1.0 for r in rows)
+    assert len(capsys.readouterr().out.splitlines()) == len(rows) + 1
+
+
+@pytest.mark.parametrize("name", list(JR.REGISTRY))
+def test_every_spec_plans_through_the_cli(name, capsys, tmp_path):
+    """``--plan`` for every registry spec, with and without a cost model
+    (``--cost-model PATH``): the reference's plan text."""
+    from repro.core.costmodel import CostModel as JCostModel
+    from repro_torch.core.costmodel import CostModel
+    rates = dict(compile_s=0.5, compile_s_per_branch=0.1,
+                 cell_round_us=10.0, cell_round_us_per_branch=20.0,
+                 source="plan")
+    path = CostModel(**rates).save(str(tmp_path / "model.json"))
+    argv = ["--scenario", name, "--plan", "--device", "cpu", "--steps",
+            "300", "--seeds", "4"]
+    cells = JR.expand_scenario(name)
+    S.main(argv)
+    assert capsys.readouterr().out.strip() == JS.plan_grid(
+        cells, rounds=300, n_seeds=4).describe()
+    S.main(argv + ["--cost-model", path])
+    assert capsys.readouterr().out.strip() == JS.plan_grid(
+        cells, cost_model=JCostModel(**rates), rounds=300,
+        n_seeds=4).describe()
 
 
 def test_kernels_cuda_needs_the_card():
