@@ -1,9 +1,13 @@
 """Config registry (counterpart of ``repro.configs.base``): input shapes,
 architectures and the shape-dependent policy.
 
-The port carries the dense decoders it can build: ``stablelm_3b`` (the
-LLM training path) and ``qwen25_3b`` (GQA with a QKV bias). The reference's
-other architectures raise "not ported" from :func:`get_arch`.
+The port carries the architectures of the attention families it can build:
+the dense ``stablelm_3b`` (the LLM training path), ``qwen25_3b`` (GQA with a
+QKV bias), ``gemma_2b`` (MQA, head dim 256, GeGLU, tied embeddings) and
+``mistral_large_123b``, the audio ``musicgen_medium`` (embedding inputs)
+and the vlm ``llama32_vision_11b`` (gated cross-attention layers). The
+reference's MoE, MLA, SSM and hybrid architectures raise "not ported" from
+:func:`get_arch`.
 """
 
 from __future__ import annotations
@@ -56,7 +60,8 @@ ARCH_IDS = [
     "dbrx_132b", "mistral_large_123b", "llama32_vision_11b", "qwen25_3b",
     "gemma_2b", "zamba2_7b",
 ]
-PORTED_ARCHS = ["stablelm_3b", "qwen25_3b"]
+PORTED_ARCHS = ["stablelm_3b", "qwen25_3b", "gemma_2b", "mistral_large_123b",
+                "musicgen_medium", "llama32_vision_11b"]
 
 _ALIASES = {
     "stablelm-3b": "stablelm_3b",

@@ -29,3 +29,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "CUDA is not available: repro_torch runs on the card by default; "
             "pass device='cpu' to run the plain PyTorch path on the CPU")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU):
+    the end of a timed region on the host clock."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

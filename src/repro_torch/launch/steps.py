@@ -1,5 +1,5 @@
-"""The RoSDHB train step for the LLM path (counterpart of
-``repro.launch.steps``, host mode).
+"""The RoSDHB train step for the LLM path and the serve step (counterpart
+of ``repro.launch.steps``, host mode).
 
 ``build_train_step`` wires the paper's algorithm into the decoder:
 
@@ -19,9 +19,11 @@
   4. ``p - gamma * d`` on the master parameters.
 
 ``build_chunked_train_step`` runs ``chunk_size`` such steps over one chunk
-of stacked batches (the streamed launcher's unit). The reference's
-``TrainState`` carries a PRNG key; the port's carries the draws provider the
-server round takes its masks from.
+of stacked batches (the streamed launcher's unit). ``build_serve_step`` is
+a prefill or a decode step of the model for an input shape (the
+reference's abstract ``serve_input_specs`` belongs to the dry run, not
+ported yet). The reference's ``TrainState`` carries a PRNG key; the port's
+carries the draws provider the server round takes its masks from.
 """
 
 from __future__ import annotations
@@ -99,9 +101,11 @@ def make_train_plan(spec: ArchSpec, shape: InputShape,
 
 def build_train_step(plan: TrainPlan, device: DeviceLike = None):
     """``train_step(state, batch) -> (state, metrics)`` on ``device``
-    (default the card). ``batch["tokens"]`` is ``[n_workers, local_batch,
-    seq]``; metrics are ``loss`` (mean honest loss, rows ``f:``),
-    ``dir_norm`` (|R|) and ``payload_floats_per_worker``."""
+    (default the card). Each leaf of ``batch`` leads with ``[n_workers,
+    local_batch]`` (``tokens [.., seq]``, or ``embeddings`` and
+    ``targets``; the vlm's ``image_embeddings``); metrics are ``loss``
+    (mean honest loss, rows ``f:``), ``dir_norm`` (|R|) and
+    ``payload_floats_per_worker``."""
     dev = resolve_device(device)
     cfg, fspec, algo = plan.model, plan.flat_spec, plan.algo
     agg = G.make_aggregator(algo.aggregator, device=dev)
@@ -168,3 +172,37 @@ def build_chunked_train_step(plan: TrainPlan, chunk_size: int,
                                        per_step]) for k in per_step[0]}
 
     return chunk_step
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
+
+
+def build_serve_step(spec: ArchSpec, shape: InputShape):
+    """Prefill or decode step of ``spec`` under ``shape``'s policy
+    (``model_for_shape``: ``long_500k`` gets the sliding window, so a ring
+    cache). Signatures, as the reference's:
+
+    * prefill: ``(params, batch, caches) -> (logits of the last position,
+      caches)``;
+    * decode: ``(params, batch, caches, pos) -> (logits, caches)``.
+
+    The caches (``models.cache_init``) are written in place."""
+    cfg = model_for_shape(spec, shape)
+
+    if shape.kind == "prefill":
+        @torch.no_grad()
+        def prefill_step(params, batch, caches):
+            hidden, caches, _ = tf.forward(params, cfg, batch,
+                                           mode="prefill", pos=0,
+                                           caches=caches)
+            return tf.logits_fn(params, cfg, hidden[:, -1:]), caches
+        return prefill_step
+
+    @torch.no_grad()
+    def decode_step(params, batch, caches, pos):
+        hidden, caches, _ = tf.forward(params, cfg, batch, mode="decode",
+                                       pos=pos, caches=caches)
+        return tf.logits_fn(params, cfg, hidden), caches
+    return decode_step

@@ -1,5 +1,6 @@
 """Training launcher (counterpart of ``repro.launch.train``): RoSDHB on a
-dense decoder, the workers simulated one after the other on one device.
+decoder of the attention families (dense, audio, vlm), the workers
+simulated one after the other on one device.
 
 On the card it builds the arch at full width; one H100 cannot hold the
 reference's TPU shape, so the cuts are flags: ``--n-layers`` (depth),
@@ -37,7 +38,7 @@ from repro_torch.configs.base import ArchSpec, InputShape
 from repro_torch.core import AggregatorConfig, AttackConfig, SparsifierConfig
 from repro_torch.core import algorithms as alg
 from repro_torch.data.stream import ChunkPrefetcher
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.launch.steps import (TrainState, build_chunked_train_step,
                                       build_train_step, make_train_plan)
 from repro_torch.models import model_init
@@ -88,6 +89,27 @@ def make_batch(gen: np.random.Generator, vocab: int, n_workers: int,
     toks = gen.integers(0, vocab, (n_workers, local_batch, seq_len))
     toks[..., 1::2] = (toks[..., 0::2] + 1) % vocab
     return np.asarray(toks, np.int32)
+
+
+def make_model_batch(gen: np.random.Generator, cfg, n_workers: int,
+                     local_batch: int, seq_len: int) -> Dict[str, np.ndarray]:
+    """The reference's ``make_batch`` for ``cfg``: ``tokens`` from
+    :func:`make_batch`; embedding-input models take ``embeddings`` ``[n, lb,
+    S, d_model]`` (normal draws after the tokens) and the tokens as
+    ``targets``; the vlm adds ``image_embeddings`` ``[n, lb, T_img,
+    d_model]``."""
+    toks = make_batch(gen, cfg.vocab_size, n_workers, local_batch, seq_len)
+    batch = {"tokens": toks}
+    if cfg.input_kind != "tokens":
+        batch = {"embeddings": np.asarray(gen.normal(size=(
+                     n_workers, local_batch, seq_len, cfg.d_model)),
+                     np.float32),
+                 "targets": toks % cfg.vocab_size}
+    if cfg.family == "vlm":
+        batch["image_embeddings"] = np.asarray(gen.normal(size=(
+            n_workers, local_batch, cfg.n_image_tokens, cfg.d_model)),
+            np.float32)
+    return batch
 
 
 def setup(args: argparse.Namespace, *, plain: bool = False) -> Dict:
@@ -143,23 +165,16 @@ def setup(args: argparse.Namespace, *, plain: bool = False) -> Dict:
     rng = np.random.default_rng(args.seed)
 
     def batch_fn():
-        toks = make_batch(rng, cfg.vocab_size, n, plan.local_batch,
-                          shape.seq_len)
-        return {"tokens": torch.from_numpy(toks).to(dev)}
+        return {k: torch.from_numpy(v).to(dev) for k, v in make_model_batch(
+            rng, cfg, n, plan.local_batch, shape.seq_len).items()}
 
     def batch_at(t: int) -> Dict[str, np.ndarray]:
-        return {"tokens": make_batch(np.random.default_rng((args.seed, t)),
-                                     cfg.vocab_size, n, plan.local_batch,
-                                     shape.seq_len)}
+        return make_model_batch(np.random.default_rng((args.seed, t)), cfg,
+                                n, plan.local_batch, shape.seq_len)
 
     return {"plan": plan, "step": build_train_step(plan, device=dev),
             "state": state, "batch_fn": batch_fn, "batch_at": batch_at,
             "device": dev}
-
-
-def sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def run(argv: Optional[List[str]] = None, *, plain: bool = False,
@@ -195,10 +210,10 @@ def run(argv: Optional[List[str]] = None, *, plain: bool = False,
                 f" |R|={norms[-1]:.3f} ({time.time() - t0:.1f}s)")
 
     def timed(fn, *a):
-        sync(dev)
+        synchronize(dev)
         t1 = time.perf_counter()
         res = fn(*a)
-        sync(dev)
+        synchronize(dev)
         return res, (time.perf_counter() - t1) * 1e3
 
     first = 0

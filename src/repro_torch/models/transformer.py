@@ -1,38 +1,57 @@
 """The decoder stack (counterpart of ``repro.models.transformer``), the
-``dense`` family in train mode: ``L x (norm -> attention -> residual ->
-norm -> MLP -> residual)``, a final norm, the LM head and the chunked
-cross entropy.
+attention families: ``dense`` and ``audio`` are ``L x (norm -> attention ->
+residual -> norm -> MLP -> residual)``; ``vlm`` is ``G x ((cross_attn_every
+- 1) x self-attention block + 1 gated cross-attention block over the image
+embeddings)`` and the ``L mod cross_attn_every`` trailing self-attention
+blocks. Then a final norm, the LM head and the chunked cross entropy.
+``forward`` runs in ``train``, ``prefill`` and ``decode`` mode; the caches
+are stacked as the parameters that own them.
 
-The layers' parameters are stacked on a leading layer axis, as the
-reference stacks them for its ``lax.scan``, so the flat parameter vector has
-the reference's layout; the port runs the stack as a Python loop. The
-reference rematerialises every scan body (``jax.checkpoint``); the port
-keeps the activations instead: at 2 layers they are small beside the
-server's ``[n, D]`` banks, and only one worker's are alive at a time.
+The layers' parameters are stacked on a leading layer axis (``[g, per,
+...]`` for the vlm's groups), as the reference stacks them for its
+``lax.scan``, so the flat parameter vector has the reference's layout; the
+port runs the stack as a Python loop. The reference rematerialises every
+scan body (``jax.checkpoint``); the port keeps the activations instead: at 2
+layers they are small beside the server's ``[n, D]`` banks, and only one
+worker's are alive at a time. MoE, MLA, SSM and hybrid stacks are not
+ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "audio", "vlm")
+MODES = ("train", "prefill", "decode")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES or cfg.input_kind != "tokens" \
-            or cfg.use_mla or cfg.n_experts:
-        raise ValueError(
-            f"model family {cfg.family!r} is not ported (ported: dense "
-            f"decoders on token inputs)")
+    if cfg.family not in PORTED_FAMILIES or cfg.use_mla or cfg.n_experts:
+        what = "MLA attention" if cfg.use_mla else f"family {cfg.family!r}"
+        raise ValueError(f"model {what} is not ported (ported: the "
+                         f"{', '.join(PORTED_FAMILIES)} families on GQA "
+                         f"attention)")
+
+
+def _vlm_groups(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """``(groups, self-attention blocks a group, trailing blocks)``."""
+    cae = cfg.cross_attn_every
+    g = cfg.n_layers // cae
+    return g, cae - 1, cfg.n_layers - g * cae
+
+
+# --------------------------------------------------------------------------
+# single blocks
+# --------------------------------------------------------------------------
 
 
 def _attn_block_init(gen: Optional[torch.Generator], cfg: ModelConfig,
@@ -45,57 +64,181 @@ def _attn_block_init(gen: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def _attn_block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
-                      pos: int = 0) -> torch.Tensor:
+                      mode: str, pos: int, cache: Optional[Dict]
+                      ) -> torch.Tensor:
     h = L.norm_apply(p["norm1"], x, cfg.norm)
-    x = x + L.attn_apply(p["attn"], cfg, h, mode="train", pos=pos)
+    a, _ = L.attn_apply(p["attn"], cfg, h, mode=mode, pos=pos, cache=cache)
+    x = x + a
     h = L.norm_apply(p["norm2"], x, cfg.norm)
     return x + L.mlp_apply(p["mlp"], h, cfg.mlp)
+
+
+def _cross_block_init(gen: Optional[torch.Generator], cfg: ModelConfig,
+                      device=None) -> Params:
+    p = _attn_block_init(gen, cfg, device=device)
+    p["gate"] = torch.zeros((), device=device)  # tanh-gated, llama-3.2 style
+    return p
+
+
+def _cross_block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                       kv_x: torch.Tensor) -> torch.Tensor:
+    h = L.norm_apply(p["norm1"], x, cfg.norm)
+    a, _ = L.attn_apply(p["attn"], cfg, h, kv_x=kv_x)
+    x = x + torch.tanh(p["gate"]).to(x.dtype) * a
+    h = L.norm_apply(p["norm2"], x, cfg.norm)
+    return x + L.mlp_apply(p["mlp"], h, cfg.mlp)
+
+
+# --------------------------------------------------------------------------
+# stacked init
+# --------------------------------------------------------------------------
+
+
+def _stacked(make: Callable[[], Params], n: int) -> Optional[Params]:
+    """``n`` blocks of ``make()`` stacked on a leading axis (``None`` for
+    none): each stacked leaf allocated once from the first block's leaves,
+    then every block drawn fresh, in order, and copied into its slot
+    (stacking ``n`` fresh blocks would hold the blocks twice; this holds the
+    stack and one block)."""
+    if n == 0:
+        return None
+    stacked = None
+    for i in range(n):
+        block = make()
+        if stacked is None:
+            stacked = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)),
+                               block)
+        for s, a in zip(tree_leaves(stacked), tree_leaves(block)):
+            s[i].copy_(a)
+        del block, s, a  # free block i before block i + 1 is drawn
+    return stacked
 
 
 def model_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device=None) -> Params:
     """Random float32 parameters from ``generator`` on ``device`` (default:
-    the generator's device). The draws differ from the reference's (its
-    threefry keys); tests carry the reference's parameters across with
+    the generator's device), each stacked leaf allocated once. The draws
+    differ from the reference's (its threefry keys); tests carry the
+    reference's parameters across with
     ``repro_torch.testing.from_jax_params``. ``generator=None`` with
     ``device="meta"`` gives a shape-only tree."""
     _check_family(cfg)
-    dev = device if device is not None else generator.device
-    p: Params = {
-        "embed": torch.randn((cfg.vocab_size, cfg.d_model),
-                             generator=generator, device=dev) * 0.02,
-        "final_norm": L.norm_init(cfg.d_model, cfg.norm, device=dev),
-    }
-    if not cfg.tie_embeddings:
+    dev = torch.device(device if device is not None else generator.device)
+    p: Params = {}
+    if cfg.input_kind == "tokens":
+        p["embed"] = torch.randn((cfg.vocab_size, cfg.d_model),
+                                 generator=generator, device=dev) * 0.02
+    p["final_norm"] = L.norm_init(cfg.d_model, cfg.norm, device=dev)
+    if not cfg.tie_embeddings or cfg.input_kind != "tokens":
         p["lm_head"] = torch.randn((cfg.d_model, cfg.vocab_size),
                                    generator=generator, device=dev) * 0.02
-    blocks = [tree_flatten(_attn_block_init(generator, cfg, device=dev))
-              for _ in range(cfg.n_layers)]
-    p["blocks"] = tree_unflatten(blocks[0][1], [
-        torch.stack(ls) for ls in zip(*(leaves for leaves, _ in blocks))])
+
+    def block():
+        return _attn_block_init(generator, cfg, device=dev)
+
+    if cfg.family in ("dense", "audio"):
+        p["blocks"] = _stacked(block, cfg.n_layers)
+    else:  # vlm
+        g, per, rem = _vlm_groups(cfg)
+        p["blocks"] = tree_map(lambda a: a.reshape((g, per) + a.shape[1:]),
+                               _stacked(block, g * per))
+        p["cross_blocks"] = _stacked(
+            lambda: _cross_block_init(generator, cfg, device=dev), g)
+        p["tail_blocks"] = _stacked(block, rem)
     return p
 
 
-def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            *, mode: str = "train", pos: int = 0
-            ) -> Tuple[torch.Tensor, None, Dict[str, torch.Tensor]]:
-    """Run the decoder on ``batch["tokens"] [B, S]``: ``(hidden [B, S, D],
-    None, {"moe_loss": 0})`` (the reference's return shape; the dense family
-    has no cache here and no MoE loss)."""
+# --------------------------------------------------------------------------
+# cache init
+# --------------------------------------------------------------------------
+
+
+def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> Dict:
+    """Zero decode caches, stacked as the self-attention blocks that own
+    them: ``{"blocks": {"k", "v"}}`` with leaves ``[L, batch, W, KV, Dh]``
+    (the vlm: ``[g, per, ...]``, and ``"tail_blocks"``, ``None`` when there
+    is no trailing block); ``dtype`` defaults to ``cfg.dtype``."""
     _check_family(cfg)
-    if mode != "train":
-        raise ValueError(f"forward mode {mode!r} is not ported (train only)")
+    dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
+    one = L.attn_cache_init(cfg, batch, max_len, dtype, device="meta")
+
+    def stacked(*lead):
+        if 0 in lead:
+            return None
+        return {k: torch.zeros(lead + tuple(a.shape), dtype=dtype,
+                               device=device) for k, a in one.items()}
+
+    if cfg.family == "vlm":
+        g, per, rem = _vlm_groups(cfg)
+        return {"blocks": stacked(g, per), "tail_blocks": stacked(rem)}
+    return {"blocks": stacked(cfg.n_layers)}
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+
+def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            *, mode: str = "train", pos: int = 0,
+            caches: Optional[Dict] = None
+            ) -> Tuple[torch.Tensor, Optional[Dict], Dict[str, torch.Tensor]]:
+    """Run the decoder stack.
+
+    ``batch``: ``{"tokens": [B, S]}`` or ``{"embeddings": [B, S, D]}``; the
+    vlm adds ``{"image_embeddings": [B, T_img, D]}``. ``prefill`` and
+    ``decode`` write the positions ``pos + [0, S)`` into ``caches`` (from
+    :func:`cache_init`) in place.
+
+    Returns ``(hidden [B, S, D], caches, {"moe_loss": 0})``: the caches
+    given (``None`` in train mode); these families have no MoE loss."""
+    _check_family(cfg)
+    if mode not in MODES:
+        raise ValueError(f"unknown forward mode {mode!r} (expected one of "
+                         f"{MODES})")
+    if mode != "train" and caches is None:
+        raise ValueError(f"{mode} requires preallocated caches")
     dtype = getattr(torch, cfg.dtype)
-    # F.embedding: its CUDA backward is deterministic (sorted), where the
-    # backward of an indexing gather adds with atomics
-    x = F.embedding(batch["tokens"], params["embed"].to(dtype))
-    if cfg.tie_embeddings:
-        x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(dtype)
-    for i in range(cfg.n_layers):
-        p_i = tree_map(lambda a: a[i], params["blocks"])
-        x = _attn_block_apply(p_i, cfg, x, pos=pos)
+    if cfg.input_kind == "tokens":
+        # F.embedding: its CUDA backward is deterministic (sorted), where
+        # the backward of an indexing gather adds with atomics
+        x = F.embedding(batch["tokens"], params["embed"].to(dtype))
+        if cfg.family == "dense" and cfg.tie_embeddings:
+            x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(dtype)
+    else:
+        x = batch["embeddings"].to(dtype)
+    cc = caches if mode != "train" else {}
+
+    def self_block(stack, at, x, cache_stack):
+        p = tree_map(lambda a: a[at], stack)
+        c = None if cache_stack is None else tree_map(lambda a: a[at],
+                                                      cache_stack)
+        return _attn_block_apply(p, cfg, x, mode=mode, pos=pos, cache=c)
+
+    if cfg.family in ("dense", "audio"):
+        for i in range(cfg.n_layers):
+            x = self_block(params["blocks"], i, x, cc.get("blocks"))
+    else:  # vlm
+        kv_img = batch["image_embeddings"].to(dtype)
+        g, per, rem = _vlm_groups(cfg)
+        for gi in range(g):
+            for j in range(per):
+                x = self_block(params["blocks"], (gi, j), x, cc.get("blocks"))
+            x = _cross_block_apply(tree_map(lambda a: a[gi],
+                                            params["cross_blocks"]),
+                                   cfg, x, kv_img)
+        for i in range(rem):
+            x = self_block(params["tail_blocks"], i, x,
+                           cc.get("tail_blocks"))
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
-    return x, None, {"moe_loss": torch.zeros((), device=x.device)}
+    return x, (caches if mode != "train" else None), \
+        {"moe_loss": torch.zeros((), device=x.device)}
+
+
+# --------------------------------------------------------------------------
+# heads & losses
+# --------------------------------------------------------------------------
 
 
 def logits_fn(params: Params, cfg: ModelConfig,
@@ -143,7 +286,14 @@ def chunked_xent(params: Params, cfg: ModelConfig, hidden: torch.Tensor,
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             moe_loss_weight: float = 0.01) -> torch.Tensor:
-    """Causal-LM loss over ``batch["tokens"]``, shifted by one."""
+    """Causal-LM loss over ``batch["tokens"]`` shifted by one, or over the
+    given ``batch["targets"]`` (with an optional ``loss_mask``) for
+    embedding-input models."""
     hidden, _, aux = forward(params, cfg, batch, mode="train")
-    loss = chunked_xent(params, cfg, hidden[:, :-1], batch["tokens"][:, 1:])
+    if "targets" in batch:
+        loss = chunked_xent(params, cfg, hidden, batch["targets"],
+                            batch.get("loss_mask"))
+    else:
+        loss = chunked_xent(params, cfg, hidden[:, :-1],
+                            batch["tokens"][:, 1:])
     return loss + moe_loss_weight * aux["moe_loss"]

@@ -4,7 +4,8 @@ The server operates on flat ``[D]`` parameter vectors and ``[n, D]`` worker
 banks. Model parameters are nested dicts of tensors; the flat layout is the
 reference's: leaves in JAX ``tree_leaves`` order, which visits dict keys in
 sorted order (so a layer's ``b`` comes before its ``w``), lists and tuples
-in position order.
+in position order. ``None`` is an empty subtree, as in JAX (a model's
+missing ``tail_blocks``): it has no leaves and maps to ``None``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import torch
 
 
 def _flatten(tree: Any, leaves: List[Any]) -> Any:
+    if tree is None:
+        return ("none", None, ())
     if isinstance(tree, dict):
         keys = sorted(tree)
         return ("dict", tuple(keys),
@@ -43,6 +46,8 @@ def _unflatten(treedef: Any, it) -> Any:
     if treedef is None:
         return next(it)
     kind, meta, children = treedef
+    if kind == "none":
+        return None
     if kind == "dict":
         return {k: _unflatten(c, it) for k, c in zip(meta, children)}
     out = [_unflatten(c, it) for c in children]

@@ -801,3 +801,110 @@ def test_streamed_cnn_run_is_bitwise_rollout_on_the_card(card, source):
     assert torch.equal(got.server.momentum, want.server.momentum)
     for k in wm:
         assert torch.equal(gm[k], wm[k]), k
+
+
+# ----------------------------------------------------------------------- #
+# prefill and decode over KV caches, the vlm's train-mode forward, and the
+# allocate-once model_init on the card
+# ----------------------------------------------------------------------- #
+
+
+def _served(device, cfg, params, steps=4):
+    """Prefill a seeded prompt of 2 x 12, then ``steps`` greedy decode
+    steps: the prefill's hidden states, the first blocks' k cache after the
+    steps, and the tokens."""
+    from repro_torch.launch.serve import make_prompt
+    from repro_torch.models import (cache_init, forward, logits_fn,
+                                    make_decode_step)
+    from repro_torch.utils.tree import tree_map
+    params = tree_map(lambda a: a.to(device), params)
+    prompt = {k: torch.from_numpy(v).to(device) for k, v in make_prompt(
+        cfg, 2, 12, np.random.default_rng(0)).items()}
+    caches = cache_init(cfg, 2, 12 + steps, device=device)
+    with torch.no_grad():
+        h, caches, _ = forward(params, cfg, prompt, mode="prefill",
+                               caches=caches)
+        tok = torch.argmax(logits_fn(params, cfg, h[:, -1:]), -1)
+    step = make_decode_step(cfg, prompt.get("image_embeddings"))
+    toks = [tok]
+    for i in range(steps):
+        tok, caches = step(params, tok, caches, 12 + i)
+        toks.append(tok)
+    return h.cpu(), caches["blocks"]["k"].cpu(), torch.cat(toks, 1).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama32_vision_11b", "musicgen_medium",
+                                  "qwen25_3b"])
+def test_decode_on_the_card_matches_the_cpu(card, arch):
+    """The reduced float32 model (the serving launcher's CPU size):
+    prefill hidden states and the caches after 4 decode steps within
+    1e-4 of max |x| of the CPU's, the same greedy tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model_init
+    cfg = get_arch(arch).model.reduced(n_layers=2, d_model=256) \
+        .with_overrides(vocab_size=512, dtype="float32")
+    params = model_init(cfg, torch.Generator().manual_seed(0))
+    ch, ck, ctok = _served("cpu", cfg, params)
+    gh, gk, gtok = _served(card, cfg, params)
+    for got, want in ((gh, ch), (gk, ck)):
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+    assert torch.equal(gtok, ctok)
+
+
+@pytest.mark.cuda
+def test_vlm_train_forward_launches_flash_once_a_self_attention_layer(card):
+    """bfloat16 vlm of one group (4 self-attention layers, 1 cross layer):
+    the train-mode forward launches the flash forward 4 times (the cross
+    layer takes the plain attention), the gradient the backward 4 times."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import make_model_batch
+    from repro_torch.models import forward, lm_loss, model_init
+    from repro_torch.utils.tree import tree_leaves
+    cfg = get_arch("llama32_vision_11b").model.reduced(
+        n_layers=2, d_model=256).with_overrides(n_layers=5,
+                                                cross_attn_every=5)
+    params = model_init(cfg, torch.Generator(device=card).manual_seed(0))
+    batch = {k: torch.from_numpy(v[0]).to(card) for k, v in make_model_batch(
+        np.random.default_rng(0), cfg, 1, 2, 128).items()}
+    K.reset_launches()
+    with torch.no_grad():
+        h, _, _ = forward(params, cfg, batch, mode="train")
+    assert K.launches()["flash_fwd"] == 4 and bool(torch.isfinite(h).all())
+    K.reset_launches()
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    grads = torch.autograd.grad(lm_loss(params, cfg, batch), leaves)
+    assert K.launches()["flash_fwd"] == K.launches()["flash_bwd"] == 4
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["stablelm_3b", "llama32_vision_11b",
+                                  "musicgen_medium"])
+def test_model_init_on_the_card_is_the_per_layer_draws(card, arch):
+    """Each stacked leaf filled on the card holds the bits of fresh
+    per-layer draws from the same generator, the layers drawn in order."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model_init
+    from repro_torch.models import transformer as T
+    from repro_torch.utils.tree import tree_leaves
+    cfg = get_arch(arch).model.reduced(n_layers=4, d_model=256)
+    got = model_init(cfg, torch.Generator(device=card).manual_seed(3))
+    gen = torch.Generator(device=card).manual_seed(3)
+    if cfg.input_kind == "tokens":
+        assert torch.equal(got["embed"], torch.randn(
+            (cfg.vocab_size, cfg.d_model), generator=gen, device=card)
+            * 0.02)
+    if "lm_head" in got:
+        assert torch.equal(got["lm_head"], torch.randn(
+            (cfg.d_model, cfg.vocab_size), generator=gen, device=card)
+            * 0.02)
+    g, per, _ = T._vlm_groups(cfg) if cfg.family == "vlm" else \
+        (1, cfg.n_layers, 0)
+    n = g * per  # the self-attention blocks, drawn first
+    stacked = tree_leaves(got["blocks"])
+    for i in range(n):
+        fresh = tree_leaves(T._attn_block_init(gen, cfg, device=card))
+        for s, f in zip(stacked, fresh):
+            assert torch.equal(s.reshape((-1,) + f.shape)[i], f)

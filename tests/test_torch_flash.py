@@ -180,9 +180,11 @@ def test_default_attention_takes_the_plain_path_where_the_kernel_cannot():
     gen = torch.Generator().manual_seed(0)
     p = L.attn_init(gen, cfg)
     x = torch.randn(2, 16, cfg.d_model, generator=gen)
-    plain = L.attn_apply(p, cfg.with_overrides(use_flash_attention=False), x)
-    default = L.attn_apply(p, cfg, x)
-    asked = L.attn_apply(p, cfg.with_overrides(use_flash_attention=True), x)
+    plain, _ = L.attn_apply(p, cfg.with_overrides(use_flash_attention=False),
+                            x)
+    default, _ = L.attn_apply(p, cfg, x)
+    asked, _ = L.attn_apply(p, cfg.with_overrides(use_flash_attention=True),
+                            x)
     assert torch.equal(default, plain)
     torch.testing.assert_close(asked, plain, rtol=1e-5, atol=1e-5)
 

@@ -93,13 +93,30 @@ def test_llm_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TR.run(["--arch", "stablelm_3b", "--steps", "1"])
     with pytest.raises(ValueError, match="not ported"):
-        TR.run(["--arch", "gemma_2b", "--device", "cpu", "--stream"])
+        TR.run(["--arch", "mamba2_1_3b", "--device", "cpu", "--stream"])
     out = []
     res = TR.run(["--arch", "stablelm_3b", "--steps", "2", "--f", "1",
                   "--device", "cpu"], log=out.append)
     assert res["plan"].flat_spec.padded_size == 1_313_280
     assert len(res["losses"]) == 2 and out[0].startswith("[train] stablelm")
     assert res["state"].params["embed"].device.type == "cpu"
+
+
+def test_serve_entry_point_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    """``python -m repro_torch.launch.serve`` defaults to the card and
+    raises without CUDA; ``--device cpu`` serves the reduced model."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.run(["--arch", "llama32_vision_11b"])
+    with pytest.raises(ValueError, match="not ported"):
+        serve.run(["--arch", "mamba2_1_3b", "--device", "cpu"])
+    out = []
+    res = serve.run(["--arch", "llama32_vision_11b", "--device", "cpu",
+                     "--batch", "1", "--prompt-len", "4", "--tokens", "2"],
+                    log=out.append)
+    assert res["tokens"].shape == (1, 2) and out[0].startswith("[serve]")
+    assert res["params"]["embed"].device.type == "cpu"
 
 
 def test_rosdhb_state_is_a_third_of_dasha():

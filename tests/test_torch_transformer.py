@@ -1,6 +1,8 @@
-"""The dense decoder of the port against the reference's, on reduced
-``stablelm_3b`` (MHA, LayerNorm, SwiGLU) and reduced ``qwen25_3b`` (GQA
-16:2 at reduced width 2:1, QKV bias, RMSNorm) in float32: hidden states,
+"""The decoder of the port against the reference's, on every ported
+architecture reduced (stablelm_3b: MHA, LayerNorm, SwiGLU; qwen25_3b: GQA,
+QKV bias; gemma_2b: MQA, GeGLU, tied embeddings; mistral_large_123b;
+musicgen_medium: frame embeddings and targets; llama32_vision_11b: gated
+cross-attention over image embeddings) in float32: hidden states,
 ``lm_loss`` and its gradients with the reference's parameters carried
 across, plus the pieces (rope, norms, chunked cross entropy) and the
 configuration registry."""
@@ -36,24 +38,44 @@ def _configs(arch):
     return jcfg, cfg
 
 
+def _np_batch(cfg, rng):
+    """Tokens, or frame embeddings and targets; the vlm's image
+    embeddings."""
+    if cfg.input_kind == "tokens":
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (BATCH, SEQ))}
+    else:
+        batch = {"embeddings": rng.normal(size=(BATCH, SEQ, cfg.d_model)),
+                 "targets": rng.integers(0, cfg.vocab_size, (BATCH, SEQ))}
+    if cfg.family == "vlm":
+        batch["image_embeddings"] = rng.normal(
+            size=(BATCH, cfg.n_image_tokens, cfg.d_model))
+    return {k: v.astype(np.int32 if v.dtype.kind == "i" else np.float32)
+            for k, v in batch.items()}
+
+
+def _torch_batch(model):
+    return {k: torch.tensor(v) for k, v in model["batch"].items()}
+
+
 @pytest.fixture(scope="module", params=PORTED_ARCHS)
 def model(request):
     """Reference parameters, batch, and the reference's hidden states, loss
     and gradients, computed once per architecture."""
     jcfg, cfg = _configs(request.param)
     jparams = JT.model_init(jax.random.PRNGKey(3), jcfg)
-    # qkv biases start at zero: give them values so their gradients and
-    # effect are checked
+    # qkv biases and the vlm's gates start at zero: give them values so
+    # their gradients and effect are checked
     jparams = jax.tree_util.tree_map_with_path(
         lambda path, a: a + 0.01 * jax.random.normal(
             jax.random.PRNGKey(len(path)), a.shape)
-        if any(getattr(k, "key", None) == "b" for k in path) else a, jparams)
-    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (BATCH, SEQ))
-    batch = {"tokens": jnp.asarray(toks, jnp.int32)}
+        if any(getattr(k, "key", None) in ("b", "gate") for k in path)
+        else a, jparams)
+    np_batch = _np_batch(cfg, np.random.default_rng(4))
+    batch = {k: jnp.asarray(v) for k, v in np_batch.items()}
     hidden = np.asarray(JT.forward(jparams, jcfg, batch, mode="train")[0])
     loss, grads = jax.value_and_grad(JT.lm_loss)(jparams, jcfg, batch)
     np_params = jax.tree.map(np.asarray, jparams)
-    return {"cfg": cfg, "jcfg": jcfg, "params": np_params, "tokens": toks,
+    return {"cfg": cfg, "jcfg": jcfg, "params": np_params, "batch": np_batch,
             "hidden": hidden, "loss": float(loss),
             "grads": jax.tree.map(np.asarray, grads)}
 
@@ -62,8 +84,7 @@ def test_hidden_states_match(model):
     """rtol/atol 1e-4: float32 matmuls and transcendental functions in
     other implementations, over 2 layers."""
     params = from_jax_params(model["params"])
-    hidden, _, aux = T.forward(params, model["cfg"],
-                               {"tokens": torch.tensor(model["tokens"])})
+    hidden, _, aux = T.forward(params, model["cfg"], _torch_batch(model))
     np.testing.assert_allclose(hidden.numpy(), model["hidden"], rtol=1e-4,
                                atol=1e-4)
     assert float(aux["moe_loss"]) == 0.0
@@ -75,8 +96,7 @@ def test_lm_loss_and_gradients_match(model):
     embedding and head gradients sum over all tokens)."""
     params = from_jax_params(model["params"])
     leaves = [t.requires_grad_() for t in tree_leaves(params)]
-    loss = T.lm_loss(params, model["cfg"],
-                     {"tokens": torch.tensor(model["tokens"])})
+    loss = T.lm_loss(params, model["cfg"], _torch_batch(model))
     assert float(loss.detach()) == pytest.approx(model["loss"], rel=1e-5)
     grads = torch.autograd.grad(loss, leaves)
     want = tree_leaves(model["grads"])
@@ -92,7 +112,7 @@ def test_plain_attention_path_matches_kernel_path(model):
     kernel path asked for with ``True`` (its dense plain version on the
     CPU) give the same loss."""
     params = from_jax_params(model["params"])
-    batch = {"tokens": torch.tensor(model["tokens"])}
+    batch = _torch_batch(model)
     a = T.lm_loss(params, model["cfg"].with_overrides(
         use_flash_attention=True), batch)
     b = T.lm_loss(params, model["cfg"].with_overrides(
@@ -200,7 +220,7 @@ def test_model_config_fields_and_reduced_match():
 
 def test_unported_arch_and_family_raise():
     with pytest.raises(ValueError, match="not ported"):
-        get_arch("gemma-2b")
+        get_arch("mamba2-1.3b")
     with pytest.raises(KeyError):
         get_arch("no_such_arch")
     with pytest.raises(ValueError, match="not ported"):
