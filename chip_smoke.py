@@ -16,7 +16,9 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    sorted-rank kernel's block sizes, and at the main paths' shapes
    ``[1, 13, 11958]`` (the CNN), ``[1, 13, 1048576]`` (the quadratic
    testbed), ``[8, 13, 1048576]``, for CWTM ``[1, 8, 416179200]`` (the
-   LLM step), ``[1, 8, 59784192]`` (the audio train step) and the grid's ``[36, 13, 11958]`` (pairdist) and
+   LLM step), ``[1, 8, 59784192]`` (the audio train step), the families'
+   train steps' ``[1, 8, 1026698240]``, ``[1, 8, 257647616]`` and ``[1, 8,
+   902776320]`` and the grid's ``[36, 13, 11958]`` (pairdist) and
    ``[18, 13, 11958]`` (CWTM, median), where each is timed as a loop (CUDA events) and by the host
    (``perf_counter``), beside ``torch.cdist`` or ``torch.median``; pairdist
    is bitwise equal across two launches, symmetric with an exact zero
@@ -24,20 +26,23 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    host cost piece by piece; Block-RandK
    compress and decompress bitwise against theirs at awkward shapes and at
    the LLM step's ``[8, 416179200]`` with 40,642 blocks of 512 and the
-   audio train step's ``[8, 59784192]`` with 5,838; the
+   audio train step's ``[8, 59784192]`` with 5,838, compress alone at the
+   families' train steps' banks; the
    momentum update (``momentum_scatter``) bitwise against its plain
    version at awkward shapes (global and local ids, float32 and bfloat16
    banks, beta 0, 0.9 and 0.99, one block and every block, banks holding
-   -0.0), at the LLM step's bank in float32 and in bfloat16 and at the
-   audio train step's in float32; one RoSDHB
+   -0.0), at the LLM step's bank in float32 and in bfloat16, at the
+   audio train step's in float32 and at the families' train steps' banks
+   in their dtypes; one RoSDHB
    server round at ``[8, 416179200]`` on the payload route against the
    dense round (momentum bitwise, direction within rtol 1e-5); flash
    attention forward and backward against the plain version in float32 at
    awkward shapes (ragged lengths, GQA, MQA, windows, offsets, head dims
    64/80/128, the Hopper kernels' tile edges), at transformer-table1's
    folded ``[288, 32, 2, 64]``, at the audio train step's ``[1, 4096, 24,
-   64]`` and at the LLM step's ``[1, 4096, 32, 80]``, where two backward
-   runs must be bitwise equal;
+   64]``, at zamba2's ``[1, 4096, 32, 112]`` (zero-padded to 128) and at
+   the LLM step's ``[1, 4096, 32, 80]``, where two backward runs must be
+   bitwise equal;
    the flash kernels' ptxas registers and spills, and their SASS must hold
    ``wgmma`` (HGMMA) and TMA (UTMALDG) and no WMMA (HMMA). Times of the
    kernel, the plain version and a PyTorch library call beside the least
@@ -127,16 +132,37 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    musicgen_medium's train path through ``repro_torch.launch.train`` (2
    layers, seq 4096, 8 workers, f = 1, 4 steps: flash forward and backward
    64 each, compress, ``momentum_scatter`` and CWTM 4), its first 2 steps
-   against the plain path; profiled decode steps of llama32_vision_11b and
-   musicgen_medium (``python3 chip_smoke.py decode`` runs this phase
-   alone);
-11. the device µs and device kernels per call of pairdist, CWTM, median,
+   against the plain path (``python3 chip_smoke.py decode`` runs this
+   phase alone, with its profiled decode steps);
+11. the MoE, MLA, SSM and hybrid families (``families``): dbrx_132b at full
+   width cut to 4 layers, deepseek_v2_lite_16b, mamba2_1_3b and zamba2_7b
+   at full depth, served through ``repro_torch.launch.serve`` in bfloat16
+   (prefill ms, decode ms a step, tokens/s, peak memory; the tokens
+   reproduced bit for bit; prefill and each decode step against the
+   train-mode forward within 5e-2 of max |h|, the MoE ones replaying the
+   serve run's expert choices, with the choices the train-mode forward
+   would flip reported; zamba2's at full depth reported, not held, see
+   ``FAMILY_BF16_UNGATED``; flash forward launches 4, 0, 0 and 13, the
+   last at head dim 112 zero-padded to 128); the cuts of ``FAMILY_CUTS``
+   (float32 within 1e-4, zamba2 at full depth among them; zamba2 at 7
+   layers in bfloat16 within 5e-2); mamba2_1_3b through a 4,100-token
+   prompt (16 chunks of 256 and a padded 17th) and 16 steps; the train
+   paths of deepseek_v2_lite_16b (2 layers, bfloat16 banks), mamba2_1_3b
+   (2 layers) and zamba2_7b (6 layers, bfloat16 banks) through
+   ``repro_torch.launch.train`` (seq 4096, 8 workers, f = 1, 4 steps:
+   compress, ``momentum_scatter`` and CWTM once a step, decompress 0, flash
+   forward and backward 32 each for zamba2), their first 2 steps against
+   the plain path; then profiled decode steps of llama32_vision_11b,
+   musicgen_medium and the four families' models;
+12. the device µs and device kernels per call of pairdist, CWTM, median,
    the flash forward and backward (at ``[1, 4096, 32, 80]``, ``[1, 4096,
-   24, 64]`` and transformer-table1's folded ``[288, 32, 2, 64]``) and
-   their library calls at the main paths' shapes, from the profiler, which
-   runs last (it slows the launches that follow it); pairdist must be one
-   device kernel a call (a case whose window lost a kernel event is read
-   again, and both readings are kept).
+   24, 64]``, zamba2's ``[1, 4096, 32, 112]`` and transformer-table1's
+   folded ``[288, 32, 2, 64]``) and their library calls, and of compress,
+   decompress and ``momentum_scatter`` at the LLM step's ``[8,
+   416179200]`` and at the families' train paths' banks, from the
+   profiler, which runs last (it slows the launches that follow it);
+   pairdist must be one device kernel a call (a case whose window lost a
+   kernel event is read again, and both readings are kept).
 
 TF32 is off for matmuls and cuDNN convolutions throughout: the parity bars
 are float32 ones. The last line is ``{"ok": true, "device": {...}}``; the
@@ -230,6 +256,20 @@ LLM_KB = 40_642      # max(1, round(0.05 * D / 512))
 # flash calls are [1, 4096, 24, 64]
 AUDIO_D = 59_784_192   # make_flat_spec(pad_to=8) of the 2-layer model
 AUDIO_KB = 5_838       # max(1, round(0.05 * D / 512))
+# The families' train paths (the families phase): the [8, D] server banks,
+# their width rounded up to whole 512-wide blocks (TrainPlan.bank_width),
+# of 2-layer deepseek_v2_lite_16b (D = 1,026,698,240; bfloat16 banks),
+# 2-layer mamba2_1_3b (D = 257,647,488; float32) and 6-layer zamba2_7b
+# (D = 902,776,032; bfloat16); CWTM takes the float32 momenta [1, 8, width]
+FAMILY_BANKS = (("deepseek_v2_lite_16b", 1_026_698_240, "bfloat16"),
+                ("mamba2_1_3b", 257_647_616, "float32"),
+                ("zamba2_7b", 902_776_320, "bfloat16"))
+
+
+def kept_blocks(d: int, bs: int = LLM_BS, ratio: float = 0.05) -> int:
+    """Block-RandK's kept blocks of a ``d``-wide bank: max(1, round(ratio *
+    d / bs))."""
+    return max(1, int(round(ratio * (d // bs))))
 
 # Block-RandK cases: (n, d, block_size, kb, local ids, dtype name).
 RANDK_AWKWARD = [(3, 128 * 7, 128, 1, False, "float32"),
@@ -241,6 +281,10 @@ RANDK_AWKWARD = [(3, 128 * 7, 128, 1, False, "float32"),
                  (5, 512 * 40, 512, 40, True, "float32")]
 RANDK_PATH = (LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, "float32")
 RANDK_AUDIO = (LLM_WORKERS, AUDIO_D, LLM_BS, AUDIO_KB, False, "float32")
+# compress at the families' banks, in the wire dtype (their decompress
+# launches none)
+RANDK_FAMILIES = [(LLM_WORKERS, d, LLM_BS, kept_blocks(d), False, dt)
+                  for _, d, dt in FAMILY_BANKS]
 
 # Momentum cases: (n, d, block_size, kb, local ids, bank dtype, beta,
 # -0.0 in the bank). The payload is in the bank's dtype (the wire dtype is
@@ -259,6 +303,8 @@ MOMENTUM_PATH = [(LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, "float32", 0.9,
                   False)]
 MOMENTUM_AUDIO = (LLM_WORKERS, AUDIO_D, LLM_BS, AUDIO_KB, False, "float32",
                   0.9, False)
+MOMENTUM_FAMILIES = [(LLM_WORKERS, d, LLM_BS, kept_blocks(d), False, dt, 0.9,
+                      False) for _, d, dt in FAMILY_BANKS]
 
 # Flash cases: (B, Sq, Sk, H, KV, D, causal, window, q_offset).
 FLASH_AWKWARD = [(2, 100, 100, 32, 32, 80, True, None, 0),
@@ -281,6 +327,8 @@ FLASH_AWKWARD += [case for d in (64, 80, 128) for case in (
 FLASH_PATH = (1, LLM_SEQ, LLM_SEQ, 32, 32, 80, True, None, 0)
 # musicgen_medium's train path: 24 heads of 64 at seq 4096
 FLASH_AUDIO = (1, LLM_SEQ, LLM_SEQ, 24, 24, 64, True, None, 0)
+# zamba2_7b's shared attention block: 32 heads of 112, zero-padded to 128
+FLASH_ZAMBA = (1, LLM_SEQ, LLM_SEQ, 32, 32, 112, True, None, 0)
 # transformer-table1's folded call: 8 lanes x 9 workers x 4 sequences of 32
 # tokens, 2 heads of 64 (the stream phase's grid under torch.func)
 FLASH_TT1 = (288, 32, 32, 2, 2, 64, True, None, 0)
@@ -623,6 +671,10 @@ def kernel_phase(torch) -> dict:
         if name == "cwtm":  # the audio train path's aggregation, f = 1
             cases.append(((1, LLM_WORKERS, AUDIO_D), 1, torch.float32, False,
                           "plain"))
+            # the families' train paths (the plain version a slice of
+            # coordinates at a time)
+            cases += [((1, LLM_WORKERS, d), 1, torch.float32, False, "plain")
+                      for _, d, _ in FAMILY_BANKS]
         for i, (shape, f, dt, timed, ref) in enumerate(cases):
             rec = kernel_case(torch, name, shape, f, dt, timed, seed=100 + i,
                               reference=ref)
@@ -638,13 +690,15 @@ def kernel_phase(torch) -> dict:
     return results
 
 
-def device_times(torch, cases, flash_cases=()) -> dict:
+def device_times(torch, cases, flash_cases=(), randk_cases=()) -> dict:
     """For each ``(name, shape, f, dtype name, seed, reps)``: the kernel's
     and the library call's ``(device µs, device operations, names)`` per
     call (:func:`device_us`), on the input made from the seed; the same for
     the flash forward and backward of each ``(case, seed)`` of
-    ``flash_cases`` (:func:`flash_fns`); and the host µs of ``x.neg()``
-    before and after those profiler windows."""
+    ``flash_cases`` (:func:`flash_fns`), for the Block-RandK kernels of
+    each ``("block" | "momentum", case, seed, names)`` of ``randk_cases``
+    (:func:`randk_fns`, :func:`momentum_fn`); and the host µs of
+    ``x.neg()`` before and after those profiler windows."""
     x = torch.randn((1, 13, 11958), device="cuda")
     neg = [host_us(torch, lambda: x.neg(), 10_000, warmup=100)]
     out = []
@@ -664,12 +718,21 @@ def device_times(torch, cases, flash_cases=()) -> dict:
                       for name, pair in fns.items()})
         del fns
         torch.cuda.empty_cache()
+    randk = []
+    for kind, case, seed, names in randk_cases:
+        fns = (randk_fns(torch, tuple(case), seed) if kind == "block" else
+               {"momentum_scatter": momentum_fn(torch, tuple(case), seed)})
+        randk.append({name: device_us(torch, fns[name], 5)
+                      for name in names})
+        del fns
+        torch.cuda.empty_cache()
     neg.append(host_us(torch, lambda: x.neg(), 10_000, warmup=100))
-    return {"cases": out, "flash": flash, "neg_host_us": neg}
+    return {"cases": out, "flash": flash, "randk": randk,
+            "neg_host_us": neg}
 
 
 def profile_cases(torch, results, fresh_process: bool = False,
-                  flash=()) -> None:
+                  flash=(), randk=None) -> None:
     """Device µs and device operations per call of each timed case's kernel
     and library call, after every timed phase: once started, the profiler
     (CUPTI) slows the launches that follow it, and a process that has run
@@ -677,24 +740,39 @@ def profile_cases(torch, results, fresh_process: bool = False,
     so ``fresh_process`` measures in a new process (``--device-times``).
     ``flash``: the flash phase's records; the timed ones get the device µs
     of their forward and backward and of SDPA's. Fails if a pairdist call
-    is not one device kernel."""
+    is not one device kernel. ``randk``: the randk phase's records; the
+    timed ones get the device µs of their kernels (compress, decompress,
+    ``momentum_scatter``)."""
     cases = [(name, rec["shape"], rec["f"], rec["dtype"], rec["seed"],
               rec["reps"]) for name in SORT_KERNELS for rec in results[name]
              if "seed" in rec]
     timed_flash = [rec for rec in flash if "flash_fwd" in rec]
     flash_cases = [(rec["case"], rec["seed"]) for rec in timed_flash]
-    def measure(sort_cases, flash_cases):
+    timed_randk = [] if randk is None else (
+        [("block", rec) for rec in randk["block"] if "seed" in rec]
+        + [("momentum", rec) for rec in randk["momentum"] if "seed" in rec])
+    randk_cases = [
+        (kind, (list(rec["shape"]) + [rec["block_size"], rec["kb"],
+                                      rec["local"], rec["dtype"]]
+                + ([rec["beta"], rec["neg_zero"]] if kind == "momentum"
+                   else [])), rec["seed"],
+         ([n for n in ("block_compress", "block_decompress") if n in rec]
+          if kind == "block" else ["momentum_scatter"]))
+        for kind, rec in timed_randk]
+
+    def measure(sort_cases, flash_cases, randk_cases=()):
         if not fresh_process:
-            return device_times(torch, sort_cases, flash_cases)
+            return device_times(torch, sort_cases, flash_cases, randk_cases)
         run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                               "--device-times", json.dumps(
                                   {"sort": sort_cases,
-                                   "flash": flash_cases})],
-                             capture_output=True, text=True, timeout=600,
+                                   "flash": flash_cases,
+                                   "randk": randk_cases})],
+                             capture_output=True, text=True, timeout=900,
                              check=True)
         return json.loads(run.stdout.strip().splitlines()[-1])
 
-    times = measure(cases, flash_cases)
+    times = measure(cases, flash_cases, randk_cases)
     failures = []
     # CUPTI can drop a kernel event of a short window (one of the 5 calls
     # at [8, 13, 1048576] read 0.8 kernels a call in one run, where every
@@ -734,6 +812,14 @@ def profile_cases(torch, results, fresh_process: bool = False,
                 f"{rec[name]['device_us']:.3f} ({rec[name]['device_ops']:g}"
                 f" kernels a call), host us {rec[name]['host_us']:.3f}, "
                 f"SDPA device us {rec[name].get('library_device_us')}")
+    for (kind, rec), t in zip(timed_randk, times["randk"]):
+        for name, (us, ops, names) in t.items():
+            target = rec[name] if kind == "block" else rec
+            target.update(device_us=us, device_ops=ops)
+            log(f"randk {name} {rec['shape']} {rec['dtype']}: device us "
+                f"{us:.3f} ({ops:g} kernels a call: {', '.join(names)}), "
+                f"host us {target['host_us']:.3f}, loop ms "
+                f"{target['ms']:.5f}")
     recs = [rec for name in SORT_KERNELS for rec in results[name]
             if "seed" in rec]
     results["neg_host_us"] = times["neg_host_us"]
@@ -788,68 +874,97 @@ def _bound(nbytes: float, ops: float, ops_rate: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def randk_case(torch, case, timed: bool, seed: int,
-               device: str = "cuda") -> dict:
-    """Block compress and decompress against their plain versions, bitwise,
-    and (below 1e8 values) against the dense mask multiply on finite
-    inputs."""
-    from repro_torch.kernels.randk import (block_compress_ref,
-                                           block_decompress_ref, compress,
-                                           decompress)
+def randk_inputs(torch, case, seed: int, device: str = "cuda") -> tuple:
+    """``(g [n, d], block ids, alpha)`` of a Block-RandK case, made from
+    ``seed``."""
     n, d, bs, kb, local, dt = case
-    dtype = getattr(torch, dt)
     nb = d // bs
     gen = torch.Generator(device=device).manual_seed(seed)
-    g = torch.randn((n, d), generator=gen, device=device).to(dtype)
+    g = torch.randn((n, d), generator=gen, device=device).to(
+        getattr(torch, dt))
     if local:
         ids = torch.stack([torch.randperm(nb, generator=gen, device=device)[:kb]
                            for _ in range(n)]).int()
     else:
         ids = torch.randperm(nb, generator=gen, device=device)[:kb].int()
-    alpha = nb / kb
+    return g, ids, nb / kb
+
+
+def randk_case(torch, case, timed: bool, seed: int, device: str = "cuda",
+               decompress: bool = True) -> dict:
+    """Block compress and decompress (``decompress=False``: compress only)
+    against their plain versions, bitwise, and (below 1e8 values) against
+    the dense mask multiply on finite inputs."""
+    from repro_torch.kernels.randk import (block_compress_ref,
+                                           block_decompress_ref, compress,
+                                           decompress as decompress_kernel)
+    n, d, bs, kb, local, dt = case
+    dtype = getattr(torch, dt)
+    nb = d // bs
+    g, ids, alpha = randk_inputs(torch, case, seed, device)
     kern_c = lambda: compress(g, ids, block_size=bs, alpha=alpha)  # noqa: E731
     plain_c = lambda: block_compress_ref(g, ids, bs, alpha)  # noqa: E731
     pay = kern_c()
     pay_ref = plain_c()
-    ok_c = torch.equal(pay, pay_ref)
-    err_c = float((pay.float() - pay_ref.float()).abs().max())
+    ok = {"block_compress": torch.equal(pay, pay_ref)}
+    err = {"block_compress": float((pay.float() - pay_ref.float()).abs()
+                                   .max())}
     del pay_ref
-    kern_d = lambda: decompress(pay, ids, block_size=bs, d=d)  # noqa: E731
+    kern_d = lambda: decompress_kernel(pay, ids, block_size=bs,  # noqa: E731
+                                       d=d)
     plain_d = lambda: block_decompress_ref(pay, ids, bs, d)  # noqa: E731
-    dense = kern_d()
-    dense_ref = plain_d()
-    ok_d = torch.equal(dense, dense_ref)
-    err_d = float((dense.float() - dense_ref.float()).abs().max())
-    del dense_ref
-    if n * d < 100_000_000:
-        # the reference's contract: bitwise the dense (alpha*g)*mask on
-        # finite gradients (torch.equal takes -0.0 == 0.0)
-        mask = torch.zeros((n, nb), dtype=dtype, device=device)
-        mask.scatter_(1, ids.long().expand(n, kb), 1)
-        want = (alpha * g) * mask.repeat_interleave(bs, dim=1)
-        ok_d = ok_d and torch.equal(dense, want)
+    if decompress:
+        dense = kern_d()
+        dense_ref = plain_d()
+        ok_d = torch.equal(dense, dense_ref)
+        err["block_decompress"] = float((dense.float() - dense_ref.float())
+                                        .abs().max())
+        del dense_ref
+        if n * d < 100_000_000:
+            # the reference's contract: bitwise the dense (alpha*g)*mask on
+            # finite gradients (torch.equal takes -0.0 == 0.0)
+            mask = torch.zeros((n, nb), dtype=dtype, device=device)
+            mask.scatter_(1, ids.long().expand(n, kb), 1)
+            want = (alpha * g) * mask.repeat_interleave(bs, dim=1)
+            ok_d = ok_d and torch.equal(dense, want)
+        ok["block_decompress"] = ok_d
+        del dense
     rec = {"shape": [n, d], "block_size": bs, "kb": kb, "local": local,
-           "dtype": dt, "ok": {"block_compress": ok_c,
-                               "block_decompress": ok_d},
-           "max_abs_err": {"block_compress": err_c,
-                           "block_decompress": err_d}}
+           "dtype": dt, "ok": ok, "max_abs_err": err}
     if timed:
         isz = g.element_size()
         pay_bytes = n * kb * bs * isz
+        rec["seed"] = seed  # for profile_cases
         rec["block_compress"] = {
             "ms": time_ms(torch, kern_c, 5), "plain_ms": time_ms(
-                torch, plain_c, 5), "library_ms": None}
+                torch, plain_c, 5), "library_ms": None,
+            "host_us": host_us(torch, kern_c, 20)}
         rec["block_compress"]["bound_ms"], rec["block_compress"][
             "bound_by"] = _bound(2 * pay_bytes + ids.numel() * 4, 0,
                                  PEAK_F32_OPS_PER_S)
-        del dense
-        rec["block_decompress"] = {
-            "ms": time_ms(torch, kern_d, 5), "plain_ms": time_ms(
-                torch, plain_d, 5), "library_ms": None}
-        rec["block_decompress"]["bound_ms"], rec["block_decompress"][
-            "bound_by"] = _bound(pay_bytes + n * d * isz + nb * 4
-                                 + ids.numel() * 4, 0, PEAK_F32_OPS_PER_S)
+        if decompress:
+            rec["block_decompress"] = {
+                "ms": time_ms(torch, kern_d, 5), "plain_ms": time_ms(
+                    torch, plain_d, 5), "library_ms": None,
+                "host_us": host_us(torch, kern_d, 20)}
+            rec["block_decompress"]["bound_ms"], rec["block_decompress"][
+                "bound_by"] = _bound(pay_bytes + n * d * isz + nb * 4
+                                     + ids.numel() * 4, 0,
+                                     PEAK_F32_OPS_PER_S)
     return rec
+
+
+def randk_fns(torch, case, seed: int, device: str = "cuda") -> dict:
+    """``{"block_compress": fn, "block_decompress": fn}``: the kernels'
+    calls on the inputs :func:`randk_case` makes from ``seed``."""
+    from repro_torch.kernels.randk import compress, decompress
+    n, d, bs, kb, local, dt = case
+    g, ids, alpha = randk_inputs(torch, case, seed, device)
+    pay = compress(g, ids, block_size=bs, alpha=alpha)
+    return {"block_compress": lambda: compress(g, ids, block_size=bs,
+                                               alpha=alpha),
+            "block_decompress": lambda: decompress(pay, ids, block_size=bs,
+                                                   d=d)}
 
 
 def bits(torch, x):
@@ -863,11 +978,9 @@ def max_abs_diff(a, b) -> float:
                for x, y in zip(a, b))
 
 
-def momentum_case(torch, case, timed: bool, seed: int,
-                  device: str = "cuda") -> dict:
-    """The momentum kernel against its plain version, bitwise in the bank
-    and (bfloat16 bank) in the float32 result."""
-    from repro_torch.kernels.randk import momentum_scatter_ref, momentum_update
+def momentum_inputs(torch, case, seed: int, device: str = "cuda") -> tuple:
+    """``(bank m0, payload, block ids)`` of a momentum case, made from
+    ``seed``."""
     n, d, bs, kb, local, dt, beta, neg_zero = case
     dtype = getattr(torch, dt)
     nb = d // bs
@@ -882,21 +995,44 @@ def momentum_case(torch, case, timed: bool, seed: int,
                            for _ in range(n)]).int()
     else:
         ids = torch.randperm(nb, generator=gen, device=device)[:kb].int()
+    return m0, pay, ids
+
+
+def momentum_case(torch, case, timed: bool, seed: int,
+                  device: str = "cuda") -> dict:
+    """The momentum kernel against its plain version, bitwise in the bank
+    and (bfloat16 bank) in the float32 result: the plain version a slice
+    of columns at a time from the initial bank (``momentum_columns_ref``,
+    the slices of ``momentum_scatter_ref``), each slice held against the
+    kernel's (a second bank and float32 result of [8, 1e9] would not fit
+    the card)."""
+    from repro_torch.kernels.randk import momentum_scatter_ref, momentum_update
+    from repro_torch.kernels.randk.ref import (MOMENTUM_COLS,
+                                               momentum_columns_ref)
+    n, d, bs, kb, local, dt, beta, neg_zero = case
+    m0, pay, ids = momentum_inputs(torch, case, seed, device)
+    dtype = m0.dtype
     f32_out = dtype != torch.float32
     kw = dict(block_size=bs, beta=beta, f32_out=f32_out)
     m_k = m0.clone()
     out_k = momentum_update(m_k, pay, ids, **kw)
     if not f32_out:
         out_k = None
-    m_p = m0.clone()
-    out_p = momentum_scatter_ref(m_p, pay, ids, bs, beta, f32_out)
-    sync(torch, device)
-    ok = torch.equal(bits(torch, m_k), bits(torch, m_p))
-    err = max_abs_diff(m_k, m_p)
-    if out_k is not None:
-        ok = ok and torch.equal(bits(torch, out_k), bits(torch, out_p))
-        err = max(err, max_abs_diff(out_k, out_p))
-    del m_p, out_p, out_k
+    ok, err = True, 0.0
+    step = max(1, MOMENTUM_COLS // bs)
+    for b0 in range(0, d // bs, step):
+        b1 = min(d // bs, b0 + step)
+        cols = slice(b0 * bs, b1 * bs)
+        res = momentum_columns_ref(m0, pay, ids, bs, beta, b0, b1)
+        ok = ok and torch.equal(bits(torch, m_k[:, cols]),
+                                bits(torch, res.to(dtype)))
+        err = max(err, max_abs_diff(m_k[:, cols], res.to(dtype)))
+        if out_k is not None:
+            ok = ok and torch.equal(bits(torch, out_k[:, cols]),
+                                    bits(torch, res))
+            err = max(err, max_abs_diff(out_k[:, cols], res))
+        del res
+    del out_k
     rec = {"shape": [n, d], "block_size": bs, "kb": kb, "local": local,
            "dtype": dt, "beta": beta, "neg_zero": neg_zero, "ok": ok,
            "max_abs_err": err}
@@ -904,8 +1040,10 @@ def momentum_case(torch, case, timed: bool, seed: int,
         isz = m0.element_size()
         nbytes = (2 * n * d * isz + pay.numel() * pay.element_size()
                   + ids.numel() * 4 + (n * d * 4 if f32_out else 0))
-        rec["ms"] = time_ms(torch, lambda: momentum_update(m_k, pay, ids,
-                                                           **kw), 5)
+        kern = lambda: momentum_update(m_k, pay, ids, **kw)  # noqa: E731
+        rec["ms"] = time_ms(torch, kern, 5)
+        rec["host_us"] = host_us(torch, kern, 10)
+        rec["seed"] = seed  # for profile_cases
         del m_k
         rec["plain_ms"] = time_ms(torch, lambda: momentum_scatter_ref(
             m0, pay, ids, bs, beta, f32_out), 3)
@@ -913,6 +1051,17 @@ def momentum_case(torch, case, timed: bool, seed: int,
         rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 2 * n * d,
                                                   PEAK_F32_OPS_PER_S)
     return rec
+
+
+def momentum_fn(torch, case, seed: int, device: str = "cuda"):
+    """The momentum kernel's call on the inputs :func:`momentum_case` makes
+    from ``seed`` (on a copy of the bank, updated in place each call)."""
+    from repro_torch.kernels.randk import momentum_update
+    n, d, bs, kb, local, dt, beta, neg_zero = case
+    m0, pay, ids = momentum_inputs(torch, case, seed, device)
+    f32_out = m0.dtype != torch.float32
+    return lambda: momentum_update(m0, pay, ids, block_size=bs, beta=beta,
+                                   f32_out=f32_out)
 
 
 def server_round_case(torch, n: int = LLM_WORKERS, d: int = LLM_D,
@@ -977,19 +1126,27 @@ def server_round_case(torch, n: int = LLM_WORKERS, d: int = LLM_D,
 
 def randk_phase(torch, device: str = "cuda", path=RANDK_PATH,
                 momentum_path=MOMENTUM_PATH, round_shape=None,
-                audio=RANDK_AUDIO, momentum_audio=MOMENTUM_AUDIO) -> dict:
+                audio=RANDK_AUDIO, momentum_audio=MOMENTUM_AUDIO,
+                families=RANDK_FAMILIES,
+                momentum_families=MOMENTUM_FAMILIES) -> dict:
     """Block-RandK kernel cases: awkward shapes, the audio train path's
-    (``audio``), then the LLM path's (timed, last); the momentum kernel
-    likewise; then one server round, payload route against dense round, at
-    the LLM path's shape (``round_shape`` ``(n, d, bs)`` overrides it)."""
+    (``audio``), the families' train paths' (``families``: compress only,
+    timed), then the LLM path's (timed, last); the momentum kernel
+    likewise (the families' last, timed); then one server round, payload
+    route against dense round, at the LLM path's shape (``round_shape``
+    ``(n, d, bs)`` overrides it)."""
     out, failures = {"block": [], "momentum": []}, []
-    # (case, timed, seed): the seeds of the cases before stay as they were
+    # (case, timed, seed, decompress): the seeds of the cases before stay
+    # as they were
     n_awk = len(RANDK_AWKWARD)
-    cases = ([(c, False, 300 + i) for i, c in enumerate(RANDK_AWKWARD)]
-             + [(audio, False, 300 + n_awk + 1), (path, True, 300 + n_awk)])
-    for case, timed, seed in cases:
+    cases = ([(c, False, 300 + i, True) for i, c in enumerate(RANDK_AWKWARD)]
+             + [(audio, False, 300 + n_awk + 1, True)]
+             + [(c, True, 300 + n_awk + 2 + i, False)
+                for i, c in enumerate(families)]
+             + [(path, True, 300 + n_awk, True)])
+    for case, timed, seed, dec in cases:
         rec = randk_case(torch, case, timed and device == "cuda",
-                         seed=seed, device=device)
+                         seed=seed, device=device, decompress=dec)
         out["block"].append(rec)
         line = (f"kernel block_compress/decompress n={case[0]} d={case[1]} "
                 f"bs={case[2]} kb={case[3]} local={case[4]} {case[5]}: "
@@ -1007,7 +1164,9 @@ def randk_phase(torch, device: str = "cuda", path=RANDK_PATH,
     cases = ([(c, False) for c in MOMENTUM_AWKWARD]
              + [(c, True) for c in momentum_path])
     cases = ([(c, t, 400 + i) for i, (c, t) in enumerate(cases)]
-             + [(momentum_audio, False, 400 + len(cases))])
+             + [(momentum_audio, False, 400 + len(cases))]
+             + [(c, True, 400 + len(cases) + 1 + i)
+                for i, c in enumerate(momentum_families)])
     for case, timed, seed in cases:
         rec = momentum_case(torch, case, timed and device == "cuda",
                             seed=seed, device=device)
@@ -1086,6 +1245,23 @@ def flash_fault_readings(torch, case, seed: int,
             zip(("out", "dq", "dk", "dv"), plain(drop), plain(mask))}
 
 
+def launch_inputs(torch, q, k, v, dout) -> tuple:
+    """What the kernels are launched on for a case: ``(q, k, v, dout,
+    scale)`` as they are (scale None: ``1/sqrt(D)``), or at a head dim
+    they are not built for zero-padded to 128 with the head dim's own
+    scale ``1/sqrt(D)`` (``ops.padded_attention``; dout's padded lanes are
+    zero, as the slice's gradient is)."""
+    import torch.nn.functional as Fn
+    from repro_torch.kernels.flash_attention import padded_dim
+    d = q.shape[-1]
+    dp = padded_dim(d)
+    if dp == d:
+        return q, k, v, dout, None
+    pad = (0, dp - d)
+    return tuple(Fn.pad(t, pad) for t in (q, k, v, dout)) + (
+        1.0 / math.sqrt(d),)
+
+
 def flash_case(torch, case, timed: bool, seed: int,
                device: str = "cuda") -> dict:
     """Flash forward and backward against the plain version computed in
@@ -1130,14 +1306,15 @@ def flash_case(torch, case, timed: bool, seed: int,
     if timed:
         from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
                                                          flash_fwd_cuda)
-        o_k, lse = flash_fwd_cuda(q, k, v, **kw)
+        qp, kp, vp, dp_, sc = launch_inputs(torch, q, k, v, dout)
+        o_k, lse = flash_fwd_cuda(qp, kp, vp, **kw, scale=sc)
         # no atomics: two backward runs are bitwise equal
-        runs = [flash_bwd_cuda(q, k, v, o_k, lse, dout, **kw)
+        runs = [flash_bwd_cuda(qp, kp, vp, o_k, lse, dp_, **kw, scale=sc)
                 for _ in range(2)]
         rec["bwd_bitwise_repeat"] = all(
             torch.equal(a, b_) for a, b_ in zip(*runs))
         rec["ok"] = rec["ok"] and rec["bwd_bitwise_repeat"]
-        del runs, o_k, lse
+        del runs, o_k, lse, qp, kp, vp, dp_
         rec["seed"] = seed  # for profile_cases
         pairs = flash_pairs(sq, sk, causal, window, q_offset)
         fwd_ops = 4 * b * h * d * pairs
@@ -1185,9 +1362,10 @@ def sdpa_inputs(torch, q, k, v, dout):
 
 def flash_fns(torch, case, seed: int, device: str = "cuda") -> dict:
     """``{"flash_fwd": (kernel, library), "flash_bwd": (kernel, library)}``
-    calls on the inputs :func:`flash_case` makes from ``seed``; the library
-    call is SDPA's forward or backward where it computes the same function
-    (causal, full window, Sq = Sk, H = KV), else None."""
+    calls on the inputs :func:`flash_case` makes from ``seed`` (the
+    kernels on :func:`launch_inputs`); the library call is SDPA's forward
+    or backward where it computes the same function (causal, full window,
+    Sq = Sk, H = KV), else None."""
     from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
                                                      flash_fwd_cuda)
     b, sq, sk, h, kv, d, causal, window, q_offset = case
@@ -1196,7 +1374,8 @@ def flash_fns(torch, case, seed: int, device: str = "cuda") -> dict:
         torch.bfloat16) for s in ((b, sq, h, d), (b, sk, kv, d),
                                   (b, sk, kv, d), (b, sq, h, d)))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    o, lse = flash_fwd_cuda(q, k, v, **kw)
+    qp, kp, vp, dp_, sc = launch_inputs(torch, q, k, v, dout)
+    o, lse = flash_fwd_cuda(qp, kp, vp, **kw, scale=sc)
     lib_fwd = lib_bwd = None
     if causal and window is None and q_offset == 0 and sq == sk \
             and h == kv:
@@ -1206,22 +1385,25 @@ def flash_fns(torch, case, seed: int, device: str = "cuda") -> dict:
         lib_fwd = lambda: sdpa(qt, kt, vt)  # noqa: E731
         lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
             o_l, lt, dt_, retain_graph=True)
-    return {"flash_fwd": (lambda: flash_fwd_cuda(q, k, v, **kw), lib_fwd),
-            "flash_bwd": (lambda: flash_bwd_cuda(q, k, v, o, lse, dout, **kw),
-                          lib_bwd)}
+    return {"flash_fwd": (lambda: flash_fwd_cuda(qp, kp, vp, **kw,
+                                                 scale=sc), lib_fwd),
+            "flash_bwd": (lambda: flash_bwd_cuda(qp, kp, vp, o, lse, dp_,
+                                                 **kw, scale=sc), lib_bwd)}
 
 
 def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
-                audio=FLASH_AUDIO) -> list:
+                audio=FLASH_AUDIO, zamba=FLASH_ZAMBA) -> list:
     """Flash attention kernel cases: awkward shapes, then
-    transformer-table1's folded call, the audio train path's (``audio``)
-    and the LLM path's (timed; the LLM path's last)."""
+    transformer-table1's folded call, the audio train path's (``audio``),
+    zamba2_7b's shared block at head dim 112, zero-padded to 128
+    (``zamba``), and the LLM path's (timed; the LLM path's last)."""
     out, failures = [], []
     # (case, timed, seed): the seeds of the cases before stay as they were
     n_awk = len(FLASH_AWKWARD)
     cases = ([(c, False, 500 + i) for i, c in enumerate(FLASH_AWKWARD)]
              + [(FLASH_TT1, True, 500 + n_awk),
                 (audio, True, 500 + n_awk + 2),
+                (zamba, True, 500 + n_awk + 3),
                 (path, True, 500 + n_awk + 1)])
     for case, timed, seed in cases:
         rec = flash_case(torch, case, timed and device == "cuda",
@@ -1860,9 +2042,10 @@ def llm_argv(device: str, steps: int, n_layers: int = LLM_LAYERS) -> list:
 
 
 def llm_launches(cfg, plan, steps: int, on_card: bool, **server) -> dict:
-    """Expected launches of ``steps`` LLM steps: the flash kernels per layer
-    and worker, and the server kernels given (per step)."""
-    per_step = cfg.n_layers * plan.n_workers
+    """Expected launches of ``steps`` LLM steps: the flash kernels per
+    self-attention application (:func:`flash_layers`) and worker, and the
+    server kernels given (per step)."""
+    per_step = flash_layers(cfg, True) * plan.n_workers
     want = {"flash_fwd": per_step * steps, "flash_bwd": per_step * steps,
             "cwtm": steps, "pairdist": 0, "median": 0,
             **{k: v * steps for k, v in server.items()}}
@@ -2923,34 +3106,57 @@ AUDIO_LAYERS, AUDIO_STEPS, AUDIO_CHECK_STEPS = 2, 4, 2
 
 
 def self_layers(cfg) -> int:
-    """Self-attention layers of ``cfg`` (the vlm's cross layers aside)."""
+    """Self-attention applications of ``cfg``'s train-mode forward: every
+    layer of the attention families but the vlm's cross layers; none in
+    the ssm family; the hybrid's shared block once a group."""
     if cfg.family == "vlm":
         return cfg.n_layers - cfg.n_layers // cfg.cross_attn_every
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
     return cfg.n_layers
 
 
 def flash_layers(cfg, on_card: bool) -> int:
     """Flash forward launches of one train-mode forward: one per
-    self-attention layer where the kernel takes the inputs (bfloat16, head
-    dims 64, 80, 128), on the card only."""
-    from repro_torch.kernels.flash_attention.flash import HEAD_DIMS
-    takes = cfg.dtype == "bfloat16" and cfg.resolved_head_dim in HEAD_DIMS
+    self-attention application where the kernel takes the inputs
+    (bfloat16, head dims 64, 80, 128, those below 128 zero-padded to it;
+    never MLA, whose attention is the plain one in the reference too), on
+    the card only."""
+    from repro_torch.kernels.flash_attention.flash import HEAD_DIMS, padded_dim
+    takes = (cfg.dtype == "bfloat16" and not cfg.use_mla
+             and padded_dim(cfg.resolved_head_dim) in HEAD_DIMS)
     return self_layers(cfg) if on_card and takes else 0
 
 
 def teacher_forced(torch, cfg, params, prompt: dict, steps: int,
-                   max_len=None) -> dict:
+                   max_len=None, full: bool = True,
+                   prompt_only: bool = False) -> dict:
     """Prefill ``prompt`` into caches of ``max_len`` positions (default
     prompt + ``steps``), greedy-decode ``steps`` tokens through
-    ``forward(mode="decode")`` keeping each step's hidden state, then the
-    train-mode forward over the prompt and the decoded tokens
+    ``forward(mode="decode")`` keeping each step's hidden state, then (with
+    ``full``) the train-mode forward over the prompt and the decoded tokens
     (teacher-forced; padded past the end to a whole number of the plain
     attention's 1,024-query chunks, which causality leaves unread). Returns
     the generated tokens, max |diff| / max |h| of the prefill and of each
     step, the flash forward launches of the train-mode forward alone, and
-    the prefill's and the steps' wall ms (each ends in a synchronise)."""
+    the prefill's and the steps' wall ms (each ends in a synchronise).
+    ``prompt_only`` holds the prefill against the train-mode forward over
+    the prompt alone instead (``rel_prefill``; its launches
+    ``flash_fwd_prompt``): an MoE layer routes the same tokens the same way
+    only in groups of the same tokens, so at a capacity that binds that is
+    the prefill's counterpart.
+
+    MoE models: the prefill's and the steps' expert choices are recorded
+    and the train-mode forwards replay them (``moe.RouteLog``), so that
+    both sides route every token alike; the forwards are also run on
+    their own choices, and the choices that differ (``flipped``: rows of a
+    layer whose k experts differ) and those runs' errors (``free_*``) are
+    reported beside."""
     from repro_torch import kernels as K
     from repro_torch.models import cache_init, forward, logits_fn
+    from repro_torch.models import moe as MOE
     from repro_torch.models.decode import one_hot
 
     key = "tokens" if cfg.input_kind == "tokens" else "embeddings"
@@ -2972,45 +3178,100 @@ def teacher_forced(torch, cfg, params, prompt: dict, steps: int,
         caches = cache_init(cfg, b, max_len or s + steps, device=dev)
         wall(0.0)
         t0 = time.perf_counter()
-        pre, caches, _ = forward(params, cfg, prompt, mode="prefill",
-                                 caches=caches)
-        toks, hs = [next_tok(pre[:, -1:])], []
+        with MOE.routes(MOE.RouteLog()) as pre_routes:
+            pre, caches, _ = forward(params, cfg, prompt, mode="prefill",
+                                     caches=caches)
+        toks, hs, step_routes = [next_tok(pre[:, -1:])], [], []
         prefill_ms, step_ms = wall(t0), []
         for i in range(steps):
             t0 = time.perf_counter()
             db = {key: feed(toks[-1])}
             if cfg.family == "vlm":
                 db["image_embeddings"] = prompt["image_embeddings"]
-            h, caches, _ = forward(params, cfg, db, mode="decode", pos=s + i,
-                                   caches=caches)
+            with MOE.routes(MOE.RouteLog()) as log_i:
+                h, caches, _ = forward(params, cfg, db, mode="decode",
+                                       pos=s + i, caches=caches)
+            step_routes.append(log_i.calls)
             hs.append(h[:, 0])
             toks.append(next_tok(h))
             step_ms.append(wall(t0))
         del caches
-        seq = [prompt[key]] + [feed(t) for t in toks[:steps]]
-        n = s + steps
-        pad = (-n) % 1024 if n > 1024 else 0
-        if pad:
-            seq.append(torch.zeros_like(seq[-1][:, :1]).expand(
-                *((b, pad) + tuple(seq[-1].shape[2:]))))
-        full_batch = {**prompt, key: torch.cat(seq, dim=1)}
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        K.reset_launches()
-        full, _, _ = forward(params, cfg, full_batch, mode="train")
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        flash = K.launches()["flash_fwd"]
-    full = full[:, :n].float()
-    scale = float(full.abs().max())
-    rel_pre = float((pre.float() - full[:, :s]).abs().max()) / scale
-    rel_steps = [float((h.float() - full[:, s + i]).abs().max()) / scale
-                 for i, h in enumerate(hs)]
-    finite = bool(torch.isfinite(full).all()) and all(
-        bool(torch.isfinite(h).all()) for h in [pre] + hs)
-    return {"tokens": torch.cat(toks, dim=1), "rel_prefill": rel_pre,
-            "rel_steps": rel_steps, "max_h": scale, "flash_fwd": flash,
-            "finite": finite, "prefill_ms": prefill_ms, "step_ms": step_ms}
+        out = {"tokens": torch.cat(toks, dim=1), "prefill_ms": prefill_ms,
+               "step_ms": step_ms, "rel_steps": [], "flash_fwd": None}
+        finite = all(bool(torch.isfinite(h).all()) for h in [pre] + hs)
+        moe = bool(pre_routes.calls)
+
+        def train_forward(batch, replay=None):
+            """``(hidden float32, flash launches, choices)``: on the
+            replayed choices, or on its own (recorded)."""
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            K.reset_launches()
+            with MOE.routes(MOE.RouteLog(replay)) as log:
+                h, _, _ = forward(params, cfg, batch, mode="train")
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            return h.float(), K.launches()["flash_fwd"], log.calls
+
+        def flipped(given, own):
+            return sum(int((a.sort(1).values != c.sort(1).values).any(1)
+                           .sum()) for a, c in zip(given, own))
+
+        def rel(a, ref, scale):
+            return float((a.float() - ref).abs().max()) / scale
+
+        if prompt_only:
+            ref, out["flash_fwd_prompt"], _ = train_forward(
+                prompt, pre_routes.calls if moe else None)
+            scale = float(ref.abs().max())
+            out.update(rel_prefill=rel(pre, ref, scale), max_h=scale)
+            finite = finite and bool(torch.isfinite(ref).all())
+            if moe:
+                free, _, own = train_forward(prompt)
+                out.update(free_rel_prefill=rel(pre, free, scale),
+                           flipped_prefill=flipped(pre_routes.calls, own))
+                del free
+            del ref
+        if full:
+            seq = [prompt[key]] + [feed(t) for t in toks[:steps]]
+            n = s + steps
+            pad = (-n) % 1024 if n > 1024 else 0
+            if pad:
+                seq.append(torch.zeros_like(seq[-1][:, :1]).expand(
+                    *((b, pad) + tuple(seq[-1].shape[2:]))))
+            batch = {**prompt, key: torch.cat(seq, dim=1)}
+            given = None
+            if moe:
+                # each MoE layer's choices over the whole sequence, [B, n,
+                # k] flattened as the forward flattens its tokens
+                given = []
+                for j, c in enumerate(pre_routes.calls):
+                    k = c.shape[-1]
+                    rows = [c.reshape(b, s, k)] + [
+                        r[j].reshape(b, 1, k) for r in step_routes]
+                    given.append(torch.cat(rows, dim=1).reshape(-1, k))
+                if pad:
+                    raise ValueError("replayed choices cover no padding")
+            ref, out["flash_fwd"], _ = train_forward(batch, given)
+            ref = ref[:, :n]
+            scale = float(ref.abs().max())
+            if not prompt_only:
+                out.update(rel_prefill=rel(pre, ref[:, :s], scale),
+                           max_h=scale)
+            out["rel_steps"] = [rel(h, ref[:, s + i], scale)
+                                for i, h in enumerate(hs)]
+            finite = finite and bool(torch.isfinite(ref).all())
+            if moe:
+                free, _, own = train_forward(batch)
+                free = free[:, :n]
+                out.update(free_rel_steps=[rel(h, free[:, s + i], scale)
+                                           for i, h in enumerate(hs)],
+                           flipped_full=flipped(given, own))
+                if not prompt_only:
+                    out["free_rel_prefill"] = rel(pre, free[:, :s], scale)
+                del free
+    out["finite"] = finite
+    return out
 
 
 def serve_case(torch, label: str, argv: list, tol: float,
@@ -3068,20 +3329,20 @@ def serve_case(torch, label: str, argv: list, tol: float,
     return rec
 
 
-def decode_profile(torch, arch: str, steps: int = 3) -> dict:
+def decode_profile(torch, arch: str, steps: int = 3, extra=()) -> dict:
     """A profiled window of ``steps`` greedy decode steps of ``arch`` at the
-    serving launcher's defaults on the card, after a prefill, one warm-up
-    step and ``steps`` unprofiled steps timed on the host clock: the
-    device's busy time a step, and its idle share both against the
-    profiled window's wall time (which the profiler lengthens) and against
-    the unprofiled steps' time."""
+    serving launcher's defaults on the card (``extra``: more launcher
+    flags), after a prefill, one warm-up step and ``steps`` unprofiled
+    steps timed on the host clock: the device's busy time a step, and its
+    idle share both against the profiled window's wall time (which the
+    profiler lengthens) and against the unprofiled steps' time."""
     import numpy as np
 
     from repro_torch.launch import serve
     from repro_torch.models import (cache_init, forward, logits_fn,
                                     make_decode_step, model_init)
 
-    args = serve.parse_args(["--arch", arch])
+    args = serve.parse_args(["--arch", arch, *extra])
     dev = torch.device("cuda")
     cfg = serve.model_config(args, dev)
     params = model_init(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -3121,7 +3382,17 @@ def decode_profile(torch, arch: str, steps: int = 3) -> dict:
     return out
 
 
-def decode_phase(torch, device: str = "cuda") -> dict:
+def decode_profiles(torch, cases) -> dict:
+    """:func:`decode_profile` of each ``(arch, extra flags)``, last in a
+    process: the profiler slows the launches that follow it."""
+    return {arch: decode_profile(torch, arch, extra=extra)
+            for arch, extra in cases}
+
+
+DECODE_PROFILED = ((DECODE_ARCH, ()), ("musicgen_medium", ()))
+
+
+def decode_phase(torch, device: str = "cuda", profile: bool = True) -> dict:
     """Prefill and greedy decode through ``repro_torch.launch.serve`` (the
     reference's defaults: batch 4, prompt 32, 8 tokens): (1) llama32_vision_11b
     at full width and depth in bfloat16, timed, each step against the
@@ -3132,8 +3403,9 @@ def decode_phase(torch, device: str = "cuda") -> dict:
     (4 layers), timed and self-consistent; (5) the audio family's train
     path through ``launch.train`` (musicgen_medium, 2 layers), its launch
     counts and first steps against the plain path; (6) profiled decode
-    steps of llama32_vision_11b and musicgen_medium (the card only). On the
-    CPU (rehearsal) every model is the launchers' reduced one."""
+    steps of llama32_vision_11b and musicgen_medium (the card only; with
+    ``profile=False`` the caller takes them later). On the CPU (rehearsal)
+    every model is the launchers' reduced one."""
     import numpy as np
 
     from repro_torch import kernels as K
@@ -3267,12 +3539,384 @@ def decode_phase(torch, device: str = "cuda") -> dict:
     del plain
     done()
     # (6) where a decode step's time goes, last: the profiler slows the
-    # launches that follow it in its process
-    if on_card:
-        out["profile"] = {name: decode_profile(torch, name)
-                          for name in (DECODE_ARCH, "musicgen_medium")}
+    # launches that follow it in its process (the full run takes them
+    # after the families phase)
+    if on_card and profile:
+        out["profile"] = decode_profiles(torch, DECODE_PROFILED)
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"decode: phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+# ----------------------------------------------------------------------- #
+# the MoE, MLA, SSM and hybrid families, served and trained
+# ----------------------------------------------------------------------- #
+
+# served at the launcher's defaults (batch 4, prompt 32, 8 tokens), bf16:
+# dbrx_132b at full width cut to 4 layers (40 hold ~490 GiB of float32
+# masters), the others at full width and depth
+FAMILY_SERVE = (("dbrx_132b", ("--n-layers", "4")),
+                ("deepseek_v2_lite_16b", ()), ("mamba2_1_3b", ()),
+                ("zamba2_7b", ()))
+# cuts at full width, (arch, layers, dtype): deepseek_v2_lite_16b's dense
+# layer and one MoE layer in float32; zamba2_7b's first group and one
+# trailing mamba2 block in float32 and in bfloat16; zamba2_7b at full depth
+# in float32 (its bfloat16 run at full depth is not held to the bar, below)
+FAMILY_CUTS = (("deepseek_v2_lite_16b", 2, "float32"),
+               ("zamba2_7b", 7, "float32"), ("zamba2_7b", 7, "bfloat16"),
+               ("zamba2_7b", 81, "float32"))
+# Served at full depth in bfloat16 but not held to DECODE_TOL_BF16 (its
+# tokens, launches and finiteness are): at zamba2_7b's 81 layers a bfloat16
+# rounding difference anywhere grows to ~5% of max |h| by the last layer.
+# Prefill and the train-mode forward over prompt + tokens, both on the
+# plain attention, so the same algorithm over the first 32 positions and
+# differing only in the matrices' row counts, read 0.0536 on an H100 80GB
+# HBM3 at 700 W (``python3 chip_smoke.py floor``); with the float32 SSM
+# state in the cache the steps read 0.041-0.062, as with the bfloat16 one.
+# The float32 model at full depth and the bfloat16 one cut to 7 layers hold
+# the same checks to their bars.
+FAMILY_BF16_UNGATED = ("zamba2_7b",)
+# mamba2_1_3b through a long prompt: 16 whole chunks of 256 and a padded
+# 17th (the chunk recurrence, the pad, the conv state), then 16 steps
+FAMILY_LONG = ("mamba2_1_3b", 4100, 16)
+# the train paths: (arch, layers, bank dtype), full width, seq 4096, 8
+# workers, f = 1, ALIE, CWTM, global Block-RandK 0.05; bfloat16 banks at
+# D ~ 1e9, where two float32 [8, D] banks would fill 66 GB
+FAMILY_TRAIN = (("deepseek_v2_lite_16b", 2, "bfloat16"),
+                ("mamba2_1_3b", 2, "float32"),
+                ("zamba2_7b", 6, "bfloat16"))
+FAMILY_STEPS, FAMILY_CHECK_STEPS = 4, 2
+
+
+def family_serve_case(torch, arch: str, extra, dev_args: list,
+                      on_card: bool, gated: bool = True) -> tuple:
+    """``launch.serve.run`` of ``arch`` (the plain attention: no kernel
+    launches), its times and peak memory, then the checks against the
+    train-mode forward. An MoE layer's capacity depends on the group's
+    token count, so where it binds (the configs' factor 1.25) the prefill
+    routes as the train-mode forward over the prompt alone does, and is
+    held against that; the greedy tokens are reproduced at 1.25; each
+    decode step (4 tokens: never over capacity, which is at least k) is
+    held against the teacher-forced forward at a factor of E/k, where no
+    group drops a choice, with its prefill. ``gated=False`` reports the
+    errors without holding them to the bar. Returns the record and the
+    session (parameters, prompt)."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import serve
+    from repro_torch.utils.tree import tree_leaves
+
+    K.reset_launches()
+    res = serve.run(["--arch", arch, *extra] + dev_args, log=log)
+    launches = {k: v for k, v in K.launches().items() if v}
+    cfg = res["cfg"]
+    b, n_tok = res["tokens"].shape
+    steps = n_tok - 1
+    s = next(iter(res["batch"].values())).shape[1]
+    rec = {"arch": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "batch": b,
+           "prompt": s, "tokens": n_tok,
+           "params": sum(t.numel() for t in tree_leaves(res["params"])),
+           **{k: res[k] for k in ("prefill_ms", "decode_ms",
+                                  "decode_ms_per_step", "tokens_per_s",
+                                  "peak_mib")}, "serve_launches": launches}
+    del res["caches"]
+    moe = cfg.family == "moe"
+    chk = teacher_forced(torch, cfg, res["params"], res["batch"], steps,
+                         max_len=s + n_tok, full=not moe, prompt_only=moe)
+    same = torch.equal(chk["tokens"], res["tokens"][:, :steps + 1])
+    rec.update(rel_prefill=chk["rel_prefill"], max_h=chk["max_h"],
+               tokens_reproduced=same, warm_prefill_ms=chk["prefill_ms"],
+               warm_step_ms=chk["step_ms"])
+    finite = chk["finite"]
+    if moe:
+        cap = cfg.n_experts / cfg.top_k
+        rec.update(check_flash_fwd_prompt=chk["flash_fwd_prompt"],
+                   flipped_prefill_125=chk["flipped_prefill"],
+                   free_rel_prefill_125=chk["free_rel_prefill"])
+        chk = teacher_forced(torch, cfg.with_overrides(capacity_factor=cap),
+                             res["params"], res["batch"], steps,
+                             max_len=s + n_tok)
+        rec.update(capacity_factor_steps=cap,
+                   rel_prefill_unbound=chk["rel_prefill"])
+        finite = finite and chk["finite"]
+    rec.update(rel_steps=chk["rel_steps"], check_flash_fwd=chk["flash_fwd"],
+               tol=DECODE_TOL_BF16 if gated else None)
+    want_flash = flash_layers(cfg, on_card)
+    rels = [rec["rel_prefill"]] + chk["rel_steps"] + (
+        [rec["rel_prefill_unbound"]] if moe else [])
+    if moe:
+        rec.update(flipped_prefill=rec.pop("flipped_prefill_125"),
+                   free_rel_prefill=rec.pop("free_rel_prefill_125"),
+                   flipped_full=chk["flipped_full"],
+                   free_rel_steps=chk["free_rel_steps"])
+        log(f"families {cfg.name}: on their own choices the train-mode "
+            f"forwards route {rec['flipped_prefill']} (prompt) and "
+            f"{rec['flipped_full']} (teacher-forced) token-layers to "
+            f"other experts than prefill and decode did: prefill "
+            f"{rec['free_rel_prefill']:.3g}, steps "
+            f"{', '.join(f'{v:.3g}' for v in rec['free_rel_steps'])} of "
+            f"max|h| (not held to the bar; the checks replay the choices)")
+    log(f"families {cfg.name}: layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"dtype={cfg.dtype} params={rec['params']:,}; prefill "
+        f"{rec['prefill_ms']:.3f} ms, {rec['decode_ms_per_step']} ms a "
+        f"decode step, {rec['tokens_per_s']} tokens/s, peak "
+        f"{rec['peak_mib']} MiB, launches {launches}; against the train-mode "
+        f"forward: prefill {rec['rel_prefill']:.3g}"
+        + (f" (over the prompt alone; at capacity factor {cap:g} "
+           f"{rec['rel_prefill_unbound']:.3g})" if moe else "")
+        + f", steps {', '.join(f'{v:.3g}' for v in chk['rel_steps'])} of "
+        f"max|h| {rec['max_h']:.4g} ("
+        + (f"bar {DECODE_TOL_BF16:g}" if gated else "not held to a bar: "
+           "FAMILY_BF16_UNGATED") + f"), flash "
+        f"forward launches {chk['flash_fwd']} (expected {want_flash}), "
+        f"tokens reproduced {same}")
+    if launches or not finite or not same or \
+            (gated and max(rels) > DECODE_TOL_BF16) or \
+            chk["flash_fwd"] != want_flash \
+            or (moe and rec["check_flash_fwd_prompt"] != want_flash):
+        raise AssertionError(f"families {cfg.name}: {rec}")
+    session = {"cfg": cfg, "params": res["params"]}
+    del res, chk
+    return rec, session
+
+
+def family_cut_case(torch, arch: str, layers: int, dtype: str,
+                    dev_args: list, on_card: bool) -> dict:
+    """The arch at full width cut to ``layers`` in ``dtype``: the prefill
+    and each decode step against the teacher-forced train-mode forward
+    within 1e-4 (float32) or 5e-2 (bfloat16) of max |h| (MoE at a capacity
+    factor of E/k, where nothing drops, the choices replayed), with the
+    flash forward launches of a bfloat16 train-mode forward."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.models import model_init
+
+    args = serve.parse_args(["--arch", arch, "--n-layers", str(layers)]
+                            + dev_args)
+    dev = torch.device("cuda" if on_card else "cpu")
+    cfg = serve.model_config(args, dev).with_overrides(dtype=dtype)
+    if cfg.family == "moe":
+        cfg = cfg.with_overrides(capacity_factor=cfg.n_experts / cfg.top_k)
+    tol = DECODE_TOL_F32 if dtype == "float32" else DECODE_TOL_BF16
+    params = model_init(cfg, torch.Generator(device=dev).manual_seed(0))
+    prompt = {k: torch.from_numpy(v).to(dev) for k, v in serve.make_prompt(
+        cfg, args.batch, args.prompt_len, np.random.default_rng(0)).items()}
+    chk = teacher_forced(torch, cfg, params, prompt, args.tokens - 1)
+    want = flash_layers(cfg, on_card)
+    log(f"families {cfg.name} {dtype}: layers={cfg.n_layers} d_model="
+        f"{cfg.d_model}: against the train-mode forward prefill "
+        f"{chk['rel_prefill']:.3g}, steps "
+        f"{', '.join(f'{v:.3g}' for v in chk['rel_steps'])} of max|h| "
+        f"{chk['max_h']:.4g} (bar {tol:g}), flash forward launches "
+        f"{chk['flash_fwd']} (expected {want})")
+    if not chk["finite"] or max([chk["rel_prefill"]] + chk["rel_steps"]) \
+            > tol or chk["flash_fwd"] != want:
+        raise AssertionError(f"families {cfg.name} {dtype} {layers}: {chk}")
+    del params, prompt
+    return {"arch": cfg.name, "layers": cfg.n_layers, "dtype": dtype,
+            "tol": tol, "check_flash_fwd": chk["flash_fwd"],
+            **{k: chk[k] for k in ("rel_prefill", "rel_steps", "max_h")}}
+
+
+def family_train_case(torch, arch: str, layers: int, mdt: str,
+                      dev_args: list, on_card: bool) -> dict:
+    """``launch.train`` on ``arch`` at full width cut to ``layers`` (the
+    payload route: compress, ``momentum_scatter`` and CWTM once a step, no
+    decompress; the flash kernels once a self-attention application and
+    worker), ``FAMILY_STEPS`` steps with finite losses, then its first
+    ``FAMILY_CHECK_STEPS`` against the plain path."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import train
+
+    argv = ["--arch", arch, "--n-layers", str(layers), "--n-workers",
+            str(LLM_WORKERS), "--global-batch", str(LLM_WORKERS), "--f", "1",
+            "--ratio", "0.05", "--gamma", str(LLM_GAMMA), "--seed", "0",
+            "--momentum-dtype", mdt] + dev_args
+    label = f"families train {arch}"
+    K.reset_launches()
+    res = train.run(argv + ["--steps", str(FAMILY_STEPS)], log=log)
+    launches = K.launches()
+    plan = res["plan"]
+    check_launches(label, launches, llm_launches(
+        plan.model, plan, FAMILY_STEPS, on_card, block_compress=1,
+        block_decompress=0, momentum_scatter=1))
+    losses, norms = res["losses"], res["dir_norms"]
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"{label}: non-finite {losses} {norms}")
+    peak = (res["peak_bytes"] / 2**20 if res["peak_bytes"] is not None
+            else None)
+    step_ms = res["step_ms"]
+    bank = str(res["state"].server.momentum.dtype).split(".")[-1]
+    del res
+    if on_card:
+        torch.cuda.empty_cache()
+    plain = train.run(argv + ["--steps", str(FAMILY_CHECK_STEPS)],
+                      plain=True, log=log)
+    rel_l = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                   plain["losses"]))
+    rel_r = max(abs(a - b) / abs(b) for a, b in zip(norms,
+                                                   plain["dir_norms"]))
+    plain_ms, plain_peak = plain["step_ms"], plain["peak_bytes"]
+    del plain
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"{label}: layers={plan.model.n_layers} D="
+        f"{plan.flat_spec.padded_size:,} bank width {plan.bank_width:,} "
+        f"({bank}) seq={plan.shape.seq_len} n={plan.n_workers}: losses "
+        f"{losses}, |R| {norms}, wall ms "
+        f"{', '.join(f'{v:.3f}' for v in step_ms)}, peak {peak} MiB, "
+        f"launches {launches}; kernel vs plain over {FAMILY_CHECK_STEPS} "
+        f"steps: loss max rel {rel_l:.3g} (bound {LLM_TOL_LOSS:g}), |R| max "
+        f"rel {rel_r:.3g} (bound {LLM_TOL_DIR:g}); plain steps "
+        f"{', '.join(f'{v:.3f}' for v in plain_ms)} ms")
+    if rel_l > LLM_TOL_LOSS or rel_r > LLM_TOL_DIR or bank != mdt:
+        raise AssertionError(f"{label}: kernel and plain paths disagree")
+    return {"arch": arch, "layers": plan.model.n_layers,
+            "D": plan.flat_spec.padded_size, "bank_width": plan.bank_width,
+            "bank_dtype": bank, "seq": plan.shape.seq_len,
+            "workers": plan.n_workers, "steps": FAMILY_STEPS,
+            "losses": losses, "dir_norms": norms, "step_ms": step_ms,
+            "peak_mib": peak, "launches": launches, "plain_rel_loss": rel_l,
+            "plain_rel_dir": rel_r, "plain_step_ms": plain_ms,
+            "plain_peak_mib": (plain_peak / 2**20 if plain_peak is not None
+                               else None)}
+
+
+def families_phase(torch, device: str = "cuda") -> dict:
+    """The MoE, MLA, SSM and hybrid families through the launchers: (a)-(d)
+    dbrx_132b (4 layers), deepseek_v2_lite_16b, mamba2_1_3b and zamba2_7b
+    (full depth) served in bfloat16 (:func:`family_serve_case`), the cuts
+    of :data:`FAMILY_CUTS` (:func:`family_cut_case`), mamba2_1_3b through a
+    4,100-token prompt and 16 steps; (e) the train paths of
+    deepseek_v2_lite_16b, mamba2_1_3b and zamba2_7b
+    (:func:`family_train_case`). The decode steps' profiles are taken
+    later (:data:`FAMILY_PROFILED`). On the CPU (rehearsal) every model is
+    the launchers' reduced one."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+
+    on_card = device == "cuda"
+    dev_args = [] if on_card else ["--device", "cpu"]
+    t_phase = time.perf_counter()
+    out = {"serve": {}, "cuts": {}, "train": {}}
+
+    def done():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    for arch, extra in FAMILY_SERVE:
+        rec, session = family_serve_case(
+            torch, arch, extra, dev_args, on_card,
+            gated=arch not in FAMILY_BF16_UNGATED)
+        out["serve"][arch] = rec
+        if arch == FAMILY_LONG[0]:
+            _, n_prompt, n_steps = FAMILY_LONG
+            cfg = session["cfg"]
+            prompt = {k: torch.from_numpy(v).to(device) for k, v in
+                      serve.make_prompt(cfg, 1, n_prompt,
+                                        np.random.default_rng(0)).items()}
+            t0 = time.perf_counter()
+            chk = teacher_forced(torch, cfg, session["params"], prompt,
+                                 n_steps)
+            wall = time.perf_counter() - t0
+            chunks = -(-n_prompt // min(cfg.ssm_chunk, n_prompt))
+            log(f"families {cfg.name} long prompt: {n_prompt} tokens "
+                f"({chunks} chunks of {cfg.ssm_chunk}, the last padded), "
+                f"{n_steps} steps: against the train-mode forward prefill "
+                f"{chk['rel_prefill']:.3g}, steps "
+                f"{', '.join(f'{v:.3g}' for v in chk['rel_steps'])} of "
+                f"max|h| {chk['max_h']:.4g} (bar {DECODE_TOL_BF16:g}); "
+                f"prefill {chk['prefill_ms']:.3f} ms, steps "
+                f"{', '.join(f'{v:.3f}' for v in chk['step_ms'])} ms, "
+                f"{wall:.2f} s with the check")
+            if not chk["finite"] or max([chk["rel_prefill"]]
+                                        + chk["rel_steps"]) \
+                    > DECODE_TOL_BF16 or n_prompt % cfg.ssm_chunk == 0:
+                raise AssertionError(f"families long prompt: {chk}")
+            out["long"] = {"arch": cfg.name, "layers": cfg.n_layers,
+                           "prompt": n_prompt, "steps": n_steps,
+                           "chunks": chunks, "wall_s": wall,
+                           "tol": DECODE_TOL_BF16,
+                           **{k: chk[k] for k in ("rel_prefill", "rel_steps",
+                                                  "max_h", "prefill_ms",
+                                                  "step_ms")}}
+            del prompt, chk
+        del session
+        done()
+    for arch, layers, dtype in FAMILY_CUTS:
+        out["cuts"][f"{arch}/{layers}/{dtype}"] = family_cut_case(
+            torch, arch, layers, dtype, dev_args, on_card)
+        done()
+    for arch, layers, mdt in FAMILY_TRAIN:
+        out["train"][arch] = family_train_case(torch, arch, layers, mdt,
+                                               dev_args, on_card)
+        done()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"families: phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+FAMILY_PROFILED = tuple((arch, tuple(extra)) for arch, extra in FAMILY_SERVE)
+
+
+def floor_phase(torch, device: str = "cuda",
+                archs=("zamba2_7b", "mamba2_1_3b")) -> dict:
+    """Where the bfloat16 decode checks' gap comes from at depth (the
+    evidence for :data:`FAMILY_BF16_UNGATED`; ``python3 chip_smoke.py
+    floor``, a partial run): each arch at the serving launcher's defaults
+    through :func:`teacher_forced` with the flash kernels or the plain
+    attention in the train-mode forward, and with the SSM state kept in
+    the cache's bfloat16 or in float32."""
+    import numpy as np
+
+    import repro_torch.models as M
+    from repro_torch.launch import serve
+    from repro_torch.models import model_init
+
+    real = M.cache_init
+
+    def f32_state(cfg, b, n, dtype=None, device=None):
+        c = real(cfg, b, n, dtype=dtype, device=device)
+        for key in ("blocks", "tail_blocks"):
+            if c.get(key) is not None:
+                c[key]["state"] = c[key]["state"].float()
+        return c
+
+    dev = torch.device(device)
+    dev_args = [] if device == "cuda" else ["--device", "cpu"]
+    out = {}
+    try:
+        for arch in archs:
+            args = serve.parse_args(["--arch", arch] + dev_args)
+            cfg = serve.model_config(args, dev).with_overrides(
+                dtype="bfloat16")
+            params = model_init(cfg, torch.Generator(device=dev)
+                                .manual_seed(0))
+            prompt = {k: torch.from_numpy(v).to(dev) for k, v in
+                      serve.make_prompt(cfg, args.batch, args.prompt_len,
+                                        np.random.default_rng(0)).items()}
+            for attn in ("flash", "plain"):
+                for state in ("bfloat16", "float32"):
+                    M.cache_init = f32_state if state == "float32" else real
+                    c = cfg if attn == "flash" else cfg.with_overrides(
+                        use_flash_attention=False)
+                    chk = teacher_forced(torch, c, params, prompt,
+                                         args.tokens - 1)
+                    out[f"{arch}/{attn}/{state}"] = {
+                        k: chk[k] for k in ("rel_prefill", "rel_steps",
+                                            "flash_fwd")}
+                    log(f"floor {arch}: {attn} attention in the train-mode "
+                        f"forward, SSM state in {state}: prefill "
+                        f"{chk['rel_prefill']:.4g}, steps "
+                        f"{', '.join(f'{v:.4g}' for v in chk['rel_steps'])}"
+                        f" of max|h|, flash launches {chk['flash_fwd']}")
+            del params, prompt
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        M.cache_init = real
     return out
 
 
@@ -3288,7 +3932,7 @@ def split_record(rec) -> dict:
 
 
 def kernel_record(results, randk, flash, cnn, quad, llm, grid,
-                  serve, stream, decode) -> dict:
+                  serve, stream, decode, families) -> dict:
     """The ``{"kernels": [...]}`` line: every kernel of the port, its
     launches on the main paths and its numbers at its main path's shape.
     ``launches`` is the CNN path's count (the median's first path is the
@@ -3297,9 +3941,11 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
     ``rosdhb/foe/median`` cell); ``launches_stream`` the streamed paths'
     (the CNN's 100 rounds, the table1 grid's 40, transformer-table1's 16
     rounds and its eval); ``launches_audio_train`` musicgen_medium's train
-    path (2 layers, 4 steps); the flash forward's ``launches_decode_checks``
-    the train-mode forwards that the decode phase holds prefill and decode
-    against."""
+    path (2 layers, 4 steps); ``launches_families_train`` the families'
+    train paths (4 steps each); the flash forward's
+    ``launches_decode_checks`` and ``launches_families_checks`` the
+    train-mode forwards that the decode and families phases hold prefill
+    and decode against."""
     record = {"kernels": []}
     for name in SORT_KERNELS:
         recs = [r for r in results[name] if "ms" in r]
@@ -3356,6 +4002,15 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": shape})
+        if name.startswith("block"):
+            record["kernels"][-1].update(
+                device_us=t.get("device_us"), host_us=t["host_us"],
+                shapes=[{"shape": r["shape"], "dtype": r["dtype"],
+                         "max_abs_err": r["max_abs_err"][name],
+                         **{k: r[name].get(k) for k in (
+                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "device_us", "host_us")}}
+                        for r in randk["block"] if name in r])
         if name.startswith("flash"):
             record["kernels"][-1].update(
                 device_us=t.get("device_us"), host_us=t["host_us"],
@@ -3393,16 +4048,25 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
         "max_abs_err": max(r["max_abs_err"] for r in randk["momentum"]),
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "shape")},
-        "shapes": [{k: r[k] for k in ("shape", "dtype", "ms", "plain_ms",
-                                      "bound_ms", "max_abs_err")}
+        "device_us": head.get("device_us"), "host_us": head["host_us"],
+        "shapes": [{k: r.get(k) for k in ("shape", "dtype", "ms", "plain_ms",
+                                          "bound_ms", "max_abs_err",
+                                          "device_us", "host_us")}
                    for r in recs]})
     audio = decode["audio_train"]["launches"]
     for k in record["kernels"]:
         k["launches_audio_train"] = audio[k["name"]]
-    record["kernels"][[k["name"] for k in record["kernels"]].index(
-        "flash_fwd")]["launches_decode_checks"] = {
-            name: decode[name]["check_flash_fwd"] for name in
-            ("vlm_bf16", "ring") + tuple(a for a, _ in DECODE_WIDE)}
+        k["launches_families_train"] = {
+            arch: t["launches"][k["name"]]
+            for arch, t in families["train"].items()}
+    flash_fwd = record["kernels"][[k["name"] for k in record["kernels"]]
+                                  .index("flash_fwd")]
+    flash_fwd["launches_decode_checks"] = {
+        name: decode[name]["check_flash_fwd"] for name in
+        ("vlm_bf16", "ring") + tuple(a for a, _ in DECODE_WIDE)}
+    flash_fwd["launches_families_checks"] = {
+        arch: rec["check_flash_fwd"]
+        for arch, rec in families["serve"].items()}
     return record
 
 
@@ -3468,6 +4132,13 @@ def sass_counts(library: Path) -> dict:
 
 
 def main() -> int:
+    # the families' train steps allocate a 30.6 GiB float32 result beside
+    # 46 GiB of banks and parameters: without expandable segments the
+    # caching allocator's split blocks leave no room for it (on an H100
+    # 80GB HBM3: 31.2 GiB reserved but unallocated at the failure)
+    import os
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -3484,8 +4155,8 @@ def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--device-times":
         # one JSON line: profile_cases in a fresh process
         cases = json.loads(sys.argv[2])
-        print(json.dumps(device_times(torch, cases["sort"],
-                                      cases["flash"])))
+        print(json.dumps(device_times(torch, cases["sort"], cases["flash"],
+                                      cases.get("randk", ()))))
         return 0
 
     card = gpu_line()
@@ -3514,16 +4185,26 @@ def main() -> int:
 
     if phases is not None:
         # a partial run (kernel bring-up): no ok line
+        def families_then_profiles(t):
+            out = families_phase(t)
+            out["profile"] = decode_profiles(t, FAMILY_PROFILED)
+            return out
+
         for name, fn in (("kernels", kernel_phase), ("randk", randk_phase),
                          ("flash", flash_phase), ("quadratic", quadratic_phase),
                          ("llm", llm_phase), ("grid", grid_phase),
                          ("serve", serve_phase),
                          ("stream", lambda t: stream_phase(t, card=card)),
-                         ("decode", decode_phase)):
+                         ("decode", decode_phase),
+                         ("families", families_then_profiles),
+                         ("floor", floor_phase)):
             if want(name):
                 out = fn(torch)
                 if name == "kernels":
                     profile_cases(torch, out)
+                elif name == "randk":
+                    profile_cases(torch, {k: [] for k in SORT_KERNELS},
+                                  randk=out)
         log(card)
         return 3
     results = kernel_phase(torch)
@@ -3540,12 +4221,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     stream = stream_phase(torch, card=card)
     torch.cuda.empty_cache()
-    decode = decode_phase(torch)
+    decode = decode_phase(torch, profile=False)
+    torch.cuda.empty_cache()
+    families = families_phase(torch)
+    torch.cuda.empty_cache()
+    # profiled decode steps last in this process (the profiler slows the
+    # launches that follow it)
+    profiles = decode_profiles(torch, DECODE_PROFILED + FAMILY_PROFILED)
+    decode["profile"] = {a: profiles[a] for a, _ in DECODE_PROFILED}
+    families["profile"] = {a: profiles[a] for a, _ in FAMILY_PROFILED}
     torch.cuda.empty_cache()
     profile_cases(torch, results, fresh_process=True,  # see profile_cases
-                  flash=flash)
+                  flash=flash, randk=randk)
     record = kernel_record(results, randk, flash, cnn, quad, llm, grid,
-                           serve, stream, decode)
+                           serve, stream, decode, families)
     log(json.dumps({"summary": {
         "cnn": {k: cnn[k] for k in ("rounds", "median_round_ms", "acc",
                                     "cpu_rel_diff", "profile")},
@@ -3566,7 +4255,8 @@ def main() -> int:
                  "mixed_attacks": grid["mixed_attacks"]},
         "serve": serve,
         "stream": stream,
-        "decode": decode}}, default=str))
+        "decode": decode,
+        "families": families}}, default=str))
     log(json.dumps(record))
     log(card)
     print(json.dumps({"ok": True, "device": {

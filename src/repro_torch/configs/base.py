@@ -1,14 +1,15 @@
 """Config registry (counterpart of ``repro.configs.base``): input shapes,
 architectures and the shape-dependent policy.
 
-The port carries the architectures of the attention families it can build:
-the dense ``stablelm_3b`` (the LLM training path), ``qwen25_3b`` (GQA with a
-QKV bias), ``gemma_2b`` (MQA, head dim 256, GeGLU, tied embeddings) and
-``mistral_large_123b``, the audio ``musicgen_medium`` (embedding inputs)
-and the vlm ``llama32_vision_11b`` (gated cross-attention layers). The
-reference's MoE, MLA, SSM and hybrid architectures raise "not ported" from
-:func:`get_arch`.
-"""
+The port carries every architecture of the reference: the dense
+``stablelm_3b`` (the LLM training path), ``qwen25_3b`` (GQA with a QKV
+bias), ``gemma_2b`` (MQA, head dim 256, GeGLU, tied embeddings) and
+``mistral_large_123b``; the audio ``musicgen_medium`` (embedding inputs);
+the vlm ``llama32_vision_11b`` (gated cross-attention layers); the MoE
+``dbrx_132b`` (16 experts, top 4) and ``deepseek_v2_lite_16b`` (MLA, 64
+routed experts top 6 and 2 shared, one leading dense layer); the SSM
+``mamba2_1_3b``; and the hybrid ``zamba2_7b`` (Mamba2 with one shared
+attention block every 6 layers)."""
 
 from __future__ import annotations
 
@@ -60,8 +61,7 @@ ARCH_IDS = [
     "dbrx_132b", "mistral_large_123b", "llama32_vision_11b", "qwen25_3b",
     "gemma_2b", "zamba2_7b",
 ]
-PORTED_ARCHS = ["stablelm_3b", "qwen25_3b", "gemma_2b", "mistral_large_123b",
-                "musicgen_medium", "llama32_vision_11b"]
+PORTED_ARCHS = list(ARCH_IDS)
 
 _ALIASES = {
     "stablelm-3b": "stablelm_3b",
@@ -81,9 +81,6 @@ def get_arch(arch_id: str) -> ArchSpec:
     arch_id = _ALIASES.get(arch_id, arch_id).replace("-", "_").replace(".", "_")
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id not in PORTED_ARCHS:
-        raise ValueError(f"arch {arch_id!r} is not ported (ported: "
-                         f"{PORTED_ARCHS})")
     return importlib.import_module(f"repro_torch.configs.{arch_id}").SPEC
 
 

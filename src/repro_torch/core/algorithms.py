@@ -385,6 +385,52 @@ def _payload_route(cfg: AlgorithmConfig, d: int) -> bool:
             and cfg.server_compute_dtype == "float32")
 
 
+#: Columns of the ``[n, D]`` bank that one pass of the dense RoSDHB round
+#: takes at a time (:func:`_rosdhb_dense_columns`).
+DENSE_COLUMNS = 1 << 24
+
+
+def _dense_by_columns(cfg: AlgorithmConfig, d: int) -> bool:
+    """The dense RoSDHB round is a function of each column on its own: the
+    masks drawn once, the dense wire (no kernel round trip), an attack
+    and an aggregator that work coordinate by coordinate."""
+    return (cfg.name == "rosdhb"
+            and not C._kernel_eligible(cfg.sparsifier, d)
+            and cfg.attack.name in A.ZERO_PRESERVING
+            and cfg.aggregator.name in ("cwtm", "median", "mean")
+            and not cfg.aggregator.pre_nnm)
+
+
+def _rosdhb_dense_columns(cfg: AlgorithmConfig, agg, state: ServerState,
+                          grads: torch.Tensor, draws, hparams,
+                          attack_params=None) -> Tuple[torch.Tensor,
+                                                       ServerState]:
+    # Steps 1-6 of the dense round a slice of DENSE_COLUMNS columns at a
+    # time: the round's masks drawn once, then compress, the attack, the
+    # momentum and the aggregation of each slice, bitwise the whole
+    # round's (every step works column by column). At D ~ 1e9 the whole
+    # round's float32 [n, D] transients would not fit one card.
+    n, d = grads.shape
+    mask = C.make_masks(draws, n, d, cfg.sparsifier, grads.dtype)
+    cdt = BANK_DTYPES[cfg.server_compute_dtype]
+    momentum = torch.empty_like(state.momentum)
+    r = None
+    for lo in range(0, d, DENSE_COLUMNS):
+        cols = slice(lo, min(d, lo + DENSE_COLUMNS))
+        wire = _byzantine_overwrite(cfg, C.compress(
+            grads[:, cols], mask[..., cols], cfg.sparsifier), attack_params,
+            draws)
+        m, keep = _momentum(state.momentum[:, cols], wire, hparams[0],
+                            hparams[2], cdt)
+        part = agg(m)
+        if r is None:
+            r = part.new_empty(part.shape[:-1] + (d,))
+        r[..., cols] = part
+        momentum[:, cols] = keep
+        del wire, m, keep, part
+    return r, state._replace(momentum=momentum, step=state.step + 1)
+
+
 def _rosdhb_payload_round(cfg: AlgorithmConfig, agg, state: ServerState,
                           grads: torch.Tensor, draws, hparams,
                           attack_params=None) -> Tuple[torch.Tensor,
@@ -644,6 +690,9 @@ def server_round(cfg: AlgorithmConfig, state: ServerState,
                               static_hparams(cfg), attack_params)
     elif _payload_route(cfg, d):
         r, new = _rosdhb_payload_round(cfg, agg, state, grads, draws,
+                                       static_hparams(cfg), attack_params)
+    elif _dense_by_columns(cfg, d):
+        r, new = _rosdhb_dense_columns(cfg, agg, state, grads, draws,
                                        static_hparams(cfg), attack_params)
     else:
         # no name holds the unattacked wire: at an LLM's D each [n, D]

@@ -1064,12 +1064,14 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// scale > 0: the softmax scale of the caller's head dim (a head dim padded
+// to D with zero lanes keeps its own 1/sqrt); else 1/sqrt(D).
 Problem make_problem(int B, int Sq, int Sk, int H, int KV, int D, int causal,
-                     int window, int q_offset) {
+                     int window, int q_offset, float scale) {
   Problem p;
   p.B = B; p.Sq = Sq; p.Sk = Sk; p.H = H; p.KV = KV;
   p.causal = causal; p.window = window; p.q_offset = q_offset;
-  p.scale = 1.0f / sqrtf((float)D);
+  p.scale = scale > 0.0f ? scale : 1.0f / sqrtf((float)D);
   return p;
 }
 
@@ -1145,15 +1147,15 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // All tensors bf16 except lse/delta (float32 [B, H, Sq]), each 16-byte
-// aligned. window <= 0: no sliding window. D in {64, 80, 128}. Returns the
-// launches' cudaError_t (cudaErrorInvalidValue for a shape or pointer the
-// kernels do not take).
+// aligned. window <= 0: no sliding window. D in {64, 80, 128}. scale <= 0:
+// the softmax scale 1/sqrt(D). Returns the launches' cudaError_t
+// (cudaErrorInvalidValue for a shape or pointer the kernels do not take).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int Sq, int Sk, int H, int KV,
                          int D, int causal, int window, int q_offset,
-                         void* stream) {
+                         float scale, void* stream) {
   const Problem p = make_problem(B, Sq, Sk, H, KV, D, causal, window,
-                                 q_offset);
+                                 q_offset, scale);
   if (!problem_ok(p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
@@ -1169,9 +1171,10 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          const void* o, const void* dout, const void* lse,
                          void* delta, void* dq, void* dk, void* dv, int B,
                          int Sq, int Sk, int H, int KV, int D, int causal,
-                         int window, int q_offset, void* stream) {
+                         int window, int q_offset, float scale,
+                         void* stream) {
   const Problem p = make_problem(B, Sq, Sk, H, KV, D, causal, window,
-                                 q_offset);
+                                 q_offset, scale);
   if (!problem_ok(p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

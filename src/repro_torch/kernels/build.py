@@ -60,12 +60,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "flash_attention": {
         # q, k, v, o, lse, B, Sq, Sk, H, KV, D, causal, window, q_offset,
-        # stream
-        "flash_fwd": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+        # scale, stream
+        "flash_fwd": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
         # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, D,
-        # causal, window, q_offset, stream
+        # causal, window, q_offset, scale, stream
         "flash_bwd": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
-                      I, P),
+                      I, F, P),
     },
 }
 

@@ -33,6 +33,16 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref)
 
 HEAD_DIMS = (64, 80, 128)
+#: Head dims below this one that the kernel is not built for are taken
+#: zero-padded to it (``ops.flash_attention``), as the reference's
+#: ``ops.attention`` pads to 128 lanes.
+PAD_DIM = 128
+
+
+def padded_dim(d: int) -> int:
+    """The head dim the kernel runs for a model's head dim ``d``: ``d``
+    itself where it is built for it, else :data:`PAD_DIM` below it."""
+    return d if d in HEAD_DIMS or d >= PAD_DIM else PAD_DIM
 
 
 def fully_masked_rows(sq: int, sk: int, causal: bool, window: Optional[int],
@@ -49,15 +59,18 @@ def fully_masked_rows(sq: int, sk: int, causal: bool, window: Optional[int],
 
 def refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool = True, window: Optional[int] = None,
-            q_offset: int = 0) -> Optional[Tuple[type, str]]:
+            q_offset: int = 0, pad: bool = False
+            ) -> Optional[Tuple[type, str]]:
     """Why the kernel cannot take these inputs, as ``(exception type,
     message)``, or ``None`` when it can: bfloat16 ``[B, S, heads, D]``
-    contiguous tensors, D in :data:`HEAD_DIMS`, GQA heads, no query row
-    without a visible key, on a CUDA device (checked last, so the other
-    reasons read the same on the CPU). It reads only what a tensor under
-    ``torch.func.vmap`` still has (shape, dtype, layout, device), so it
-    answers for a batched tensor as for the real one; the 16-byte alignment
-    TMA needs is checked at the launch (:func:`_check`)."""
+    contiguous tensors, D in :data:`HEAD_DIMS` (with ``pad``, also a D
+    below :data:`PAD_DIM`, which ``ops.flash_attention`` zero-pads to it),
+    GQA heads, no query row without a visible key, on a CUDA device
+    (checked last, so the other reasons read the same on the CPU). It
+    reads only what a tensor under ``torch.func.vmap`` still has (shape,
+    dtype, layout, device), so it answers for a batched tensor as for the
+    real one; the 16-byte alignment TMA needs is checked at the launch
+    (:func:`_check`)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             return TypeError, (f"flash attention kernel takes bfloat16, got "
@@ -71,9 +84,11 @@ def refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         return ValueError, (f"k {tuple(k.shape)} and v {tuple(v.shape)} do "
                             f"not fit q {tuple(q.shape)}")
-    if d not in HEAD_DIMS:
+    if (padded_dim(d) if pad else d) not in HEAD_DIMS:
         return ValueError, (f"flash attention kernel is built for head dims "
-                            f"{HEAD_DIMS}, got {d}")
+                            f"{HEAD_DIMS}" + (f" and takes those below "
+                                              f"{PAD_DIM} zero-padded"
+                                              if pad else "") + f", got {d}")
     if h % kv or b > 65535 or h > 65535:
         return ValueError, (f"H={h} must be a multiple of KV={kv}; B, H <= "
                             f"65535")
@@ -120,10 +135,17 @@ def _problem(q, k, causal, window, q_offset) -> tuple:
             0 if window is None else int(window), int(q_offset))
 
 
+def _scale_arg(scale: Optional[float]) -> float:
+    """The kernels' scale argument: 0 asks for ``1/sqrt(D)``."""
+    return 0.0 if scale is None else float(scale)
+
+
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True, window: Optional[int] = None,
-                   q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward: ``(o [B, Sq, H, D] bf16, lse [B, H, Sq] f32)``."""
+                   q_offset: int = 0, scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward: ``(o [B, Sq, H, D] bf16, lse [B, H, Sq] f32)``;
+    ``scale`` is the softmax scale (default ``1/sqrt(D)``)."""
     _check(q, k, v, causal, window, q_offset)
     b, sq, h, _ = q.shape
     idx = q.get_device()
@@ -132,7 +154,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = build.entry("flash_attention", "flash_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), *_problem(q, k, causal, window, q_offset),
-        build.stream_ptr(idx))
+        _scale_arg(scale), build.stream_ptr(idx))
     build.check(err, "flash_fwd")
     flash_fwd_cuda.launches += 1
     return o, lse
@@ -141,7 +163,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                    causal: bool = True, window: Optional[int] = None,
-                   q_offset: int = 0
+                   q_offset: int = 0, scale: Optional[float] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward (delta, dk/dv, dq kernels): ``(dq, dk, dv)`` in
     bf16, shaped like q, k, v."""
@@ -166,7 +188,8 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(),
-        *_problem(q, k, causal, window, q_offset), build.stream_ptr(idx))
+        *_problem(q, k, causal, window, q_offset), _scale_arg(scale),
+        build.stream_ptr(idx))
     build.check(err, "flash_bwd")
     flash_bwd_cuda.launches += 1
     return dq, dk, dv
@@ -206,12 +229,14 @@ class FlashBackward(torch.autograd.Function):
     tensors, the plain backward on CPU tensors. Not differentiable again."""
 
     @staticmethod
-    def forward(q, k, v, o, lse, dout, causal, window, q_offset):
+    def forward(q, k, v, o, lse, dout, causal, window, q_offset,
+                scale=None):
         if _device_of(q) == "cpu":
             return attention_bwd_ref(q, k, v, o, lse, dout, causal=causal,
-                                     window=window, q_offset=q_offset)
+                                     window=window, q_offset=q_offset,
+                                     scale=scale)
         return flash_bwd_cuda(q, k, v, o, lse, dout, causal, window,
-                              q_offset)
+                              q_offset, scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -223,10 +248,10 @@ class FlashBackward(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, o, lse, dout, causal, window,
-             q_offset):
+             q_offset, scale=None):
         n = info.batch_size
         args = fold((q, k, v, o, lse, dout), in_dims[:6], n)
-        grads = FlashBackward.apply(*args, causal, window, q_offset)
+        grads = FlashBackward.apply(*args, causal, window, q_offset, scale)
         return tuple(unfold(g, n) for g in grads), (0, 0, 0)
 
 
@@ -236,29 +261,29 @@ class FlashAttention(torch.autograd.Function):
     forward on CPU tensors."""
 
     @staticmethod
-    def forward(q, k, v, causal, window, q_offset):
+    def forward(q, k, v, causal, window, q_offset, scale=None):
         if _device_of(q) == "cpu":
             return attention_fwd_ref(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset)
-        return flash_fwd_cuda(q, k, v, causal, window, q_offset)
+                                     q_offset=q_offset, scale=scale)
+        return flash_fwd_cuda(q, k, v, causal, window, q_offset, scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window, q_offset = inputs
+        q, k, v, causal, window, q_offset = inputs[:6]
         o, lse = output
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.mask = (causal, window, q_offset)
+        ctx.mask = (causal, window, q_offset) + tuple(inputs[6:])
         ctx.mark_non_differentiable(lse)
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = FlashBackward.apply(q, k, v, o, lse, dout, *ctx.mask)
-        return dq, dk, dv, None, None, None
+        return (dq, dk, dv) + (None,) * (len(ctx.mask))
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, causal, window, q_offset):
+    def vmap(info, in_dims, q, k, v, causal, window, q_offset, scale=None):
         n = info.batch_size
         o, lse = FlashAttention.apply(*fold((q, k, v), in_dims[:3], n),
-                                      causal, window, q_offset)
+                                      causal, window, q_offset, scale)
         return (unfold(o, n), unfold(lse, n)), (0, 0)

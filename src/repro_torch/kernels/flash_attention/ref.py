@@ -23,12 +23,21 @@ def attention_mask(sq: int, sk: int, causal: bool, window: Optional[int],
     return mask
 
 
+def _scaled(logits: torch.Tensor, d: int, scale: Optional[float]
+            ) -> torch.Tensor:
+    """Logits times the softmax scale: ``1/sqrt(D)`` (``scale`` None), or
+    the given one (a head dim zero-padded to D keeps its own)."""
+    return logits / math.sqrt(d) if scale is None else logits * scale
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
-                  q_offset: int = 0) -> torch.Tensor:
+                  q_offset: int = 0, scale: Optional[float] = None
+                  ) -> torch.Tensor:
     """q ``[B, Sq, H, D]``; k, v ``[B, Sk, KV, D]`` -> ``[B, Sq, H, D]``.
     Logits in float32, masked entries at -1e30 (a row with no visible key
-    averages v), probabilities cast to q's dtype before the value product."""
+    averages v), probabilities cast to q's dtype before the value product.
+    ``scale``: the softmax scale (default ``1/sqrt(D)``)."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     rep = h // kv
@@ -36,56 +45,58 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    logits = logits / math.sqrt(d)
+    logits = _scaled(logits, d, scale)
     mask = attention_mask(sq, sk, causal, window, q_offset, q.device)
     logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype), v)
 
 
-def _scores(q, k, causal, window, q_offset):
+def _scores(q, k, causal, window, q_offset, scale=None):
     """Float32 ``[B, H, Sq, Sk]`` scaled logits (k repeated over its query
     heads) and the ``[Sq, Sk]`` visibility mask."""
     h, d = q.shape[2], q.shape[3]
     k = k.repeat_interleave(h // k.shape[2], dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    s = _scaled(torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()), d,
+                scale)
     return s, attention_mask(q.shape[1], k.shape[1], causal, window,
                              q_offset, q.device)
 
 
 def attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
-                      q_offset: int = 0):
+                      q_offset: int = 0, scale: Optional[float] = None):
     """What the forward kernel returns: ``(o, lse)``, ``o`` as
     :func:`attention_ref` and ``lse [B, H, Sq]`` the float32 natural-log
     sum of exponentials of each row's visible scaled logits."""
-    s, mask = _scores(q, k, causal, window, q_offset)
+    s, mask = _scores(q, k, causal, window, q_offset, scale)
     lse = torch.logsumexp(s.masked_fill(~mask, -1e30), dim=-1)
     return attention_ref(q, k, v, causal=causal, window=window,
-                         q_offset=q_offset), lse
+                         q_offset=q_offset, scale=scale), lse
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                       *, causal: bool = True, window: Optional[int] = None,
-                      q_offset: int = 0):
+                      q_offset: int = 0, scale: Optional[float] = None):
     """What the backward kernels compute, in float32 (FlashAttention-2):
     ``P = exp(S - lse)`` on visible keys, ``delta = rowsum(dO * O)``,
     ``dV = P^T dO``, ``dS = P (dO V^T - delta)``, ``dQ = dS K / sqrt(D)``,
-    ``dK = dS^T Q / sqrt(D)``, each key head summing its query heads.
-    Returns ``(dq, dk, dv)`` in the dtypes of q, k, v."""
+    ``dK = dS^T Q / sqrt(D)`` (times ``scale`` where given), each key head
+    summing its query heads. Returns ``(dq, dk, dv)`` in the dtypes of q,
+    k, v."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     rep = h // kv
-    s, mask = _scores(q, k, causal, window, q_offset)
+    s, mask = _scores(q, k, causal, window, q_offset, scale)
     p = torch.exp(s - lse[..., None].float()) * mask
     do = dout.float()
     delta = (do * o.float()).sum(-1).transpose(1, 2)  # [B, H, Sq]
     vr = v.repeat_interleave(rep, dim=2).float()
     kr = k.repeat_interleave(rep, dim=2).float()
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, vr) - delta[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) / math.sqrt(d)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) / math.sqrt(d)
+    dq = _scaled(torch.einsum("bhqk,bkhd->bqhd", ds, kr), d, scale)
+    dk = _scaled(torch.einsum("bhqk,bqhd->bkhd", ds, q.float()), d, scale)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
 
     def per_kv_head(t):

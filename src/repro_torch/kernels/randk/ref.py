@@ -35,6 +35,61 @@ def block_decompress_ref(payload: torch.Tensor, ids: torch.Tensor,
     return out.reshape(n, d)
 
 
+#: Columns the plain momentum update takes at a time (whole blocks): its
+#: float32 ``[n, D]`` transients at D ~ 1e9 would not fit the card.
+MOMENTUM_COLS = 1 << 24
+
+
+def _wire_columns(pf: torch.Tensor, ids: torch.Tensor, block_size: int,
+                  lo: int, hi: int) -> torch.Tensor:
+    """Blocks ``[lo, hi)`` of the dense wire of the payload ``pf [n, kb *
+    block_size]``: each payload block whose id falls there at its place,
+    zeros elsewhere."""
+    n = pf.shape[0]
+    pb = pf.reshape(n, -1, block_size)
+    nb = hi - lo
+    out = pf.new_zeros((n, nb, block_size))
+    if ids.ndim == 1:  # one global mask: the blocks inside, once
+        sel = ((ids >= lo) & (ids < hi)).nonzero()[:, 0]
+        out[:, (ids[sel] - lo).long()] = pb[:, sel]
+    else:  # per-row ids: those outside land in a dropped slot
+        rid = ids.long()
+        slot = torch.where((rid >= lo) & (rid < hi), rid - lo,
+                           torch.full_like(rid, nb))
+        out = torch.cat([out, out.new_zeros((n, 1, block_size))], dim=1)
+        out.scatter_(1, slot[..., None].expand(-1, -1, block_size), pb)
+        out = out[:, :nb]
+    return out.reshape(n, nb * block_size)
+
+
+def _weighted_payload(m: torch.Tensor, payload: torch.Tensor,
+                      beta: float) -> torch.Tensor:
+    """The payload in float32 as the update scatters it: times ``1 -
+    beta`` on a float32 bank, as it is on a bfloat16 one."""
+    if m.dtype == torch.bfloat16:
+        return payload.float()
+    return payload.float() * (1.0 - beta)
+
+
+def _columns(m: torch.Tensor, pf: torch.Tensor, ids: torch.Tensor,
+             block_size: int, beta: float, b0: int, b1: int) -> torch.Tensor:
+    cols = slice(b0 * block_size, b1 * block_size)
+    wire = _wire_columns(pf, ids, block_size, b0, b1)
+    if m.dtype == torch.bfloat16:
+        return (m[:, cols].float() * beta).add_(wire, alpha=1.0 - beta)
+    return wire.add_(m[:, cols].float(), alpha=beta)
+
+
+def momentum_columns_ref(m: torch.Tensor, payload: torch.Tensor,
+                         ids: torch.Tensor, block_size: int, beta: float,
+                         b0: int, b1: int) -> torch.Tensor:
+    """The float32 momenta of blocks ``[b0, b1)`` (columns ``b0 *
+    block_size`` to ``b1 * block_size``) of :func:`momentum_scatter_ref`,
+    from the bank ``m``, which is left as it is."""
+    return _columns(m, _weighted_payload(m, payload, beta), ids, block_size,
+                    beta, b0, b1)
+
+
 def momentum_scatter_ref(m: torch.Tensor, payload: torch.Tensor,
                          ids: torch.Tensor, block_size: int, beta: float,
                          f32_out: bool = False) -> torch.Tensor:
@@ -43,14 +98,21 @@ def momentum_scatter_ref(m: torch.Tensor, payload: torch.Tensor,
     bank the payload times ``1 - beta`` scattered into a zeroed bank plus
     ``beta * m``; on a bfloat16 bank ``beta * m`` plus ``1 - beta`` times
     the scattered payload. ``m`` is updated in place (rounded to its
-    dtype); returns ``m``, or with ``f32_out`` the float32 result."""
-    if m.dtype == torch.bfloat16:
-        wire = block_decompress_ref(payload.float(), ids, block_size,
-                                    m.shape[1])
-        out = (m.float() * beta).add_(wire, alpha=1.0 - beta)
-    else:
-        wire = block_decompress_ref(payload.float() * (1.0 - beta), ids,
-                                    block_size, m.shape[1])
-        out = wire.add_(m.float(), alpha=beta)
-    m.copy_(out)
+    dtype); returns ``m``, or with ``f32_out`` the float32 result. Runs
+    :data:`MOMENTUM_COLS` columns (whole blocks) at a time
+    (:func:`momentum_columns_ref`), each coordinate's arithmetic as over
+    the whole bank."""
+    n, d = m.shape
+    pf = _weighted_payload(m, payload, beta)
+    out = torch.empty((n, d), device=m.device) if f32_out else None
+    step = max(1, MOMENTUM_COLS // block_size)
+    nb = d // block_size
+    for b0 in range(0, nb, step):
+        b1 = min(nb, b0 + step)
+        cols = slice(b0 * block_size, b1 * block_size)
+        res = _columns(m, pf, ids, block_size, beta, b0, b1)
+        m[:, cols].copy_(res)
+        if out is not None:
+            out[:, cols] = res
+        del res
     return out if f32_out else m

@@ -11,7 +11,8 @@ of ``repro.launch.steps``, host mode).
   2. each gradient raveled into its row of the ``[n, D]`` bank in the
      wire dtype (``momentum_dtype``, as the reference) and the reference's
      flat layout (the naive flatten: the reference's sharded bank
-     transforms and mesh have no single-card counterpart);
+     transforms and mesh have no single-card counterpart), the bank
+     widened to whole Block-RandK blocks (``TrainPlan.bank_width``);
   3. ``core.algorithms.server_round``: the round's masks, the Block-RandK
      wire, the Byzantine overwrite, the per-worker momentum (for RoSDHB on
      a global mask, the momentum kernel on the payload) and the robust
@@ -64,6 +65,20 @@ class TrainPlan:
     n_workers: int
     local_batch: int
 
+    @property
+    def bank_width(self) -> int:
+        """Columns of the ``[n, D]`` server banks: the flat width, rounded up
+        to whole blocks under Block-RandK. The added columns are zero in
+        every row, and the round draws the same blocks (``ceil(D /
+        block_size)`` of them) and gives the same first D columns as over
+        the flat width; a whole number of blocks lets the kernels' payload
+        route take any D (the reference takes its dense round where D is
+        not a multiple of the block)."""
+        d, sp = self.flat_spec.padded_size, self.algo.sparsifier
+        if sp.kind != "block":
+            return d
+        return -(-d // sp.block_size) * sp.block_size
+
 
 def make_train_plan(spec: ArchSpec, shape: InputShape,
                     algo_overrides: Optional[Dict] = None,
@@ -109,7 +124,7 @@ def build_train_step(plan: TrainPlan, device: DeviceLike = None):
     dev = resolve_device(device)
     cfg, fspec, algo = plan.model, plan.flat_spec, plan.algo
     agg = G.make_aggregator(algo.aggregator, device=dev)
-    n, d = plan.n_workers, fspec.padded_size
+    n, d = plan.n_workers, plan.bank_width
     wire_dtype = A.BANK_DTYPES[algo.momentum_dtype]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
@@ -131,8 +146,8 @@ def build_train_step(plan: TrainPlan, device: DeviceLike = None):
             del grads, loss
         del half, half_tree
         # (3) the paper's steps 1-6 on the [n, D] bank
-        direction, server, aux = A.server_round(algo, state.server, bank,
-                                                state.draws, agg=agg)
+        direction, server, _ = A.server_round(algo, state.server, bank,
+                                              state.draws, agg=agg)
         del bank
         # (4) step 7 on the master parameters, one fused multiply-add
         dir_leaves = T.tree_leaves(T.tree_unravel(direction, fspec))
@@ -142,8 +157,8 @@ def build_train_step(plan: TrainPlan, device: DeviceLike = None):
         metrics = {
             "loss": torch.stack(losses)[algo.f:].mean(),
             "dir_norm": torch.linalg.vector_norm(direction),
-            "payload_floats_per_worker": float(
-                aux["payload_floats_per_worker"]),
+            "payload_floats_per_worker": float(C.payload_floats(
+                fspec.padded_size, algo.sparsifier)),
         }
         return TrainState(new_params, server, state.step + 1,
                           state.draws), metrics

@@ -1,6 +1,6 @@
 """Training launcher (counterpart of ``repro.launch.train``): RoSDHB on a
-decoder of the attention families (dense, audio, vlm), the workers
-simulated one after the other on one device.
+decoder of any family of the model zoo (dense, audio, vlm, moe, ssm,
+hybrid), the workers simulated one after the other on one device.
 
 On the card it builds the arch at full width; one H100 cannot hold the
 reference's TPU shape, so the cuts are flags: ``--n-layers`` (depth),
@@ -26,6 +26,7 @@ end.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -159,7 +160,7 @@ def setup(args: argparse.Namespace, *, plain: bool = False) -> Dict:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     state = TrainState(
         params=model_init(cfg, gen),
-        server=alg.init_state(plan.algo, plan.flat_spec.padded_size,
+        server=alg.init_state(plan.algo, plan.bank_width,
                               device=dev),
         step=0, draws=TorchDraws(args.seed + 1, dev))
     rng = np.random.default_rng(args.seed)
@@ -250,6 +251,11 @@ def run(argv: Optional[List[str]] = None, *, plain: bool = False,
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    # at D ~ 1e9 a step allocates its float32 momenta (30.6 GiB at 8 x
+    # 1.03e9) beside the banks; the caching allocator's split blocks leave
+    # no room for it unless its segments can grow
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     run(argv)
     return 0
 

@@ -1,9 +1,7 @@
 """Model configuration (counterpart of ``repro.models.config``): the same
 ``ModelConfig`` with every field, so a configuration carries across to the
-reference field for field. The port builds the attention families,
-``dense``, ``audio`` and ``vlm`` (``repro_torch.models.transformer``); the
-other families' fields are kept for that hand-over and for the families
-still to port."""
+reference field for field. The port builds all six families
+(``repro_torch.models.transformer``)."""
 
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Shared neural-net layers (counterpart of ``repro.models.layers``): what
-the attention families of the model zoo (dense, audio, vlm) need.
+"""Shared neural-net layers (counterpart of ``repro.models.layers``): the
+dense, norm, rope, attention, cache and MLP pieces every family of the
+model zoo builds on.
 
 Conventions, as in the reference:
   * parameters are nested dicts of tensors, dense weights ``[d_in, d_out]``;
@@ -255,8 +256,9 @@ def attn_apply(p: Params, cfg, x: torch.Tensor, *, mode: str = "train",
 
     * ``train``: no cache. ``cfg.use_flash_attention``: ``None`` takes the
       flash-attention kernels where they take the inputs (``flash.supports``:
-      bfloat16, head dims 64, 80 and 128, on the card) and the plain
-      ``causal_attention`` elsewhere, a choice made before the call, as the
+      bfloat16, head dims 64, 80 and 128, those below 128 zero-padded to
+      it, on the card) and the plain ``causal_attention`` elsewhere, a
+      choice made before the call, as the
       reference takes its kernel only for what it runs; ``True`` asks for
       the kernel path (the plain dense version on the CPU) and raises on the
       card where the kernel cannot run; ``False`` is ``causal_attention``;
@@ -298,7 +300,8 @@ def attn_apply(p: Params, cfg, x: torch.Tensor, *, mode: str = "train",
     else:
         flash = cfg.use_flash_attention if mode == "train" else False
         if flash is not False and q.is_cuda:
-            why = FK.refusal(q, k, v, True, cfg.sliding_window, pos)
+            why = FK.refusal(q, k, v, True, cfg.sliding_window, pos,
+                             pad=True)
             if why is not None and flash:
                 raise ValueError(f"use_flash_attention=True, but the flash "
                                  f"kernel cannot take these inputs: "

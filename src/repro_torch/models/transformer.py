@@ -1,20 +1,29 @@
-"""The decoder stack (counterpart of ``repro.models.transformer``), the
-attention families: ``dense`` and ``audio`` are ``L x (norm -> attention ->
-residual -> norm -> MLP -> residual)``; ``vlm`` is ``G x ((cross_attn_every
-- 1) x self-attention block + 1 gated cross-attention block over the image
-embeddings)`` and the ``L mod cross_attn_every`` trailing self-attention
-blocks. Then a final norm, the LM head and the chunked cross entropy.
-``forward`` runs in ``train``, ``prefill`` and ``decode`` mode; the caches
-are stacked as the parameters that own them.
+"""The decoder stack (counterpart of ``repro.models.transformer``), all six
+families:
+
+  dense / audio : L x (norm -> attention -> residual -> norm -> MLP ->
+                  residual)
+  moe           : first_k_dense x (attention + MLP), then the rest
+                  (attention or MLA + MoE)
+  ssm           : L x mamba2
+  hybrid        : G x (attn_every x mamba2 + ONE weight-shared attention
+                  block), then the L mod attn_every trailing mamba2 blocks
+  vlm           : G x ((cross_attn_every - 1) x self-attention block + 1
+                  gated cross-attention block over the image embeddings),
+                  then the trailing self-attention blocks
+
+then a final norm, the LM head and the chunked cross entropy. ``forward``
+runs in ``train``, ``prefill`` and ``decode`` mode; the caches are stacked
+as the parameters that own them (the hybrid's shared block owns one cache
+for each of its G applications, ``[G, ...]``).
 
 The layers' parameters are stacked on a leading layer axis (``[g, per,
-...]`` for the vlm's groups), as the reference stacks them for its
+...]`` for grouped blocks), as the reference stacks them for its
 ``lax.scan``, so the flat parameter vector has the reference's layout; the
 port runs the stack as a Python loop. The reference rematerialises every
-scan body (``jax.checkpoint``); the port keeps the activations instead: at 2
-layers they are small beside the server's ``[n, D]`` banks, and only one
-worker's are alive at a time. MoE, MLA, SSM and hybrid stacks are not
-ported yet.
+scan body (``jax.checkpoint``); the port keeps the activations instead: at
+a few layers they are small beside the server's ``[n, D]`` banks, and only
+one worker's are alive at a time.
 """
 
 from __future__ import annotations
@@ -25,21 +34,22 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
-PORTED_FAMILIES = ("dense", "audio", "vlm")
+FAMILIES = ("dense", "audio", "moe", "ssm", "hybrid", "vlm")
 MODES = ("train", "prefill", "decode")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES or cfg.use_mla or cfg.n_experts:
-        what = "MLA attention" if cfg.use_mla else f"family {cfg.family!r}"
-        raise ValueError(f"model {what} is not ported (ported: the "
-                         f"{', '.join(PORTED_FAMILIES)} families on GQA "
-                         f"attention)")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r} (known: "
+                         f"{', '.join(FAMILIES)})")
 
 
 def _vlm_groups(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -49,28 +59,53 @@ def _vlm_groups(cfg: ModelConfig) -> Tuple[int, int, int]:
     return g, cae - 1, cfg.n_layers - g * cae
 
 
+def _hybrid_groups(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """``(groups, mamba2 blocks a group, trailing mamba2 blocks)``: each
+    group ends with the shared attention block."""
+    ae = cfg.attn_every
+    g = cfg.n_layers // ae
+    return g, ae, cfg.n_layers - g * ae
+
+
 # --------------------------------------------------------------------------
 # single blocks
 # --------------------------------------------------------------------------
 
 
 def _attn_block_init(gen: Optional[torch.Generator], cfg: ModelConfig,
-                     device=None) -> Params:
-    return {"norm1": L.norm_init(cfg.d_model, cfg.norm, device=device),
-            "norm2": L.norm_init(cfg.d_model, cfg.norm, device=device),
-            "attn": L.attn_init(gen, cfg, device=device),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
-                              device=device)}
+                     device=None, use_moe: bool = False) -> Params:
+    """Norms, attention (MLA where ``cfg.use_mla``) and an MLP, or the MoE
+    layer with ``use_moe``."""
+    p = {"norm1": L.norm_init(cfg.d_model, cfg.norm, device=device),
+         "norm2": L.norm_init(cfg.d_model, cfg.norm, device=device),
+         "attn": (MLA.mla_init(gen, cfg, device=device) if cfg.use_mla
+                  else L.attn_init(gen, cfg, device=device))}
+    if use_moe:
+        p["moe"] = MOE.moe_init(gen, cfg, device=device)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp,
+                              device=device)
+    return p
 
 
 def _attn_block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                       mode: str, pos: int, cache: Optional[Dict]
-                      ) -> torch.Tensor:
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``(x, aux)``: the block's output and its MoE loss (``None`` for an
+    MLP block)."""
     h = L.norm_apply(p["norm1"], x, cfg.norm)
-    a, _ = L.attn_apply(p["attn"], cfg, h, mode=mode, pos=pos, cache=cache)
+    if cfg.use_mla:
+        a, _ = MLA.mla_apply(p["attn"], cfg, h, mode=mode, pos=pos,
+                             cache=cache)
+    else:
+        a, _ = L.attn_apply(p["attn"], cfg, h, mode=mode, pos=pos,
+                            cache=cache)
     x = x + a
     h = L.norm_apply(p["norm2"], x, cfg.norm)
-    return x + L.mlp_apply(p["mlp"], h, cfg.mlp)
+    if "moe" in p:
+        m, aux = MOE.moe_apply(p["moe"], cfg, h)
+        return x + m, aux
+    return x + L.mlp_apply(p["mlp"], h, cfg.mlp), None
 
 
 def _cross_block_init(gen: Optional[torch.Generator], cfg: ModelConfig,
@@ -87,6 +122,19 @@ def _cross_block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     x = x + torch.tanh(p["gate"]).to(x.dtype) * a
     h = L.norm_apply(p["norm2"], x, cfg.norm)
     return x + L.mlp_apply(p["mlp"], h, cfg.mlp)
+
+
+def _ssm_block_init(gen: Optional[torch.Generator], cfg: ModelConfig,
+                    device=None) -> Params:
+    return {"norm": L.norm_init(cfg.d_model, cfg.norm, device=device),
+            "ssm": SSM.ssm_init(gen, cfg, device=device)}
+
+
+def _ssm_block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                     mode: str, cache: Optional[Dict]) -> torch.Tensor:
+    h = L.norm_apply(p["norm"], x, cfg.norm)
+    y, _ = SSM.ssm_apply(p["ssm"], cfg, h, mode=mode, cache=cache)
+    return x + y
 
 
 # --------------------------------------------------------------------------
@@ -114,6 +162,14 @@ def _stacked(make: Callable[[], Params], n: int) -> Optional[Params]:
     return stacked
 
 
+def _grouped(stacked: Optional[Params], g: int, per: int
+             ) -> Optional[Params]:
+    """A stack of ``g * per`` blocks as ``[g, per, ...]``."""
+    if stacked is None:
+        return None
+    return tree_map(lambda a: a.reshape((g, per) + a.shape[1:]), stacked)
+
+
 def model_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                device=None) -> Params:
     """Random float32 parameters from ``generator`` on ``device`` (default:
@@ -133,15 +189,30 @@ def model_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         p["lm_head"] = torch.randn((cfg.d_model, cfg.vocab_size),
                                    generator=generator, device=dev) * 0.02
 
-    def block():
-        return _attn_block_init(generator, cfg, device=dev)
+    def block(use_moe=False):
+        return _attn_block_init(generator, cfg, device=dev, use_moe=use_moe)
 
-    if cfg.family in ("dense", "audio"):
+    def ssm_block():
+        return _ssm_block_init(generator, cfg, device=dev)
+
+    fam = cfg.family
+    if fam in ("dense", "audio"):
         p["blocks"] = _stacked(block, cfg.n_layers)
+    elif fam == "moe":
+        fk = cfg.first_k_dense
+        p["dense_blocks"] = _stacked(block, fk)
+        p["blocks"] = _stacked(lambda: block(use_moe=True),
+                               cfg.n_layers - fk)
+    elif fam == "ssm":
+        p["blocks"] = _stacked(ssm_block, cfg.n_layers)
+    elif fam == "hybrid":
+        g, ae, rem = _hybrid_groups(cfg)
+        p["blocks"] = _grouped(_stacked(ssm_block, g * ae), g, ae)
+        p["tail_blocks"] = _stacked(ssm_block, rem)
+        p["shared_attn"] = block()
     else:  # vlm
         g, per, rem = _vlm_groups(cfg)
-        p["blocks"] = tree_map(lambda a: a.reshape((g, per) + a.shape[1:]),
-                               _stacked(block, g * per))
+        p["blocks"] = _grouped(_stacked(block, g * per), g, per)
         p["cross_blocks"] = _stacked(
             lambda: _cross_block_init(generator, cfg, device=dev), g)
         p["tail_blocks"] = _stacked(block, rem)
@@ -155,24 +226,46 @@ def model_init(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None) -> Dict:
-    """Zero decode caches, stacked as the self-attention blocks that own
-    them: ``{"blocks": {"k", "v"}}`` with leaves ``[L, batch, W, KV, Dh]``
-    (the vlm: ``[g, per, ...]``, and ``"tail_blocks"``, ``None`` when there
-    is no trailing block); ``dtype`` defaults to ``cfg.dtype``."""
+    """Zero decode caches, stacked as the blocks that own them (``None``
+    where a stack has no block; ``dtype`` defaults to ``cfg.dtype``):
+
+    * dense, audio: ``{"blocks": {"k", "v"}}``, leaves ``[L, batch, W, KV,
+      Dh]``; the vlm: ``[g, per, ...]`` and ``"tail_blocks"``;
+    * moe: ``"dense_blocks"`` and ``"blocks"``, the latent caches ``{"ckv",
+      "krope"}`` under MLA;
+    * ssm: ``{"blocks": {"state", "conv"}}``;
+    * hybrid: the mamba2 caches ``[g, attn_every, ...]`` and
+      ``"tail_blocks"``, and the shared block's ``"shared_attn"`` ``{"k",
+      "v"}`` ``[g, ...]``, one for each application."""
     _check_family(cfg)
     dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
-    one = L.attn_cache_init(cfg, batch, max_len, dtype, device="meta")
+    gqa = L.attn_cache_init(cfg, batch, max_len, dtype, device="meta")
+    attn = (MLA.mla_cache_init(cfg, batch, max_len, dtype, device="meta")
+            if cfg.use_mla else gqa)
+    ssm = SSM.ssm_cache_init(cfg, batch, dtype, device="meta")
 
-    def stacked(*lead):
+    def stacked(one, *lead):
         if 0 in lead:
             return None
         return {k: torch.zeros(lead + tuple(a.shape), dtype=dtype,
                                device=device) for k, a in one.items()}
 
-    if cfg.family == "vlm":
+    fam = cfg.family
+    if fam == "vlm":
         g, per, rem = _vlm_groups(cfg)
-        return {"blocks": stacked(g, per), "tail_blocks": stacked(rem)}
-    return {"blocks": stacked(cfg.n_layers)}
+        return {"blocks": stacked(attn, g, per),
+                "tail_blocks": stacked(attn, rem)}
+    if fam == "moe":
+        fk = cfg.first_k_dense
+        return {"dense_blocks": stacked(attn, fk),
+                "blocks": stacked(attn, cfg.n_layers - fk)}
+    if fam == "ssm":
+        return {"blocks": stacked(ssm, cfg.n_layers)}
+    if fam == "hybrid":
+        g, ae, rem = _hybrid_groups(cfg)
+        return {"blocks": stacked(ssm, g, ae), "shared_attn": stacked(gqa, g),
+                "tail_blocks": stacked(ssm, rem)}
+    return {"blocks": stacked(attn, cfg.n_layers)}
 
 
 # --------------------------------------------------------------------------
@@ -191,8 +284,9 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     ``decode`` write the positions ``pos + [0, S)`` into ``caches`` (from
     :func:`cache_init`) in place.
 
-    Returns ``(hidden [B, S, D], caches, {"moe_loss": 0})``: the caches
-    given (``None`` in train mode); these families have no MoE loss."""
+    Returns ``(hidden [B, S, D], caches, {"moe_loss"})``: the caches given
+    (``None`` in train mode); ``moe_loss`` is the MoE layers' aux losses
+    summed (float32; 0 without MoE layers)."""
     _check_family(cfg)
     if mode not in MODES:
         raise ValueError(f"unknown forward mode {mode!r} (expected one of "
@@ -209,31 +303,60 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     else:
         x = batch["embeddings"].to(dtype)
     cc = caches if mode != "train" else {}
+    moe_loss = torch.zeros((), device=x.device)
 
-    def self_block(stack, at, x, cache_stack):
-        p = tree_map(lambda a: a[at], stack)
-        c = None if cache_stack is None else tree_map(lambda a: a[at],
-                                                      cache_stack)
-        return _attn_block_apply(p, cfg, x, mode=mode, pos=pos, cache=c)
+    def at(stack, i):
+        return None if stack is None else tree_map(lambda a: a[i], stack)
 
-    if cfg.family in ("dense", "audio"):
+    def self_block(stack, i, x, cache_stack):
+        nonlocal moe_loss
+        x, aux = _attn_block_apply(at(stack, i), cfg, x, mode=mode, pos=pos,
+                                   cache=at(cache_stack, i))
+        if aux is not None:
+            moe_loss = moe_loss + aux
+        return x
+
+    def ssm_block(stack, i, x, cache_stack):
+        return _ssm_block_apply(at(stack, i), cfg, x, mode=mode,
+                                cache=at(cache_stack, i))
+
+    fam = cfg.family
+    if fam in ("dense", "audio"):
         for i in range(cfg.n_layers):
             x = self_block(params["blocks"], i, x, cc.get("blocks"))
+    elif fam == "moe":
+        fk = cfg.first_k_dense
+        for i in range(fk):
+            x = self_block(params["dense_blocks"], i, x,
+                           cc.get("dense_blocks"))
+        for i in range(cfg.n_layers - fk):
+            x = self_block(params["blocks"], i, x, cc.get("blocks"))
+    elif fam == "ssm":
+        for i in range(cfg.n_layers):
+            x = ssm_block(params["blocks"], i, x, cc.get("blocks"))
+    elif fam == "hybrid":
+        g, ae, rem = _hybrid_groups(cfg)
+        for gi in range(g):
+            for j in range(ae):
+                x = ssm_block(params["blocks"], (gi, j), x, cc.get("blocks"))
+            x, _ = _attn_block_apply(params["shared_attn"], cfg, x,
+                                     mode=mode, pos=pos,
+                                     cache=at(cc.get("shared_attn"), gi))
+        for i in range(rem):
+            x = ssm_block(params["tail_blocks"], i, x, cc.get("tail_blocks"))
     else:  # vlm
         kv_img = batch["image_embeddings"].to(dtype)
         g, per, rem = _vlm_groups(cfg)
         for gi in range(g):
             for j in range(per):
                 x = self_block(params["blocks"], (gi, j), x, cc.get("blocks"))
-            x = _cross_block_apply(tree_map(lambda a: a[gi],
-                                            params["cross_blocks"]),
-                                   cfg, x, kv_img)
+            x = _cross_block_apply(at(params["cross_blocks"], gi), cfg, x,
+                                   kv_img)
         for i in range(rem):
             x = self_block(params["tail_blocks"], i, x,
                            cc.get("tail_blocks"))
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
-    return x, (caches if mode != "train" else None), \
-        {"moe_loss": torch.zeros((), device=x.device)}
+    return x, (caches if mode != "train" else None), {"moe_loss": moe_loss}
 
 
 # --------------------------------------------------------------------------
@@ -288,7 +411,8 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             moe_loss_weight: float = 0.01) -> torch.Tensor:
     """Causal-LM loss over ``batch["tokens"]`` shifted by one, or over the
     given ``batch["targets"]`` (with an optional ``loss_mask``) for
-    embedding-input models."""
+    embedding-input models, plus ``moe_loss_weight`` times the MoE layers'
+    aux loss."""
     hidden, _, aux = forward(params, cfg, batch, mode="train")
     if "targets" in batch:
         loss = chunked_xent(params, cfg, hidden, batch["targets"],

@@ -69,7 +69,8 @@ def test_ctypes_rows_match_the_c_entries(source):
 
 def test_the_parser_sees_a_mismatch():
     params = _entries(build.CSRC / "flash_attention.cu")["flash_fwd"]
-    assert len(params) == 15 and _c_type(params[0]) is build.P
+    assert len(params) == 16 and _c_type(params[0]) is build.P
+    assert _c_type(params[14]) is build.F  # the softmax scale
     assert _c_type("int q_offset") is build.I
     assert _c_type("long long d") is build.LL
 

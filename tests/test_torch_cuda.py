@@ -438,6 +438,33 @@ def test_flash_kernels_match_plain(card, b, sq, sk, h, kv, d, causal, window,
 
 
 @pytest.mark.cuda
+def test_flash_at_head_dim_112_launches_the_kernel_padded_to_128(card):
+    """zamba2's shared attention head dim: ``flash_attention`` pads
+    [1, 256, 4, 112] to 128 around one forward and one backward launch,
+    held against the plain version at 112 (out within 1e-2, dq, dk, dv
+    within 2e-2 of the largest entry)."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    gen = torch.Generator(device=card).manual_seed(112)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=card).to(  # noqa
+        torch.bfloat16)
+    q, k, v, dout = (rnd(1, 256, 4, 112) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    K.reset_launches()
+    out = flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert K.launches()["flash_fwd"] == K.launches()["flash_bwd"] == 1
+    fl = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = attention_ref(*fl)
+    ref_grads = torch.autograd.grad(ref, fl, dout.float())
+    for got, want, tol in [(out, ref, 1e-2)] + [
+            (g, w, 2e-2) for g, w in zip(grads, ref_grads)]:
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        err = (got.detach().float() - want.detach()).abs().max()
+        assert float(err) <= tol * float(want.detach().abs().max())
+
+
+@pytest.mark.cuda
 def test_flash_runs_are_deterministic(card):
     from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
                                                      flash_fwd_cuda)
@@ -811,12 +838,13 @@ def test_streamed_cnn_run_is_bitwise_rollout_on_the_card(card, source):
 
 def _served(device, cfg, params, steps=4):
     """Prefill a seeded prompt of 2 x 12, then ``steps`` greedy decode
-    steps: the prefill's hidden states, the first blocks' k cache after the
-    steps, and the tokens."""
+    steps: the prefill's hidden states, the caches of the ``blocks`` stack
+    after the steps (k and v; the latents; the mamba2 states), and the
+    tokens."""
     from repro_torch.launch.serve import make_prompt
     from repro_torch.models import (cache_init, forward, logits_fn,
                                     make_decode_step)
-    from repro_torch.utils.tree import tree_map
+    from repro_torch.utils.tree import tree_leaves, tree_map
     params = tree_map(lambda a: a.to(device), params)
     prompt = {k: torch.from_numpy(v).to(device) for k, v in make_prompt(
         cfg, 2, 12, np.random.default_rng(0)).items()}
@@ -830,16 +858,20 @@ def _served(device, cfg, params, steps=4):
     for i in range(steps):
         tok, caches = step(params, tok, caches, 12 + i)
         toks.append(tok)
-    return h.cpu(), caches["blocks"]["k"].cpu(), torch.cat(toks, 1).cpu()
+    return h.cpu(), [t.cpu() for t in tree_leaves(caches["blocks"])], \
+        torch.cat(toks, 1).cpu()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["llama32_vision_11b", "musicgen_medium",
-                                  "qwen25_3b"])
+                                  "qwen25_3b", "dbrx_132b",
+                                  "deepseek_v2_lite_16b", "mamba2_1_3b",
+                                  "zamba2_7b"])
 def test_decode_on_the_card_matches_the_cpu(card, arch):
     """The reduced float32 model (the serving launcher's CPU size):
     prefill hidden states and the caches after 4 decode steps within
-    1e-4 of max |x| of the CPU's, the same greedy tokens."""
+    1e-4 of max |x| of the CPU's, the same greedy tokens (every family:
+    MoE, MLA latents, mamba2 states, the hybrid's)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import model_init
     cfg = get_arch(arch).model.reduced(n_layers=2, d_model=256) \
@@ -847,7 +879,7 @@ def test_decode_on_the_card_matches_the_cpu(card, arch):
     params = model_init(cfg, torch.Generator().manual_seed(0))
     ch, ck, ctok = _served("cpu", cfg, params)
     gh, gk, gtok = _served(card, cfg, params)
-    for got, want in ((gh, ch), (gk, ck)):
+    for got, want in [(gh, ch)] + list(zip(gk, ck)):
         assert float((got - want).abs().max()) <= 1e-4 * float(
             want.abs().max())
     assert torch.equal(gtok, ctok)
@@ -908,3 +940,35 @@ def test_model_init_on_the_card_is_the_per_layer_draws(card, arch):
         fresh = tree_leaves(T._attn_block_init(gen, cfg, device=card))
         for s, f in zip(stacked, fresh):
             assert torch.equal(s.reshape((-1,) + f.shape)[i], f)
+
+
+@pytest.mark.cuda
+def test_hybrid_train_forward_launches_flash_once_a_group_at_head_dim_112(
+        card):
+    """bfloat16 zamba2 of 3 groups of 2 mamba2 blocks and one trailing, its
+    shared attention at head dim 112: the train-mode forward launches the
+    flash forward once a group (3), padded to 128, the gradient the
+    backward 3 times; within 5e-2 of max |h| of the plain attention's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import forward, lm_loss, model_init
+    from repro_torch.utils.tree import tree_leaves
+    cfg = get_arch("zamba2_7b").model.reduced(n_layers=2, d_model=256) \
+        .with_overrides(n_layers=7, attn_every=2, head_dim=112)
+    params = model_init(cfg, torch.Generator(device=card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 128),
+                         generator=torch.Generator(device=card).manual_seed(1),
+                         device=card)
+    K.reset_launches()
+    with torch.no_grad():
+        h, _, _ = forward(params, cfg, {"tokens": toks}, mode="train")
+        plain, _, _ = forward(params, cfg.with_overrides(
+            use_flash_attention=False), {"tokens": toks}, mode="train")
+    assert K.launches()["flash_fwd"] == 3
+    assert float((h.float() - plain.float()).abs().max()) <= \
+        5e-2 * float(plain.float().abs().max())
+    K.reset_launches()
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    grads = torch.autograd.grad(lm_loss(params, cfg, {"tokens": toks}),
+                                leaves)
+    assert K.launches()["flash_fwd"] == K.launches()["flash_bwd"] == 3
+    assert all(bool(torch.isfinite(g).all()) for g in grads)

@@ -333,3 +333,60 @@ def test_refusal_reads_the_same_under_vmap(case):
     assert real is not None  # on the CPU every case is refused, for a reason
     if case == "ok":
         assert "needs CUDA" in real[1]
+
+
+def test_head_dim_112_is_taken_through_the_zero_pad():
+    """``refusal(pad=True)`` takes a head dim below 128 that the kernel is
+    not built for (zamba2's 112: padded to 128), the launch itself does
+    not; 256 stays refused either way."""
+    from repro_torch.kernels.flash_attention import flash as FK
+    q, k, v = _qkv(d=112)
+    assert FK.padded_dim(112) == 128 and FK.padded_dim(80) == 80
+    assert FK.padded_dim(256) == 256
+    why = FK.refusal(q, k, v, True, None, 0, pad=True)
+    assert why is not None and "needs CUDA" in why[1]  # only the device
+    assert "head dims" in FK.refusal(q, k, v)[1]
+    q, k, v = _qkv(d=256)
+    assert "head dims" in FK.refusal(q, k, v, pad=True)[1]
+
+
+@pytest.mark.parametrize("causal,window,q_offset,kv",
+                         [(True, None, 0, 4), (True, 24, 0, 2),
+                          (True, None, 16, 1)])
+def test_padded_plain_path_equals_unpadded_attention_at_head_dim_112(
+        causal, window, q_offset, kv):
+    """The plain attention through ``padded_attention`` (q, k, v
+    zero-padded from 112 to 128, the softmax scale 1/sqrt(112) passed on,
+    the output sliced back) equals the plain attention at 112, forward and
+    gradient (float32, within 1e-5 of the largest entry); so does the
+    kernels' plain forward and backward (``FlashAttention`` on CPU tensors)
+    through the same pad."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     padded_attention)
+    rng = np.random.default_rng(kv)
+    sk = 48 + q_offset
+    mk = lambda *s: torch.tensor(  # noqa: E731
+        rng.normal(size=s).astype(np.float32), requires_grad=True)
+    q, k, v = mk(2, 48, 4, 112), mk(2, sk, kv, 112), mk(2, sk, kv, 112)
+    dout = torch.tensor(rng.normal(size=(2, 48, 4, 112)).astype(np.float32))
+
+    from repro_torch.kernels.flash_attention import FlashAttention
+
+    def ref(q, k, v, causal, window, q_offset, scale=None):
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, scale=scale)
+
+    def kernel_plain(q, k, v, causal, window, q_offset, scale=None):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                    scale)[0]
+
+    want = ref(q, k, v, causal, window, q_offset)
+    gw = torch.autograd.grad(want, (q, k, v), dout)
+    for attend in (ref, kernel_plain):
+        got = padded_attention(attend, q, k, v, 128, causal, window,
+                               q_offset)
+        assert got.shape == want.shape
+        gg = torch.autograd.grad(got, (q, k, v), dout)
+        for a, b in [(got, want)] + list(zip(gg, gw)):
+            scale = float(b.detach().abs().max())
+            assert float((a - b).detach().abs().max()) <= 1e-5 * scale

@@ -92,8 +92,8 @@ def test_llm_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         S.build_train_step(plan)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TR.run(["--arch", "stablelm_3b", "--steps", "1"])
-    with pytest.raises(ValueError, match="not ported"):
-        TR.run(["--arch", "mamba2_1_3b", "--device", "cpu", "--stream"])
+    with pytest.raises(KeyError, match="unknown arch"):
+        TR.run(["--arch", "no_such_arch", "--device", "cpu", "--stream"])
     out = []
     res = TR.run(["--arch", "stablelm_3b", "--steps", "2", "--f", "1",
                   "--device", "cpu"], log=out.append)
@@ -109,8 +109,8 @@ def test_serve_entry_point_needs_cuda_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.run(["--arch", "llama32_vision_11b"])
-    with pytest.raises(ValueError, match="not ported"):
-        serve.run(["--arch", "mamba2_1_3b", "--device", "cpu"])
+    with pytest.raises(KeyError, match="unknown arch"):
+        serve.run(["--arch", "no_such_arch", "--device", "cpu"])
     out = []
     res = serve.run(["--arch", "llama32_vision_11b", "--device", "cpu",
                      "--batch", "1", "--prompt-len", "4", "--tokens", "2"],

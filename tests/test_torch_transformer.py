@@ -72,11 +72,12 @@ def model(request):
         else a, jparams)
     np_batch = _np_batch(cfg, np.random.default_rng(4))
     batch = {k: jnp.asarray(v) for k, v in np_batch.items()}
-    hidden = np.asarray(JT.forward(jparams, jcfg, batch, mode="train")[0])
+    hidden, _, aux = JT.forward(jparams, jcfg, batch, mode="train")
     loss, grads = jax.value_and_grad(JT.lm_loss)(jparams, jcfg, batch)
     np_params = jax.tree.map(np.asarray, jparams)
     return {"cfg": cfg, "jcfg": jcfg, "params": np_params, "batch": np_batch,
-            "hidden": hidden, "loss": float(loss),
+            "hidden": np.asarray(hidden), "loss": float(loss),
+            "moe_loss": float(aux["moe_loss"]),
             "grads": jax.tree.map(np.asarray, grads)}
 
 
@@ -87,7 +88,9 @@ def test_hidden_states_match(model):
     hidden, _, aux = T.forward(params, model["cfg"], _torch_batch(model))
     np.testing.assert_allclose(hidden.numpy(), model["hidden"], rtol=1e-4,
                                atol=1e-4)
-    assert float(aux["moe_loss"]) == 0.0
+    # the MoE layers' aux loss (0 for the other families)
+    assert float(aux["moe_loss"]) == pytest.approx(model["moe_loss"],
+                                                   rel=1e-5)
 
 
 def test_lm_loss_and_gradients_match(model):
@@ -218,10 +221,14 @@ def test_model_config_fields_and_reduced_match():
         assert jm.resolved_head_dim == m.resolved_head_dim
 
 
-def test_unported_arch_and_family_raise():
-    with pytest.raises(ValueError, match="not ported"):
-        get_arch("mamba2-1.3b")
+def test_unknown_arch_and_family_raise():
+    """Every architecture of the reference builds; an unknown arch raises
+    ``KeyError`` and an unknown family ``ValueError``."""
+    from repro_torch.configs import ARCH_IDS
+    assert PORTED_ARCHS == ARCH_IDS
     with pytest.raises(KeyError):
         get_arch("no_such_arch")
-    with pytest.raises(ValueError, match="not ported"):
-        T.model_init(ModelConfig(family="ssm"), None, device="meta")
+    with pytest.raises(ValueError, match="unknown family"):
+        T.model_init(ModelConfig(family="rnn"), None, device="meta")
+    with pytest.raises(ValueError, match="unknown family"):
+        T.cache_init(ModelConfig(family="rnn"), 1, 8, device="meta")
