@@ -9,7 +9,9 @@ the vlm ``llama32_vision_11b`` (gated cross-attention layers); the MoE
 ``dbrx_132b`` (16 experts, top 4) and ``deepseek_v2_lite_16b`` (MLA, 64
 routed experts top 6 and 2 shared, one leading dense layer); the SSM
 ``mamba2_1_3b``; and the hybrid ``zamba2_7b`` (Mamba2 with one shared
-attention block every 6 layers)."""
+attention block every 6 layers). ``get_arch("mnist_cnn")`` also returns
+the paper's own CNN (``configs/mnist_cnn.py``), which stays out of
+``ARCH_IDS`` as in the reference."""
 
 from __future__ import annotations
 
@@ -79,7 +81,7 @@ _ALIASES = {
 
 def get_arch(arch_id: str) -> ArchSpec:
     arch_id = _ALIASES.get(arch_id, arch_id).replace("-", "_").replace(".", "_")
-    if arch_id not in ARCH_IDS:
+    if arch_id not in ARCH_IDS + ["mnist_cnn"]:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}").SPEC
 
@@ -92,3 +94,7 @@ def model_for_shape(spec: ArchSpec, shape: InputShape) -> ModelConfig:
             and not cfg.use_mla:
         cfg = cfg.with_overrides(sliding_window=LONG_CONTEXT_WINDOW)
     return cfg
+
+
+def list_archs():
+    return list(ARCH_IDS)

@@ -174,3 +174,90 @@ def test_grid_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     rows = SW.main(["--scenario", "table1-mini", "--steps", "1", "--seeds",
                     "1", "--device", "cpu"])
     assert len(rows) == 8
+
+
+BENCHES = sorted((ROOT / "benchmarks").glob("bench_torch_*.py"))
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+BENCH_IMPORT = re.compile(
+    r"^\s*(?:from\s+benchmarks(?:\.(\w+))?\s+import\s+\(?([\w\s,]+)\)?"
+    r"|import\s+benchmarks\.(\w+))", re.MULTILINE)
+
+
+def test_benches_and_examples_import_neither_jax_nor_repro():
+    """The port's paper benches and examples: no ``jax``, no ``repro``, and
+    of ``benchmarks`` only the port's own ``bench_torch_*`` modules (not the
+    reference's ``common.py``), in the source and in a fresh interpreter
+    that imports them all."""
+    assert len(BENCHES) >= 8 and len(EXAMPLES) == 4
+    for p in BENCHES + EXAMPLES:
+        text = p.read_text()
+        assert not FORBIDDEN.search(text), p
+        for sub, names, mod in BENCH_IMPORT.findall(text):
+            used = [sub or mod] if (sub or mod) else [
+                n.strip() for n in names.replace("\n", " ").split(",")]
+            assert all(u.startswith("bench_torch_") for u in used), (p, used)
+    code = (
+        "import importlib, importlib.util, sys\n"
+        f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]\n"
+        f"for m in {[p.stem for p in BENCHES]!r}:\n"
+        "    importlib.import_module('benchmarks.' + m)\n"
+        f"for p in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    s = importlib.util.spec_from_file_location('ex', p)\n"
+        "    s.loader.exec_module(importlib.util.module_from_spec(s))\n"
+        "print(sorted(k for k in sys.modules if k in ('jax', 'repro', "
+        "'benchmarks.common') or k.startswith(('jax.', 'repro.'))))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
+
+
+def _paper_entry_points():
+    sys.path.insert(0, str(ROOT))
+    import importlib.util
+    from benchmarks import (bench_torch_aggregators, bench_torch_breakdown,
+                            bench_torch_common, bench_torch_fig1,
+                            bench_torch_global_vs_local,
+                            bench_torch_momentum, bench_torch_run,
+                            bench_torch_table1)
+    points = {
+        "fig1": bench_torch_fig1.run,
+        "table1": bench_torch_table1.run,
+        "momentum": bench_torch_momentum.run,
+        "global_vs_local": bench_torch_global_vs_local.run,
+        "breakdown": bench_torch_breakdown.run,
+        "aggregators": bench_torch_aggregators.run,
+        "comm_cost_to_tau": lambda: bench_torch_common.comm_cost_to_tau(
+            ratio=0.05, f=0),
+        "time_fn": lambda: bench_torch_common.time_fn(lambda: None),
+        "bench_torch_run": lambda: bench_torch_run.main(["--only",
+                                                         "table1"]),
+    }
+    for p in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(p.stem, p)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        points[p.stem] = lambda mod=mod: mod.main([])
+    return points
+
+
+@pytest.mark.parametrize("name", [
+    "fig1", "table1", "momentum", "global_vs_local", "breakdown",
+    "aggregators", "comm_cost_to_tau", "time_fn", "bench_torch_run",
+    "llm_rosdhb_train_torch", "paper_mnist_torch", "quickstart_torch",
+    "serve_demo_torch"])
+def test_paper_entry_points_need_cuda_unless_asked_for_cpu(name,
+                                                          monkeypatch):
+    """Every bench and example runs on the card by default and refuses to
+    run without one (``--device cpu`` / ``device="cpu"`` is the CPU path,
+    which ``tests/test_torch_paper.py`` and ``test_torch_examples.py``
+    run)."""
+    points = _paper_entry_points()
+    assert set(points) == {
+        "fig1", "table1", "momentum", "global_vs_local", "breakdown",
+        "aggregators", "comm_cost_to_tau", "time_fn", "bench_torch_run",
+        *(p.stem for p in EXAMPLES)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        points[name]()
