@@ -33,7 +33,12 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    banks, beta 0, 0.9 and 0.99, one block and every block, banks holding
    -0.0), at the LLM step's bank in float32 and in bfloat16, at the
    audio train step's in float32 and at the families' train steps' banks
-   in their dtypes; one RoSDHB
+   in their dtypes; compress, decompress and the momentum update in
+   float16 and float8_e4m3fn banks bitwise against their plain versions
+   at awkward shapes and at the LLM step's bank (timed), values past
+   float8's 448 among them, and the momentum kernel's float8 store held
+   bit for bit to the reference's cast (``utils.dtypes.to_float8``: NaN
+   past 464, for +-inf and for NaN) at its edges; one RoSDHB
    server round at ``[8, 416179200]`` on the payload route against the
    dense round (momentum bitwise, direction within rtol 1e-5); flash
    attention forward and backward against the plain version in float32 at
@@ -65,7 +70,11 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    CWTM = steps, decompress = 0), a finite falling loss, and the first 2
    steps against the plain path. Then the launcher's options: 2 steps with
    ``--local-masks`` (the dense wire: decompress = 2), 4 steps with
-   ``--momentum-dtype bfloat16``, and 8 steps with ``--stream --chunk-size
+   ``--momentum-dtype bfloat16``, 2 steps each with ``--momentum-dtype
+   float16`` and ``float8_e4m3fn`` (compress = momentum_scatter = 2), each
+   within rel 5e-3 (loss) and 2e-2 (|R|) of the plain path at its dtype,
+   and 8 steps with
+   ``--stream --chunk-size
    4 --prefetch-depth 2 --checkpoint``, bitwise equal to a per-step run over
    the same ``(seed, t)`` batches, its checkpoint restored bitwise;
 7. the Table-1 grid engine (``repro_torch.core.sweep``): the ``table1``
@@ -173,7 +182,21 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    five rows, beta 0.9's three lanes, a global_vs_local and a breakdown
    cell at 100 rounds (rel 1e-4) and fig1's (0.05, 5) cell at 20
    (``python3 chip_smoke.py paper`` runs this phase alone);
-13. the device µs and device kernels per call of pairdist, CWTM, median,
+13. the roofline (``roofline``): ``repro_torch.launch.roofline.
+   detect_hardware()`` must read ``h100``; the device-to-device copy
+   bandwidth beside the published 3.35 TB/s (a reading, not a bound; every
+   bound of this script takes the published peaks of that module);
+   ``benchmarks/bench_torch_kernels.py`` with its gates (parity rel 1e-5,
+   the kernel path at least 0.95x the plain rules at Table-1's shape and
+   faster at d >= 1e6), its JSON written to ``build/chip_smoke/``; and
+   the dry run (``repro_torch.launch.dryrun.run_one``) at the LLM step's
+   cut at each bank dtype and at the families' train cuts: each predicted
+   held state (parameters, banks, the adversary's memory) within rel
+   1e-2 of the device bytes the run's setup left allocated, and each
+   predicted state no larger than the peak memory the run read (``python3
+   chip_smoke.py roofline`` runs this phase alone, with one LLM step for
+   its readings);
+14. the device µs and device kernels per call of pairdist, CWTM, median,
    the flash forward and backward (at ``[1, 4096, 32, 80]``, ``[1, 4096,
    24, 64]``, zamba2's ``[1, 4096, 32, 112]`` and transformer-table1's
    folded ``[288, 32, 2, 64]``) and their library calls, and of compress,
@@ -202,10 +225,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense): HBM3 bandwidth and float32 outside
-# the tensor cores. Both kernels are bound by bytes at the path's shapes.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
+
+def peak_rates() -> dict:
+    """One H100's published peaks, from ``repro_torch.launch.roofline`` (the
+    one source of them): HBM bytes/s, float32 operations/s outside the
+    tensor cores and dense bf16 operations/s on them. The bounds below
+    take these; the sort and pairdist kernels are bound by bytes at the
+    paths' shapes."""
+    from repro_torch.launch.roofline import H100, H100_F32_FLOPS
+    return {"bytes": H100.hbm_bw, "f32": H100_F32_FLOPS,
+            "bf16": H100.peak_flops}
+
 
 AWKWARD = [(3, 13, 3, 300), (2, 7, 0, 130), (4, 5, 2, 257),
            (1, 19, 9, 128), (5, 4, 1, 64), (2, 16, 3, 1024)]
@@ -242,8 +272,6 @@ SORT_EDGES = [(1, 13, 3, 20000), (2, 64, 20, 999), (1, 1, 0, 77)]
 # CWTM and the median over 18 lanes each.
 GRID_SHAPES = {"pairdist": (36, 13, 11958), "cwtm": (18, 13, 11958),
                "median": (18, 13, 11958)}
-
-PEAK_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
 
 KERNELS = {
     "pairdist": {"source": "src/repro_torch/csrc/pairdist.cu",
@@ -299,12 +327,26 @@ RANDK_AWKWARD = [(3, 128 * 7, 128, 1, False, "float32"),
                  (1, 128, 128, 1, False, "bfloat16"),
                  (8, 512 * 33, 512, 2, False, "float32"),
                  (5, 512 * 40, 512, 40, True, "float32")]
+# float16 and float8 banks (the float8 ones get values past 448); the last
+# two have blocks of 6 and 5 16-byte vectors, so a thread block takes 42
+# and 51 blocks and the last one fewer
+RANDK_AWKWARD_LOWP = [(3, 128 * 7, 128, 3, True, "float16"),
+                      (4, 512 * 9, 512, 4, False, "float16"),
+                      (3, 128 * 7, 128, 2, False, "float8_e4m3fn"),
+                      (5, 512 * 40, 512, 7, True, "float8_e4m3fn"),
+                      (3, 48 * 100, 48, 45, True, "float16"),
+                      (2, 80 * 120, 80, 53, False, "float8_e4m3fn")]
+# float16 and float8 server banks: the kernels at the LLM step's bank in
+# those dtypes (timed)
+LOWP_DTYPES = ("float16", "float8_e4m3fn")
 RANDK_PATH = (LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, "float32")
 RANDK_AUDIO = (LLM_WORKERS, AUDIO_D, LLM_BS, AUDIO_KB, False, "float32")
 # compress at the families' banks, in the wire dtype (their decompress
 # launches none)
 RANDK_FAMILIES = [(LLM_WORKERS, d, LLM_BS, kept_blocks(d), False, dt)
                   for _, d, dt in FAMILY_BANKS]
+RANDK_LOWP = [(LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, dt)
+              for dt in LOWP_DTYPES]
 
 # Momentum cases: (n, d, block_size, kb, local ids, bank dtype, beta,
 # -0.0 in the bank). The payload is in the bank's dtype (the wire dtype is
@@ -317,6 +359,11 @@ MOMENTUM_AWKWARD = [(3, 128 * 7, 128, 1, False, "float32", 0.9, False),
                     (1, 128, 128, 1, True, "bfloat16", 0.0, True),
                     (8, 512 * 33, 512, 2, False, "float32", 0.9, True),
                     (5, 512 * 40, 512, 40, True, "bfloat16", 0.99, False)]
+MOMENTUM_AWKWARD_LOWP = [
+    (3, 128 * 7, 128, 2, False, "float16", 0.9, True),
+    (4, 512 * 9, 512, 4, True, "float16", 0.99, False),
+    (3, 128 * 7, 128, 7, True, "float8_e4m3fn", 0.0, True),
+    (5, 512 * 40, 512, 9, False, "float8_e4m3fn", 0.9, True)]
 MOMENTUM_PATH = [(LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, "float32", 0.9,
                   False),
                  (LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, "bfloat16", 0.9,
@@ -325,6 +372,14 @@ MOMENTUM_AUDIO = (LLM_WORKERS, AUDIO_D, LLM_BS, AUDIO_KB, False, "float32",
                   0.9, False)
 MOMENTUM_FAMILIES = [(LLM_WORKERS, d, LLM_BS, kept_blocks(d), False, dt, 0.9,
                       False) for _, d, dt in FAMILY_BANKS]
+MOMENTUM_LOWP = [(LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, dt, 0.9, False)
+                 for dt in LOWP_DTYPES]
+# float8 stores past the largest finite value: values that round to 448,
+# the midpoint 464, past it, +-inf and NaN, on the momentum kernel's
+# store (beta 0 writes the float32 payload as it is)
+FLOAT8_EDGES = (440.0, 447.9, 448.0, 456.0, 463.99, 464.0, 464.01, 465.0,
+                470.0, 479.9, 480.0, 1e4, 2.0 ** -9, 2.0 ** -10, 1e-30,
+                float("inf"), float("nan"), 0.0)
 
 # Flash cases: (B, Sq, Sk, H, KV, D, causal, window, q_offset).
 FLASH_AWKWARD = [(2, 100, 100, 32, 32, 80, True, None, 0),
@@ -455,20 +510,13 @@ def split_times(torch, fns: dict, reps: int, rounds: int = 5) -> dict:
 
 
 def bound_ms(name: str, shape, itemsize: int) -> tuple:
-    """Least time for the function on these inputs: each input byte read
-    once and each output byte written once at the HBM rate, against the
-    operations at the float32 rate; the larger wins."""
-    from repro_torch.kernels.cwtm.cwtm import n_pad_of, sort_network_compares
-    b, n, d = shape
-    if name == "pairdist":
-        nbytes = b * n * d * itemsize + b * n * n * 4
-        ops = b * d * n * (n + 1)  # n(n+1)/2 multiply-adds per coordinate
-    else:
-        nbytes = b * n * d * itemsize + b * d * itemsize
-        ops = b * d * (2 * sort_network_compares(n_pad_of(n)) + 2 * n)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Least time for pairdist, CWTM or the median on these inputs: the
+    kernel's work (``repro_torch.launch.roofline.pairdist_work``,
+    ``sorted_weight_work``) at the float32 rate (:func:`_bound`)."""
+    from repro_torch.launch import roofline as RL
+    work = (RL.pairdist_work if name == "pairdist"
+            else RL.sorted_weight_work)(*shape, itemsize)
+    return _bound(work, "f32")
 
 
 def pairdist_f64(torch, x):
@@ -888,20 +936,28 @@ def log_case(rec) -> None:
 
 
 
-def _bound(nbytes: float, ops: float, ops_rate: float) -> tuple:
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / ops_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound(work: tuple, rate: str) -> tuple:
+    """``(ms, "bytes" | "operations")`` of a kernel's ``work = (bytes,
+    operations)`` (``repro_torch.launch.roofline``'s counts): the larger of
+    the bytes over the HBM rate and the operations over the ``rate``
+    (``"f32"`` or ``"bf16"``) of :func:`peak_rates`."""
+    from repro_torch.launch.roofline import bound_ms as roofline_bound
+    return roofline_bound(work, peak_rates()[rate])
 
 
 def randk_inputs(torch, case, seed: int, device: str = "cuda") -> tuple:
     """``(g [n, d], block ids, alpha)`` of a Block-RandK case, made from
     ``seed``."""
+    from repro_torch.utils.dtypes import to_dtype
     n, d, bs, kb, local, dt = case
     nb = d // bs
     gen = torch.Generator(device=device).manual_seed(seed)
-    g = torch.randn((n, d), generator=gen, device=device).to(
-        getattr(torch, dt))
+    g = torch.randn((n, d), generator=gen, device=device)
+    if dt in LOWP_DTYPES:
+        # every 97th value past float8's range before the cast; compress
+        # then multiplies by nb / kb, which takes more past it
+        g[:, ::97] *= 600.0
+    g = to_dtype(g, getattr(torch, dt))
     if local:
         ids = torch.stack([torch.randperm(nb, generator=gen, device=device)[:kb]
                            for _ in range(n)]).int()
@@ -926,9 +982,10 @@ def randk_case(torch, case, timed: bool, seed: int, device: str = "cuda",
     plain_c = lambda: block_compress_ref(g, ids, bs, alpha)  # noqa: E731
     pay = kern_c()
     pay_ref = plain_c()
-    ok = {"block_compress": torch.equal(pay, pay_ref)}
-    err = {"block_compress": float((pay.float() - pay_ref.float()).abs()
-                                   .max())}
+    ok = {"block_compress": torch.equal(bits(torch, pay),
+                                        bits(torch, pay_ref))}
+    err = {"block_compress": max_abs_diff(pay, pay_ref)}
+    nans = int(torch.isnan(pay.float()).sum())
     del pay_ref
     kern_d = lambda: decompress_kernel(pay, ids, block_size=bs,  # noqa: E731
                                        d=d)
@@ -936,11 +993,10 @@ def randk_case(torch, case, timed: bool, seed: int, device: str = "cuda",
     if decompress:
         dense = kern_d()
         dense_ref = plain_d()
-        ok_d = torch.equal(dense, dense_ref)
-        err["block_decompress"] = float((dense.float() - dense_ref.float())
-                                        .abs().max())
+        ok_d = torch.equal(bits(torch, dense), bits(torch, dense_ref))
+        err["block_decompress"] = max_abs_diff(dense, dense_ref)
         del dense_ref
-        if n * d < 100_000_000:
+        if n * d < 100_000_000 and dt != "float8_e4m3fn":
             # the reference's contract: bitwise the dense (alpha*g)*mask on
             # finite gradients (torch.equal takes -0.0 == 0.0)
             mask = torch.zeros((n, nb), dtype=dtype, device=device)
@@ -950,27 +1006,27 @@ def randk_case(torch, case, timed: bool, seed: int, device: str = "cuda",
         ok["block_decompress"] = ok_d
         del dense
     rec = {"shape": [n, d], "block_size": bs, "kb": kb, "local": local,
-           "dtype": dt, "ok": ok, "max_abs_err": err}
+           "dtype": dt, "ok": ok, "max_abs_err": err, "payload_nans": nans}
     if timed:
+        from repro_torch.launch import roofline as RL
         isz = g.element_size()
-        pay_bytes = n * kb * bs * isz
+        n_slots = nb if ids.ndim == 1 else n * nb
         rec["seed"] = seed  # for profile_cases
         rec["block_compress"] = {
             "ms": time_ms(torch, kern_c, 5), "plain_ms": time_ms(
                 torch, plain_c, 5), "library_ms": None,
             "host_us": host_us(torch, kern_c, 20)}
         rec["block_compress"]["bound_ms"], rec["block_compress"][
-            "bound_by"] = _bound(2 * pay_bytes + ids.numel() * 4, 0,
-                                 PEAK_F32_OPS_PER_S)
+            "bound_by"] = _bound(RL.compress_work(n, kb, bs, isz,
+                                                  ids.numel()), "f32")
         if decompress:
             rec["block_decompress"] = {
                 "ms": time_ms(torch, kern_d, 5), "plain_ms": time_ms(
                     torch, plain_d, 5), "library_ms": None,
                 "host_us": host_us(torch, kern_d, 20)}
             rec["block_decompress"]["bound_ms"], rec["block_decompress"][
-                "bound_by"] = _bound(pay_bytes + n * d * isz + nb * 4
-                                     + ids.numel() * 4, 0,
-                                     PEAK_F32_OPS_PER_S)
+                "bound_by"] = _bound(RL.decompress_work(
+                    n, d, kb, bs, isz, ids.numel(), n_slots), "f32")
     return rec
 
 
@@ -988,28 +1044,37 @@ def randk_fns(torch, case, seed: int, device: str = "cuda") -> dict:
 
 
 def bits(torch, x):
-    """``x``'s bit pattern (bitwise comparison that tells -0.0 from +0.0)."""
-    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+    """``x``'s bit pattern (bitwise comparison that tells -0.0 from +0.0
+    and NaN from NaN)."""
+    return x.view({1: torch.uint8, 2: torch.int16,
+                   4: torch.int32}[x.element_size()])
 
 
 def max_abs_diff(a, b) -> float:
-    """max |a - b| in float32, a row at a time (the banks fill the card)."""
-    return max(float((x.float() - y.float()).abs().max())
-               for x, y in zip(a, b))
+    """max |a - b| in float32, a row at a time (the banks fill the card),
+    over the entries where neither is NaN or infinite (the bitwise checks
+    hold those)."""
+    def row(x, y):
+        x, y = x.float(), y.float()
+        fin = x.isfinite() & y.isfinite()
+        return float((x - y).masked_fill(~fin, 0.0).abs().max())
+    return max(row(x, y) for x, y in zip(a, b))
 
 
 def momentum_inputs(torch, case, seed: int, device: str = "cuda") -> tuple:
     """``(bank m0, payload, block ids)`` of a momentum case, made from
     ``seed``."""
+    from repro_torch.utils.dtypes import to_dtype
     n, d, bs, kb, local, dt, beta, neg_zero = case
     dtype = getattr(torch, dt)
     nb = d // bs
     gen = torch.Generator(device=device).manual_seed(seed)
-    m0 = torch.randn((n, d), generator=gen, device=device).to(dtype)
+    m0 = to_dtype(torch.randn((n, d), generator=gen, device=device), dtype)
     if neg_zero:  # the first block of every row, and every 7th value
         m0[:, :bs] = -0.0
         m0[:, ::7] = -0.0
-    pay = torch.randn((n, kb * bs), generator=gen, device=device).to(dtype)
+    pay = to_dtype(torch.randn((n, kb * bs), generator=gen, device=device),
+                   dtype)
     if local:
         ids = torch.stack([torch.randperm(nb, generator=gen, device=device)[:kb]
                            for _ in range(n)]).int()
@@ -1029,6 +1094,7 @@ def momentum_case(torch, case, timed: bool, seed: int,
     from repro_torch.kernels.randk import momentum_scatter_ref, momentum_update
     from repro_torch.kernels.randk.ref import (MOMENTUM_COLS,
                                                momentum_columns_ref)
+    from repro_torch.utils.dtypes import to_dtype
     n, d, bs, kb, local, dt, beta, neg_zero = case
     m0, pay, ids = momentum_inputs(torch, case, seed, device)
     dtype = m0.dtype
@@ -1045,8 +1111,8 @@ def momentum_case(torch, case, timed: bool, seed: int,
         cols = slice(b0 * bs, b1 * bs)
         res = momentum_columns_ref(m0, pay, ids, bs, beta, b0, b1)
         ok = ok and torch.equal(bits(torch, m_k[:, cols]),
-                                bits(torch, res.to(dtype)))
-        err = max(err, max_abs_diff(m_k[:, cols], res.to(dtype)))
+                                bits(torch, to_dtype(res, dtype)))
+        err = max(err, max_abs_diff(m_k[:, cols], to_dtype(res, dtype)))
         if out_k is not None:
             ok = ok and torch.equal(bits(torch, out_k[:, cols]),
                                     bits(torch, res))
@@ -1057,9 +1123,7 @@ def momentum_case(torch, case, timed: bool, seed: int,
            "dtype": dt, "beta": beta, "neg_zero": neg_zero, "ok": ok,
            "max_abs_err": err}
     if timed:
-        isz = m0.element_size()
-        nbytes = (2 * n * d * isz + pay.numel() * pay.element_size()
-                  + ids.numel() * 4 + (n * d * 4 if f32_out else 0))
+        from repro_torch.launch import roofline as RL
         kern = lambda: momentum_update(m_k, pay, ids, **kw)  # noqa: E731
         rec["ms"] = time_ms(torch, kern, 5)
         rec["host_us"] = host_us(torch, kern, 10)
@@ -1068,8 +1132,9 @@ def momentum_case(torch, case, timed: bool, seed: int,
         rec["plain_ms"] = time_ms(torch, lambda: momentum_scatter_ref(
             m0, pay, ids, bs, beta, f32_out), 3)
         rec["library_ms"] = None  # no single call decays and scatter-adds
-        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, 2 * n * d,
-                                                  PEAK_F32_OPS_PER_S)
+        rec["bound_ms"], rec["bound_by"] = _bound(RL.momentum_work(
+            n, d, kb, bs, m0.element_size(), pay.element_size(),
+            ids.numel(), f32_out), "f32")
     return rec
 
 
@@ -1082,6 +1147,47 @@ def momentum_fn(torch, case, seed: int, device: str = "cuda"):
     f32_out = m0.dtype != torch.float32
     return lambda: momentum_update(m0, pay, ids, block_size=bs, beta=beta,
                                    f32_out=f32_out)
+
+
+def float8_store_case(torch, device: str = "cuda") -> dict:
+    """The momentum kernel's float8 store against ``utils.dtypes.to_float8``
+    (the reference's cast), bitwise: a float32 payload written into a
+    zero float8 bank with beta 0 (the store of the payload as it is, -0.0
+    made +0.0 by the update's add) over
+    :data:`FLOAT8_EDGES` and their negations, a sweep of [-500, 500], and
+    float32 bit patterns every 37 from 0 up to 2^24 (the subnormals and
+    the small normals), both signs. Values past 464, +-inf and NaN must
+    come back NaN of their sign, where PyTorch's own cast gives 448."""
+    from repro_torch.kernels.randk import momentum_update
+    from repro_torch.utils.dtypes import FLOAT8, to_float8
+    bs = 512
+    edges = torch.tensor(FLOAT8_EDGES, device=device)
+    pats = torch.arange(0, 1 << 24, 37, device=device,
+                        dtype=torch.int32).view(torch.float32)
+    vals = torch.cat([edges, -edges, torch.linspace(-500, 500, 1 << 18,
+                                                     device=device),
+                      pats, -pats])
+    width = -(-vals.numel() // bs) * bs
+    pay = torch.zeros((1, width), device=device)
+    pay[0, :vals.numel()] = vals
+    nb = width // bs
+    bank = torch.zeros((1, width), dtype=FLOAT8, device=device)
+    ids = torch.arange(nb, dtype=torch.int32, device=device)
+    momentum_update(bank, pay, ids, block_size=bs, beta=0.0, f32_out=True)
+    # the update is fma(0, m, 1 * p): p itself, but +0.0 for -0.0
+    want = to_float8(pay + 0.0)
+    ok = torch.equal(bits(torch, bank), bits(torch, want))
+    nan = int(torch.isnan(bank.float()).sum())
+    sat = int((pay.abs() > 464).sum() + torch.isnan(pay).sum())
+    log(f"float8 store: {vals.numel()} values through momentum_scatter's "
+        f"float8 store against to_float8, bitwise {ok}; {nan} NaN for "
+        f"{sat} values past 464, inf or NaN (PyTorch's own cast: "
+        f"{float(torch.tensor(470.0, device=device).to(FLOAT8).float())} "
+        f"for 470)")
+    if not ok or nan != sat:
+        raise AssertionError("float8 store: the kernel does not round as "
+                             "the reference's cast")
+    return {"values": vals.numel(), "bitwise": ok, "nan": nan}
 
 
 def server_round_case(torch, n: int = LLM_WORKERS, d: int = LLM_D,
@@ -1148,13 +1254,17 @@ def randk_phase(torch, device: str = "cuda", path=RANDK_PATH,
                 momentum_path=MOMENTUM_PATH, round_shape=None,
                 audio=RANDK_AUDIO, momentum_audio=MOMENTUM_AUDIO,
                 families=RANDK_FAMILIES,
-                momentum_families=MOMENTUM_FAMILIES) -> dict:
-    """Block-RandK kernel cases: awkward shapes, the audio train path's
-    (``audio``), the families' train paths' (``families``: compress only,
-    timed), then the LLM path's (timed, last); the momentum kernel
-    likewise (the families' last, timed); then one server round, payload
-    route against dense round, at the LLM path's shape (``round_shape``
-    ``(n, d, bs)`` overrides it)."""
+                momentum_families=MOMENTUM_FAMILIES, lowp=RANDK_LOWP,
+                momentum_lowp=MOMENTUM_LOWP) -> dict:
+    """Block-RandK kernel cases: awkward shapes (float16 and float8 among
+    them), the audio train path's (``audio``), the families' train paths'
+    (``families``: compress only, timed), the LLM path's bank in float16
+    and float8 (``lowp``, timed), then the LLM path's (timed, last); the
+    momentum kernel likewise (the families' and then ``momentum_lowp``
+    last, timed); the float8 store at its edges
+    (:func:`float8_store_case`); then one server round, payload route
+    against dense round, at the LLM path's shape (``round_shape`` ``(n, d,
+    bs)`` overrides it)."""
     out, failures = {"block": [], "momentum": []}, []
     # (case, timed, seed, decompress): the seeds of the cases before stay
     # as they were
@@ -1163,6 +1273,9 @@ def randk_phase(torch, device: str = "cuda", path=RANDK_PATH,
              + [(audio, False, 300 + n_awk + 1, True)]
              + [(c, True, 300 + n_awk + 2 + i, False)
                 for i, c in enumerate(families)]
+             + [(c, False, 360 + i, True)
+                for i, c in enumerate(RANDK_AWKWARD_LOWP)]
+             + [(c, True, 350 + i, True) for i, c in enumerate(lowp)]
              + [(path, True, 300 + n_awk, True)])
     for case, timed, seed, dec in cases:
         rec = randk_case(torch, case, timed and device == "cuda",
@@ -1186,7 +1299,10 @@ def randk_phase(torch, device: str = "cuda", path=RANDK_PATH,
     cases = ([(c, t, 400 + i) for i, (c, t) in enumerate(cases)]
              + [(momentum_audio, False, 400 + len(cases))]
              + [(c, True, 400 + len(cases) + 1 + i)
-                for i, c in enumerate(momentum_families)])
+                for i, c in enumerate(momentum_families)]
+             + [(c, False, 460 + i)
+                for i, c in enumerate(MOMENTUM_AWKWARD_LOWP)]
+             + [(c, True, 450 + i) for i, c in enumerate(momentum_lowp)])
     for case, timed, seed in cases:
         rec = momentum_case(torch, case, timed and device == "cuda",
                             seed=seed, device=device)
@@ -1205,6 +1321,7 @@ def randk_phase(torch, device: str = "cuda", path=RANDK_PATH,
             torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"block kernels disagree: {failures}")
+    out["float8_store"] = float8_store_case(torch, device)
     n, d, bs = round_shape or (LLM_WORKERS, LLM_D, LLM_BS)
     out["server_round"] = server_round_case(torch, n, d, bs, device=device)
     if device == "cuda":
@@ -1336,10 +1453,9 @@ def flash_case(torch, case, timed: bool, seed: int,
         rec["ok"] = rec["ok"] and rec["bwd_bitwise_repeat"]
         del runs, o_k, lse, qp, kp, vp, dp_
         rec["seed"] = seed  # for profile_cases
-        pairs = flash_pairs(sq, sk, causal, window, q_offset)
-        fwd_ops = 4 * b * h * d * pairs
-        io = q.numel() * 2 * 2 + k.numel() * 2 * 2  # q, o, k, v
-        lse_bytes = b * h * sq * 4
+        from repro_torch.launch.roofline import flash_work
+        work = flash_work(b, sq, sk, h, kv, d,
+                          flash_pairs(sq, sk, causal, window, q_offset))
         fns = flash_fns(torch, case, seed)
         for name, (kern, lib) in fns.items():
             rec[name] = {"ms": time_ms(torch, kern, 10),
@@ -1349,7 +1465,7 @@ def flash_case(torch, case, timed: bool, seed: int,
         rec["flash_fwd"]["plain_ms"] = time_ms(
             torch, lambda: attention_ref(q, k, v, **kw), 5)
         rec["flash_fwd"]["bound_ms"], rec["flash_fwd"]["bound_by"] = _bound(
-            io + lse_bytes, fwd_ops, PEAK_BF16_OPS_PER_S)
+            work["flash_fwd"], "bf16")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         o_p = attention_ref(*leaves, **kw)
         rec["flash_bwd"]["plain_ms"] = time_ms(torch, lambda: torch.autograd
@@ -1357,8 +1473,7 @@ def flash_case(torch, case, timed: bool, seed: int,
                                                      retain_graph=True), 5)
         del o_p
         rec["flash_bwd"]["bound_ms"], rec["flash_bwd"]["bound_by"] = _bound(
-            io + dout.numel() * 2 + lse_bytes + q.numel() * 2
-            + 2 * k.numel() * 2, 2.5 * fwd_ops, PEAK_BF16_OPS_PER_S)
+            work["flash_bwd"], "bf16")
         if rec["flash_fwd"]["library_ms"] is not None:
             sdpa, (qt, kt, vt, dt_) = sdpa_inputs(torch, q, k, v, dout)
             lt = [t.clone().requires_grad_() for t in (qt, kt, vt)]
@@ -2101,6 +2216,8 @@ def llm_phase(torch, device: str = "cuda", steps: int = LLM_STEPS,
     steady = sorted(res["step_ms"][1:])[len(res["step_ms"][1:]) // 2]
     peak_mib = (res["peak_bytes"] / 2**20 if res["peak_bytes"] is not None
                 else float("nan"))
+    held_mib = (res["held_bytes"] / 2**20 if res["held_bytes"] is not None
+                else float("nan"))
     log(f"llm: launches {launches}, first step {res['step_ms'][0]:.3f} ms, "
         f"median step {steady:.3f} ms, peak device memory {peak_mib:.1f} MiB")
     losses = res["losses"]
@@ -2145,6 +2262,7 @@ def llm_phase(torch, device: str = "cuda", steps: int = LLM_STEPS,
         raise AssertionError("llm: kernel and plain paths disagree")
     out = {"steps": steps, "losses": losses, "step_ms": step_ms,
            "median_step_ms": steady, "peak_mib": peak_mib,
+           "held_mib": held_mib,
            "launches": launches, "profile": prof, "plain_rel_loss": rel_l,
            "plain_rel_dir": rel_r, "plain_step_ms": plain["step_ms"]}
     del plain
@@ -2173,16 +2291,19 @@ def llm_run(torch, device: str, label: str, argv: list, steps: int,
         raise AssertionError(f"llm {label}: non-finite loss or |R|")
     check_launches(f"llm {label}", launches, llm_launches(
         res["plan"].model, res["plan"], steps, device == "cuda", **server))
-    return {**res, "peak_mib": peak, "launches": launches}
+    held = (res["held_bytes"] / 2**20 if res["held_bytes"] is not None
+            else float("nan"))
+    return {**res, "peak_mib": peak, "held_mib": held, "launches": launches}
 
 
 def llm_options(torch, device: str = "cuda", local_steps: int = 2,
                 bf16_steps: int = 4, stream_steps: int = 8,
-                chunk: int = 4) -> dict:
+                chunk: int = 4, lowp_steps: int = 2) -> dict:
     """The launcher's options on the LLM path: local masks (the dense wire,
-    so decompress runs), bfloat16 server banks, and a streamed run with its
-    checkpoint, against a per-step run over the same ``(seed, t)``
-    batches."""
+    so decompress runs), bfloat16 server banks, float16 and float8 server
+    banks (each against the plain path at the same dtype), and a streamed
+    run with its checkpoint, against a per-step run over the same ``(seed,
+    t)`` batches."""
     from repro_torch import checkpoint
     from repro_torch.launch import train
     from repro_torch.utils.tree import tree_leaves
@@ -2210,9 +2331,43 @@ def llm_options(torch, device: str = "cuda", local_steps: int = 2,
         raise AssertionError("llm bfloat16 banks: the momentum bank is "
                              f"{res['state'].server.momentum.dtype}")
     out["bf16"] = {k: res[k] for k in ("losses", "step_ms", "peak_mib",
-                                       "launches")}
+                                       "held_mib", "launches")}
     del res
     done()
+
+    # float16 and float8 banks: the wire in that dtype, the same kernels
+    # (compress and the momentum kernel once a step), held to the plain
+    # path at the same dtype as the main run is
+    for dt in LOWP_DTYPES:
+        argv = llm_argv(device, lowp_steps) + ["--momentum-dtype", dt]
+        res = llm_run(torch, device, f"{dt} banks", argv, lowp_steps,
+                      block_compress=1, block_decompress=0,
+                      momentum_scatter=1)
+        if res["state"].server.momentum.dtype != getattr(torch, dt):
+            raise AssertionError(f"llm {dt} banks: the momentum bank is "
+                                 f"{res['state'].server.momentum.dtype}")
+        rec = {k: res[k] for k in ("losses", "dir_norms", "step_ms",
+                                   "peak_mib", "held_mib", "launches")}
+        del res
+        done()
+        plain = train.run(argv, plain=True, log=log)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"],
+                                                       plain["losses"]))
+        rel_r = max(abs(a - b) / abs(b) for a, b in zip(rec["dir_norms"],
+                                                         plain["dir_norms"]))
+        log(f"llm {dt} banks: kernel vs plain path over {lowp_steps} "
+            f"steps: honest loss {rec['losses']} vs {plain['losses']} (max "
+            f"rel {rel:.3g}, bound {LLM_TOL_LOSS:g}); |R| "
+            f"{rec['dir_norms']} vs {plain['dir_norms']} (max rel "
+            f"{rel_r:.3g}, bound {LLM_TOL_DIR:g})")
+        if not (rel <= LLM_TOL_LOSS and rel_r <= LLM_TOL_DIR):
+            raise AssertionError(f"llm {dt} banks: kernel and plain paths "
+                                 f"disagree")
+        out[dt] = {**rec, "plain_losses": plain["losses"],
+                   "plain_dir_norms": plain["dir_norms"],
+                   "plain_rel_loss": rel, "plain_rel_dir": rel_r}
+        del plain
+        done()
 
     ckpt = ROOT / "build" / "chip_smoke" / "llm_params"
     argv = llm_argv(device, stream_steps)
@@ -3784,6 +3939,8 @@ def family_train_case(torch, arch: str, layers: int, mdt: str,
         raise AssertionError(f"{label}: non-finite {losses} {norms}")
     peak = (res["peak_bytes"] / 2**20 if res["peak_bytes"] is not None
             else None)
+    held = (res["held_bytes"] / 2**20 if res["held_bytes"] is not None
+            else None)
     step_ms = res["step_ms"]
     bank = str(res["state"].server.momentum.dtype).split(".")[-1]
     del res
@@ -3815,7 +3972,8 @@ def family_train_case(torch, arch: str, layers: int, mdt: str,
             "bank_dtype": bank, "seq": plan.shape.seq_len,
             "workers": plan.n_workers, "steps": FAMILY_STEPS,
             "losses": losses, "dir_norms": norms, "step_ms": step_ms,
-            "peak_mib": peak, "launches": launches, "plain_rel_loss": rel_l,
+            "peak_mib": peak, "held_mib": held, "launches": launches,
+            "plain_rel_loss": rel_l,
             "plain_rel_dir": rel_r, "plain_step_ms": plain_ms,
             "plain_peak_mib": (plain_peak / 2**20 if plain_peak is not None
                                else None)}
@@ -4143,7 +4301,8 @@ def paper_phase(torch, device: str = "cuda",
     t_phase = time.perf_counter()
     PAPER_FIG1_OUT.parent.mkdir(parents=True, exist_ok=True)
     suites = bench_torch_run.run(device=device,
-                                 fig1_out=str(PAPER_FIG1_OUT))
+                                 fig1_out=str(PAPER_FIG1_OUT),
+                                 suites=bench_torch_run.PAPER_SUITES)
     out = {"suites": {}}
     for suite, res in suites.items():
         bad = []
@@ -4182,6 +4341,156 @@ def paper_phase(torch, device: str = "cuda",
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"paper: checks {out['checks_s']:.1f} s, phase wall "
         f"{out['wall_s']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------- #
+# the roofline: the card's peaks, the kernel bench, the dry run's bytes
+# --------------------------------------------------------------------- #
+
+COPY_BYTES = 1 << 31  # one device-to-device copy: 2 GiB read, 2 GiB written
+COPY_REPS = 20
+# the dry run's held state (parameters, banks, the adversary's memory)
+# against the device bytes a run's setup left allocated: the same tensors,
+# so only the allocator's 512-byte rounding and the draws' generator
+# separate them
+HELD_TOL = 1e-2
+BENCH_KERNELS_OUT = ROOT / "build" / "chip_smoke" / "BENCH_torch_kernels.json"
+
+
+def copy_bandwidth(torch, nbytes: int = COPY_BYTES,
+                   reps: int = COPY_REPS) -> dict:
+    """Device-to-device copy bandwidth: ``dst.copy_(src)`` of ``nbytes``,
+    timed with CUDA events over ``reps`` copies; the bytes moved are the
+    read and the write."""
+    src = torch.ones(nbytes // 4, device="cuda")
+    dst = torch.empty_like(src)
+    ms = time_ms(torch, lambda: dst.copy_(src), reps)
+    del src, dst
+    torch.cuda.empty_cache()
+    rate = 2 * nbytes / (ms / 1e3)
+    return {"bytes": nbytes, "ms": ms, "bytes_per_s": rate,
+            "share_of_peak": rate / peak_rates()["bytes"]}
+
+
+def dryrun_cuts(llm=None, families=None) -> list:
+    """``(label, run_one kwargs, run record)`` of the card's train runs
+    whose memory this run read (the record's ``peak_mib`` and
+    ``held_mib``): the LLM step (2 layers of stablelm_3b, 8 workers of one
+    sequence, Block-RandK at 0.05) at its bank dtypes, and the families'
+    train paths at their layer counts and dtypes."""
+    cuts = []
+    base = dict(arch_id="stablelm_3b", shape_name="train_4k",
+                n_layers=LLM_LAYERS, n_workers=LLM_WORKERS,
+                global_batch=LLM_WORKERS, ratio=0.05)
+    if llm is not None:
+        cuts.append(("llm float32", dict(base, momentum_dtype="float32"),
+                     llm))
+        for key, dt in (("bf16", "bfloat16"), ("float16", "float16"),
+                        ("float8_e4m3fn", "float8_e4m3fn")):
+            opt = llm.get("options", {}).get(key)
+            if opt is not None:
+                cuts.append((f"llm {dt}", dict(base, momentum_dtype=dt),
+                             opt))
+    for arch, layers, mdt in FAMILY_TRAIN:
+        if families is not None and arch in families.get("train", {}):
+            cuts.append((f"{arch} train", dict(
+                base, arch_id=arch, n_layers=layers, momentum_dtype=mdt),
+                families["train"][arch]))
+    return cuts
+
+
+def roofline_phase(torch, device: str = "cuda", llm=None,
+                   families=None, bench_shapes=None) -> dict:
+    """The roofline's inputs on the card: ``detect_hardware()`` must read
+    the H100; the device-to-device copy bandwidth beside the published
+    3.35 TB/s (a reading, not a bound); ``bench_torch_kernels`` with its
+    gates (its JSON written to :data:`BENCH_KERNELS_OUT`); and the dry run
+    (``repro_torch.launch.dryrun.run_one``) at the cuts this run trained,
+    each predicted held state within rel :data:`HELD_TOL` of the bytes the
+    run's setup left allocated and each predicted state no larger than
+    the peak ``torch.cuda.max_memory_allocated()`` read for that run
+    (``llm`` and ``families``: those phases' records; without them one
+    LLM step is run here for its readings; ``bench_shapes`` replaces the
+    bench's shapes, to rehearse on the CPU)."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from benchmarks import bench_torch_kernels
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import detect_hardware
+
+    t0 = time.perf_counter()
+    out = {"card": gpu_line() if device == "cuda" else "cpu"}
+    hw = detect_hardware()
+    out["hardware"] = hw.name
+    log(f"roofline: card {out['card']}")
+    log(f"roofline: detect_hardware() = {hw.name} (peak {hw.peak_flops:g} "
+        f"FLOP/s bf16, {hw.hbm_bw:g} B/s HBM)")
+    if device == "cuda" and hw.name != "h100":
+        raise AssertionError(f"roofline: detect_hardware() read {hw.name} "
+                             f"on {torch.cuda.get_device_name(0)}")
+    if device == "cuda":
+        bw = copy_bandwidth(torch)
+        log(f"roofline: device-to-device copy {bw['bytes']} B in "
+            f"{bw['ms']:.4f} ms: {bw['bytes_per_s']:.6g} B/s (read and "
+            f"write), {bw['share_of_peak']:.4f} of the published "
+            f"{peak_rates()['bytes']:g} B/s (a reading, not a bound)")
+        out["copy"] = bw
+    BENCH_KERNELS_OUT.parent.mkdir(parents=True, exist_ok=True)
+    t1 = time.perf_counter()
+    bench = bench_torch_kernels.run(
+        out=str(BENCH_KERNELS_OUT), device=device,
+        shapes=bench_shapes or bench_torch_kernels.SHAPES)
+    out["bench_kernels_s"] = time.perf_counter() - t1
+    log(f"roofline: bench_torch_kernels gates {bench['gates']} "
+        f"({out['bench_kernels_s']:.1f} s)")
+    out["bench_kernels"] = {k: {m: row[m] for m in (
+        "jnp_us", "dispatch_us", "speedup_vs_jnp", "floor_ratio",
+        "dispatch_parity_rel")} for k, row in bench["aggregation"].items()}
+    if llm is None and families is None:
+        res = llm_run(torch, device, "roofline step", llm_argv(device, 1), 1,
+                      block_compress=1, block_decompress=0,
+                      momentum_scatter=1)
+        llm = {"peak_mib": res["peak_mib"], "held_mib": res["held_mib"]}
+        del res
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    checks, bad = [], []
+    for label, kw, run in dryrun_cuts(llm, families):
+        rep = dryrun.run_one(verbose=False, **kw)
+        pred = rep["state_bytes_total"] / 2**20
+        held = rep["held_bytes"] / 2**20
+        peak_mib, held_mib = run["peak_mib"], run["held_mib"]
+        # NaN on the CPU, which reads no device memory
+        ratio, held_rel = pred / peak_mib, abs(held / held_mib - 1.0)
+        parts = ", ".join(f"{k} {v / 2**20:.1f}"
+                          for k, v in rep["state_bytes"].items())
+        log(f"roofline dry run {label}: predicted held state {held:.1f} MiB "
+            f"against {held_mib:.1f} MiB the setup left allocated (rel "
+            f"{held_rel:.3g}, bound {HELD_TOL:g}); predicted state "
+            f"{pred:.1f} MiB ({parts}), measured peak {peak_mib:.1f} MiB, "
+            f"state/peak {ratio:.4f}; step "
+            f"FLOPs {rep['step_flops']}, eager bytes "
+            f"{rep['eager_bytes']['model'] + rep['eager_bytes']['server']:.6g}"
+            f", roofline {rep['roofline']['compute_s'] * 1e3:.3f} ms compute"
+            f", {rep['roofline']['memory_s'] * 1e3:.3f} ms memory")
+        checks.append({"label": label, "predicted_mib": pred,
+                       "peak_mib": peak_mib, "ratio": ratio,
+                       "predicted_held_mib": held, "held_mib": held_mib,
+                       "held_rel": held_rel,
+                       "roofline": rep["roofline"],
+                       "step_flops": rep["step_flops"],
+                       "eager_bytes": rep["eager_bytes"]})
+        if device == "cuda" and not (pred <= peak_mib
+                                     and held_rel <= HELD_TOL):
+            bad.append(label)
+    out["dryrun"] = checks
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"roofline: phase wall {out['wall_s']:.1f} s")
+    if bad:
+        raise AssertionError(f"roofline: the dry run's state exceeds the "
+                             f"measured peak, or its held state is not "
+                             f"the one the run allocated: {bad}")
     return out
 
 
@@ -4336,6 +4645,42 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
     flash_fwd["launches_families_checks"] = {
         arch: rec["check_flash_fwd"]
         for arch, rec in families["serve"].items()}
+    # the float16 and float8 banks' variants of compress, decompress and
+    # the momentum kernel: their timed cases at the LLM path's bank, their
+    # launches in the LLM runs at those dtypes (decompress: none, the
+    # payload route has no dense wire)
+    for dt in LOWP_DTYPES:
+        launches = llm["options"][dt]["launches"]
+        blk = next(r for r in randk["block"] if r["dtype"] == dt
+                   and "seed" in r and r["shape"] == [LLM_WORKERS, LLM_D])
+        mom = next(r for r in randk["momentum"] if r["dtype"] == dt
+                   and "ms" in r and r["shape"] == [LLM_WORKERS, LLM_D])
+        t = blk["block_compress"]
+        record["kernels"].append({
+            "name": f"block_compress_{dt}", "route": "cuda",
+            **KERNELS["block_compress"], "dtype": dt,
+            "launches": launches["block_compress"],
+            "max_abs_err": blk["max_abs_err"]["block_compress"],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "host_us")},
+            "device_us": t.get("device_us"), "shape": blk["shape"]})
+        t = blk["block_decompress"]
+        record["kernels"].append({
+            "name": f"block_decompress_{dt}", "route": "cuda",
+            **KERNELS["block_decompress"], "dtype": dt,
+            "launches": launches["block_decompress"],
+            "max_abs_err": blk["max_abs_err"]["block_decompress"],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "host_us")},
+            "device_us": t.get("device_us"), "shape": blk["shape"]})
+        record["kernels"].append({
+            "name": f"momentum_scatter_{dt}", "route": "cuda",
+            **KERNELS["momentum_scatter"], "dtype": dt,
+            "launches": launches["momentum_scatter"],
+            **{k: mom[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "host_us", "shape")},
+            "device_us": mom.get("device_us")})
     return record
 
 
@@ -4466,7 +4811,8 @@ def main() -> int:
                          ("stream", lambda t: stream_phase(t, card=card)),
                          ("decode", decode_phase),
                          ("families", families_then_profiles),
-                         ("floor", floor_phase), ("paper", paper_phase)):
+                         ("floor", floor_phase), ("paper", paper_phase),
+                         ("roofline", roofline_phase)):
             if want(name):
                 out = fn(torch)
                 if name == "kernels":
@@ -4495,6 +4841,8 @@ def main() -> int:
     decode = decode_phase(torch, profile=False)
     torch.cuda.empty_cache()
     families = families_phase(torch)
+    torch.cuda.empty_cache()
+    roofline = roofline_phase(torch, llm=llm, families=families)
     torch.cuda.empty_cache()
     # profiled decode steps last in this process (the profiler slows the
     # launches that follow it)
@@ -4528,6 +4876,7 @@ def main() -> int:
         "stream": stream,
         "decode": decode,
         "families": families,
+        "roofline": roofline,
         "paper": {"wall_s": paper["wall_s"],
                   "checks": paper["checks"],
                   "kernel_cases": paper["kernel_cases"],

@@ -11,9 +11,11 @@ once, each with its own algorithm, attack, aggregator and hyperparameters
 
 Every function works on ``[n_workers, D]`` banks. The random draws of a round
 (RandK masks) come from a draws provider (``repro_torch.testing``). The
-server banks are float32 or bfloat16 (``momentum_dtype``); RoSDHB's
-momentum and aggregation run in ``server_compute_dtype`` (float32 or
-bfloat16).
+server banks are float32, bfloat16, float16 or float8_e4m3fn
+(``momentum_dtype``); every store into a float8 bank rounds as the
+reference's does (``utils.dtypes.to_dtype``: NaN past the largest finite
+value, where PyTorch saturates). RoSDHB's momentum and aggregation run in
+``server_compute_dtype`` (float32, bfloat16 or float16).
 
 The streaming parameter server (``repro_torch.serve``) runs the memoryless
 algorithms split in two: the clients' wire half (:func:`make_wire_fn`) and
@@ -52,15 +54,20 @@ from repro_torch.core import compression as C
 from repro_torch.core import wire as W
 from repro_torch.device import resolve_device
 from repro_torch.kernels.randk import ops as RK
+from repro_torch.utils.dtypes import FLOAT8, lowp, to_dtype
 
 #: Branch order of the full algorithm bank (and the known algorithms).
 ALGO_BANK: Tuple[str, ...] = ("rosdhb", "dasha", "robust_dgd", "dgd")
 PORTED_ALGORITHMS: Tuple[str, ...] = ALGO_BANK + ("bank",)
 
-#: Server bank dtypes the port keeps (``AlgorithmConfig.momentum_dtype``),
-#: also the dtypes of RoSDHB's server arithmetic
-#: (``AlgorithmConfig.server_compute_dtype``).
-BANK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: Server bank dtypes the port keeps (``AlgorithmConfig.momentum_dtype``).
+BANK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "float16": torch.float16, "float8_e4m3fn": FLOAT8}
+#: The dtypes of RoSDHB's server arithmetic
+#: (``AlgorithmConfig.server_compute_dtype``). float8 is not one: PyTorch
+#: has no float8 arithmetic, so a float8 compute dtype raises.
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "float16": torch.float16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,10 +105,10 @@ class AlgorithmConfig:
       smoothness_L: Lipschitz constant estimate for the beta schedule.
       mvr_a: DASHA's MVR coefficient ``a`` (default ``1 - beta``).
       sparsifier, aggregator, attack: the round's components.
-      momentum_dtype: dtype of the server banks (``float32`` or
-        ``bfloat16``; dasha's previous gradients stay float32).
+      momentum_dtype: dtype of the server banks (:data:`BANK_DTYPES`;
+        dasha's previous gradients stay float32).
       server_compute_dtype: dtype of RoSDHB's momentum and aggregation
-        (``float32`` or ``bfloat16``, :func:`_momentum`).
+        (:data:`COMPUTE_DTYPES`, :func:`_momentum`).
       clip_norm: per-worker L2 clip of the gradients before compression
         (``None``: no clip).
       bank: the algorithm branches when ``name='bank'`` (``None``: the full
@@ -229,10 +236,12 @@ def _check_ported(cfg: AlgorithmConfig) -> torch.dtype:
     if cfg.momentum_dtype not in BANK_DTYPES:
         raise ValueError(f"momentum_dtype {cfg.momentum_dtype!r} is not "
                          f"ported (ported: {'|'.join(BANK_DTYPES)})")
-    if cfg.server_compute_dtype not in BANK_DTYPES:
+    if cfg.server_compute_dtype not in COMPUTE_DTYPES:
+        why = (": PyTorch has no float8 arithmetic" if "float8" in
+               cfg.server_compute_dtype else "")
         raise ValueError(f"server_compute_dtype {cfg.server_compute_dtype!r}"
-                         f" is not ported (ported: "
-                         f"{'|'.join(BANK_DTYPES)})")
+                         f" is not ported{why} (ported: "
+                         f"{'|'.join(COMPUTE_DTYPES)})")
     return BANK_DTYPES[cfg.momentum_dtype]
 
 
@@ -337,22 +346,41 @@ def _momentum(m_prev: torch.Tensor, wire: torch.Tensor, beta: float,
     test_bf16_compute_dtype_matches_the_reference``): ``beta``, ``1-beta``,
     the operands and each product are bfloat16, the sum is one float32 add;
     the aggregation takes it rounded to bfloat16, a float32 bank keeps it
-    unrounded (XLA elides the round trip where ``m`` is widened)."""
+    unrounded (XLA elides the round trip where ``m`` is widened), a narrower
+    bank its bfloat16 rounding. float16 rounds as that round does on
+    float16 (``test_torch_bank_dtypes.py::
+    test_float16_compute_dtype_matches_the_reference``): one product in
+    float16, then one float32 fused multiply-add of the other onto it,
+    rounded to float16, which every bank keeps; the product rounded first
+    is ``(1-beta) * w`` on float32 and float16 banks, ``beta * m`` on
+    bfloat16 and float8 ones (the products XLA contracts there)."""
     if cdt == torch.float32:
         w = wire if discount is None else wire.float() * discount[:, None]
         m = _momentum_fma(m_prev, w, beta, one_m_beta)
         if present is not None:
             m = torch.where(present[:, None], m, m_prev.float())
         return m, m
-    lowp = lambda v: float(torch.tensor(v, dtype=cdt))  # noqa: E731
+    rnd = lambda v: float(torch.tensor(v, dtype=cdt))  # noqa: E731
     mp = m_prev.to(cdt)
     w = wire.to(cdt)
     if discount is not None:
         w = w * discount.to(cdt)[:, None]
-    keep = (mp * lowp(beta)).float() + (w * lowp(one_m_beta)).float()
+    if cdt == torch.float16:
+        if m_prev.dtype in (torch.bfloat16, FLOAT8):
+            m = (mp * rnd(beta)).float().add_(w.float(),
+                                              alpha=rnd(one_m_beta))
+        else:
+            m = (w * rnd(one_m_beta)).float().add_(mp.float(),
+                                                   alpha=rnd(beta))
+        m = m.to(cdt)
+        if present is not None:
+            m = torch.where(present[:, None], m, mp)
+        return m, m
+    keep = (mp * rnd(beta)).float() + (w * rnd(one_m_beta)).float()
     if present is not None:
         keep = torch.where(present[:, None], keep, mp.float())
-    return keep.to(cdt), keep
+    m = keep.to(cdt)
+    return m, (keep if m_prev.dtype == torch.float32 else m)
 
 
 def _rosdhb_apply(cfg: AlgorithmConfig, agg, state: ServerState,
@@ -366,10 +394,10 @@ def _rosdhb_apply(cfg: AlgorithmConfig, agg, state: ServerState,
     # robust aggregation of the momenta; the bank keeps their rounding to
     # momentum_dtype.
     m, keep = _momentum(state.momentum, wire, hparams[0], hparams[2],
-                        BANK_DTYPES[cfg.server_compute_dtype], present,
+                        COMPUTE_DTYPES[cfg.server_compute_dtype], present,
                         discount)
     r = agg(m)
-    new = state._replace(momentum=keep.to(state.momentum.dtype),
+    new = state._replace(momentum=to_dtype(keep, state.momentum.dtype),
                          step=state.step + 1)
     return r, new
 
@@ -412,7 +440,7 @@ def _rosdhb_dense_columns(cfg: AlgorithmConfig, agg, state: ServerState,
     # round's float32 [n, D] transients would not fit one card.
     n, d = grads.shape
     mask = C.make_masks(draws, n, d, cfg.sparsifier, grads.dtype)
-    cdt = BANK_DTYPES[cfg.server_compute_dtype]
+    cdt = COMPUTE_DTYPES[cfg.server_compute_dtype]
     momentum = torch.empty_like(state.momentum)
     r = None
     for lo in range(0, d, DENSE_COLUMNS):
@@ -426,7 +454,7 @@ def _rosdhb_dense_columns(cfg: AlgorithmConfig, agg, state: ServerState,
         if r is None:
             r = part.new_empty(part.shape[:-1] + (d,))
         r[..., cols] = part
-        momentum[:, cols] = keep
+        momentum[:, cols] = to_dtype(keep, momentum.dtype)
         del wire, m, keep, part
     return r, state._replace(momentum=momentum, step=state.step + 1)
 
@@ -490,7 +518,7 @@ def _dasha_round(cfg: AlgorithmConfig, agg, state: ServerState,
     h, atk = _attack(cfg, state.attack, h, draws, attack_params)
     r = agg(h)
     mdt = state.momentum.dtype
-    return r, ServerState(momentum=m.to(mdt), mirror=h.to(mdt),
+    return r, ServerState(momentum=to_dtype(m, mdt), mirror=to_dtype(h, mdt),
                           prev_grad=g32, step=state.step + 1, attack=atk)
 
 
@@ -499,7 +527,8 @@ def _row_mask(wire: torch.Tensor, prev: torch.Tensor, present: torch.Tensor,
     """The streaming server's row bank: rows that did not report keep
     ``prev``; the others take ``discount * wire`` (1.0 for a fresh row, an
     exact multiply, so full participation is the unmasked round)."""
-    eff = wire * discount[:, None].to(wire.dtype)
+    eff = lowp(torch.mul, wire, to_dtype(discount[:, None], wire.dtype),
+               dtype=wire.dtype)
     return torch.where(present[:, None], eff, prev)
 
 
@@ -509,18 +538,20 @@ def _dgd_apply(cfg, agg, state, wire, present=None, discount=None):
     if present is None:
         return wire.mean(dim=0), state._replace(step=state.step + 1)
     # streamed: the momentum slot doubles as the last-received wire bank
-    bank = _row_mask(wire, state.momentum.to(wire.dtype), present, discount)
+    bank = _row_mask(wire, to_dtype(state.momentum, wire.dtype), present,
+                     discount)
     return bank.mean(dim=0), state._replace(
-        momentum=bank.to(state.momentum.dtype), step=state.step + 1)
+        momentum=to_dtype(bank, state.momentum.dtype), step=state.step + 1)
 
 
 def _robust_dgd_apply(cfg, agg, state, wire, present=None, discount=None):
     # Robust DGD without compression: aggregate the raw gradients.
     if present is None:
         return agg(wire), state._replace(step=state.step + 1)
-    bank = _row_mask(wire, state.momentum.to(wire.dtype), present, discount)
+    bank = _row_mask(wire, to_dtype(state.momentum, wire.dtype), present,
+                     discount)
     return agg(bank), state._replace(
-        momentum=bank.to(state.momentum.dtype), step=state.step + 1)
+        momentum=to_dtype(bank, state.momentum.dtype), step=state.step + 1)
 
 
 def static_hparams(cfg: AlgorithmConfig) -> Tuple[float, float, float, float]:
@@ -616,7 +647,7 @@ def server_state_bytes(cfg: AlgorithmConfig, d: int) -> int:
     float32)."""
     n = cfg.n_workers
     layout = cfg.resolved_state_layout()
-    mdt_bytes = torch.finfo(BANK_DTYPES[cfg.momentum_dtype]).bits // 8
+    mdt_bytes = BANK_DTYPES[cfg.momentum_dtype].itemsize
     total = n * d * mdt_bytes
     if layout.mirror:
         total += n * d * mdt_bytes
@@ -955,7 +986,7 @@ def _lanes_round(cfg: AlgorithmConfig, state: ServerState,
         wire = torch.cat([byz.to(wire.dtype), wire[:, f:]], dim=1)
     # step 5 per group, then step 6 over every lane
     mdt = state.momentum.dtype
-    cdt = BANK_DTYPES[cfg.server_compute_dtype]
+    cdt = COMPUTE_DTYPES[cfg.server_compute_dtype]
     mom, mir, prev = (_CopyOnWrite(state.momentum), _CopyOnWrite(state.mirror),
                       _CopyOnWrite(state.prev_grad))
     x = wire
@@ -967,11 +998,11 @@ def _lanes_round(cfg: AlgorithmConfig, state: ServerState,
                 x = m
             else:  # several groups: the wire was assembled afresh
                 x[lanes] = m
-            mom.put(lanes, count, keep.to(mdt))
+            mom.put(lanes, count, to_dtype(keep, mdt))
         elif key[0] == "dasha":
             m, g32 = extra
-            mom.put(lanes, count, m.to(mdt))
-            mir.put(lanes, count, G.take(wire, lanes).to(mdt))
+            mom.put(lanes, count, to_dtype(m, mdt))
+            mir.put(lanes, count, to_dtype(G.take(wire, lanes), mdt))
             prev.put(lanes, count, g32)
     if agg is None and lp.algos.count("dgd") < b:
         agg = make_round_aggregator(cfg.aggregator, device=dev)

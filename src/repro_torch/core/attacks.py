@@ -14,7 +14,10 @@ The worker-axis statistics reproduce the reference's rounding: the mean is a
 sequential row sum times ``1/h`` and the population variance (no Bessel
 correction, as ``jnp.std``) a sequential fused multiply-add of squares
 divided by ``h``, the order XLA's fused reduction takes. Both run in
-float32 on bfloat16 rows too, rounded where the reference rounds.
+float32 on bfloat16 rows too, rounded where the reference rounds. On
+float8_e4m3fn rows, which PyTorch has no arithmetic for, every operation
+runs in float32 and rounds as the reference's does
+(``utils.dtypes.lowp``), NaN past float8's range included.
 
 :data:`ZERO_PRESERVING` names the attacks that send zero wherever every
 honest row is zero: under a global mask their Byzantine rows are zero off
@@ -28,6 +31,8 @@ import math
 import statistics
 
 import torch
+
+from repro_torch.utils.dtypes import is_float8, lowp, to_dtype
 
 
 def _alie_z(n: int, f: int) -> float:
@@ -45,13 +50,13 @@ def _mean32(x: torch.Tensor) -> torch.Tensor:
     rows = x.unbind(-2)
     acc = rows[0].to(torch.float32, copy=True)
     for row in rows[1:]:
-        acc += row
+        acc += row.float() if is_float8(row) else row
     return acc * (1.0 / x.shape[-2])
 
 
 def _row_mean(x: torch.Tensor) -> torch.Tensor:
     """Mean over the worker axis, rounded once to ``x``'s dtype."""
-    return _mean32(x).to(x.dtype)
+    return to_dtype(_mean32(x), x.dtype)
 
 
 def _row_std(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
@@ -64,25 +69,27 @@ def _row_std(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     variance to bfloat16, takes its float32 root and rounds that."""
     acc = torch.zeros_like(mu)
     for row in x.unbind(-2):
-        c = (row - mu).double()
+        c = ((row.float() if is_float8(row) else row) - mu).double()
         acc = torch.addcmul(acc.double(), c, c).to(mu.dtype)
     var = acc / x.shape[-2]
     if x.dtype != torch.float32:
-        var = var.to(x.dtype)
-    return torch.sqrt(var.double()).to(torch.float32).to(x.dtype)
+        var = to_dtype(var, x.dtype)
+    return to_dtype(torch.sqrt(var.double()).to(torch.float32), x.dtype)
 
 
 def _row_stats(x: torch.Tensor):
     """``(mean, std)`` over the worker axis in ``x``'s dtype; the std is
     taken around the unrounded float32 mean."""
     mu = _mean32(x)
-    return mu.to(x.dtype), _row_std(x, mu)
+    return to_dtype(mu, x.dtype), _row_std(x, mu)
 
 
 def _as_dtype(c: float, dtype: torch.dtype) -> float:
     """A Python constant rounded to ``dtype``: the reference's weakly typed
     constants take the array's type (``z`` becomes a bfloat16 on bfloat16
     rows), where PyTorch would multiply by the float32 constant."""
+    if is_float8(dtype):
+        return float(to_dtype(torch.tensor(c), dtype).float())
     return float(torch.tensor(c, dtype=dtype))
 
 
@@ -98,8 +105,9 @@ def alie(honest: torch.Tensor, f: int, z: float | None = None
     if z is None:
         z = _alie_z(h + f, f)
     mu, sd = _row_stats(honest)
-    byz = mu - _as_dtype(z, mu.dtype) * sd
-    return _rows(byz, f)
+    zc = _as_dtype(z, mu.dtype)
+    t = lowp(lambda s: zc * s, sd, dtype=mu.dtype)
+    return _rows(lowp(torch.sub, mu, t, dtype=mu.dtype), f)
 
 
 def linear_attack(honest: torch.Tensor, f: int,
@@ -135,8 +143,8 @@ def sign_flip(honest: torch.Tensor, f: int, scale: float = 1.0
               ) -> torch.Tensor:
     """Send the negated honest mean (scaled)."""
     mu = _row_mean(honest)
-    byz = _as_dtype(-scale, mu.dtype) * mu
-    return _rows(byz, f)
+    c = _as_dtype(-scale, mu.dtype)
+    return _rows(lowp(lambda m: c * m, mu, dtype=mu.dtype), f)
 
 
 def ipm(honest: torch.Tensor, f: int, eps: float = 0.5) -> torch.Tensor:

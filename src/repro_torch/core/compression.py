@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.randk import ops as RK
+from repro_torch.utils.dtypes import is_float8, lowp
 
 #: Kinds this module can sample.
 KINDS = ("randk", "bernoulli", "block", "block_hash", "natural", "none")
@@ -154,6 +155,9 @@ def mask_from_draw(raw: Optional[torch.Tensor], d: int, cfg: SparsifierConfig,
     is each lane's keep-ratio (:data:`TRACED_RATIO_KINDS`), compared in
     float32 as the reference compares its traced ratio."""
     _check_ratio(cfg, ratio)
+    if is_float8(dtype):  # 0 and 1 are exact; float8 has no scatter
+        return mask_from_draw(raw, d, cfg, torch.float32, ratio,
+                              device).to(dtype)
     if raw is None:
         return torch.ones((d,), dtype=dtype, device=device)
     if cfg.kind == "natural":
@@ -232,6 +236,9 @@ def compress(g: torch.Tensor, mask: torch.Tensor,
         return torch.where(a > 0, out, torch.zeros_like(out)).to(g.dtype)
     if cfg.kind == "none" or cfg.ratio >= 1.0:
         return g
+    if is_float8(g):  # each product rounded to float8, as the reference's
+        return lowp(torch.mul, lowp(lambda x: cfg.alpha * x, g,
+                                    dtype=g.dtype), mask, dtype=g.dtype)
     return (cfg.alpha * g) * mask
 
 

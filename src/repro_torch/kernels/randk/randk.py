@@ -4,10 +4,14 @@ RoSDHB momentum update.
 Replace ``repro/kernels/randk/randk.py:_compress_kernel`` (launched by
 ``block_compress``), ``:_decompress_kernel`` (``block_decompress``) and
 ``:_momentum_kernel`` (``momentum_scatter``). The kernels, ``csrc/randk.cu``,
-are bound by device memory: one thread block per (block, worker row) moves
-the block as vectors, one per thread. The reference works on one row at a
-time; here one launch covers the ``[n, d]`` bank, with one id vector shared
-by all rows (a global mask) or one per row (local masks).
+are bound by device memory: a thread block moves one or more blocks of one
+worker row as 16-byte vectors, one per thread. The reference works on one
+row at a time; here one launch covers the ``[n, d]`` bank, with one id
+vector shared by all rows (a global mask) or one per row (local masks).
+Banks and payloads are float32, bfloat16, float16 or float8_e4m3fn: the
+kernels compute in float32 and round once on store, float8 as the
+reference rounds it (NaN past the largest finite value,
+``utils.dtypes.to_float8``).
 """
 
 from __future__ import annotations
@@ -16,14 +20,17 @@ import torch
 
 from repro_torch.kernels import build
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The kernels' dtype codes (``csrc/randk.cu``).
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+          torch.float8_e4m3fn: 3}
 
 
 def _check_bank(x: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what} needs a CUDA tensor, got {x.device}")
     if x.dtype not in DTYPES:
-        raise TypeError(f"{what} takes float32 or bfloat16, got {x.dtype}")
+        raise TypeError(f"{what} takes float32, bfloat16, float16 or "
+                        f"float8_e4m3fn, got {x.dtype}")
     if x.ndim != 2 or not x.is_contiguous():
         raise ValueError(f"{what} takes a contiguous [n, d] bank, got "
                          f"{tuple(x.shape)}")
@@ -33,7 +40,7 @@ def _check_bank(x: torch.Tensor, what: str) -> None:
 
 
 def _check_block(block_size: int, dtype: torch.dtype) -> None:
-    nbytes = block_size * (4 if dtype == torch.float32 else 2)
+    nbytes = block_size * dtype.itemsize
     if block_size < 1 or nbytes % 16 or nbytes // 16 > 1024:
         raise ValueError(
             f"block_size {block_size} must span a multiple of 16 bytes and "
@@ -64,7 +71,8 @@ def block_compress_cuda(g: torch.Tensor, ids: torch.Tensor, block_size: int,
     lib = build.load("randk")
     err = lib.block_compress(g.data_ptr(), ids.data_ptr(), payload.data_ptr(),
                              n, d, kb, block_size, stride, float(alpha),
-                             DTYPES[g.dtype], build.stream_ptr(g.device))
+                             DTYPES[g.dtype],
+                             build.stream_ptr(g.get_device()))
     build.check(err, "block_compress")
     block_compress_cuda.launches += 1
     return payload
@@ -103,7 +111,7 @@ def block_decompress_cuda(payload: torch.Tensor, ids: torch.Tensor,
     err = lib.block_decompress(payload.data_ptr(), slots.data_ptr(),
                                dense.data_ptr(), n, nb, kb, block_size, stride,
                                DTYPES[payload.dtype],
-                               build.stream_ptr(payload.device))
+                               build.stream_ptr(payload.get_device()))
     build.check(err, "block_decompress")
     block_decompress_cuda.launches += 1
     return dense
@@ -112,13 +120,13 @@ def block_decompress_cuda(payload: torch.Tensor, ids: torch.Tensor,
 def momentum_scatter_cuda(m: torch.Tensor, payload: torch.Tensor,
                           ids: torch.Tensor, block_size: int, beta: float,
                           f32_out: bool = False) -> torch.Tensor:
-    """RoSDHB step 5 in place on the momentum bank ``m [n, d]`` (float32 or
-    bfloat16): every value decays by ``beta``, and the selected blocks add
-    ``(1 - beta) * payload`` (``payload [n, kb * block_size]``, float32 or
-    bfloat16, the wire the ``ids`` compressed). Computed in float32, rounded
-    once to ``m``'s dtype. Returns ``m``, or with ``f32_out`` (a bfloat16
-    bank only) a new float32 ``[n, d]`` tensor holding the unrounded
-    result."""
+    """RoSDHB step 5 in place on the momentum bank ``m [n, d]`` (any of
+    :data:`DTYPES`): every value decays by ``beta``, and the selected blocks
+    add ``(1 - beta) * payload`` (``payload [n, kb * block_size]``, any of
+    :data:`DTYPES`, the wire the ``ids`` compressed). Computed in float32,
+    rounded once to ``m``'s dtype. Returns ``m``, or with ``f32_out`` (a
+    bank narrower than float32 only) a new float32 ``[n, d]`` tensor holding
+    the unrounded result."""
     _check_bank(m, "momentum_scatter")
     _check_bank(payload, "momentum_scatter payload")
     n, d = m.shape
@@ -132,9 +140,9 @@ def momentum_scatter_cuda(m: torch.Tensor, payload: torch.Tensor,
     if d % block_size or payload.shape[1] % block_size:
         raise ValueError(f"d={d} and the payload width {payload.shape[1]} "
                          f"must be multiples of block_size={block_size}")
-    if f32_out and m.dtype != torch.bfloat16:
-        raise ValueError("f32_out is for a bfloat16 bank (a float32 bank "
-                         "holds the float32 result itself)")
+    if f32_out and m.dtype == torch.float32:
+        raise ValueError("f32_out is for a bank narrower than float32 (a "
+                         "float32 bank holds the float32 result itself)")
     for t in (m, payload):
         if t.data_ptr() % 16:
             raise ValueError("momentum_scatter needs 16-byte aligned banks")
@@ -152,7 +160,7 @@ def momentum_scatter_cuda(m: torch.Tensor, payload: torch.Tensor,
         m.data_ptr(), payload.data_ptr(), slots.data_ptr(),
         out.data_ptr() if out is not None else None, n, nb, kb, block_size,
         stride, float(beta), float(1.0 - beta), DTYPES[m.dtype],
-        DTYPES[payload.dtype], build.stream_ptr(m.device))
+        DTYPES[payload.dtype], build.stream_ptr(m.get_device()))
     build.check(err, "momentum_scatter")
     momentum_scatter_cuda.launches += 1
     return m if out is None else out

@@ -1,9 +1,20 @@
 """Plain PyTorch versions of the Block-RandK compress, decompress and fused
-momentum kernels, batched over the worker axis."""
+momentum kernels, batched over the worker axis. Banks are float32,
+bfloat16, float16 or float8_e4m3fn: values move as bits (PyTorch has no
+float8 gather or scatter), arithmetic is float32, and each result is
+rounded once to the bank's dtype (``utils.dtypes.to_dtype``)."""
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.utils.dtypes import is_float8, to_dtype, to_float8
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """``x`` viewed as integers of its width, to move its values as bits."""
+    return x.view({1: torch.uint8, 2: torch.int16,
+                   4: torch.int32}[x.element_size()])
 
 
 def _row_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -17,10 +28,10 @@ def block_compress_ref(g: torch.Tensor, ids: torch.Tensor, block_size: int,
     ``[n, kb]`` -> payload ``[n, kb * block_size]``: the selected blocks of
     each row times ``alpha``, multiplied in float32 and cast to g's dtype."""
     n, d = g.shape
-    gb = g.reshape(n, d // block_size, block_size)
+    gb = _bits(g).reshape(n, d // block_size, block_size)
     rows = torch.gather(gb, 1, _row_ids(ids, n).long()[..., None].expand(
-        -1, -1, block_size))
-    return (rows.float() * alpha).to(g.dtype).reshape(n, -1)
+        -1, -1, block_size)).view(g.dtype)
+    return to_dtype(rows.float() * alpha, g.dtype).reshape(n, -1)
 
 
 def block_decompress_ref(payload: torch.Tensor, ids: torch.Tensor,
@@ -28,11 +39,11 @@ def block_decompress_ref(payload: torch.Tensor, ids: torch.Tensor,
     """payload ``[n, kb * block_size]`` -> dense ``[n, d]``: each payload
     block at its block id, zeros elsewhere."""
     n = payload.shape[0]
-    pb = payload.reshape(n, -1, block_size)
-    out = payload.new_zeros((n, d // block_size, block_size))
+    pb = _bits(payload).reshape(n, -1, block_size)
+    out = pb.new_zeros((n, d // block_size, block_size))
     out.scatter_(1, _row_ids(ids, n).long()[..., None].expand(
         -1, -1, block_size), pb)
-    return out.reshape(n, d)
+    return out.view(payload.dtype).reshape(n, d)
 
 
 #: Columns the plain momentum update takes at a time (whole blocks): its
@@ -111,7 +122,7 @@ def momentum_scatter_ref(m: torch.Tensor, payload: torch.Tensor,
         b1 = min(nb, b0 + step)
         cols = slice(b0 * block_size, b1 * block_size)
         res = _columns(m, pf, ids, block_size, beta, b0, b1)
-        m[:, cols].copy_(res)
+        m[:, cols].copy_(to_float8(res) if is_float8(m) else res)
         if out is not None:
             out[:, cols] = res
         del res

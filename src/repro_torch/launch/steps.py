@@ -21,10 +21,14 @@ of ``repro.launch.steps``, host mode).
 
 ``build_chunked_train_step`` runs ``chunk_size`` such steps over one chunk
 of stacked batches (the streamed launcher's unit). ``build_serve_step`` is
-a prefill or a decode step of the model for an input shape (the
-reference's abstract ``serve_input_specs`` belongs to the dry run, not
-ported yet). The reference's ``TrainState`` carries a PRNG key; the port's
-carries the draws provider the server round takes its masks from.
+a prefill or a decode step of the model for an input shape. The
+reference's ``TrainState`` carries a PRNG key; the port's carries the draws
+provider the server round takes its masks from.
+
+:func:`train_input_specs`, :func:`stream_batch_specs` and
+:func:`serve_input_specs` are the steps' abstract inputs for the dry run
+(``launch.dryrun``): ``meta`` tensors of the reference's shapes and dtypes,
+with no shardings and no mesh (one card).
 """
 
 from __future__ import annotations
@@ -221,3 +225,102 @@ def build_serve_step(spec: ArchSpec, shape: InputShape):
                                        pos=pos, caches=caches)
         return tf.logits_fn(params, cfg, hidden), caches
     return decode_step
+
+
+# --------------------------------------------------------------------------
+# abstract inputs (meta tensors) for the dry run: no allocation
+# --------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _attack_state_specs(algo: A.AlgorithmConfig, d: int):
+    """Abstract ``adversary.AttackState`` matching ``A.init_state``: the
+    ``[d]`` memory slots, the scalars and the round counter; ``None`` for
+    the attacks that keep no memory (``adversary.needs_attack_state``)."""
+    from repro_torch.adversary import core as adv
+    if not adv.needs_attack_state(algo.attack.name, algo.f):
+        return None
+    return adv.init_attack_state(d, device="meta")
+
+
+def train_input_specs(plan: TrainPlan) -> Tuple[TrainState, Dict]:
+    """``(state, batch)`` of :func:`build_train_step` as meta tensors: the
+    float32 master parameters, the server state of ``A.init_state`` (the
+    momentum bank always, dasha's mirrors and float32 previous gradients
+    where the resolved layout carries them, the adversary's memory where
+    the attack keeps one), the step, and the batch of
+    :func:`_train_batch_specs`. The state's ``draws`` is ``None``.
+
+    One difference from the reference's specs: the ``[n, D]`` banks here
+    are ``plan.bank_width`` wide, the flat width rounded up to whole
+    Block-RandK blocks (``TrainPlan.bank_width``), where the reference's
+    are ``flat_spec.padded_size`` wide."""
+    params = tf.model_init(plan.model, None, device="meta")
+    n, d = plan.n_workers, plan.bank_width
+    mdt = A.BANK_DTYPES[plan.algo.momentum_dtype]
+    layout = plan.algo.resolved_state_layout()
+    bank = _meta((n, d), mdt)
+    server = A.ServerState(
+        momentum=bank, mirror=_meta((n, d), mdt) if layout.mirror else None,
+        prev_grad=(_meta((n, d), torch.float32) if layout.prev_grad
+                   else None),
+        step=_meta((), torch.int32),
+        attack=_attack_state_specs(plan.algo, d))
+    state = TrainState(params=params, server=server,
+                       step=_meta((), torch.int32), draws=None)
+    return state, _train_batch_specs(plan.model, plan)
+
+
+def _train_batch_specs(cfg: ModelConfig, plan: TrainPlan) -> Dict:
+    """The batch of one train step: ``[n_workers, local_batch, seq]``
+    tokens (or embeddings and targets), and the vlm's image embeddings."""
+    n, lb, s = plan.n_workers, plan.local_batch, plan.shape.seq_len
+    dtype = getattr(torch, cfg.dtype)
+    batch: Dict[str, torch.Tensor] = {}
+    if cfg.input_kind == "tokens":
+        batch["tokens"] = _meta((n, lb, s), torch.int32)
+    else:
+        batch["embeddings"] = _meta((n, lb, s, cfg.d_model), dtype)
+        batch["targets"] = _meta((n, lb, s), torch.int32)
+    if cfg.family == "vlm":
+        batch["image_embeddings"] = _meta(
+            (n, lb, cfg.n_image_tokens, cfg.d_model), dtype)
+    return batch
+
+
+def stream_batch_specs(plan: TrainPlan, chunk_size: int) -> Dict:
+    """The abstract ``[chunk_size, ...]`` batch chunk of
+    :func:`build_chunked_train_step`: the per-step batch with a leading
+    round axis."""
+    return {k: _meta((chunk_size,) + tuple(v.shape), v.dtype)
+            for k, v in _train_batch_specs(plan.model, plan).items()}
+
+
+def serve_input_specs(spec: ArchSpec, shape: InputShape) -> Tuple:
+    """Abstract ``(params, batch, caches)`` of the prefill step, ``(params,
+    batch, caches, pos)`` of the decode step (:func:`build_serve_step`), as
+    meta tensors; ``pos`` is a meta int32 scalar (the step takes a Python
+    int)."""
+    cfg = model_for_shape(spec, shape)
+    params = tf.model_init(cfg, None, device="meta")
+    b = shape.global_batch
+    dtype = getattr(torch, cfg.dtype)
+    if shape.kind == "prefill":
+        s = max_len = shape.seq_len
+    else:
+        s, max_len = 1, shape.seq_len
+    batch: Dict[str, torch.Tensor] = {}
+    if cfg.input_kind == "tokens":
+        batch["tokens"] = _meta((b, s), torch.int32)
+    else:
+        batch["embeddings"] = _meta((b, s, cfg.d_model), dtype)
+    if cfg.family == "vlm":
+        batch["image_embeddings"] = _meta((b, cfg.n_image_tokens,
+                                           cfg.d_model), dtype)
+    caches = tf.cache_init(cfg, b, max_len, dtype, device="meta")
+    if shape.kind == "prefill":
+        return params, batch, caches
+    return params, batch, caches, _meta((), torch.int32)

@@ -184,11 +184,17 @@ def run(argv: Optional[List[str]] = None, *, plain: bool = False,
     step lines. Returns the per-step honest loss and |R|, the wall ms of
     each step (of each chunk with ``--stream``; host clock around work that
     ends in a device synchronise), the peak device memory, the stream's
-    host high-water bytes, and the session (plan, step function, final
-    state, batches)."""
+    host high-water bytes, the device bytes the setup left allocated (the
+    state held between steps: parameters, server banks, the adversary's
+    memory) and the session (plan, step function, final state,
+    batches)."""
     args = parse_args(argv)
+    dev = resolve_device(args.device)
+    on_card = dev.type == "cuda"
+    before = torch.cuda.memory_allocated(dev) if on_card else None
     s = setup(args, plain=plain)
     plan, step, state, dev = s["plan"], s["step"], s["state"], s["device"]
+    held = (torch.cuda.memory_allocated(dev) - before) if on_card else None
     log(f"[train] {plan.model.name} layers={plan.model.n_layers} "
         f"D={plan.flat_spec.padded_size:,} n_workers={plan.n_workers} "
         f"f={plan.algo.f} algo={plan.algo.name} k/d={args.ratio} "
@@ -247,7 +253,7 @@ def run(argv: Optional[List[str]] = None, *, plain: bool = False,
         else None
     s["state"] = state
     return {**s, **out, "losses": losses, "dir_norms": norms,
-            "step_ms": step_ms, "peak_bytes": peak}
+            "step_ms": step_ms, "peak_bytes": peak, "held_bytes": held}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

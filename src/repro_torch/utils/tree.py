@@ -16,6 +16,8 @@ from typing import Any, List, Tuple
 
 import torch
 
+from repro_torch.utils.dtypes import is_float8, to_float8
+
 
 def _flatten(tree: Any, leaves: List[Any]) -> Any:
     if tree is None:
@@ -118,10 +120,13 @@ def tree_ravel_into(tree: Any, out: torch.Tensor, spec: FlatSpec
                     ) -> torch.Tensor:
     """:func:`tree_ravel` into the preallocated 1-D ``out`` of
     ``spec.padded_size`` (a row of a worker bank), each leaf converted to
-    ``out``'s dtype on the copy (a bf16 gradient into a float32 row), the
+    ``out``'s dtype on the copy (a bf16 gradient into a float32 row; into a
+    float8 row as the reference casts, ``utils.dtypes.to_dtype``), the
     padding zeroed. ``tree`` may be the list of leaves in leaf order."""
+    f8 = is_float8(out)
     for leaf, off, size in zip(tree_leaves(tree), spec.offsets, spec.sizes):
-        out[off:off + size].copy_(leaf.reshape(-1))
+        src = leaf.reshape(-1)
+        out[off:off + size].copy_(to_float8(src) if f8 else src)
     out[spec.size:].zero_()
     return out
 

@@ -261,3 +261,37 @@ def test_paper_entry_points_need_cuda_unless_asked_for_cpu(name,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         points[name]()
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.roofline",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.optim",
+                                    "repro_torch.utils.dtypes"])
+def test_roofline_dryrun_and_optim_import_neither_jax_nor_repro(module):
+    """The roofline, the dry run, the optimizers and the float8 cast keep
+    their own copies of what they need from the reference."""
+    code = (f"import sys, {module}\n"
+            "print(sorted(k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or "
+            "k.startswith('repro.')))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
+
+
+def test_kernel_bench_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    """``bench_torch_kernels`` runs on the card by default and refuses to
+    run without one; the dry run reckons on ``meta`` tensors, on any
+    host."""
+    sys.path.insert(0, str(ROOT))
+    from benchmarks import bench_torch_kernels, bench_torch_run
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_torch_kernels.run(out=None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_torch_run.main(["--only", "kernels"])
+    rep = dryrun.run_one("gemma_2b", "long_500k", n_layers=1, verbose=False)
+    assert rep["ok"] and rep["roofline"]["hardware"] == "h100"

@@ -364,7 +364,7 @@ def test_run_harness_lists_the_references_suites(monkeypatch, capsys):
     source = (ROOT / "benchmarks" / "run.py").read_text()
     assert RUN.SUITES == SUITES
     assert all(f'"{s}":' in source for s in SUITES)
-    assert set(RUN.NOT_PORTED) == {"kernels", "sweep", "roofline"}
+    assert set(RUN.NOT_PORTED) == {"sweep"}
     for name in RUN.NOT_PORTED:
         assert RUN.main(["--only", name, "--device", "cpu"]) == 0
         out = capsys.readouterr().out
