@@ -9,6 +9,8 @@ Everything runs on the CUDA card unless the caller passes
 
 from __future__ import annotations
 
+import json
+import os
 import sys
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -50,6 +52,29 @@ class Rows(list):
                                   if v != self._mark[k]}, **values})
         self._mark = now
         return self[-1]
+
+
+def launches_since(mark: Dict[str, int]) -> Dict[str, int]:
+    """The kernel launches since ``mark`` (a ``kernels.launches()``
+    reading): a bench reads its own without resetting the counters its
+    caller may be reading too."""
+    return {k: v - mark[k] for k, v in K.launches().items()}
+
+
+def run_sections(sections, out: Optional[str]) -> Dict[str, Any]:
+    """Run ``(name, fn)`` sections in order, the results dict rewritten to
+    ``out`` (``None``: nowhere) after each one, so a failed gate still
+    leaves the sections before it (the reference benches' ``record``)."""
+    results: Dict[str, Any] = {}
+    for name, fn in sections:
+        try:
+            results[name] = fn()
+        finally:
+            if out:
+                os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+                with open(out, "w") as fh:
+                    json.dump(results, fh, indent=2, default=float)
+    return results
 
 
 def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 2,

@@ -8,14 +8,19 @@
   momentum        the beta ablation (the paper's mechanism)
   breakdown       breakdown point and heterogeneity floor
   aggregators     (f,kappa)-robust rule microbench
+  sweep           the grid engine against sequential Simulator runs
+                  (``bench_torch_sweep``: writes
+                  ``results/BENCH_torch_sweep.json`` and the fitted
+                  ``results/COST_MODEL_torch.json``)
   kernels         batched aggregation kernels against the plain rules
                   (``bench_torch_kernels``: writes
                   ``results/BENCH_torch_kernels.json``)
   roofline        the dry run's roofline table (``bench_torch_roofline``:
                   reads ``results/dryrun_torch.json``)
 
-Not yet ported (``ROADMAP.md``, Queue 1): ``sweep``; naming it prints so
-and runs nothing.
+Every suite of the reference's harness is ported. The reference's benches
+outside it (``bench_llm``, ``bench_serve``, ``bench_chaos``) have their
+counterparts beside it: ``bench_torch_{llm,serve,chaos}.py``.
 
 Every measurement prints one CSV line: ``name,us_per_call,derived``, with
 the reference's names. Everything runs on the CUDA card unless
@@ -44,11 +49,10 @@ from repro_torch.device import DeviceLike, resolve_device  # noqa: E402
 #: The reference's suites, in its order.
 SUITES = ("aggregators", "kernels", "table1", "momentum", "sweep",
           "breakdown", "global_vs_local", "fig1", "roofline")
-NOT_PORTED = ("sweep",)
 
 
-#: The suites of the paper's tables and figures (every ported suite but
-#: the kernel and roofline reports).
+#: The suites of the paper's tables and figures (every suite but the
+#: sweep, kernel and roofline reports).
 PAPER_SUITES = ("aggregators", "table1", "momentum", "breakdown",
                 "global_vs_local", "fig1")
 
@@ -64,7 +68,8 @@ def run(full: bool = False, only: Optional[str] = None,
     from benchmarks import (bench_torch_aggregators, bench_torch_breakdown,
                             bench_torch_fig1, bench_torch_global_vs_local,
                             bench_torch_kernels, bench_torch_momentum,
-                            bench_torch_roofline, bench_torch_table1)
+                            bench_torch_roofline, bench_torch_sweep,
+                            bench_torch_table1)
     if only is not None and only not in SUITES:
         raise ValueError(f"unknown suite {only!r}; known: {SUITES}")
     dev = resolve_device(device)
@@ -77,6 +82,7 @@ def run(full: bool = False, only: Optional[str] = None,
         "global_vs_local": lambda: bench_torch_global_vs_local.run(
             device=dev),
         "fig1": lambda: bench_torch_fig1.run(full=full, out=out, device=dev),
+        "sweep": lambda: bench_torch_sweep.run(device=dev),
         "kernels": lambda: bench_torch_kernels.run(device=dev),
         "roofline": lambda: bench_torch_roofline.run(),
     }
@@ -85,10 +91,6 @@ def run(full: bool = False, only: Optional[str] = None,
     for name in SUITES:
         if (only and name != only) or (suites is not None
                                        and name not in suites):
-            continue
-        if name in NOT_PORTED:
-            print(f"# --- {name} --- not yet ported to the PyTorch port "
-                  "(ROADMAP.md, Queue 1)")
             continue
         print(f"# --- {name} ---")
         t1 = time.perf_counter()

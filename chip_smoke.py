@@ -71,9 +71,12 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    steps against the plain path. Then the launcher's options: 2 steps with
    ``--local-masks`` (the dense wire: decompress = 2), 4 steps with
    ``--momentum-dtype bfloat16``, 2 steps each with ``--momentum-dtype
-   float16`` and ``float8_e4m3fn`` (compress = momentum_scatter = 2), each
-   within rel 5e-3 (loss) and 2e-2 (|R|) of the plain path at its dtype,
-   and 8 steps with
+   float16`` and ``float8_e4m3fn`` (compress = momentum_scatter = 2), 2
+   steps each of ``--algo dasha`` at ``bfloat16`` and ``float8_e4m3fn``
+   banks (the round by column slices: CWTM once a slice, 25 a step, no
+   Block-RandK kernel; its peak memory and payload printed beside
+   RoSDHB's), each within rel 5e-3 (loss) and 2e-2 (|R|) of the plain path
+   at its dtype, and 8 steps with
    ``--stream --chunk-size
    4 --prefetch-depth 2 --checkpoint``, bitwise equal to a per-step run over
    the same ``(seed, t)`` batches, its checkpoint restored bitwise;
@@ -182,7 +185,18 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    five rows, beta 0.9's three lanes, a global_vs_local and a breakdown
    cell at 100 rounds (rel 1e-4) and fig1's (0.05, 5) cell at 20
    (``python3 chip_smoke.py paper`` runs this phase alone);
-13. the roofline (``roofline``): ``repro_torch.launch.roofline.
+13. the reference's four remaining benches (``benches``; after the paper
+   phase): ``benchmarks/bench_torch_{llm,serve,chaos,sweep}.py`` with
+   their gates (streamed rollouts bitwise, the host budget, the early exit
+   no slower than the fixed run x 1.05; the served trajectory bitwise the
+   simulator's, one step a server; loopback and TCP bitwise, every chaos
+   scenario terminating, the kill-restart bitwise, the combined loss
+   within rtol 0.1; attack fusion at least 1.2x sequential runs, one
+   launch of each kernel a round for a whole bank, the cost model's plan
+   the measured-best within 1.25x), each JSON and the sweep's cost model
+   written to ``build/chip_smoke/``, each bench's kernels launched
+   (``python3 chip_smoke.py benches`` runs this phase alone);
+14. the roofline (``roofline``): ``repro_torch.launch.roofline.
    detect_hardware()`` must read ``h100``; the device-to-device copy
    bandwidth beside the published 3.35 TB/s (a reading, not a bound; every
    bound of this script takes the published peaks of that module);
@@ -190,13 +204,14 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    the kernel path at least 0.95x the plain rules at Table-1's shape and
    faster at d >= 1e6), its JSON written to ``build/chip_smoke/``; and
    the dry run (``repro_torch.launch.dryrun.run_one``) at the LLM step's
-   cut at each bank dtype and at the families' train cuts: each predicted
+   cut at each bank dtype, dasha's two cuts and the families' train cuts:
+   each predicted
    held state (parameters, banks, the adversary's memory) within rel
    1e-2 of the device bytes the run's setup left allocated, and each
    predicted state no larger than the peak memory the run read (``python3
    chip_smoke.py roofline`` runs this phase alone, with one LLM step for
    its readings);
-14. the device µs and device kernels per call of pairdist, CWTM, median,
+15. the device µs and device kernels per call of pairdist, CWTM, median,
    the flash forward and backward (at ``[1, 4096, 32, 80]``, ``[1, 4096,
    24, 64]``, zamba2's ``[1, 4096, 32, 112]`` and transformer-table1's
    folded ``[288, 32, 2, 64]``) and their library calls, and of compress,
@@ -2289,21 +2304,51 @@ def llm_run(torch, device: str, label: str, argv: list, steps: int,
         f"device memory {peak:.1f} MiB, launches {launches}")
     if not all(math.isfinite(v) for v in res["losses"] + res["dir_norms"]):
         raise AssertionError(f"llm {label}: non-finite loss or |R|")
+    plan = res["plan"]
     check_launches(f"llm {label}", launches, llm_launches(
-        res["plan"].model, res["plan"], steps, device == "cuda", **server))
+        plan.model, plan, steps, device == "cuda",
+        **{k: v(plan) if callable(v) else v for k, v in server.items()}))
     held = (res["held_bytes"] / 2**20 if res["held_bytes"] is not None
             else float("nan"))
     return {**res, "peak_mib": peak, "held_mib": held, "launches": launches}
 
 
+def dasha_slices(plan) -> int:
+    """CWTM launches a step of Byz-DASHA-PAGE under ``plan``: one a column
+    slice where the round runs by slices (``algorithms._dasha_by_columns``),
+    one a step where it runs whole."""
+    from repro_torch.core import algorithms as alg
+    d = plan.bank_width
+    if alg._dasha_by_columns(plan.algo, d):
+        return -(-d // alg.DENSE_COLUMNS)
+    return 1
+
+
+def dasha_kernels(plan) -> dict:
+    """The server kernels' launches a step of Byz-DASHA-PAGE: by column
+    slices the dense mask path (no Block-RandK kernel) and CWTM once a
+    slice; whole, the compress and decompress round trip where the
+    sparsifier takes it (the CPU rehearsal's bank) and CWTM once."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import compression as comp
+    sliced = alg._dasha_by_columns(plan.algo, plan.bank_width)
+    trip = int(not sliced and comp._kernel_eligible(plan.algo.sparsifier,
+                                                    plan.bank_width))
+    return {"block_compress": trip, "block_decompress": trip,
+            "momentum_scatter": 0, "cwtm": dasha_slices(plan)}
+
+
 def llm_options(torch, device: str = "cuda", local_steps: int = 2,
                 bf16_steps: int = 4, stream_steps: int = 8,
-                chunk: int = 4, lowp_steps: int = 2) -> dict:
+                chunk: int = 4, lowp_steps: int = 2,
+                dasha_steps: int = 2) -> dict:
     """The launcher's options on the LLM path: local masks (the dense wire,
     so decompress runs), bfloat16 server banks, float16 and float8 server
-    banks (each against the plain path at the same dtype), and a streamed
-    run with its checkpoint, against a per-step run over the same ``(seed,
-    t)`` batches."""
+    banks (each against the plain path at the same dtype), Byz-DASHA-PAGE
+    at bfloat16 and float8 banks (against the plain path at its dtype, its
+    peak memory and payload beside RoSDHB's), and a streamed run with its
+    checkpoint, against a per-step run over the same ``(seed, t)``
+    batches."""
     from repro_torch import checkpoint
     from repro_torch.launch import train
     from repro_torch.utils.tree import tree_leaves
@@ -2369,6 +2414,10 @@ def llm_options(torch, device: str = "cuda", local_steps: int = 2,
         del plain
         done()
 
+    out["dasha"] = llm_dasha(torch, device, dasha_steps, rosdhb={
+        "bfloat16": out["bf16"], **{dt: out[dt] for dt in LOWP_DTYPES}})
+    done()
+
     ckpt = ROOT / "build" / "chip_smoke" / "llm_params"
     argv = llm_argv(device, stream_steps)
     res = llm_run(torch, device, "stream", argv + [
@@ -2411,6 +2460,89 @@ def llm_options(torch, device: str = "cuda", local_steps: int = 2,
                              "not the saved ones")
     out["stream"] = {**stream_rec, "bitwise_per_step": same,
                      "checkpoint_bitwise": same_ck}
+    return out
+
+
+DASHA_DTYPES = ("bfloat16", "float8_e4m3fn")
+
+
+def llm_dasha(torch, device: str, steps: int, rosdhb: dict) -> dict:
+    """Byz-DASHA-PAGE at the LLM cut (``--algo dasha``) at each bank dtype
+    of :data:`DASHA_DTYPES`: its launches against the route's own count
+    (:func:`dasha_kernels`), its honest loss and |R| against the plain path
+    at the same dtype (:data:`LLM_TOL_LOSS`, :data:`LLM_TOL_DIR`), and its
+    peak device memory and per-worker payload beside RoSDHB's at the same
+    cut and bank dtype (``rosdhb``: those runs' records): the paper's
+    memory and communication claim, measured."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import compression as comp
+    from repro_torch.launch import train
+
+    out = {}
+    for dt in DASHA_DTYPES:
+        argv = llm_argv(device, steps) + ["--algo", "dasha",
+                                          "--momentum-dtype", dt]
+        res = llm_run(torch, device, f"dasha {dt} banks", argv, steps,
+                      **{k: (lambda plan, k=k: dasha_kernels(plan)[k])
+                         for k in ("block_compress", "block_decompress",
+                                   "momentum_scatter", "cwtm")})
+        plan = res["plan"]
+        srv = res["state"].server
+        if srv.momentum.dtype != getattr(torch, dt) or srv.mirror is None:
+            raise AssertionError(f"llm dasha {dt}: the banks are "
+                                 f"{srv.momentum.dtype}, mirror "
+                                 f"{srv.mirror is not None}")
+        d = plan.flat_spec.padded_size
+        rosdhb_cfg = dataclasses.replace(plan.algo, name="rosdhb")
+        rec = {k: res[k] for k in ("losses", "dir_norms", "step_ms",
+                                   "peak_mib", "held_mib", "launches")}
+        rec.update(
+            sliced=alg._dasha_by_columns(plan.algo, plan.bank_width),
+            slices=dasha_slices(plan),
+            payload_floats=comp.payload_floats(d, plan.algo.sparsifier),
+            payload_bytes=alg.algo_payload_bytes(plan.algo, d),
+            rosdhb_payload_bytes=alg.algo_payload_bytes(rosdhb_cfg, d),
+            state_bytes=alg.server_state_bytes(plan.algo, plan.bank_width),
+            rosdhb_state_bytes=alg.server_state_bytes(rosdhb_cfg,
+                                                      plan.bank_width))
+        del res, srv
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        plain = train.run(argv, plain=True, log=log)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"],
+                                                       plain["losses"]))
+        rel_r = max(abs(a - b) / abs(b) for a, b in zip(rec["dir_norms"],
+                                                         plain["dir_norms"]))
+        ros = rosdhb.get(dt, {})
+        log(f"llm dasha {dt} banks: kernel vs plain path over {steps} "
+            f"steps: honest loss {rec['losses']} vs {plain['losses']} (max "
+            f"rel {rel:.3g}, bound {LLM_TOL_LOSS:g}); |R| "
+            f"{rec['dir_norms']} vs {plain['dir_norms']} (max rel "
+            f"{rel_r:.3g}, bound {LLM_TOL_DIR:g}); plain steps "
+            f"{', '.join(f'{v:.3f}' for v in plain['step_ms'])} ms")
+        log(f"llm dasha {dt} banks: {rec['slices']} column slices a round "
+            f"(by columns: {rec['sliced']}); peak device memory "
+            f"{rec['peak_mib']:.1f} MiB against RoSDHB's "
+            f"{ros.get('peak_mib', float('nan')):.1f} MiB at the same cut "
+            f"and bank dtype; server banks {rec['state_bytes']} B against "
+            f"{rec['rosdhb_state_bytes']} B; a worker sends "
+            f"{rec['payload_floats']} floats, {rec['payload_bytes']} B a "
+            f"round with its indices, against RoSDHB's "
+            f"{rec['rosdhb_payload_bytes']} B (a global mask sends none)")
+        if not (rel <= LLM_TOL_LOSS and rel_r <= LLM_TOL_DIR):
+            raise AssertionError(f"llm dasha {dt} banks: kernel and plain "
+                                 f"paths disagree")
+        out[dt] = {**rec, "rosdhb_peak_mib": ros.get("peak_mib"),
+                   "plain_losses": plain["losses"],
+                   "plain_dir_norms": plain["dir_norms"],
+                   "plain_step_ms": plain["step_ms"],
+                   "plain_peak_mib": (plain["peak_bytes"] / 2**20
+                                      if plain["peak_bytes"] is not None
+                                      else float("nan")),
+                   "plain_rel_loss": rel, "plain_rel_dir": rel_r}
+        del plain
+        if device == "cuda":
+            torch.cuda.empty_cache()
     return out
 
 
@@ -3243,9 +3375,17 @@ def _stream_phase(torch, device, rounds, tau_cap, grid_rounds, tt1_rounds,
     if on_card:
         model.save(str(COST_MODEL_OUT))
     fit = dataclasses.asdict(model)
+    # the fit's own plan of the grid it was measured on
+    table1 = SW.grid_scenarios(CM.CALIBRATION_ALGOS, CM.CALIBRATION_ATTACKS,
+                               CM.CALIBRATION_AGGS, n_honest=10, f=3,
+                               ratio=0.1, gamma=0.05)
+    programs = SW.plan_grid(table1, cost_model=model, rounds=cost_steps,
+                            n_seeds=4).n_programs
     log(f"stream cost model: probes {json.dumps(probes)}; fit "
-        f"{json.dumps(fit)}")
-    out["cost_model"] = {"probes": probes, "fit": fit}
+        f"{json.dumps(fit)}; its plan of the Table-1 grid: {programs} "
+        f"bank(s)")
+    out["cost_model"] = {"probes": probes, "fit": fit,
+                         "table1_programs": programs}
     return out
 
 
@@ -4348,6 +4488,70 @@ def paper_phase(torch, device: str = "cuda",
 # the roofline: the card's peaks, the kernel bench, the dry run's bytes
 # --------------------------------------------------------------------- #
 
+BENCHES = ("llm", "serve", "chaos", "sweep")
+BENCHES_OUT = ROOT / "build" / "chip_smoke"
+#: The kernels each bench's cells launch on the card (NNM+CWTM in every
+#: bench; the median in the median cells and the grids; the LLM launch
+#: path's payload route in bench_llm's host-memory gate).
+BENCH_KERNELS = {"llm": ("pairdist", "cwtm", "block_compress",
+                         "momentum_scatter"),
+                 "serve": ("pairdist", "cwtm", "median"),
+                 "chaos": ("pairdist", "cwtm", "median"),
+                 "sweep": ("pairdist", "cwtm", "median")}
+
+
+def benches_phase(torch, device: str = "cuda", cuts=None) -> dict:
+    """The reference's four remaining benches through the port
+    (``benchmarks/bench_torch_{llm,serve,chaos,sweep}.py``), each with its
+    gates (the wall-clock ones on the card only), its JSON and the sweep's
+    fitted cost model written under ``build/chip_smoke/``; the launch
+    counts set to 0 just before each bench and read just after, each of
+    its kernels (:data:`BENCH_KERNELS`) launched at least once on the card.
+    The benches run at the reference's sizes (134.4 s on an H100 80GB
+    HBM3 at 700 W); ``cuts`` (``{bench: {argument: value}}``, named
+    arguments of each bench's ``run()``) cut them, to rehearse on the
+    CPU."""
+    import importlib
+    from repro_torch import kernels as K
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    cuts = cuts or {}
+    BENCHES_OUT.mkdir(parents=True, exist_ok=True)
+    # the CNN parity gates compare convolutions bitwise
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t_phase = time.perf_counter()
+    out = {}
+    try:
+        for name in BENCHES:
+            mod = importlib.import_module(f"benchmarks.bench_torch_{name}")
+            kw = dict(cuts.get(name, {}))
+            if name == "sweep":
+                kw.setdefault("cost_model_out",
+                              str(BENCHES_OUT / "COST_MODEL_torch_sweep.json"))
+            K.reset_launches()
+            t0 = time.perf_counter()
+            res = mod.run(out=str(BENCHES_OUT / f"BENCH_torch_{name}.json"),
+                          device=device, **kw)
+            wall = time.perf_counter() - t0
+            launches = K.launches()
+            idle = [k for k in BENCH_KERNELS[name] if not launches[k]]
+            log(f"benches {name}: {wall:.1f} s, cuts {kw}, launches "
+                f"{ {k: v for k, v in launches.items() if v} }")
+            if device == "cuda" and idle:
+                raise AssertionError(f"benches {name}: kernels {idle} never "
+                                     f"launched")
+            out[name] = {"wall_s": wall, "cuts": kw, "launches": launches,
+                         "results": res}
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"benches: phase wall {out['wall_s']:.1f} s")
+    return out
+
+
 COPY_BYTES = 1 << 31  # one device-to-device copy: 2 GiB read, 2 GiB written
 COPY_REPS = 20
 # the dry run's held state (parameters, banks, the adversary's memory)
@@ -4392,6 +4596,9 @@ def dryrun_cuts(llm=None, families=None) -> list:
             if opt is not None:
                 cuts.append((f"llm {dt}", dict(base, momentum_dtype=dt),
                              opt))
+        for dt, opt in llm.get("options", {}).get("dasha", {}).items():
+            cuts.append((f"llm dasha {dt}", dict(base, algo="dasha",
+                                                 momentum_dtype=dt), opt))
     for arch, layers, mdt in FAMILY_TRAIN:
         if families is not None and arch in families.get("train", {}):
             cuts.append((f"{arch} train", dict(
@@ -4812,6 +5019,7 @@ def main() -> int:
                          ("decode", decode_phase),
                          ("families", families_then_profiles),
                          ("floor", floor_phase), ("paper", paper_phase),
+                         ("benches", benches_phase),
                          ("roofline", roofline_phase)):
             if want(name):
                 out = fn(torch)
@@ -4837,6 +5045,8 @@ def main() -> int:
     stream = stream_phase(torch, card=card)
     torch.cuda.empty_cache()
     paper = paper_phase(torch)
+    torch.cuda.empty_cache()
+    benches = benches_phase(torch)
     torch.cuda.empty_cache()
     decode = decode_phase(torch, profile=False)
     torch.cuda.empty_cache()
@@ -4877,6 +5087,9 @@ def main() -> int:
         "decode": decode,
         "families": families,
         "roofline": roofline,
+        "benches": {k: ({m: v[m] for m in ("wall_s", "cuts", "launches")}
+                        if isinstance(v, dict) else v)
+                    for k, v in benches.items()},
         "paper": {"wall_s": paper["wall_s"],
                   "checks": paper["checks"],
                   "kernel_cases": paper["kernel_cases"],

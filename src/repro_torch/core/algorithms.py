@@ -522,6 +522,68 @@ def _dasha_round(cfg: AlgorithmConfig, agg, state: ServerState,
                           prev_grad=g32, step=state.step + 1, attack=atk)
 
 
+def _dasha_by_columns(cfg: AlgorithmConfig, d: int) -> bool:
+    """Past :data:`DENSE_COLUMNS`, dasha's round is a function of each
+    column on its own: the per-worker masks drawn once, the MVR momentum,
+    the compressed difference and the mirror column by column, an attack
+    and an aggregator that work coordinate by coordinate. NNM, Krum, the
+    geometric median and the stateful attacks take the whole round."""
+    return (cfg.name == "dasha" and d > DENSE_COLUMNS
+            and cfg.attack.name in A.ZERO_PRESERVING
+            and cfg.aggregator.name in ("cwtm", "median", "mean")
+            and not cfg.aggregator.pre_nnm)
+
+
+def _dasha_columns(cfg: AlgorithmConfig, agg, state: ServerState,
+                   grads: torch.Tensor, draws, hparams,
+                   attack_params=None) -> Tuple[torch.Tensor, ServerState]:
+    # Dasha's round a slice of columns at a time, bitwise the whole round:
+    # the per-worker mask draw taken once, each slice's masks built from it
+    # (compression.mask_columns; slices start on whole blocks), then the
+    # wire (_dasha_wire on the dense mask path, not the Block-RandK
+    # kernels: a worker's blocks in a slice are ragged), the attack and the
+    # aggregation of the slice (one CWTM or median launch a slice). The new
+    # banks are allocated whole beside the old ones, which the caller
+    # still holds; prev_grad is the float32 gradient bank (the bank itself
+    # where it is float32, as grads.float() aliases it). At an LLM's D the
+    # whole round's float32 [n, D] transients would not fit one card.
+    if state.mirror is None or state.prev_grad is None:
+        raise ValueError("dasha needs the mirror/prev_grad state slots: "
+                         "init the state with a dasha config")
+    n, d = grads.shape
+    sp = dataclasses.replace(cfg.sparsifier, local=True)
+    raw = C.mask_draw(draws, d, sp, local_workers=n)
+    unit = sp.block_size if sp.kind in ("block", "block_hash") else 1
+    width = max(unit, DENSE_COLUMNS // unit * unit)
+    b = 1.0 / (2.0 * sp.alpha)
+    mdt = state.momentum.dtype
+    momentum = torch.empty_like(state.momentum)
+    mirror = torch.empty_like(state.mirror)
+    prev = grads if grads.dtype == torch.float32 else torch.empty(
+        (n, d), dtype=torch.float32, device=grads.device)
+    r = None
+    for lo in range(0, d, width):
+        cols = slice(lo, min(d, lo + width))
+        mask = C.mask_columns(raw, d, sp, cols.start, cols.stop,
+                              device=grads.device)
+        h, m, g32 = _dasha_wire(
+            state.momentum[:, cols], state.mirror[:, cols],
+            state.prev_grad[:, cols], grads[:, cols], state.step,
+            hparams[3], b, lambda x: C.compress(x, mask, sp))
+        h = _byzantine_overwrite(cfg, h, attack_params, draws)
+        part = agg(h)
+        if r is None:
+            r = part.new_empty(part.shape[:-1] + (d,))
+        r[..., cols] = part
+        momentum[:, cols] = to_dtype(m, mdt)
+        mirror[:, cols] = to_dtype(h, mdt)
+        if prev is not grads:
+            prev[:, cols] = g32
+        del mask, h, m, g32, part
+    return r, ServerState(momentum=momentum, mirror=mirror, prev_grad=prev,
+                          step=state.step + 1, attack=state.attack)
+
+
 def _row_mask(wire: torch.Tensor, prev: torch.Tensor, present: torch.Tensor,
               discount: torch.Tensor) -> torch.Tensor:
     """The streaming server's row bank: rows that did not report keep
@@ -716,7 +778,10 @@ def server_round(cfg: AlgorithmConfig, state: ServerState,
                                    wire)
         return r, new, {"payload_floats_per_worker": d}
     aux = {"payload_floats_per_worker": C.payload_floats(d, cfg.sparsifier)}
-    if cfg.name == "dasha":
+    if _dasha_by_columns(cfg, d):
+        r, new = _dasha_columns(cfg, agg, state, grads, draws,
+                                static_hparams(cfg), attack_params)
+    elif cfg.name == "dasha":
         r, new = _dasha_round(cfg, agg, state, grads, draws,
                               static_hparams(cfg), attack_params)
     elif _payload_route(cfg, d):

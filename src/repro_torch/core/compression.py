@@ -178,6 +178,40 @@ def mask_from_draw(raw: Optional[torch.Tensor], d: int, cfg: SparsifierConfig,
     return keep.repeat_interleave(cfg.block_size, dim=-1)[..., :d]
 
 
+def mask_columns(raw: Optional[torch.Tensor], d: int, cfg: SparsifierConfig,
+                 lo: int, hi: int, dtype: torch.dtype = torch.float32,
+                 device=None) -> torch.Tensor:
+    """Columns ``[lo, hi)`` of ``mask_from_draw(raw, d, cfg, dtype)``, built
+    from the raw draw without the whole mask: for the block kinds from the
+    blocks the slice holds (``lo`` on a whole block), for ``randk`` from the
+    indices in it, for the uniforms from their slice. Bitwise that slice of
+    the whole mask."""
+    if is_float8(dtype):  # 0 and 1 are exact; float8 has no scatter
+        return mask_columns(raw, d, cfg, lo, hi, torch.float32,
+                            device).to(dtype)
+    if raw is None:
+        return torch.ones((hi - lo,), dtype=dtype, device=device)
+    unit = cfg.block_size if cfg.kind in ("block", "block_hash") else 1
+    if lo % unit:
+        raise ValueError(f"columns from {lo} do not start on a block of "
+                         f"{unit}")
+    if cfg.kind == "natural":
+        return raw[..., lo:hi].to(dtype)
+    b_lo, b_hi = lo // unit, -(-hi // unit)
+    if cfg.kind in ("randk", "block"):
+        nbs = b_hi - b_lo
+        at = raw - b_lo
+        at = torch.where((at >= 0) & (at < nbs), at, nbs)  # nbs: dropped
+        m = torch.zeros(raw.shape[:-1] + (nbs + 1,), dtype=dtype,
+                        device=raw.device).scatter_(-1, at, 1)[..., :nbs]
+    else:
+        m = (raw[..., b_lo:b_hi] < torch.tensor(cfg.ratio, dtype=torch.float32)
+             ).to(dtype)
+    if unit == 1:
+        return m
+    return m.repeat_interleave(unit, dim=-1)[..., :hi - lo]
+
+
 def make_mask(draws, d: int, cfg: SparsifierConfig,
               dtype: torch.dtype = torch.float32, ratio=None) -> torch.Tensor:
     """One sparsification mask ``[d]`` on the draws provider's device

@@ -8,13 +8,25 @@ and two rates of the machine: the fixed cost of a bank's first call (the
 reference's compile; here the first round's allocations and library
 set-up) and the warm cost of one row for one round, each affine in the
 number of algorithm branches. :class:`CostModel` holds those rates and
-decides by pure arithmetic, the reference's decisions to the letter.
+decides by pure arithmetic, the reference's decisions to the letter where
+its one term of its own, ``bank_round_us``, is 0.
 
-:func:`calibrate` measures them on the device: a 1-branch and a W-branch
-bank of the Table-1 grid on the quadratic testbed, each timed cold (first
-call) and warm (the counterpart of ``benchmarks/bench_sweep.py``'s
-calibration pass). The port's fit lives in its own file,
-:data:`DEFAULT_PATH`, never the reference's ``results/COST_MODEL.json``.
+That term is the eager port's: each round of a bank launches its
+operations from the host one by one, which costs a fixed time a round
+whatever the bank's rows (the reference runs the rounds as one compiled
+scan and has no such cost). On an H100 at the quadratic's width it is
+most of a round, so a per-row rate fitted from one bank alone prices
+every other bank's rounds as almost free, and the partition of a
+four-algorithm grid looks cheaper than the fused bank at three times its
+measured time. :meth:`CostModel.fit` separates the two from a second
+1-branch probe at fewer rows.
+
+:func:`calibrate` measures them on the device: the rosdhb bank of the
+Table-1 grid at all and at one of its seeds (1 branch) and the fused bank
+(W branches) on the quadratic testbed, timed cold (first call) and warm
+(the counterpart of ``benchmarks/bench_sweep.py``'s calibration pass).
+The port's fit lives in its own file, :data:`DEFAULT_PATH`, never the
+reference's ``results/COST_MODEL.json``.
 """
 
 from __future__ import annotations
@@ -48,6 +60,9 @@ class CostModel:
     #: (the reference's sharded compile; 0 on one card)
     sharded_compile_overhead_s: float = 0.0
     source: str = "pinned-default"
+    #: warm us per bank per round whatever its rows (the host's launches
+    #: of one eager round; the port's own term, 0 for a reference model)
+    bank_round_us: float = 0.0
 
     def program_s(self, *, branches: int, rows: int, rounds: int,
                   sharded: bool = False) -> float:
@@ -63,7 +78,8 @@ class CostModel:
             compile_cost += self.sharded_compile_overhead_s
         row_round_us = (self.cell_round_us
                         + self.cell_round_us_per_branch * (branches - 1))
-        return compile_cost + row_round_us * 1e-6 * rows * rounds
+        return (compile_cost
+                + (self.bank_round_us + row_round_us * rows) * 1e-6 * rounds)
 
     def fused_s(self, cells_per_algo: Dict[str, int], n_seeds: int,
                 rounds: int, *, sharded: bool = False) -> float:
@@ -91,16 +107,33 @@ class CostModel:
     def fit(cls, *, single_cold_s: float, single_warm_s: float,
             single_rows: int, fused_cold_s: float, fused_warm_s: float,
             fused_rows: int, branches: int, rounds: int,
+            small_warm_s: Optional[float] = None,
+            small_rows: Optional[int] = None,
             source: str = "calibration") -> "CostModel":
         """The four rates from a 1-branch and a ``branches``-branch probe,
         each timed cold and warm; rates clamped at zero (a noisy warm run
-        can beat its own cold run)."""
+        can beat its own cold run). With a second warm 1-branch probe of
+        ``small_rows`` < ``single_rows`` rows, the 1-branch warm time is
+        split into ``bank_round_us`` and a per-row rate (the line through
+        the two probes), and the fused probe's rows pay what is left after
+        its ``bank_round_us``; without it, the reference's fit."""
         if branches < 2:
             raise ValueError("fit needs a multi-branch probe (branches >= 2)")
         if min(single_rows, fused_rows, rounds) <= 0:
             raise ValueError("probe rows/rounds must be positive")
-        rate_1 = max(0.0, single_warm_s * 1e6 / (single_rows * rounds))
-        rate_w = max(0.0, fused_warm_s * 1e6 / (fused_rows * rounds))
+        bank_us = 0.0
+        if small_warm_s is None:
+            rate_1 = max(0.0, single_warm_s * 1e6 / (single_rows * rounds))
+        else:
+            if not 0 < small_rows < single_rows:
+                raise ValueError(f"small_rows must be in (0, {single_rows}),"
+                                 f" got {small_rows}")
+            rate_1 = max(0.0, (single_warm_s - small_warm_s) * 1e6
+                         / ((single_rows - small_rows) * rounds))
+            bank_us = max(0.0, single_warm_s * 1e6 / rounds
+                          - rate_1 * single_rows)
+        rate_w = max(0.0, (fused_warm_s * 1e6 / rounds - bank_us)
+                     / fused_rows)
         per_branch_us = max(0.0, (rate_w - rate_1) / (branches - 1))
         compile_1 = max(0.0, single_cold_s - single_warm_s)
         compile_w = max(0.0, fused_cold_s - fused_warm_s)
@@ -109,7 +142,7 @@ class CostModel:
                    compile_s_per_branch=per_branch_s,
                    cell_round_us=rate_1,
                    cell_round_us_per_branch=per_branch_us,
-                   source=source)
+                   source=source, bank_round_us=bank_us)
 
     def save(self, path: str = DEFAULT_PATH) -> str:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -144,14 +177,16 @@ class CostModel:
 #: Pinned fallback for a checkout without :data:`DEFAULT_PATH`: the rates
 #: of the committed calibration on an H100 (``chip_smoke.py``'s stream
 #: phase, ``PERF.md``). The port compiles nothing, so a bank's first call
-#: costs what a warm one does, and a round of the quadratic bank is
-#: host-bound whatever its branches: both per-branch rates fit to 0, and
-#: every multi-algorithm bank stays fused.
+#: costs little more than a warm one, and a round of the quadratic bank is
+#: host-bound: ~3.5 ms a bank whatever its rows, the rows themselves
+#: almost free. Every multi-algorithm bank of a few hundred rows stays
+#: fused.
 DEFAULT_COST_MODEL = CostModel(
-    compile_s=0.0,
+    compile_s=0.0468940989999993,
     compile_s_per_branch=0.0,
-    cell_round_us=134.41105500000106,
-    cell_round_us_per_branch=0.0,
+    cell_round_us=0.0,
+    cell_round_us_per_branch=5.88615579365088,
+    bank_round_us=3511.172110000018,
     source="pinned-default",
 )
 
@@ -180,14 +215,18 @@ def calibrate(*, d: int = 64, steps: int = 300,
     ``d``: the fused cross-algorithm bank (4 branches) and the rosdhb bank
     of the per-algorithm partition (1 branch), each on a fresh simulator,
     timed cold (first call) and warm (best of ``repeats``) over ``steps``
-    rounds and ``seeds``. Returns ``(model, probes)``, ``probes`` the
-    measured seconds and rows."""
+    rounds and ``seeds`` (at least two), and the rosdhb bank warm at the
+    first seed alone (the small probe that separates ``bank_round_us``).
+    Returns ``(model, probes)``, ``probes`` the measured seconds and
+    rows."""
     import torch
 
     from repro_torch.core import sweep as S
     from repro_torch.core.simulator import Simulator, stack_batches
     from repro_torch.device import resolve_device
 
+    if len(seeds) < 2:
+        raise ValueError(f"calibrate needs two seeds or more, got {seeds}")
     dev = resolve_device(device)
     cells = S.grid_scenarios(CALIBRATION_ALGOS, CALIBRATION_ATTACKS,
                              CALIBRATION_AGGS, n_honest=10, f=3, ratio=0.1,
@@ -199,21 +238,23 @@ def calibrate(*, d: int = 64, steps: int = 300,
     single = next(b for b in S.plan_grid(cells, cross_algo=False).banks
                   if b.cfg.name == "rosdhb")
 
-    def probe(bank):
+    def probe(bank, probe_seeds):
         sim = Simulator(loss_fn, params0, bank.cfg, device=dev)
 
         def run():
-            _, m = S.fused_grid_rollout(sim, bank.scenario_params(), seeds,
-                                        batches)
+            _, m = S.fused_grid_rollout(sim, bank.scenario_params(),
+                                        probe_seeds, batches)
             m["loss"].cpu()
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         return _timed(run, repeats)
 
-    single_cold, single_warm = probe(single)
-    fused_cold, fused_warm = probe(fused)
+    single_cold, single_warm = probe(single, seeds)
+    _, small_warm = probe(single, seeds[:1])
+    fused_cold, fused_warm = probe(fused, seeds)
     probes = {"single_cold_s": single_cold, "single_warm_s": single_warm,
               "single_rows": single.n_cells * len(seeds),
+              "small_warm_s": small_warm, "small_rows": single.n_cells,
               "fused_cold_s": fused_cold, "fused_warm_s": fused_warm,
               "fused_rows": fused.n_cells * len(seeds),
               "branches": len(fused.cfg.bank), "rounds": steps}

@@ -9,10 +9,12 @@ of ``repro.launch.steps``, host mode).
      ``torch.func.vmap`` cannot map, and the loop keeps one worker's
      activations alive at a time);
   2. each gradient raveled into its row of the ``[n, D]`` bank in the
-     wire dtype (``momentum_dtype``, as the reference) and the reference's
-     flat layout (the naive flatten: the reference's sharded bank
-     transforms and mesh have no single-card counterpart), the bank
-     widened to whole Block-RandK blocks (``TrainPlan.bank_width``);
+     wire dtype (``momentum_dtype``, as the reference) and the plan's
+     layout (``TrainPlan.flatten``: the sharded layout of
+     ``repro_torch.sharding`` where the worker count is the one-card
+     layout's data extent, 1, else the naive flatten, as the reference
+     chooses), the bank widened to whole Block-RandK blocks
+     (``TrainPlan.bank_width``);
   3. ``core.algorithms.server_round``: the round's masks, the Block-RandK
      wire, the Byzantine overwrite, the per-worker momentum (for RoSDHB on
      a global mask, the momentum kernel on the payload) and the robust
@@ -46,6 +48,8 @@ from repro_torch.core import compression as C
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import flatten as SF
+from repro_torch.sharding import partitioning as SP
 from repro_torch.utils import tree as T
 
 
@@ -59,15 +63,20 @@ class TrainState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class TrainPlan:
     """What the launcher needs to build a train step: the model, the
-    algorithm, the flat layout of the parameters and the worker split."""
+    algorithm, the flat layout of the parameters and the worker split.
+
+    ``flatten``: ``'sharded'`` (``flat_spec`` a
+    ``sharding.ShardedFlatSpec``) or ``'naive'`` (a ``utils.tree.FlatSpec``,
+    padded to 8)."""
 
     arch: ArchSpec
     shape: InputShape
     model: ModelConfig
     algo: A.AlgorithmConfig
-    flat_spec: T.FlatSpec
+    flat_spec: Any
     n_workers: int
     local_batch: int
+    flatten: str = "naive"
 
     @property
     def bank_width(self) -> int:
@@ -87,18 +96,25 @@ class TrainPlan:
 def make_train_plan(spec: ArchSpec, shape: InputShape,
                     algo_overrides: Optional[Dict] = None,
                     n_workers: int = 8) -> TrainPlan:
-    """The reference's host-mode plan: ``n_workers`` simulated workers, the
-    naive flatten padded to a multiple of 8 (one chip), and the reference's
-    defaults (f = max(1, n//8), gamma 1e-3, beta 0.9, ``block_hash`` at the
-    arch's ratio with 512-wide blocks, CWTM, ALIE, bfloat16 server
-    banks)."""
+    """The reference's plan on the one-card layout (``data`` 1, ``model``
+    1): ``n_workers`` workers, the sharded layout where the worker count is
+    the layout's data extent (1) and the naive flatten padded to a
+    multiple of 8 otherwise (the reference's host mode), and the
+    reference's defaults (f = max(1, n//8), gamma 1e-3, beta 0.9,
+    ``block_hash`` at the arch's ratio with 512-wide blocks, CWTM, ALIE,
+    bfloat16 server banks)."""
     cfg = model_for_shape(spec, shape)
     n = n_workers
     if shape.global_batch % n:
         raise ValueError(f"global_batch {shape.global_batch} not divisible "
                          f"by n_workers {n}")
     abstract = tf.model_init(cfg, None, device="meta")
-    flat_spec = T.make_flat_spec(abstract, pad_to=8)
+    if n == SP.n_workers():
+        flatten, flat_spec = "sharded", SF.make_sharded_flat_spec(abstract)
+    else:
+        # the worker axis is not the layout's data extent: the bank
+        # transforms do not apply, as in the reference's host mode
+        flatten, flat_spec = "naive", T.make_flat_spec(abstract, pad_to=8)
     ov = dict(algo_overrides or {})
     algo = A.AlgorithmConfig(
         name=ov.pop("name", "rosdhb"),
@@ -115,7 +131,7 @@ def make_train_plan(spec: ArchSpec, shape: InputShape,
         **ov,
     )
     return TrainPlan(spec, shape, cfg, algo, flat_spec, n,
-                     shape.global_batch // n)
+                     shape.global_batch // n, flatten)
 
 
 def build_train_step(plan: TrainPlan, device: DeviceLike = None):
@@ -130,6 +146,9 @@ def build_train_step(plan: TrainPlan, device: DeviceLike = None):
     agg = G.make_aggregator(algo.aggregator, device=dev)
     n, d = plan.n_workers, plan.bank_width
     wire_dtype = A.BANK_DTYPES[algo.momentum_dtype]
+    ravel, unravel = ((SF.ravel_into, SF.bank_to_param_tree)
+                      if plan.flatten == "sharded"
+                      else (T.tree_ravel_into, T.tree_unravel))
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -145,7 +164,7 @@ def build_train_step(plan: TrainPlan, device: DeviceLike = None):
             loss = tf.lm_loss(half_tree, cfg,
                               {k: v[w] for k, v in batch.items()})
             grads = torch.autograd.grad(loss, half)
-            T.tree_ravel_into(list(grads), bank[w], fspec)
+            ravel(list(grads), bank[w], fspec)
             losses.append(loss.detach())
             del grads, loss
         del half, half_tree
@@ -154,7 +173,7 @@ def build_train_step(plan: TrainPlan, device: DeviceLike = None):
                                               state.draws, agg=agg)
         del bank
         # (4) step 7 on the master parameters, one fused multiply-add
-        dir_leaves = T.tree_leaves(T.tree_unravel(direction, fspec))
+        dir_leaves = T.tree_leaves(unravel(direction, fspec))
         new_params = T.tree_unflatten(fspec.treedef, [
             torch.add(p, r.to(p.dtype), alpha=-algo.gamma)
             for p, r in zip(T.tree_leaves(state.params), dir_leaves)])

@@ -193,7 +193,11 @@ def run(argv: Optional[List[str]] = None, *, plain: bool = False,
     on_card = dev.type == "cuda"
     before = torch.cuda.memory_allocated(dev) if on_card else None
     s = setup(args, plain=plain)
-    plan, step, state, dev = s["plan"], s["step"], s["state"], s["device"]
+    # the returned dict gives the initial state up: a round that allocates
+    # its banks anew (dasha) would otherwise keep it alive beside every
+    # step's
+    plan, step, state, dev = s["plan"], s["step"], s.pop("state"), \
+        s["device"]
     held = (torch.cuda.memory_allocated(dev) - before) if on_card else None
     log(f"[train] {plan.model.name} layers={plan.model.n_layers} "
         f"D={plan.flat_spec.padded_size:,} n_workers={plan.n_workers} "

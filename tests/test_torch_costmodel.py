@@ -40,6 +40,8 @@ def _pair(**fields):
 def test_fit_is_the_references(probe):
     want = dataclasses.asdict(JCM.CostModel.fit(**probe, source="x"))
     got = dataclasses.asdict(CM.CostModel.fit(**probe, source="x"))
+    # the port's one term of its own, 0 without the small probe
+    assert got.pop("bank_round_us") == 0.0
     assert set(got) == set(want)
     for k, v in want.items():
         if isinstance(v, float):
@@ -48,6 +50,48 @@ def test_fit_is_the_references(probe):
             assert got[k] == v, k
     with pytest.raises(ValueError, match="branches"):
         CM.CostModel.fit(**{**probe, "branches": 1})
+
+
+@pytest.mark.parametrize("bank_us,row_us,branch_us", [
+    (4000.0, 2.0, 5.0), (4000.0, 0.0, 0.0), (10.0, 120.0, 100.0)])
+def test_fit_with_the_small_probe_gives_back_its_rates(bank_us, row_us,
+                                                       branch_us):
+    """Probe times made from known rates (a round of one bank costs
+    ``bank_us`` whatever its rows, plus ``row_us`` a row, plus
+    ``branch_us`` a row for each branch past the first): the fit gives the
+    rates back, and the per-algorithm partition of the Table-1 grid is
+    priced at its banks' real sum."""
+    rounds, branches = 300, 4
+
+    def warm(rows, nb=1):
+        return rounds * 1e-6 * (bank_us + rows * (row_us + branch_us
+                                                  * (nb - 1)))
+
+    m = CM.CostModel.fit(single_cold_s=warm(24) + 0.1,
+                         single_warm_s=warm(24), single_rows=24,
+                         small_warm_s=warm(6), small_rows=6,
+                         fused_cold_s=warm(84, branches) + 0.2,
+                         fused_warm_s=warm(84, branches), fused_rows=84,
+                         branches=branches, rounds=rounds)
+    for got, want in ((m.bank_round_us, bank_us), (m.cell_round_us, row_us),
+                      (m.cell_round_us_per_branch, branch_us)):
+        assert abs(got - want) <= 1e-9 * max(1.0, want)
+    cells = {"rosdhb": 6, "dasha": 6, "robust_dgd": 6, "dgd": 3}
+    np.testing.assert_allclose(
+        m.partitioned_s(cells, 4, rounds) - 4 * m.compile_s
+        - m.compile_s_per_branch * 4,
+        sum(warm(c * 4) for c in cells.values()), rtol=1e-9)
+    np.testing.assert_allclose(
+        m.fused_s(cells, 4, rounds) - m.compile_s
+        - m.compile_s_per_branch * branches, warm(84, branches), rtol=1e-9)
+    # a host-bound round (rows free) fuses: one bank's round, not four
+    if row_us == 0.0:
+        assert m.prefer_fused(cells, 4, rounds)
+    with pytest.raises(ValueError, match="small_rows"):
+        CM.CostModel.fit(single_cold_s=1.0, single_warm_s=1.0,
+                         single_rows=24, small_warm_s=0.5, small_rows=24,
+                         fused_cold_s=1.0, fused_warm_s=1.0, fused_rows=84,
+                         branches=4, rounds=10)
 
 
 MODELS = [dataclasses.asdict(JCM.DEFAULT_COST_MODEL),
@@ -82,7 +126,14 @@ def test_save_load_round_trip(tmp_path):
     path = str(tmp_path / "sub" / "model.json")
     assert m.save(path) == path
     assert CM.CostModel.load(path) == m
+    # the reference reads the file less the port's own term
+    with open(path) as fh:
+        raw = json.load(fh)
+    assert raw.pop("bank_round_us") == 0.0
+    with open(path, "w") as fh:
+        json.dump(raw, fh)
     assert JCM.CostModel.load(path) == JCM.CostModel(**MODELS[2])
+    assert CM.CostModel.load(path) == m
     assert CM.CostModel.load_or_default(str(tmp_path / "missing.json")) \
         is CM.DEFAULT_COST_MODEL
     with open(path, "w") as fh:
@@ -128,9 +179,12 @@ def test_plan_with_a_cost_model_is_the_references(fields, name, seeds,
 
 
 def test_calibrate_fits_a_model_on_the_cpu():
-    model, probes = CM.calibrate(d=16, steps=3, seeds=(0,), repeats=1,
+    model, probes = CM.calibrate(d=16, steps=3, seeds=(0, 1), repeats=1,
                                  device="cpu", source="cpu rehearsal")
     assert model.source == "cpu rehearsal"
-    assert probes["single_rows"] == 6 and probes["fused_rows"] == 21
+    assert probes["single_rows"] == 12 and probes["fused_rows"] == 42
+    assert probes["small_rows"] == 6 and probes["small_warm_s"] > 0
     assert probes["branches"] == 4 and probes["rounds"] == 3
     assert model == CM.CostModel.fit(**probes, source="cpu rehearsal")
+    with pytest.raises(ValueError, match="two seeds"):
+        CM.calibrate(d=16, steps=1, seeds=(0,), device="cpu")

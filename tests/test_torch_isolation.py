@@ -266,10 +266,14 @@ def test_paper_entry_points_need_cuda_unless_asked_for_cpu(name,
 @pytest.mark.parametrize("module", ["repro_torch.launch.roofline",
                                     "repro_torch.launch.dryrun",
                                     "repro_torch.optim",
-                                    "repro_torch.utils.dtypes"])
+                                    "repro_torch.utils.dtypes",
+                                    "repro_torch.sharding",
+                                    "repro_torch.sharding.partitioning",
+                                    "repro_torch.sharding.flatten"])
 def test_roofline_dryrun_and_optim_import_neither_jax_nor_repro(module):
-    """The roofline, the dry run, the optimizers and the float8 cast keep
-    their own copies of what they need from the reference."""
+    """The roofline, the dry run, the optimizers, the float8 cast and the
+    sharded layout (its copy of the reference's rule table) keep their own
+    copies of what they need from the reference."""
     code = (f"import sys, {module}\n"
             "print(sorted(k for k in sys.modules if k == 'jax' or "
             "k.startswith('jax.') or k == 'repro' or "
@@ -295,3 +299,29 @@ def test_kernel_bench_needs_cuda_unless_asked_for_cpu(monkeypatch):
         bench_torch_run.main(["--only", "kernels"])
     rep = dryrun.run_one("gemma_2b", "long_500k", n_layers=1, verbose=False)
     assert rep["ok"] and rep["roofline"]["hardware"] == "h100"
+
+
+@pytest.mark.parametrize("name", ["llm", "serve", "chaos", "sweep"])
+def test_the_four_benches_stand_alone_and_need_cuda_unless_asked_for_cpu(
+        name, monkeypatch):
+    """``bench_torch_{llm,serve,chaos,sweep}``: among the benches the
+    import checks above read, importing neither JAX nor the reference
+    (nor its ``benchmarks.common``) in a fresh interpreter, and refusing to
+    run without a card unless given ``device="cpu"``."""
+    assert ROOT / "benchmarks" / f"bench_torch_{name}.py" in BENCHES
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
+            f"{str(ROOT / 'src')!r}]\n"
+            f"import benchmarks.bench_torch_{name}\n"
+            "print(sorted(k for k in sys.modules if k in ('jax', 'repro', "
+            "'benchmarks.common') or k.startswith(('jax.', 'repro.'))))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
+    sys.path.insert(0, str(ROOT))
+    import importlib
+    mod = importlib.import_module(f"benchmarks.bench_torch_{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.run(out=None)

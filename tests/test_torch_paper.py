@@ -360,16 +360,24 @@ def test_table1_names_are_the_references(monkeypatch, capsys):
     assert all(r["derived"] == f"dist_sq={r['dist_sq']:.4g}" for r in rows)
 
 
-def test_run_harness_lists_the_references_suites(monkeypatch, capsys):
+def test_run_harness_lists_the_references_suites(monkeypatch, capsys,
+                                                 tmp_path):
     source = (ROOT / "benchmarks" / "run.py").read_text()
     assert RUN.SUITES == SUITES
     assert all(f'"{s}":' in source for s in SUITES)
-    assert set(RUN.NOT_PORTED) == {"sweep"}
-    for name in RUN.NOT_PORTED:
-        assert RUN.main(["--only", name, "--device", "cpu"]) == 0
-        out = capsys.readouterr().out
-        assert f"# --- {name} --- not yet ported" in out
-        assert "ROADMAP.md" in out
+    # every suite is ported: sweep runs as one (cut to 4 rounds here; its
+    # gates are tests/test_torch_bench_sweep.py's)
+    from benchmarks import bench_torch_sweep as SWP
+    monkeypatch.chdir(tmp_path)
+    sweep = SWP.run
+    monkeypatch.setattr(SWP, "run", lambda device=None: sweep(
+        device=device, steps=4, cost_model_out=None))
+    assert RUN.main(["--only", "sweep", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "# --- sweep ---" in out and "not yet ported" not in out
+    assert "sweep/cross_algo_chosen_plan," in out
+    assert [p.name for p in tmp_path.rglob("*") if p.is_file()] == [
+        "BENCH_torch_sweep.json"]
     with pytest.raises(SystemExit):
         RUN.main(["--only", "table2", "--device", "cpu"])
     monkeypatch.setattr(BD, "_run", lambda *a, **kw: 0.5)
