@@ -43,12 +43,14 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    dense round (momentum bitwise, direction within rtol 1e-5); flash
    attention forward and backward against the plain version in float32 at
    awkward shapes (ragged lengths, GQA, MQA, windows, offsets, head dims
-   64/80/128, the Hopper kernels' tile edges), at transformer-table1's
+   64/80/128/256, the Hopper kernels' tile edges), at transformer-table1's
    folded ``[288, 32, 2, 64]``, at the audio train step's ``[1, 4096, 24,
-   64]``, at zamba2's ``[1, 4096, 32, 112]`` (zero-padded to 128) and at
-   the LLM step's ``[1, 4096, 32, 80]``, where two backward runs must be
-   bitwise equal;
-   the flash kernels' ptxas registers and spills, and their SASS must hold
+   64]``, at zamba2's ``[1, 4096, 32, 112]`` (zero-padded to 128), at
+   gemma_2b's ``[1, 4096, 8, 256]`` with one kv head and at the LLM
+   step's ``[1, 4096, 32, 80]``, where two backward runs must be bitwise
+   equal;
+   the flash kernels' ptxas registers and no spill at any head dim, and
+   their SASS must hold
    ``wgmma`` (HGMMA) and TMA (UTMALDG) and no WMMA (HMMA). Times of the
    kernel, the plain version and a PyTorch library call beside the least
    time the card could take;
@@ -72,8 +74,9 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    ``--local-masks`` (the dense wire: decompress = 2), 4 steps with
    ``--momentum-dtype bfloat16``, 2 steps each with ``--momentum-dtype
    float16`` and ``float8_e4m3fn`` (compress = momentum_scatter = 2), 2
-   steps each of ``--algo dasha`` at ``bfloat16`` and ``float8_e4m3fn``
-   banks (the round by column slices: CWTM once a slice, 25 a step, no
+   steps each of ``--algo dasha`` at ``float32``, ``bfloat16`` and
+   ``float8_e4m3fn`` banks (the round by column slices, each slice's new
+   banks written over the old: CWTM once a slice, 25 a step, no
    Block-RandK kernel; its peak memory and payload printed beside
    RoSDHB's), each within rel 5e-3 (loss) and 2e-2 (|R|) of the plain path
    at its dtype, and 8 steps with
@@ -161,10 +164,12 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    layers in bfloat16 within 5e-2); mamba2_1_3b through a 4,100-token
    prompt (16 chunks of 256 and a padded 17th) and 16 steps; the train
    paths of deepseek_v2_lite_16b (2 layers, bfloat16 banks), mamba2_1_3b
-   (2 layers) and zamba2_7b (6 layers, bfloat16 banks) through
+   (2 layers), zamba2_7b (6 layers, bfloat16 banks) and gemma_2b (2
+   layers, bfloat16 banks: head dim 256, one kv head) through
    ``repro_torch.launch.train`` (seq 4096, 8 workers, f = 1, 4 steps:
    compress, ``momentum_scatter`` and CWTM once a step, decompress 0, flash
-   forward and backward 32 each for zamba2), their first 2 steps against
+   forward and backward 32 each for zamba2, 64 each for gemma_2b), their
+   first 2 steps against
    the plain path; then profiled decode steps of llama32_vision_11b,
    musicgen_medium and the four families' models;
 12. the paper's experiments (``paper``; it runs after the stream phase):
@@ -213,8 +218,9 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    its readings);
 15. the device µs and device kernels per call of pairdist, CWTM, median,
    the flash forward and backward (at ``[1, 4096, 32, 80]``, ``[1, 4096,
-   24, 64]``, zamba2's ``[1, 4096, 32, 112]`` and transformer-table1's
-   folded ``[288, 32, 2, 64]``) and their library calls, and of compress,
+   24, 64]``, zamba2's ``[1, 4096, 32, 112]``, gemma_2b's ``[1, 4096, 8,
+   256]`` and transformer-table1's folded ``[288, 32, 2, 64]``) and their
+   library calls (SDPA, with ``enable_gqa`` on one kv head), and of compress,
    decompress and ``momentum_scatter`` at the LLM step's ``[8,
    416179200]`` and at the families' train paths' banks, from the
    profiler, which runs last (it slows the launches that follow it);
@@ -322,11 +328,13 @@ AUDIO_KB = 5_838       # max(1, round(0.05 * D / 512))
 # The families' train paths (the families phase): the [8, D] server banks,
 # their width rounded up to whole 512-wide blocks (TrainPlan.bank_width),
 # of 2-layer deepseek_v2_lite_16b (D = 1,026,698,240; bfloat16 banks),
-# 2-layer mamba2_1_3b (D = 257,647,488; float32) and 6-layer zamba2_7b
-# (D = 902,776,032; bfloat16); CWTM takes the float32 momenta [1, 8, width]
+# 2-layer mamba2_1_3b (D = 257,647,488; float32), 6-layer zamba2_7b
+# (D = 902,776,032; bfloat16) and 2-layer gemma_2b (D = 744,499,200, whole
+# blocks; bfloat16); CWTM takes the float32 momenta [1, 8, width]
 FAMILY_BANKS = (("deepseek_v2_lite_16b", 1_026_698_240, "bfloat16"),
                 ("mamba2_1_3b", 257_647_616, "float32"),
-                ("zamba2_7b", 902_776_320, "bfloat16"))
+                ("zamba2_7b", 902_776_320, "bfloat16"),
+                ("gemma_2b", 744_499_200, "bfloat16"))
 
 
 def kept_blocks(d: int, bs: int = LLM_BS, ratio: float = 0.05) -> int:
@@ -414,11 +422,25 @@ FLASH_AWKWARD += [case for d in (64, 80, 128) for case in (
     (1, 257, 257, 4, 2, d, True, 100, 0),
     (2, 65, 193, 4, 1, d, True, 70, 128),
     (1, 63, 191, 8, 2, d, False, None, 0))]
+# Head dim 256 (gemma_2b's), whose tiles differ (Tiles<256> in the .cu: 64
+# keys a forward stage, dk/dv blocks of 64 keys split into dV and dK, 32
+# keys a dq stage): MQA and GQA at a tile + 1 and - 1, a window across a
+# 64-key tile, q_offset > 0 with Sq < Sk and a window, a ragged non-causal
+# case, and a continuation chunk shorter than a dq stage's 32 keys.
+FLASH_AWKWARD_256 = [(2, 129, 129, 8, 1, 256, True, None, 0),
+                     (1, 127, 127, 8, 2, 256, True, None, 0),
+                     (1, 257, 257, 4, 1, 256, True, 100, 0),
+                     (2, 65, 193, 4, 1, 256, True, 70, 128),
+                     (1, 63, 191, 8, 1, 256, False, None, 0),
+                     (1, 33, 97, 2, 1, 256, True, 40, 64)]
+FLASH_AWKWARD += FLASH_AWKWARD_256
 FLASH_PATH = (1, LLM_SEQ, LLM_SEQ, 32, 32, 80, True, None, 0)
 # musicgen_medium's train path: 24 heads of 64 at seq 4096
 FLASH_AUDIO = (1, LLM_SEQ, LLM_SEQ, 24, 24, 64, True, None, 0)
 # zamba2_7b's shared attention block: 32 heads of 112, zero-padded to 128
 FLASH_ZAMBA = (1, LLM_SEQ, LLM_SEQ, 32, 32, 112, True, None, 0)
+# gemma_2b's train path: 8 query heads of 256 on one kv head (MQA)
+FLASH_GEMMA = (1, LLM_SEQ, LLM_SEQ, 8, 1, 256, True, None, 0)
 # transformer-table1's folded call: 8 lanes x 9 workers x 4 sequences of 32
 # tokens, 2 heads of 64 (the stream phase's grid under torch.func)
 FLASH_TT1 = (288, 32, 32, 2, 2, 64, True, None, 0)
@@ -1502,11 +1524,13 @@ def flash_case(torch, case, timed: bool, seed: int,
 
 
 def sdpa_inputs(torch, q, k, v, dout):
-    """PyTorch's fused attention (the yardstick, never used by the port)
-    and the inputs in its ``[B, H, S, D]`` layout."""
+    """PyTorch's fused attention (the yardstick, never used by the port;
+    ``enable_gqa`` where k and v have fewer heads than q) and the inputs in
+    its ``[B, H, S, D]`` layout."""
     import torch.nn.functional as Fn
+    gqa = q.shape[2] != k.shape[2]
     sdpa = lambda *a: Fn.scaled_dot_product_attention(  # noqa: E731
-        *a, is_causal=True)
+        *a, is_causal=True, enable_gqa=gqa)
     return sdpa, [t.transpose(1, 2).contiguous() for t in (q, k, v, dout)]
 
 
@@ -1515,7 +1539,7 @@ def flash_fns(torch, case, seed: int, device: str = "cuda") -> dict:
     calls on the inputs :func:`flash_case` makes from ``seed`` (the
     kernels on :func:`launch_inputs`); the library call is SDPA's forward
     or backward where it computes the same function (causal, full window,
-    Sq = Sk, H = KV), else None."""
+    Sq = Sk; GQA through its ``enable_gqa``), else None."""
     from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
                                                      flash_fwd_cuda)
     b, sq, sk, h, kv, d, causal, window, q_offset = case
@@ -1527,8 +1551,7 @@ def flash_fns(torch, case, seed: int, device: str = "cuda") -> dict:
     qp, kp, vp, dp_, sc = launch_inputs(torch, q, k, v, dout)
     o, lse = flash_fwd_cuda(qp, kp, vp, **kw, scale=sc)
     lib_fwd = lib_bwd = None
-    if causal and window is None and q_offset == 0 and sq == sk \
-            and h == kv:
+    if causal and window is None and q_offset == 0 and sq == sk:
         sdpa, (qt, kt, vt, dt_) = sdpa_inputs(torch, q, k, v, dout)
         lt = [t.clone().requires_grad_() for t in (qt, kt, vt)]
         o_l = sdpa(*lt)
@@ -1542,18 +1565,24 @@ def flash_fns(torch, case, seed: int, device: str = "cuda") -> dict:
 
 
 def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
-                audio=FLASH_AUDIO, zamba=FLASH_ZAMBA) -> list:
+                audio=FLASH_AUDIO, zamba=FLASH_ZAMBA,
+                gemma=FLASH_GEMMA) -> list:
     """Flash attention kernel cases: awkward shapes, then
     transformer-table1's folded call, the audio train path's (``audio``),
     zamba2_7b's shared block at head dim 112, zero-padded to 128
-    (``zamba``), and the LLM path's (timed; the LLM path's last)."""
+    (``zamba``), gemma_2b's at head dim 256 (``gemma``) and the LLM path's
+    (timed; the LLM path's last). Fails where ptxas reports a spill in
+    any flash kernel."""
     out, failures = [], []
     # (case, timed, seed): the seeds of the cases before stay as they were
-    n_awk = len(FLASH_AWKWARD)
-    cases = ([(c, False, 500 + i) for i, c in enumerate(FLASH_AWKWARD)]
+    n_awk = len(FLASH_AWKWARD) - len(FLASH_AWKWARD_256)
+    cases = ([(c, False, 500 + i)
+              for i, c in enumerate(FLASH_AWKWARD[:n_awk])]
+             + [(c, False, 600 + i) for i, c in enumerate(FLASH_AWKWARD_256)]
              + [(FLASH_TT1, True, 500 + n_awk),
                 (audio, True, 500 + n_awk + 2),
                 (zamba, True, 500 + n_awk + 3),
+                (gemma, True, 500 + n_awk + 4),
                 (path, True, 500 + n_awk + 1)])
     for case, timed, seed in cases:
         rec = flash_case(torch, case, timed and device == "cuda",
@@ -1598,6 +1627,15 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
         log(f"flash ptxas {name}: {regs['registers']} registers, spill "
             f"stores {regs['spill_stores']} B, spill loads "
             f"{regs['spill_loads']} B")
+        if regs["spill_stores"] or regs["spill_loads"]:
+            failures.append(f"{name} spills ({regs})")
+    if FLASH_PTXAS:  # this process built the library: every head dim
+        from repro_torch.kernels.flash_attention import HEAD_DIMS
+        built = {name.split("<")[-1].rstrip(">'") for name in FLASH_PTXAS}
+        missing = {str(d) for d in HEAD_DIMS} - built
+        if missing:
+            failures.append(f"no ptxas report of the flash kernels at head "
+                            f"dims {sorted(missing)}")
     if device == "cuda":
         from repro_torch.kernels import build
         sass = sass_counts(build.library_path("flash_attention"))
@@ -2283,7 +2321,7 @@ def llm_phase(torch, device: str = "cuda", steps: int = LLM_STEPS,
     del plain
     if on_card:
         torch.cuda.empty_cache()
-    out["options"] = llm_options(torch, device)
+    out["options"] = llm_options(torch, device, main=out)
     return out
 
 
@@ -2341,12 +2379,13 @@ def dasha_kernels(plan) -> dict:
 def llm_options(torch, device: str = "cuda", local_steps: int = 2,
                 bf16_steps: int = 4, stream_steps: int = 8,
                 chunk: int = 4, lowp_steps: int = 2,
-                dasha_steps: int = 2) -> dict:
+                dasha_steps: int = 2, main=None) -> dict:
     """The launcher's options on the LLM path: local masks (the dense wire,
     so decompress runs), bfloat16 server banks, float16 and float8 server
     banks (each against the plain path at the same dtype), Byz-DASHA-PAGE
-    at bfloat16 and float8 banks (against the plain path at its dtype, its
-    peak memory and payload beside RoSDHB's), and a streamed run with its
+    at float32, bfloat16 and float8 banks (against the plain path at its
+    dtype, its peak memory and payload beside RoSDHB's; ``main``: the main
+    run's record, RoSDHB at float32 banks), and a streamed run with its
     checkpoint, against a per-step run over the same ``(seed, t)``
     batches."""
     from repro_torch import checkpoint
@@ -2415,7 +2454,8 @@ def llm_options(torch, device: str = "cuda", local_steps: int = 2,
         done()
 
     out["dasha"] = llm_dasha(torch, device, dasha_steps, rosdhb={
-        "bfloat16": out["bf16"], **{dt: out[dt] for dt in LOWP_DTYPES}})
+        "float32": main or {}, "bfloat16": out["bf16"],
+        **{dt: out[dt] for dt in LOWP_DTYPES}})
     done()
 
     ckpt = ROOT / "build" / "chip_smoke" / "llm_params"
@@ -2463,12 +2503,14 @@ def llm_options(torch, device: str = "cuda", local_steps: int = 2,
     return out
 
 
-DASHA_DTYPES = ("bfloat16", "float8_e4m3fn")
+DASHA_DTYPES = ("float32", "bfloat16", "float8_e4m3fn")
 
 
 def llm_dasha(torch, device: str, steps: int, rosdhb: dict) -> dict:
     """Byz-DASHA-PAGE at the LLM cut (``--algo dasha``) at each bank dtype
-    of :data:`DASHA_DTYPES`: its launches against the route's own count
+    of :data:`DASHA_DTYPES` (float32, the paper's and the launcher's
+    default, fits one card because the round by column slices writes its
+    new banks over the old ones): its launches against the route's own count
     (:func:`dasha_kernels`), its honest loss and |R| against the plain path
     at the same dtype (:data:`LLM_TOL_LOSS`, :data:`LLM_TOL_DIR`), and its
     peak device memory and per-worker payload beside RoSDHB's at the same
@@ -3410,9 +3452,10 @@ DECODE_TOL_BF16 = 5e-2
 # the ring at its real window: qwen25_3b under long_500k (window 8,192),
 # batch 1, a prompt of 9 query chunks of 1,024, so the ring wraps
 RING = ("qwen25_3b", 9216, 16)
-# wider coverage, timed: MQA with head dim 256 (the plain attention),
-# tied embeddings and a 256k vocabulary; embedding inputs and the one-hot
-# feed; mistral_large_123b at full width cut to 4 layers
+# wider coverage, timed: MQA with head dim 256 (the plain attention in
+# prefill and decode, the flash kernels in the train-mode forward they are
+# held against), tied embeddings and a 256k vocabulary; embedding inputs
+# and the one-hot feed; mistral_large_123b at full width cut to 4 layers
 DECODE_WIDE = (("gemma_2b", ()), ("musicgen_medium", ()),
                ("mistral_large_123b", ("--n-layers", "4")))
 # the audio family's train path: musicgen_medium at full width cut to 2
@@ -3436,9 +3479,9 @@ def self_layers(cfg) -> int:
 def flash_layers(cfg, on_card: bool) -> int:
     """Flash forward launches of one train-mode forward: one per
     self-attention application where the kernel takes the inputs
-    (bfloat16, head dims 64, 80, 128, those below 128 zero-padded to it;
-    never MLA, whose attention is the plain one in the reference too), on
-    the card only."""
+    (bfloat16, head dims 64, 80, 128 and 256, the others up to 256
+    zero-padded to the next multiple of 128; never MLA, whose attention is
+    the plain one in the reference too), on the card only."""
     from repro_torch.kernels.flash_attention.flash import HEAD_DIMS, padded_dim
     takes = (cfg.dtype == "bfloat16" and not cfg.use_mla
              and padded_dim(cfg.resolved_head_dim) in HEAD_DIMS)
@@ -3903,10 +3946,12 @@ FAMILY_FLOOR_MAX = 0.1
 FAMILY_LONG = ("mamba2_1_3b", 4100, 16)
 # the train paths: (arch, layers, bank dtype), full width, seq 4096, 8
 # workers, f = 1, ALIE, CWTM, global Block-RandK 0.05; bfloat16 banks at
-# D ~ 1e9, where two float32 [8, D] banks would fill 66 GB
+# D ~ 1e9, where two float32 [8, D] banks would fill 66 GB; gemma_2b's
+# (D = 744,499,200) takes the flash kernels at head dim 256 (MQA)
 FAMILY_TRAIN = (("deepseek_v2_lite_16b", 2, "bfloat16"),
                 ("mamba2_1_3b", 2, "float32"),
-                ("zamba2_7b", 6, "bfloat16"))
+                ("zamba2_7b", 6, "bfloat16"),
+                ("gemma_2b", 2, "bfloat16"))
 FAMILY_STEPS, FAMILY_CHECK_STEPS = 4, 2
 
 
@@ -4803,16 +4848,17 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "device_us", "host_us", "library_device_us")}}
                     for r in flash_shapes])
-            d = shape[5]
-            kernels = (["flash_fwd_kernel"] if name == "flash_fwd" else
-                       ["flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                        "flash_bwd_dq_kernel"])
+            from repro_torch.kernels.flash_attention import HEAD_DIMS
+            kernels = [f"{k}<{d}>" for d in HEAD_DIMS for k in (
+                ["flash_fwd_kernel"] if name == "flash_fwd" else
+                ["flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                 "flash_bwd_dq_kernel"])]
             record["kernels"][-1]["kernel_over_library"] = (
                 t["ms"] / t["library_ms"] if t["library_ms"] else None)
             record["kernels"][-1]["ptxas"] = {
-                k: FLASH_PTXAS.get(f"{k}<{d}>") for k in kernels}
+                k: FLASH_PTXAS.get(k) for k in kernels}
             record["kernels"][-1]["sass"] = {
-                k: FLASH_SASS.get(f"{k}<{d}>") for k in kernels}
+                k: FLASH_SASS.get(k) for k in kernels}
     # decompress runs on the main path no more; the local-mask run keeps it
     decompress = next(k for k in record["kernels"]
                       if k["name"] == "block_decompress")

@@ -437,11 +437,13 @@ def _rosdhb_dense_columns(cfg: AlgorithmConfig, agg, state: ServerState,
     # time: the round's masks drawn once, then compress, the attack, the
     # momentum and the aggregation of each slice, bitwise the whole
     # round's (every step works column by column). At D ~ 1e9 the whole
-    # round's float32 [n, D] transients would not fit one card.
+    # round's float32 [n, D] transients would not fit one card. The
+    # caller's momentum bank is consumed: each slice's new momentum is
+    # written over the old slice once it is read.
     n, d = grads.shape
     mask = C.make_masks(draws, n, d, cfg.sparsifier, grads.dtype)
     cdt = COMPUTE_DTYPES[cfg.server_compute_dtype]
-    momentum = torch.empty_like(state.momentum)
+    momentum = state.momentum
     r = None
     for lo in range(0, d, DENSE_COLUMNS):
         cols = slice(lo, min(d, lo + DENSE_COLUMNS))
@@ -542,11 +544,16 @@ def _dasha_columns(cfg: AlgorithmConfig, agg, state: ServerState,
     # (compression.mask_columns; slices start on whole blocks), then the
     # wire (_dasha_wire on the dense mask path, not the Block-RandK
     # kernels: a worker's blocks in a slice are ragged), the attack and the
-    # aggregation of the slice (one CWTM or median launch a slice). The new
-    # banks are allocated whole beside the old ones, which the caller
-    # still holds; prev_grad is the float32 gradient bank (the bank itself
-    # where it is float32, as grads.float() aliases it). At an LLM's D the
-    # whole round's float32 [n, D] transients would not fit one card.
+    # aggregation of the slice (one CWTM or median launch a slice). The
+    # caller's banks are consumed: each slice's new momentum and mirror
+    # are written over the old slices once the wire has read them (at
+    # float32 .float() aliases them, so no write comes earlier), as the
+    # reference's step donates its state to XLA. prev_grad is the float32
+    # gradient bank itself where it is float32 (grads.float() aliases it;
+    # the train step allocates that bank anew each step), else the old
+    # prev_grad bank, written over slice by slice. At an LLM's D new banks
+    # beside the old ones, or the whole round's float32 [n, D]
+    # transients, would not fit one card.
     if state.mirror is None or state.prev_grad is None:
         raise ValueError("dasha needs the mirror/prev_grad state slots: "
                          "init the state with a dasha config")
@@ -557,10 +564,8 @@ def _dasha_columns(cfg: AlgorithmConfig, agg, state: ServerState,
     width = max(unit, DENSE_COLUMNS // unit * unit)
     b = 1.0 / (2.0 * sp.alpha)
     mdt = state.momentum.dtype
-    momentum = torch.empty_like(state.momentum)
-    mirror = torch.empty_like(state.mirror)
-    prev = grads if grads.dtype == torch.float32 else torch.empty(
-        (n, d), dtype=torch.float32, device=grads.device)
+    momentum, mirror = state.momentum, state.mirror
+    prev = grads if grads.dtype == torch.float32 else state.prev_grad
     r = None
     for lo in range(0, d, width):
         cols = slice(lo, min(d, lo + width))
@@ -575,6 +580,7 @@ def _dasha_columns(cfg: AlgorithmConfig, agg, state: ServerState,
         if r is None:
             r = part.new_empty(part.shape[:-1] + (d,))
         r[..., cols] = part
+        # the slice's last reads of the old banks were in _dasha_wire
         momentum[:, cols] = to_dtype(m, mdt)
         mirror[:, cols] = to_dtype(h, mdt)
         if prev is not grads:
@@ -740,8 +746,12 @@ def server_round(cfg: AlgorithmConfig, state: ServerState,
 
     Args:
       cfg: algorithm configuration.
-      state: current server state (its momentum is consumed: the payload
-        route updates it in place).
+      state: current server state, consumed: the payload route updates
+        its momentum in place, and the rounds by column slices (RoSDHB's
+        dense round past ``DENSE_COLUMNS``, dasha's) write each slice of
+        the new momentum and mirror (and, under gradients narrower than
+        float32, previous gradients) over the old one. A caller that
+        reuses a state passes a copy.
       grads: per-worker gradients ``[n, D]``, or ``[B, n, D]`` for the
         lanes of a grid; the Byzantine rows are replaced by the attack.
       draws: the draws provider for this round (a

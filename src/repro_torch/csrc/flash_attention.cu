@@ -21,9 +21,10 @@
 // bf16, so the tensor cores set the floor. The design:
 //   * Tiles in shared memory. A tile of R rows of one head is D/16 chunks
 //     of [R][16] bf16 (32-byte rows) in the 32-byte swizzle. Every head dim
-//     (64, 80, 128) is a whole number of chunks, so D = 80 needs no padding:
-//     a k16 step of a K-major operand is one chunk, and an MN-major operand
-//     spans the chunks at a fixed stride (the descriptor's leading offset).
+//     (64, 80, 128, 256) is a whole number of chunks, so D = 80 needs no
+//     padding: a k16 step of a K-major operand is one chunk, and an
+//     MN-major operand spans the chunks at a fixed stride (the
+//     descriptor's leading offset).
 //   * TMA. q, k, v and dO are 4-D tensor maps (D, heads, S, B) with a box
 //     of {16, 1, 64, 1}; one thread issues the boxes of a tile, the
 //     hardware zero-fills rows past S, and the stage's mbarrier counts the
@@ -51,10 +52,14 @@
 //     through the ring). S^T and dP^T (S and dP) are issued together, and
 //     the softmax of one overlaps the other's product. Every sum stays in
 //     one thread block, in a fixed order: no atomics, deterministic runs.
+//   * D = 256 (Tiles<256>): 64 keys a forward stage, dk/dv blocks of 64
+//     keys (one consumer warpgroup sums dV, the other dK, each computing
+//     S^T), 32 keys a dq stage. With one kv head at B = 1 the dk/dv grid
+//     is S/64 blocks (64 at S = 4096) on the card's 132 SMs.
 // P and dS are rounded to bf16 before they feed a product, as the
 // reference's probs.astype(q.dtype) does. The softmax scale is the true
-// 1/sqrt(D) (the TPU wrapper's padding of D to 128 lanes is not carried
-// over).
+// 1/sqrt(D) of the caller's head dim (the Python wrapper passes it where
+// it zero-pads D to a built one).
 
 #include <cuda.h>  // CUtensorMap and its enums; the entry point is looked up
 #include <cuda_bf16.h>
@@ -70,11 +75,26 @@ constexpr int kBox = 64;          // rows of a TMA box and of a warpgroup's tile
 constexpr int kChunkCols = 16;    // bf16 columns of a swizzle chunk (k16)
 constexpr int kConsumers = 2;     // consumer warpgroups per block
 constexpr int kThreads = 128 * (1 + kConsumers);
-constexpr int kBlockRows = kBox * kConsumers;  // rows (or keys) per block
+constexpr int kBlockRows = kBox * kConsumers;  // query rows per block
 constexpr int kStages = 2;
-constexpr int kFwdKeys = 128;     // keys per forward tile
 constexpr int kBwdTile = 64;      // query rows per streamed dk/dv tile
-constexpr int kDqKeys = 128;      // keys per streamed dq tile
+
+// Tile sizes of head dim D. Up to 128 a forward or dq stage streams 128
+// keys and a dk/dv block owns 128 keys, 64 per consumer warpgroup. At 256
+// (kWide) a stage of 128 keys of K and V is 128 KiB, two stages overflow
+// the 227 KiB a block may use, and dK plus dV of 64 keys would need 256
+// float32 accumulators a thread: the forward streams 64 keys a stage, a
+// dk/dv block owns 64 keys (one warpgroup sums dV, the other dK), and dq
+// streams 32 keys a stage (in boxes of 32 rows) beside its 128 query rows
+// of Q and dO.
+template <int D>
+struct Tiles {
+  static constexpr bool kWide = D > 128;
+  static constexpr int kFwdKeys = kWide ? 64 : 128;       // keys a fwd stage
+  static constexpr int kDkdvKeys = kWide ? kBox : kBlockRows;  // a dk/dv block
+  static constexpr int kDqKeys = kWide ? 32 : 128;        // keys a dq stage
+  static constexpr int kDqBox = kDqKeys < kBox ? kDqKeys : kBox;
+};
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -101,8 +121,7 @@ __device__ __forceinline__ bool all_visible(const Problem& p, int qa, int k0,
 }
 
 // First key (aligned down to `tile`) and end key of the keys some row of
-// [q0, q0 + rows) can see. Mirrored by kernels/flash_attention/flash.py:
-// key_tiles, which the CPU tests hold against the visible pairs.
+// [q0, q0 + rows) can see.
 __device__ __forceinline__ void key_range(const Problem& p, int q0, int rows,
                                           int tile, int* k_begin,
                                           int* k_end) {
@@ -117,7 +136,7 @@ __device__ __forceinline__ void key_range(const Problem& p, int q0, int rows,
 }
 
 // First query (aligned down to `tile`) and end query of the rows that can
-// see some key of [k0, k0 + keys). Mirrored by flash.py:query_tiles.
+// see some key of [k0, k0 + keys).
 __device__ __forceinline__ void query_range(const Problem& p, int k0,
                                             int keys, int tile,
                                             int* q_begin, int* q_end) {
@@ -186,17 +205,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 
 // Rows [row0, row0 + R) of one head of a (D, heads, S, B) tensor map into
 // the chunked tile at `dst`: chunk j (columns 16j .. 16j+15) at dst + j*R*32,
-// as R/64 boxes of [64][16].
-template <int R, int D>
+// as R/Box boxes of [Box][16] (Box: the map's box rows).
+template <int R, int D, int Box = kBox>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
                                           uint32_t bar, int head, int row0,
                                           int b) {
 #pragma unroll
   for (int j = 0; j < D / kChunkCols; ++j)
 #pragma unroll
-    for (int hf = 0; hf < R / kBox; ++hf)
-      tma_load(dst + j * R * 32 + hf * kBox * 32, map, bar, j * kChunkCols,
-               head, row0 + hf * kBox, b);
+    for (int hf = 0; hf < R / Box; ++hf)
+      tma_load(dst + j * R * 32 + hf * Box * 32, map, bar, j * kChunkCols,
+               head, row0 + hf * Box, b);
 }
 
 // wgmma shared-memory descriptors for the 32-byte swizzle (mode 3): the
@@ -389,6 +408,70 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 // The bf16 A operand of k-step kk from a float accumulator fragment whose
 // columns are that operand's K: registers 8kk .. 8kk+7 hold columns 16kk ..
 // 16kk+15 of the thread's two rows in the A layout's order.
@@ -471,7 +554,7 @@ __device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
 template <int D>
 struct FwdSmem {
   static constexpr int kQ = kBlockRows * D * 2;   // Q tile, 128 rows
-  static constexpr int kKV = kFwdKeys * D * 2;    // one K or V tile
+  static constexpr int kKV = Tiles<D>::kFwdKeys * D * 2;  // one K or V tile
   static constexpr int kStage = 2 * kKV;          // K then V
   static constexpr int kBars = kQ + kStages * kStage;
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
@@ -487,6 +570,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  float* __restrict__ lse, Problem p) {
   using L = FwdSmem<D>;
   constexpr int NC = D / kChunkCols;
+  constexpr int kFwdKeys = Tiles<D>::kFwdKeys;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
   const uint32_t sQ = smem_u32(smem);
@@ -671,7 +755,7 @@ __global__ void flash_bwd_delta_kernel(const bf16* __restrict__ o,
 
 template <int D>
 struct DkdvSmem {
-  static constexpr int kKV = kBlockRows * D * 2;  // one K or V tile
+  static constexpr int kKV = Tiles<D>::kDkdvKeys * D * 2;  // one K or V tile
   static constexpr int kRows = kBwdTile * D * 2;  // one Q or dO tile
   // Q, dO, then lse (base 2) and delta, 64 floats each, in a 1 KB slot
   static constexpr int kStage = 2 * kRows + 1024;
@@ -679,8 +763,16 @@ struct DkdvSmem {
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
 
-// grid (KV, B, key tiles of 128), 384 threads: warpgroup 0 loads (its first
-// warp also stages lse and delta), 1 and 2 each own 64 keys.
+// grid (KV, B, key tiles of Tiles<D>::kDkdvKeys), 384 threads: warpgroup 0
+// loads (its first warp also stages lse and delta); up to D = 128, 1 and 2
+// each own 64 keys; at 256 both take the block's 64 keys, 1 summing dV
+// (S^T, then P^T dO) and 2 dK (S^T and dP^T, then dS^T Q). Splitting by
+// output keeps each accumulator at 128 float32 a thread (dK and dV
+// together would be 256, past the 255 registers a thread may hold); the
+// price is S^T computed twice, 4 products of 64 x 64 x 256 a tile where
+// one warpgroup holding both would run 3. Halving the head dim instead
+// would need S^T's partial sums exchanged through shared memory on every
+// tile; two passes would stream Q and dO twice.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
@@ -692,6 +784,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       bf16* __restrict__ dv, Problem p) {
   using L = DkdvSmem<D>;
   constexpr int NC = D / kChunkCols;
+  constexpr int kKeys = Tiles<D>::kDkdvKeys;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
   const uint32_t sK = smem_u32(smem), sV = sK + L::kKV;
@@ -703,10 +796,10 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   auto empty = [&](int s) { return bar0 + 8 * (1 + kStages + s); };
 
   const int kvh = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * kBlockRows;
+  const int k0 = blockIdx.z * kKeys;
   const int rep = p.H / p.KV;
   int q_begin, q_end;
-  query_range(p, k0, kBlockRows, kBwdTile, &q_begin, &q_end);
+  query_range(p, k0, kKeys, kBwdTile, &q_begin, &q_end);
   const int n_q = tiles_between(q_begin, q_end, kBwdTile);
   const int n_items = rep * n_q;
 
@@ -727,8 +820,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       const int lane = threadIdx.x;
       if (lane == 0) {
         mbar_expect_tx(kv_full, 2 * L::kKV);
-        load_tile<kBlockRows, D>(sK, &tk, kv_full, kvh, k0, b);
-        load_tile<kBlockRows, D>(sV, &tv, kv_full, kvh, k0, b);
+        load_tile<kKeys, D>(sK, &tk, kv_full, kvh, k0, b);
+        load_tile<kKeys, D>(sV, &tv, kv_full, kvh, k0, b);
       }
       for (int it = 0; it < n_items; ++it) {
         const int s = it % kStages;
@@ -754,6 +847,103 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
     }
+  } else if constexpr (Tiles<D>::kWide) {
+    // ---- consumers: S^T and P^T for 64 keys x 64 queries; warpgroup 1
+    // then dV += P^T dO, warpgroup 2 dP^T, dS^T and dK += dS^T Q ----
+    setmaxnreg_inc<240>();
+    const bool dk_side = threadIdx.x >= 256;
+    const int tid = threadIdx.x % 128;
+    const int kr0 = k0 + frag_row(tid), kr1 = kr0 + 8;
+    const float scale2 = p.scale * kLog2e;
+
+    float acc[D / 2];  // dV (warpgroup 1) or dK (warpgroup 2)
+    zero(acc);
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_items; ++it) {
+      const int s = it % kStages;
+      const int qr0 = q_begin + (it % n_q) * kBwdTile;
+      const uint32_t sQ = sStage + s * L::kStage, sdO = sQ + L::kRows;
+      const float* vec = stage_vec + s * (L::kStage / 4);
+      mbar_wait(full(s), (it / kStages) & 1);
+
+      float st[kBwdTile / 2], dpt[kBwdTile / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        wgmma_ss<kBwdTile>(st, desc_k(sK + j * kKeys * 32),
+                           desc_k(sQ + j * kBwdTile * 32), j);
+      wgmma_commit();
+      if (dk_side) {
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+          wgmma_ss<kBwdTile>(dpt, desc_k(sV + j * kKeys * 32),
+                             desc_k(sdO + j * kBwdTile * 32), j);
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(st);
+
+      const bool masked =
+          qr0 + kBwdTile > p.Sq ||
+          !all_visible(p, p.q_offset + qr0, k0, kBox);
+#pragma unroll
+      for (int i = 0; i < kBwdTile / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = frag_col(tid, i) + e;
+          const float l2 = vec[c];
+          float p0 = fast_exp2(fmaf(st[4 * i + e], scale2, -l2));
+          float p1 = fast_exp2(fmaf(st[4 * i + 2 + e], scale2, -l2));
+          if (masked) {
+            const int qpos = p.q_offset + qr0 + c;
+            const bool in = qr0 + c < p.Sq;
+            if (!in || !visible(p, qpos, kr0)) p0 = 0.0f;
+            if (!in || !visible(p, qpos, kr1)) p1 = 0.0f;
+          }
+          st[4 * i + e] = p0;
+          st[4 * i + 2 + e] = p1;
+        }
+      if (!dk_side) {
+        uint32_t pa[kBwdTile / 16][4];
+        to_a_operand<kBwdTile>(st, pa);
+        // dV += P^T dO
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBwdTile / 16; ++kk)
+          wgmma_rs<D>(acc, pa[kk], desc_mn(sdO + kk * 16 * 32, kBwdTile), 1);
+        wgmma_commit();
+      } else {
+        wgmma_wait<0>();
+        fence_regs(dpt);
+        // dS^T = P^T * (dP^T - delta[query])
+#pragma unroll
+        for (int i = 0; i < kBwdTile / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float dl = vec[kBwdTile + frag_col(tid, i) + e];
+            dpt[4 * i + e] = st[4 * i + e] * (dpt[4 * i + e] - dl);
+            dpt[4 * i + 2 + e] = st[4 * i + 2 + e] * (dpt[4 * i + 2 + e] - dl);
+          }
+        uint32_t da[kBwdTile / 16][4];
+        to_a_operand<kBwdTile>(dpt, da);
+        // dK += dS^T Q
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBwdTile / 16; ++kk)
+          wgmma_rs<D>(acc, da[kk], desc_mn(sQ + kk * 16 * 32, kBwdTile), 1);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (tid % 32 == 0) mbar_arrive(empty(s));
+    }
+    if (dk_side)
+      store_frag<D>(acc, dk, tid, b, kr0, p.Sk, p.KV, kvh, p.scale, p.scale);
+    else
+      store_frag<D>(acc, dv, tid, b, kr0, p.Sk, p.KV, kvh, 1.0f, 1.0f);
   } else {
     // ---- consumers: S^T, P^T, dP^T, dS^T for 64 keys x 64 queries ----
     setmaxnreg_inc<240>();
@@ -779,12 +969,12 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < NC; ++j)
-        wgmma_ss<kBwdTile>(st, desc_k(sKw + j * kBlockRows * 32),
+        wgmma_ss<kBwdTile>(st, desc_k(sKw + j * kKeys * 32),
                            desc_k(sQ + j * kBwdTile * 32), j);
       wgmma_commit();
 #pragma unroll
       for (int j = 0; j < NC; ++j)
-        wgmma_ss<kBwdTile>(dpt, desc_k(sVw + j * kBlockRows * 32),
+        wgmma_ss<kBwdTile>(dpt, desc_k(sVw + j * kKeys * 32),
                            desc_k(sdO + j * kBwdTile * 32), j);
       wgmma_commit();
       wgmma_wait<1>();
@@ -857,14 +1047,14 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 template <int D>
 struct DqSmem {
   static constexpr int kQ = kBlockRows * D * 2;   // one Q or dO tile
-  static constexpr int kKV = kDqKeys * D * 2;    // one K or V tile
+  static constexpr int kKV = Tiles<D>::kDqKeys * D * 2;  // one K or V tile
   static constexpr int kStage = 2 * kKV;
   static constexpr int kBars = 2 * kQ + kStages * kStage;
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
 
 // grid (H, B, query tiles of 128), 384 threads: warpgroup 0 loads, 1 and
-// 2 each own 64 query rows.
+// 2 each own 64 query rows. tk and tv load boxes of Tiles<D>::kDqBox rows.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
@@ -876,6 +1066,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     Problem p) {
   using L = DqSmem<D>;
   constexpr int NC = D / kChunkCols;
+  constexpr int kDqKeys = Tiles<D>::kDqKeys;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_smem(smem_raw);
   const uint32_t sQ = smem_u32(smem), sdO = sQ + L::kQ;
@@ -915,8 +1106,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_expect_tx(full(s), L::kStage);
         const uint32_t dst = sStage + s * L::kStage;
         const int kt0 = k_begin + t * kDqKeys;
-        load_tile<kDqKeys, D>(dst, &tk, full(s), kvh, kt0, b);
-        load_tile<kDqKeys, D>(dst + L::kKV, &tv, full(s), kvh, kt0, b);
+        load_tile<kDqKeys, D, Tiles<D>::kDqBox>(dst, &tk, full(s), kvh, kt0,
+                                                b);
+        load_tile<kDqKeys, D, Tiles<D>::kDqBox>(dst + L::kKV, &tv, full(s),
+                                                kvh, kt0, b);
       }
     }
   } else {
@@ -1044,9 +1237,9 @@ void bind_context() {
 }
 
 // A [B, S, heads, D] bf16 tensor as the 4-D map (D, heads, S, B) with a box
-// of {16, 1, 64, 1} in the 32-byte swizzle; rows past S read as zeros.
+// of {16, 1, box_rows, 1} in the 32-byte swizzle; rows past S read as zeros.
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-              int D) {
+              int D, int box_rows = kBox) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
     return false;
@@ -1055,7 +1248,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
                                  (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {kChunkCols, 1, kBox, 1};
+  const cuuint32_t box[4] = {kChunkCols, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, elem,
@@ -1079,7 +1272,7 @@ bool problem_ok(const Problem& p) {
   return p.B >= 1 && p.B <= 65535 && p.Sq >= 1 && p.Sk >= 1 && p.KV >= 1 &&
          p.H >= p.KV && p.H % p.KV == 0 && p.H <= 65535 &&
          (p.Sq + kBlockRows - 1) / kBlockRows <= 65535 &&
-         (p.Sk + kBlockRows - 1) / kBlockRows <= 65535;
+         (p.Sk + kBox - 1) / kBox <= 65535;
 }
 
 template <typename K>
@@ -1128,26 +1321,35 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
   const float* delta_f = static_cast<const float*>(delta);
   err = allow_smem(flash_bwd_dkdv_kernel<D>, DkdvSmem<D>::kBytes);
   if (err != cudaSuccess) return err;
+  constexpr int kKeys = Tiles<D>::kDkdvKeys;
   const dim3 grid_kv((unsigned)p.KV, (unsigned)p.B,
-                     (unsigned)((p.Sk + kBlockRows - 1) / kBlockRows));
+                     (unsigned)((p.Sk + kKeys - 1) / kKeys));
   flash_bwd_dkdv_kernel<D><<<grid_kv, kThreads, DkdvSmem<D>::kBytes, s>>>(
       tq, tk, tv, tdo, lse_f, delta_f, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  // dq streams K and V in boxes of its own tile's rows where they are
+  // fewer than 64
+  constexpr int kDqBox = Tiles<D>::kDqBox;
+  CUtensorMap tk_dq = tk, tv_dq = tv;
+  if (kDqBox != kBox &&
+      (!make_map(&tk_dq, k, p.B, p.Sk, p.KV, D, kDqBox) ||
+       !make_map(&tv_dq, v, p.B, p.Sk, p.KV, D, kDqBox)))
+    return cudaErrorInvalidValue;
   err = allow_smem(flash_bwd_dq_kernel<D>, DqSmem<D>::kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid_q((unsigned)p.H, (unsigned)p.B,
                     (unsigned)((p.Sq + kBlockRows - 1) / kBlockRows));
   flash_bwd_dq_kernel<D><<<grid_q, kThreads, DqSmem<D>::kBytes, s>>>(
-      tq, tk, tv, tdo, lse_f, delta_f, static_cast<bf16*>(dq), p);
+      tq, tk_dq, tv_dq, tdo, lse_f, delta_f, static_cast<bf16*>(dq), p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // All tensors bf16 except lse/delta (float32 [B, H, Sq]), each 16-byte
-// aligned. window <= 0: no sliding window. D in {64, 80, 128}. scale <= 0:
+// aligned. window <= 0: no sliding window. D in {64, 80, 128, 256}. scale <= 0:
 // the softmax scale 1/sqrt(D). Returns the launches' cudaError_t
 // (cudaErrorInvalidValue for a shape or pointer the kernels do not take).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
@@ -1162,6 +1364,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
     case 64: return (int)fwd<64>(q, k, v, o, lse, p, s);
     case 80: return (int)fwd<80>(q, k, v, o, lse, p, s);
     case 128: return (int)fwd<128>(q, k, v, o, lse, p, s);
+    case 256: return (int)fwd<256>(q, k, v, o, lse, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1181,6 +1384,7 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
     case 64: return (int)bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
     case 80: return (int)bwd<80>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
     case 128: return (int)bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
+    case 256: return (int)bwd<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

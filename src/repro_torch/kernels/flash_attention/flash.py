@@ -4,11 +4,11 @@ Replaces ``repro/kernels/flash_attention/flash.py:_flash_kernel`` (launched
 by ``flash_attention``). The TPU kernel is forward-only, and ``jax.grad``
 through it fails; the port trains through its kernel, so
 ``csrc/flash_attention.cu`` adds the FlashAttention-2 backward (a ``delta``
-pass, then dk/dv per 128 keys and dq per 128 query rows, no atomics). Bound
-by operations at the model's shapes: Hopper kernels (``sm_90a``) with TMA
-loads into a 2-stage mbarrier ring, ``wgmma`` products with the
-accumulators in registers, one producer and two consumer warpgroups per
-block.
+pass, then dk/dv per 128 keys (64 at head dim 256) and dq per 128 query
+rows, no atomics). Bound by operations at the model's shapes: Hopper
+kernels (``sm_90a``) with TMA loads into a 2-stage mbarrier ring,
+``wgmma`` products with the accumulators in registers, one producer and
+two consumer warpgroups per block.
 
 :class:`FlashAttention` is a ``torch.autograd.Function`` whose backward is
 a second Function, :class:`FlashBackward`: the forward saves the per-row
@@ -32,17 +32,18 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref)
 
-HEAD_DIMS = (64, 80, 128)
-#: Head dims below this one that the kernel is not built for are taken
-#: zero-padded to it (``ops.flash_attention``), as the reference's
-#: ``ops.attention`` pads to 128 lanes.
-PAD_DIM = 128
+HEAD_DIMS = (64, 80, 128, 256)
+#: Head dims up to this one that the kernel is not built for are taken
+#: zero-padded to the next multiple of 128 (``ops.flash_attention``), as the
+#: reference's ``ops.attention`` pads to whole 128-lane tiles.
+PAD_MAX = 256
 
 
 def padded_dim(d: int) -> int:
     """The head dim the kernel runs for a model's head dim ``d``: ``d``
-    itself where it is built for it, else :data:`PAD_DIM` below it."""
-    return d if d in HEAD_DIMS or d >= PAD_DIM else PAD_DIM
+    itself where it is built for it or past :data:`PAD_MAX`, else the next
+    multiple of 128 (112 -> 128, 192 -> 256)."""
+    return d if d in HEAD_DIMS or d > PAD_MAX else -(-d // 128) * 128
 
 
 def fully_masked_rows(sq: int, sk: int, causal: bool, window: Optional[int],
@@ -64,13 +65,13 @@ def refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Why the kernel cannot take these inputs, as ``(exception type,
     message)``, or ``None`` when it can: bfloat16 ``[B, S, heads, D]``
     contiguous tensors, D in :data:`HEAD_DIMS` (with ``pad``, also a D
-    below :data:`PAD_DIM`, which ``ops.flash_attention`` zero-pads to it),
-    GQA heads, no query row without a visible key, on a CUDA device
-    (checked last, so the other reasons read the same on the CPU). It
-    reads only what a tensor under ``torch.func.vmap`` still has (shape,
-    dtype, layout, device), so it answers for a batched tensor as for the
-    real one; the 16-byte alignment TMA needs is checked at the launch
-    (:func:`_check`)."""
+    up to :data:`PAD_MAX`, which ``ops.flash_attention`` zero-pads to the
+    next multiple of 128), GQA heads, no query row without a visible key,
+    on a CUDA device (checked last, so the other reasons read the same on
+    the CPU). It reads only what a tensor under ``torch.func.vmap`` still
+    has (shape, dtype, layout, device), so it answers for a batched tensor
+    as for the real one; the 16-byte alignment TMA needs is checked at the
+    launch (:func:`_check`)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             return TypeError, (f"flash attention kernel takes bfloat16, got "
@@ -86,8 +87,8 @@ def refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             f"not fit q {tuple(q.shape)}")
     if (padded_dim(d) if pad else d) not in HEAD_DIMS:
         return ValueError, (f"flash attention kernel is built for head dims "
-                            f"{HEAD_DIMS}" + (f" and takes those below "
-                                              f"{PAD_DIM} zero-padded"
+                            f"{HEAD_DIMS}" + (f" and takes those up to "
+                                              f"{PAD_MAX} zero-padded"
                                               if pad else "") + f", got {d}")
     if h % kv or b > 65535 or h > 65535:
         return ValueError, (f"H={h} must be a multiple of KV={kv}; B, H <= "

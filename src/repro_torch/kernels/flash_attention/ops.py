@@ -1,9 +1,10 @@
 """Dispatch for flash attention: the plain version for CPU tensors, the
 CUDA kernels (forward and backward, under ``torch.func`` too) for CUDA
-tensors. A head dim below 128 that the kernels are not built for (zamba2's
-112) is zero-padded to 128 around the kernel call, outside its
-``autograd.Function``, as the reference's ``ops.attention`` pads to 128
-lanes; the kernels take the head dim's own softmax scale as an argument."""
+tensors. A head dim up to 256 that the kernels are not built for (zamba2's
+112) is zero-padded to the next multiple of 128 around the kernel call,
+outside its ``autograd.Function``, as the reference's ``ops.attention``
+pads to whole 128-lane tiles; the kernels take the head dim's own softmax
+scale as an argument."""
 
 from __future__ import annotations
 

@@ -256,8 +256,9 @@ def attn_apply(p: Params, cfg, x: torch.Tensor, *, mode: str = "train",
 
     * ``train``: no cache. ``cfg.use_flash_attention``: ``None`` takes the
       flash-attention kernels where they take the inputs (``flash.supports``:
-      bfloat16, head dims 64, 80 and 128, those below 128 zero-padded to
-      it, on the card) and the plain ``causal_attention`` elsewhere, a
+      bfloat16, head dims 64, 80, 128 and 256, the others up to 256
+      zero-padded to the next multiple of 128, on the card) and the plain
+      ``causal_attention`` elsewhere (float32 inputs), a
       choice made before the call, as the
       reference takes its kernel only for what it runs; ``True`` asks for
       the kernel path (the plain dense version on the CPU) and raises on the

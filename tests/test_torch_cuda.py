@@ -406,6 +406,14 @@ FLASH += [case for d in (64, 80, 128) for case in (
     (1, 257, 257, 4, 2, d, True, 100, 0),
     (2, 65, 193, 4, 1, d, True, 70, 128),
     (1, 63, 191, 8, 2, d, False, None, 0))]
+# head dim 256 (gemma_2b's), whose tiles are its own (64 keys a forward
+# stage and a dk/dv block, 32 keys a dq stage)
+FLASH += [(2, 129, 129, 8, 1, 256, True, None, 0),
+          (1, 127, 127, 8, 2, 256, True, None, 0),
+          (1, 257, 257, 4, 1, 256, True, 100, 0),
+          (2, 65, 193, 4, 1, 256, True, 70, 128),
+          (1, 63, 191, 8, 1, 256, False, None, 0),
+          (1, 33, 97, 2, 1, 256, True, 40, 64)]
 
 
 @pytest.mark.cuda
@@ -568,15 +576,15 @@ def _lm_loss_and_grads(card, cfg, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["float32", "head_dim_256"])
+@pytest.mark.parametrize("case", ["float32"])
 def test_attention_takes_the_plain_path_where_the_kernel_cannot(card, case):
-    """A float32 config and a head dim of 256 (gemma_2b's) run forward and
-    backward on the card through ``causal_attention``, equal to the plain
-    path, with no flash launch; asking for the kernel raises."""
+    """A float32 config (the kernels compute in bf16 on the tensor cores)
+    runs forward and backward on the card through ``causal_attention``,
+    equal to the plain path, with no flash launch; asking for the kernel
+    raises."""
     from repro_torch.configs import get_arch
     base = get_arch("stablelm_3b").model.reduced(n_layers=1, d_model=256)
-    cfg = (base.with_overrides(dtype="float32") if case == "float32"
-           else base.with_overrides(head_dim=256))
+    cfg = base.with_overrides(dtype="float32")
     K.reset_launches()
     loss, grads = _lm_loss_and_grads(card, cfg)
     assert K.launches()["flash_fwd"] == K.launches()["flash_bwd"] == 0
@@ -587,6 +595,51 @@ def test_attention_takes_the_plain_path_where_the_kernel_cannot(card, case):
     assert torch.isfinite(loss)
     with pytest.raises(ValueError, match="use_flash_attention=True"):
         _lm_loss_and_grads(card, cfg.with_overrides(use_flash_attention=True))
+
+
+@pytest.mark.cuda
+def test_attention_at_head_dim_256_launches_the_kernel_once_a_layer(card):
+    """gemma_2b's head dim, 256, on its one kv head: a 2-layer bf16
+    model's loss and gradients launch the flash forward and backward once
+    a layer; one layer's attention output within 1e-2 and the gradients of
+    its input and weights within 2e-2 of the plain path's largest entry
+    (``chip_smoke.FLASH_TOL_OUT``, ``FLASH_TOL_GRAD``: P and dS rounded to
+    bf16 for the tensor cores)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    cfg = get_arch("gemma_2b").model.reduced(
+        n_layers=2, d_model=256).with_overrides(head_dim=256)
+    assert cfg.resolved_head_dim == 256 and cfg.n_kv_heads == 1
+    K.reset_launches()
+    _lm_loss_and_grads(card, cfg)
+    assert K.launches()["flash_fwd"] == K.launches()["flash_bwd"] == 2
+    gen = torch.Generator(device=card).manual_seed(256)
+    p = L.attn_init(gen, cfg)
+    x = torch.randn(2, 160, cfg.d_model, generator=gen, device=card).to(
+        torch.bfloat16)
+    dy = torch.randn(2, 160, cfg.d_model, generator=gen, device=card).to(
+        torch.bfloat16)
+
+    weights, treedef = tree_flatten(p)
+
+    def run(flash):
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  [x] + weights]
+        params = tree_unflatten(treedef, leaves[1:])
+        y, _ = L.attn_apply(params, cfg.with_overrides(
+            use_flash_attention=flash), leaves[0])
+        return y, torch.autograd.grad(y, leaves, dy)
+
+    K.reset_launches()
+    y, grads = run(None)
+    assert K.launches()["flash_fwd"] == K.launches()["flash_bwd"] == 1
+    y_p, grads_p = run(False)
+    assert K.launches()["flash_fwd"] == 1
+    for got, want, tol in [(y, y_p, 1e-2)] + [
+            (g, w, 2e-2) for g, w in zip(grads, grads_p)]:
+        err = (got.detach().float() - want.detach().float()).abs().max()
+        assert float(err) <= tol * float(want.detach().float().abs().max())
 
 
 @pytest.mark.cuda

@@ -5,9 +5,10 @@ slice width shrunk so that small banks split into many slices and D not a
 multiple of it, at float32, bfloat16 and float8_e4m3fn banks, under ALIE,
 FOE and signflip, with CWTM, the median and the mean; the whole round kept
 where a step is not coordinate-wise (NNM, Krum, the geometric median,
-stateful attacks); the slice masks bitwise slices of the whole mask; and
-one ``launch.train --algo dasha`` step through the route against the
-reference's train step."""
+stateful attacks); the slice masks bitwise slices of the whole mask; the
+round writing its new banks over the caller's, bitwise the whole round
+and the reference's compiled round; and one ``launch.train --algo dasha``
+step through the route against the reference's train step."""
 
 import dataclasses
 
@@ -152,6 +153,9 @@ def test_the_route_starts_past_dense_columns():
 
 
 def test_float32_gradients_become_prev_grad_without_a_copy(narrow):
+    """The float32 gradient bank becomes prev_grad itself; the new momentum
+    and mirror are written over the caller's banks (the round consumes its
+    state)."""
     cfg = _cfg()
     state = Alg.init_state(cfg, 5000, device="cpu")
     g = _grads(0, 5000, torch.float32)
@@ -159,8 +163,116 @@ def test_float32_gradients_become_prev_grad_without_a_copy(narrow):
     _, new, _ = Alg.server_round(cfg, state, g, TorchDraws(1, "cpu"),
                                  agg=agg)
     assert new.prev_grad is g
-    assert new.momentum.data_ptr() != state.momentum.data_ptr()
-    assert new.mirror.data_ptr() != state.mirror.data_ptr()
+    assert new.momentum.data_ptr() == state.momentum.data_ptr()
+    assert new.mirror.data_ptr() == state.mirror.data_ptr()
+
+
+def _state(cfg, d, seed, step):
+    """A state with random momentum, mirror (in the bank dtype) and float32
+    previous gradients at ``step``."""
+    rng = np.random.default_rng(seed)
+    bank = Alg.BANK_DTYPES[cfg.momentum_dtype]
+    f = lambda: torch.tensor(rng.normal(size=(N, d)),  # noqa: E731
+                             dtype=torch.float32)
+    return Alg.init_state(cfg, d, device="cpu")._replace(
+        momentum=to_dtype(f(), bank), mirror=to_dtype(f(), bank),
+        prev_grad=f(), step=step)
+
+
+def _copy(state):
+    return state._replace(momentum=state.momentum.clone(),
+                          mirror=state.mirror.clone(),
+                          prev_grad=state.prev_grad.clone())
+
+
+@pytest.mark.parametrize("step", [0, 1])
+@pytest.mark.parametrize("mdt", ["float32", "bfloat16"])
+def test_sliced_round_writes_into_the_callers_banks(narrow, mdt, step):
+    """The sliced round consumes the caller's banks: the new momentum and
+    mirror are the old tensors, written slice by slice after each slice's
+    reads; prev_grad is the float32 gradient bank itself (float32 banks) or
+    the old prev_grad written over (bfloat16 banks, whose gradients are
+    bfloat16). Each value is bitwise the whole round's, run on its own copy
+    of the same state."""
+    cfg = _cfg(mdt)
+    d = 5000
+    agg = make_aggregator(cfg.aggregator, device="cpu")
+    state = _state(cfg, d, 11 + step, step)
+    whole = _copy(state)
+    ptrs = {k: getattr(state, k).data_ptr()
+            for k in ("momentum", "mirror", "prev_grad")}
+    g = _grads(step, d, Alg.BANK_DTYPES[mdt])
+    r, new, _ = Alg.server_round(cfg, state, g, TorchDraws(1, "cpu"),
+                                 agg=agg)
+    want_r, want = Alg._dasha_round(cfg, agg, whole, g, TorchDraws(1, "cpu"),
+                                    Alg.static_hparams(cfg))
+    assert new.momentum.data_ptr() == ptrs["momentum"]
+    assert new.mirror.data_ptr() == ptrs["mirror"]
+    if mdt == "float32":
+        assert new.prev_grad is g
+    else:
+        assert new.prev_grad.data_ptr() == ptrs["prev_grad"]
+    _same(r, want_r)
+    for a, b in ((new.momentum, want.momentum), (new.mirror, want.mirror),
+                 (new.prev_grad, want.prev_grad)):
+        _same(a, b)
+    assert new.step == want.step == step + 1
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_sliced_round_in_place_matches_the_reference(narrow, step):
+    """The sliced round, writing over its state, against the reference's
+    compiled round from the same momentum, mirror, previous gradients and
+    per-worker RandK draws (three slices, the last ragged), held as
+    ``test_torch_dasha.py::test_one_round`` holds the whole round: the
+    momentum, the previous gradients and the honest mirror rows bitwise,
+    the Byzantine mirror rows within 1 ulp of their largest value (the
+    compiled reference fuses ALIE's statistics), the direction within 4
+    ulp (CWTM sums in another order)."""
+    from repro.core import aggregators as JG
+    from repro.core import algorithms as JAlg
+    from repro.core import attacks as JA
+    from repro.core import compression as JC
+    from repro_torch.testing import ReplayDraws
+    d = 2500
+    ref = JAlg.AlgorithmConfig(
+        name="dasha", n_workers=N, f=F, gamma=0.05, beta=0.9,
+        sparsifier=JC.SparsifierConfig(kind="randk", ratio=0.1),
+        aggregator=JG.AggregatorConfig(name="cwtm", f=F),
+        attack=JA.AttackConfig(name="alie"))
+    cfg = _cfg(kind="randk", ratio=0.1)
+    assert Alg._dasha_by_columns(cfg, d)
+    state = _state(cfg, d, 21 + step, step)
+    m, h, pg = (getattr(state, k).numpy().copy()
+                for k in ("momentum", "mirror", "prev_grad"))
+    g = np.random.default_rng(31 + step).normal(size=(N, d)).astype(
+        np.float32)
+    key = jax.random.PRNGKey(5 + step)
+    mask_key = jax.random.split(key)[0]
+    k = cfg.sparsifier.k(d)
+    perms = [np.asarray(jax.random.permutation(kk, d)[:k])
+             for kk in jax.random.split(mask_key, N)]
+    st = JAlg.init_state(ref, d)._replace(
+        momentum=jnp.asarray(m), mirror=jnp.asarray(h),
+        prev_grad=jnp.asarray(pg), step=jnp.asarray(step, jnp.int32))
+    jr, jnew, _ = jax.jit(lambda st, g, key: JAlg.server_round(
+        ref, st, g, key))(st, jnp.asarray(g), key)
+    draws = ReplayDraws("cpu", permutations=perms)
+    agg = make_aggregator(cfg.aggregator, device="cpu")
+    ptr = state.momentum.data_ptr()
+    r, new, _ = Alg.server_round(cfg, state, torch.tensor(g), draws, agg=agg)
+    assert draws.remaining == 0 and new.momentum.data_ptr() == ptr
+    np.testing.assert_array_equal(new.momentum.numpy(),
+                                  np.asarray(jnew.momentum))
+    np.testing.assert_array_equal(new.prev_grad.numpy(),
+                                  np.asarray(jnew.prev_grad))
+    mir, tmir = np.asarray(jnew.mirror), new.mirror.numpy()
+    np.testing.assert_array_equal(tmir[F:], mir[F:])
+    np.testing.assert_allclose(tmir[:F], mir[:F], rtol=0,
+                               atol=np.spacing(np.abs(mir[:F]).max()))
+    jr = np.asarray(jr)
+    np.testing.assert_allclose(r.numpy(), jr, rtol=0,
+                               atol=4 * np.spacing(np.abs(jr).max()))
 
 
 # ----------------------------------------------------------------------- #

@@ -20,13 +20,16 @@ from repro_torch.kernels.flash_attention import (attention_ref,
 from repro_torch.models.layers import causal_attention
 
 # (B, Sq, Sk, H, KV, D, window, q_offset): GQA 2:1 and 4:1, MHA, MQA, a
-# sliding window, a continuation chunk at q_offset, D in {64, 80, 128}
+# sliding window, a continuation chunk at q_offset, D in {64, 80, 128,
+# 256}; at 256 (gemma_2b's, MQA) a causal case and a windowed continuation
 CASES = [(2, 96, 96, 4, 2, 64, None, 0),
          (1, 128, 128, 4, 1, 80, None, 0),
          (1, 64, 64, 2, 2, 128, None, 0),
          (1, 128, 128, 2, 2, 64, 32, 0),
          (2, 64, 192, 4, 4, 80, None, 128),
-         (1, 64, 160, 4, 2, 128, 48, 96)]
+         (1, 64, 160, 4, 2, 128, 48, 96),
+         (1, 96, 96, 4, 1, 256, None, 0),
+         (1, 64, 160, 4, 1, 256, 48, 96)]
 
 
 def _inputs(b, sq, sk, h, kv, d, seed):
@@ -133,7 +136,7 @@ def _qkv(dtype=torch.bfloat16, d=64, sq=8, sk=8, h=2, kv=2):
 
 @pytest.mark.parametrize("case,match", [
     ("float32", "bfloat16"),
-    ("head_dim_256", "head dims"),
+    ("head_dim_320", "head dims"),
     ("head_dim_48", "head dims"),
     ("strided", "contiguous"),
     ("no_visible_key", "no visible key"),
@@ -149,8 +152,8 @@ def test_supports_states_each_refusal(case, match):
     kw = {}
     if case == "float32":
         q, k, v = _qkv(torch.float32)
-    elif case == "head_dim_256":
-        q, k, v = _qkv(d=256)
+    elif case == "head_dim_320":
+        q, k, v = _qkv(d=320)
     elif case == "head_dim_48":
         q, k, v = _qkv(d=48)
     elif case == "strided":
@@ -336,41 +339,42 @@ def test_refusal_reads_the_same_under_vmap(case):
 
 
 def test_head_dim_112_is_taken_through_the_zero_pad():
-    """``refusal(pad=True)`` takes a head dim below 128 that the kernel is
-    not built for (zamba2's 112: padded to 128), the launch itself does
-    not; 256 stays refused either way."""
+    """``refusal(pad=True)`` takes a head dim up to 256 that the kernel is
+    not built for (zamba2's 112: padded to 128; 192 to 256), the launch
+    itself does not; 256 (gemma_2b's) is built; 320 stays refused either
+    way."""
     from repro_torch.kernels.flash_attention import flash as FK
     q, k, v = _qkv(d=112)
     assert FK.padded_dim(112) == 128 and FK.padded_dim(80) == 80
-    assert FK.padded_dim(256) == 256
+    assert FK.padded_dim(256) == 256 and FK.padded_dim(192) == 256
+    assert FK.padded_dim(320) == 320 and 256 in FK.HEAD_DIMS
     why = FK.refusal(q, k, v, True, None, 0, pad=True)
     assert why is not None and "needs CUDA" in why[1]  # only the device
     assert "head dims" in FK.refusal(q, k, v)[1]
-    q, k, v = _qkv(d=256)
+    for d in (192, 256):
+        q, k, v = _qkv(d=d)
+        why = FK.refusal(q, k, v, True, None, 0, pad=True)
+        assert why is not None and "needs CUDA" in why[1]
+    q, k, v = _qkv(d=320)
     assert "head dims" in FK.refusal(q, k, v, pad=True)[1]
 
 
-@pytest.mark.parametrize("causal,window,q_offset,kv",
-                         [(True, None, 0, 4), (True, 24, 0, 2),
-                          (True, None, 16, 1)])
-def test_padded_plain_path_equals_unpadded_attention_at_head_dim_112(
-        causal, window, q_offset, kv):
-    """The plain attention through ``padded_attention`` (q, k, v
-    zero-padded from 112 to 128, the softmax scale 1/sqrt(112) passed on,
-    the output sliced back) equals the plain attention at 112, forward and
-    gradient (float32, within 1e-5 of the largest entry); so does the
-    kernels' plain forward and backward (``FlashAttention`` on CPU tensors)
-    through the same pad."""
-    from repro_torch.kernels.flash_attention import (attention_ref,
+def _padded_equals_unpadded(d, dp, causal, window, q_offset, kv, h=4,
+                            sq=48, seed=0):
+    """The plain attention and the kernels' plain forward and backward
+    (``FlashAttention`` on CPU tensors) through ``padded_attention`` (q, k,
+    v zero-padded from ``d`` to ``dp``, the softmax scale 1/sqrt(d) passed
+    on, the output sliced back) equal the plain attention at ``d``, forward
+    and gradient (float32, within 1e-5 of the largest entry)."""
+    from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                     attention_ref,
                                                      padded_attention)
-    rng = np.random.default_rng(kv)
-    sk = 48 + q_offset
+    rng = np.random.default_rng(seed)
+    sk = sq + q_offset
     mk = lambda *s: torch.tensor(  # noqa: E731
         rng.normal(size=s).astype(np.float32), requires_grad=True)
-    q, k, v = mk(2, 48, 4, 112), mk(2, sk, kv, 112), mk(2, sk, kv, 112)
-    dout = torch.tensor(rng.normal(size=(2, 48, 4, 112)).astype(np.float32))
-
-    from repro_torch.kernels.flash_attention import FlashAttention
+    q, k, v = mk(2, sq, h, d), mk(2, sk, kv, d), mk(2, sk, kv, d)
+    dout = torch.tensor(rng.normal(size=(2, sq, h, d)).astype(np.float32))
 
     def ref(q, k, v, causal, window, q_offset, scale=None):
         return attention_ref(q, k, v, causal=causal, window=window,
@@ -383,10 +387,33 @@ def test_padded_plain_path_equals_unpadded_attention_at_head_dim_112(
     want = ref(q, k, v, causal, window, q_offset)
     gw = torch.autograd.grad(want, (q, k, v), dout)
     for attend in (ref, kernel_plain):
-        got = padded_attention(attend, q, k, v, 128, causal, window,
+        got = padded_attention(attend, q, k, v, dp, causal, window,
                                q_offset)
         assert got.shape == want.shape
         gg = torch.autograd.grad(got, (q, k, v), dout)
         for a, b in [(got, want)] + list(zip(gg, gw)):
             scale = float(b.detach().abs().max())
             assert float((a - b).detach().abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("causal,window,q_offset,kv",
+                         [(True, None, 0, 4), (True, 24, 0, 2),
+                          (True, None, 16, 1)])
+def test_padded_plain_path_equals_unpadded_attention_at_head_dim_112(
+        causal, window, q_offset, kv):
+    """zamba2's head dim: 112 zero-padded to 128 equals the plain
+    attention at 112 (:func:`_padded_equals_unpadded`)."""
+    _padded_equals_unpadded(112, 128, causal, window, q_offset, kv,
+                            seed=kv)
+
+
+@pytest.mark.parametrize("window,q_offset", [(None, 0), (24, 16)])
+def test_head_dim_192_pads_to_256_and_equals_the_unpadded_attention(
+        window, q_offset):
+    """A head dim between 128 and 256 is zero-padded to 256, the
+    reference's next multiple of 128, and equals the plain attention at
+    192 (:func:`_padded_equals_unpadded`), MQA."""
+    from repro_torch.kernels.flash_attention import padded_dim
+    assert padded_dim(192) == 256
+    _padded_equals_unpadded(192, 256, True, window, q_offset, kv=1, sq=40,
+                            seed=192 + q_offset)

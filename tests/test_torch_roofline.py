@@ -117,6 +117,10 @@ TABLE_BOUNDS = [
      "bf16", "0.08688"),
     (R.flash_work(1, 4096, 4096, 32, 32, 80, PAIRS_4096)["flash_bwd"],
      "bf16", "0.21719"),
+    (R.flash_work(1, 4096, 4096, 8, 1, 256, PAIRS_4096)["flash_fwd"],
+     "bf16", "0.06950"),
+    (R.flash_work(1, 4096, 4096, 8, 1, 256, PAIRS_4096)["flash_bwd"],
+     "bf16", "0.17375"),
 ]
 
 

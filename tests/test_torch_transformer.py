@@ -110,6 +110,42 @@ def test_lm_loss_and_gradients_match(model):
                                    atol=1e-5 * max(scale, 1e-3))
 
 
+def test_gemma_at_head_dim_256_matches_the_reference():
+    """gemma_2b at its own head dim, 256 (the cases above reduce it with
+    the width): one layer, reduced width, float32. ``lm_loss`` within rtol
+    1e-5 and every gradient leaf within atol 1e-5 of its largest entry
+    plus rtol 1e-3, as :func:`test_lm_loss_and_gradients_match`; the
+    port's train-mode attention asked for the kernel path (its plain
+    version on the CPU) gives the same loss."""
+    jcfg = jax_get_arch("gemma_2b").model.reduced(
+        n_layers=1, d_model=256).with_overrides(dtype="float32",
+                                                head_dim=256)
+    cfg = get_arch("gemma_2b").model.reduced(
+        n_layers=1, d_model=256).with_overrides(dtype="float32",
+                                                head_dim=256)
+    assert cfg.resolved_head_dim == jcfg.resolved_head_dim == 256
+    assert cfg.n_kv_heads == 1
+    jparams = JT.model_init(jax.random.PRNGKey(5), jcfg)
+    np_batch = _np_batch(cfg, np.random.default_rng(6))
+    batch = {k: jnp.asarray(v) for k, v in np_batch.items()}
+    jloss, jgrads = jax.value_and_grad(JT.lm_loss)(jparams, jcfg, batch)
+    params = from_jax_params(jax.tree.map(np.asarray, jparams))
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    tbatch = {k: torch.tensor(v) for k, v in np_batch.items()}
+    loss = T.lm_loss(params, cfg, tbatch)
+    assert float(loss.detach()) == pytest.approx(float(jloss), rel=1e-5)
+    grads = torch.autograd.grad(loss, leaves)
+    want = [np.asarray(w) for w in tree_leaves(jgrads)]
+    assert len(grads) == len(want)
+    for g, w in zip(grads, want):
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-3,
+                                   atol=1e-5 * max(scale, 1e-3))
+    asked = T.lm_loss(params, cfg.with_overrides(use_flash_attention=True),
+                      tbatch)
+    assert float(asked.detach()) == pytest.approx(float(jloss), rel=1e-5)
+
+
 def test_plain_attention_path_matches_kernel_path(model):
     """``use_flash_attention=False`` (chunked ``causal_attention``) and the
     kernel path asked for with ``True`` (its dense plain version on the
