@@ -342,6 +342,19 @@ def kept_blocks(d: int, bs: int = LLM_BS, ratio: float = 0.05) -> int:
     d / bs))."""
     return max(1, int(round(ratio * (d // bs))))
 
+
+# The vlm's train path (the families phase): llama32_vision_11b at full
+# width cut to 5 layers (4 self-attention layers and the first cross layer),
+# float8 banks of D = 2,141,237,249 widened to 4,182,105 whole blocks. Its
+# payload round runs by windows of algorithms.DENSE_COLUMNS // 512 = 32,768
+# blocks (128 a step): the momentum kernel is timed at the first window and
+# at the ragged last one (20,569 blocks), and over the step's 128 windows as
+# the round launches them (MOMENTUM_VLM_SWEEP), CWTM over their slices too
+VLM_BANK = ("llama32_vision_11b", 2_141_237_760, "float8_e4m3fn")
+VLM_WINDOW_BLOCKS = 32_768
+VLM_WINDOWS = ((0, VLM_WINDOW_BLOCKS),
+               (127 * VLM_WINDOW_BLOCKS, 2_141_237_760 // LLM_BS))
+
 # Block-RandK cases: (n, d, block_size, kb, local ids, dtype name).
 RANDK_AWKWARD = [(3, 128 * 7, 128, 1, False, "float32"),
                  (3, 128 * 7, 128, 3, True, "float32"),
@@ -387,6 +400,23 @@ MOMENTUM_AWKWARD_LOWP = [
     (4, 512 * 9, 512, 4, True, "float16", 0.99, False),
     (3, 128 * 7, 128, 7, True, "float8_e4m3fn", 0.0, True),
     (5, 512 * 40, 512, 9, False, "float8_e4m3fn", 0.9, True)]
+# A ninth entry (b0, b1): the kernel on the window of destination blocks b0
+# to b1 - 1 alone, the float32 result (banks narrower than float32) into a
+# caller's buffer of a wider row stride; a first, a middle and a ragged
+# last window at each bank dtype. Held bitwise to the plain version's
+# window, and the rest of the bank to the bank as it was.
+MOMENTUM_AWKWARD += [(3, 128 * 7, 128, 7, True, "float32", 0.9, True, (0, 3)),
+                     (8, 512 * 33, 512, 2, False, "float32", 0.9, True,
+                      (10, 20)),
+                     (4, 512 * 9, 512, 4, True, "bfloat16", 0.9, True,
+                      (5, 9)),
+                     (5, 512 * 40, 512, 40, True, "bfloat16", 0.99, False,
+                      (16, 32))]
+MOMENTUM_AWKWARD_LOWP += [
+    (3, 128 * 7, 128, 2, False, "float16", 0.9, True, (6, 7)),
+    (4, 512 * 9, 512, 4, True, "float16", 0.99, False, (0, 4)),
+    (3, 128 * 7, 128, 7, True, "float8_e4m3fn", 0.0, True, (4, 7)),
+    (5, 512 * 40, 512, 9, False, "float8_e4m3fn", 0.9, True, (13, 26))]
 MOMENTUM_PATH = [(LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, "float32", 0.9,
                   False),
                  (LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, "bfloat16", 0.9,
@@ -397,6 +427,11 @@ MOMENTUM_FAMILIES = [(LLM_WORKERS, d, LLM_BS, kept_blocks(d), False, dt, 0.9,
                       False) for _, d, dt in FAMILY_BANKS]
 MOMENTUM_LOWP = [(LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, dt, 0.9, False)
                  for dt in LOWP_DTYPES]
+# the vlm's float8 bank at its first and last window (timed)
+MOMENTUM_VLM = [(LLM_WORKERS, VLM_BANK[1], LLM_BS, kept_blocks(VLM_BANK[1]),
+                 False, VLM_BANK[2], 0.9, False, w) for w in VLM_WINDOWS]
+# ... and every window of VLM_WINDOW_BLOCKS blocks of it, one after another
+MOMENTUM_VLM_SWEEP = MOMENTUM_VLM[0][:8] + (VLM_WINDOW_BLOCKS,)
 # float8 stores past the largest finite value: values that round to 448,
 # the midpoint 464, past it, +-inf and NaN, on the momentum kernel's
 # store (beta 0 writes the float32 payload as it is)
@@ -441,6 +476,9 @@ FLASH_AUDIO = (1, LLM_SEQ, LLM_SEQ, 24, 24, 64, True, None, 0)
 FLASH_ZAMBA = (1, LLM_SEQ, LLM_SEQ, 32, 32, 112, True, None, 0)
 # gemma_2b's train path: 8 query heads of 256 on one kv head (MQA)
 FLASH_GEMMA = (1, LLM_SEQ, LLM_SEQ, 8, 1, 256, True, None, 0)
+# llama32_vision_11b's self-attention layers: 32 query heads of 128 on 8
+# kv heads (GQA)
+FLASH_VLM = (1, LLM_SEQ, LLM_SEQ, 32, 8, 128, True, None, 0)
 # transformer-table1's folded call: 8 lanes x 9 workers x 4 sequences of 32
 # tokens, 2 heads of 64 (the stream phase's grid under torch.func)
 FLASH_TT1 = (288, 32, 32, 2, 2, 64, True, None, 0)
@@ -724,7 +762,7 @@ def wrapper_pieces(torch, reps: int = 10_000) -> dict:
     pd_launch = pd._LAUNCH[key]
     sw_lib = build.entry("sorted_weight", "sorted_weight")
     sw_out = torch.empty((1, 11958), device="cuda")
-    sw_launch = cw._LAUNCH[key + (w,)]
+    sw_launch = cw._LAUNCH[key + (w, False)]  # CWTM: nan_out off
     # five rounds of reps / 5 calls of each piece in turn, the median
     runs = {label: [] for label in pieces}
     for _ in range(5):
@@ -746,8 +784,56 @@ SORT_KERNELS = ("pairdist", "cwtm", "median")
 PAIRDIST_REREAD_TOL = 0.05
 
 
+# CWTM and the median with NaN and +-inf among a coordinate's values, as
+# (B, n, f, d): none, one or two NaN a coordinate
+SORT_NAN = [(1, 8, 1, 65536), (2, 13, 3, 4099), (1, 7, 2, 999)]
+
+
+def sort_nan_cases(torch, device: str = "cuda") -> list:
+    """The sort kernels against their plain versions where a coordinate
+    holds NaN (a float8 bank's ALIE rows can): the kernel sorts NaN after
+    every number, as ``torch.sort`` does, so CWTM trims a NaN at a trimmed
+    rank; the median is NaN there (``jnp.median``). Every result within
+    1e-5 (CWTM) or 1e-6 (median) of the plain version's, NaN at the same
+    places."""
+    import numpy as np
+    from repro_torch.kernels.cwtm import cwtm, cwtm_ref
+    from repro_torch.kernels.median import median, median_ref
+    out = []
+    for i, (b, n, f, d) in enumerate(SORT_NAN):
+        rng = np.random.default_rng(700 + i)
+        x = rng.normal(size=(b, n, d)).astype(np.float32) * 3
+        cols = np.arange(d)
+        for k in (1, 2):
+            pick = cols[cols % 3 == k]
+            for _ in range(k):
+                x[:, rng.integers(n, size=pick.size), pick] = np.nan
+        x[:, rng.integers(n), ::7] = np.inf
+        x[:, rng.integers(n), ::11] = -np.inf
+        x = torch.tensor(x, device=device)
+        for name, kern, plain, tol in (
+                ("cwtm", lambda t: cwtm(t, f), lambda t: cwtm_ref(t, f),
+                 1e-5),
+                ("median", median, median_ref, 1e-6)):
+            got, want = kern(x), plain(x)
+            same_nan = torch.equal(torch.isnan(got), torch.isnan(want))
+            fin = torch.isfinite(want)
+            err = (float((got[fin] - want[fin]).abs().max())
+                   if bool(fin.any()) else 0.0)
+            ok = same_nan and torch.equal(got[~fin].nan_to_num(),
+                                          want[~fin].nan_to_num()) and \
+                err <= tol * max(1.0, float(want[fin].abs().max()))
+            log(f"kernel {name} with NaN and +-inf {(b, n, d)} f={f}: "
+                f"NaN at the plain version's places {same_nan}, max|err| "
+                f"{err:.3g} ({tol:g}) {'ok' if ok else 'FAIL'}")
+            out.append({"name": name, "shape": [b, n, d], "f": f,
+                        "ok": ok, "max_abs_err": err})
+    return out
+
+
 def kernel_phase(torch) -> dict:
-    """pairdist, CWTM and median cases (``kernel_case``)."""
+    """pairdist, CWTM and median cases (``kernel_case``), then CWTM and the
+    median with NaN among their inputs (:func:`sort_nan_cases`)."""
     results = {k: [] for k in SORT_KERNELS}
     failures = []
     for name in SORT_KERNELS:
@@ -780,6 +866,10 @@ def kernel_phase(torch) -> dict:
             # coordinates at a time)
             cases += [((1, LLM_WORKERS, d), 1, torch.float32, False, "plain")
                       for _, d, _ in FAMILY_BANKS]
+            # one column slice of the rounds that run by slices (RoSDHB's
+            # payload and dense rounds, dasha's): DENSE_COLUMNS columns
+            cases.append(((1, LLM_WORKERS, 1 << 24), 1, torch.float32, True,
+                          "plain"))
         for i, (shape, f, dt, timed, ref) in enumerate(cases):
             rec = kernel_case(torch, name, shape, f, dt, timed, seed=100 + i,
                               reference=ref)
@@ -787,6 +877,9 @@ def kernel_phase(torch) -> dict:
             log_case(rec)
             if not rec["ok"]:
                 failures.append(f"{name} {shape} {rec['dtype']}")
+    results["nan"] = sort_nan_cases(torch)
+    failures += [f"{r['name']} {r['shape']} with NaN" for r in results["nan"]
+                 if not r["ok"]]
     # the wrappers' host cost before any profiler runs in this process
     results["wrapper_pieces"] = wrapper_pieces(torch)
     if failures:
@@ -825,9 +918,17 @@ def device_times(torch, cases, flash_cases=(), randk_cases=()) -> dict:
         torch.cuda.empty_cache()
     randk = []
     for kind, case, seed, names in randk_cases:
-        fns = (randk_fns(torch, tuple(case), seed) if kind == "block" else
-               {"momentum_scatter": momentum_fn(torch, tuple(case), seed)})
-        randk.append({name: device_us(torch, fns[name], 5)
+        if kind == "block":
+            fns = randk_fns(torch, tuple(case), seed)
+        elif kind == "sweep":
+            fns = momentum_sweep_fns(torch, tuple(case), momentum_inputs(
+                torch, tuple(case), seed))[0]
+        else:
+            fns = {"momentum_scatter": momentum_fn(torch, tuple(case), seed)}
+        # a window is one short kernel a call: more calls, as CUPTI drops
+        # some events of a short profiler window (a sweep is 128 of them)
+        reps = 3 if kind == "sweep" else 20 if len(case) > 8 else 5
+        randk.append({name: device_us(torch, fns[name], reps)
                       for name in names})
         del fns
         torch.cuda.empty_cache()
@@ -855,14 +956,19 @@ def profile_cases(torch, results, fresh_process: bool = False,
     flash_cases = [(rec["case"], rec["seed"]) for rec in timed_flash]
     timed_randk = [] if randk is None else (
         [("block", rec) for rec in randk["block"] if "seed" in rec]
-        + [("momentum", rec) for rec in randk["momentum"] if "seed" in rec])
+        + [("momentum", rec) for rec in randk["momentum"] if "seed" in rec]
+        + [("sweep", rec) for rec in randk.get("momentum_sweep", ())
+           if "seed" in rec])
     randk_cases = [
         (kind, (list(rec["shape"]) + [rec["block_size"], rec["kb"],
                                       rec["local"], rec["dtype"]]
-                + ([rec["beta"], rec["neg_zero"]] if kind == "momentum"
-                   else [])), rec["seed"],
+                + ([rec["beta"], rec["neg_zero"]] if kind != "block"
+                   else []) + ([rec["window"]] if "window" in rec else [])
+                + ([rec["window_blocks"]] if kind == "sweep" else [])),
+         rec["seed"],
          ([n for n in ("block_compress", "block_decompress") if n in rec]
-          if kind == "block" else ["momentum_scatter"]))
+          if kind == "block" else ["momentum_scatter", "cwtm"]
+          if kind == "sweep" else ["momentum_scatter"]))
         for kind, rec in timed_randk]
 
     def measure(sort_cases, flash_cases, randk_cases=()):
@@ -919,9 +1025,13 @@ def profile_cases(torch, results, fresh_process: bool = False,
                 f"SDPA device us {rec[name].get('library_device_us')}")
     for (kind, rec), t in zip(timed_randk, times["randk"]):
         for name, (us, ops, names) in t.items():
-            target = rec[name] if kind == "block" else rec
+            target = rec if kind == "momentum" else rec[name]
             target.update(device_us=us, device_ops=ops)
-            log(f"randk {name} {rec['shape']} {rec['dtype']}: device us "
+            if "window" in rec:  # the slot map built before: one kernel
+                target["device_us_a_kernel"] = us / ops if ops else None
+            log(f"randk {name} {rec['shape']} {rec['dtype']}"
+                + (f" window {rec['window']}" if "window" in rec else "")
+                + f": device us "
                 f"{us:.3f} ({ops:g} kernels a call: {', '.join(names)}), "
                 f"host us {target['host_us']:.3f}, loop ms "
                 f"{target['ms']:.5f}")
@@ -1098,15 +1208,27 @@ def max_abs_diff(a, b) -> float:
     return max(row(x, y) for x, y in zip(a, b))
 
 
+#: Banks of more float32 bytes than this are drawn a row at a time (the
+#: vlm's [8, 2.1e9] float8 bank: a float32 draw of it would not fit).
+MOMENTUM_DRAW_BYTES = 16 << 30
+
+
 def momentum_inputs(torch, case, seed: int, device: str = "cuda") -> tuple:
     """``(bank m0, payload, block ids)`` of a momentum case, made from
     ``seed``."""
     from repro_torch.utils.dtypes import to_dtype
-    n, d, bs, kb, local, dt, beta, neg_zero = case
+    n, d, bs, kb, local, dt, beta, neg_zero = case[:8]
     dtype = getattr(torch, dt)
     nb = d // bs
     gen = torch.Generator(device=device).manual_seed(seed)
-    m0 = to_dtype(torch.randn((n, d), generator=gen, device=device), dtype)
+    if n * d * 4 <= MOMENTUM_DRAW_BYTES:
+        m0 = to_dtype(torch.randn((n, d), generator=gen, device=device),
+                      dtype)
+    else:
+        m0 = torch.empty((n, d), dtype=dtype, device=device)
+        for r in range(n):
+            m0[r] = to_dtype(torch.randn(d, generator=gen, device=device),
+                             dtype)
     if neg_zero:  # the first block of every row, and every 7th value
         m0[:, :bs] = -0.0
         m0[:, ::7] = -0.0
@@ -1120,6 +1242,24 @@ def momentum_inputs(torch, case, seed: int, device: str = "cuda") -> tuple:
     return m0, pay, ids
 
 
+def momentum_window_args(torch, case, m0, ids, wide: bool = False) -> dict:
+    """The keyword arguments of a windowed momentum call (the case's ninth
+    entry ``(b0, b1)``): the window, the round's slot map built once, and
+    a float32 buffer for the result of a bank narrower than float32 (of a
+    wider row stride than the window's with ``wide``, as a caller's slice
+    of a larger buffer may be)."""
+    from repro_torch.kernels.randk import slot_map
+    n, d, bs = case[:3]
+    b0, b1 = case[8]
+    width = (b1 - b0) * bs
+    kw = {"window": (b0, b1), "slots": slot_map(ids, d // bs)}
+    if m0.dtype != torch.float32:
+        buf = torch.empty((n, width + (bs if wide else 0)),
+                          dtype=torch.float32, device=m0.device)
+        kw["out"] = buf[:, :width]
+    return kw
+
+
 def momentum_case(torch, case, timed: bool, seed: int,
                   device: str = "cuda") -> dict:
     """The momentum kernel against its plain version, bitwise in the bank
@@ -1127,63 +1267,227 @@ def momentum_case(torch, case, timed: bool, seed: int,
     of columns at a time from the initial bank (``momentum_columns_ref``,
     the slices of ``momentum_scatter_ref``), each slice held against the
     kernel's (a second bank and float32 result of [8, 1e9] would not fit
-    the card)."""
+    the card). A windowed case (:func:`momentum_window_args`) runs the
+    plain version on its window first (its window of the bank kept aside
+    and put back), then the kernel on that window alone: the window held
+    to the plain version's, the float32 result too, and (below 1 GiB) the
+    rest of the bank to a copy of the bank as it was."""
     from repro_torch.kernels.randk import momentum_scatter_ref, momentum_update
     from repro_torch.kernels.randk.ref import (MOMENTUM_COLS,
                                                momentum_columns_ref)
     from repro_torch.utils.dtypes import to_dtype
-    n, d, bs, kb, local, dt, beta, neg_zero = case
+    n, d, bs, kb, local, dt, beta, neg_zero = case[:8]
+    window = case[8] if len(case) > 8 else None
     m0, pay, ids = momentum_inputs(torch, case, seed, device)
     dtype = m0.dtype
     f32_out = dtype != torch.float32
-    kw = dict(block_size=bs, beta=beta, f32_out=f32_out)
-    m_k = m0.clone()
-    out_k = momentum_update(m_k, pay, ids, **kw)
-    if not f32_out:
-        out_k = None
     ok, err = True, 0.0
-    step = max(1, MOMENTUM_COLS // bs)
-    for b0 in range(0, d // bs, step):
-        b1 = min(d // bs, b0 + step)
+    if window is not None:
+        b0, b1 = window
         cols = slice(b0 * bs, b1 * bs)
+        small = m0.numel() * m0.element_size() < (1 << 30)
+        kw = momentum_window_args(torch, case, m0, ids, wide=small)
+        before = m0[:, cols].clone()
         res = momentum_columns_ref(m0, pay, ids, bs, beta, b0, b1)
-        ok = ok and torch.equal(bits(torch, m_k[:, cols]),
-                                bits(torch, to_dtype(res, dtype)))
-        err = max(err, max_abs_diff(m_k[:, cols], to_dtype(res, dtype)))
-        if out_k is not None:
-            ok = ok and torch.equal(bits(torch, out_k[:, cols]),
-                                    bits(torch, res))
-            err = max(err, max_abs_diff(out_k[:, cols], res))
-        del res
-    del out_k
+        want = m0[:, cols].clone()
+        m0[:, cols] = before
+        del before
+        whole = m0.clone() if small else None
+        m_k = m0
+        out_k = momentum_update(m_k, pay, ids, block_size=bs, beta=beta,
+                                **kw)
+        ok = torch.equal(bits(torch, m_k[:, cols]), bits(torch, want))
+        err = max_abs_diff(m_k[:, cols], want)
+        if f32_out:
+            ok = ok and out_k is kw["out"] and torch.equal(
+                bits(torch, out_k), bits(torch, res))
+            err = max(err, max_abs_diff(out_k, res))
+        if whole is not None:
+            rest = torch.ones(d, dtype=torch.bool, device=m0.device)
+            rest[cols] = False
+            ok = ok and torch.equal(bits(torch, m_k[:, rest]),
+                                    bits(torch, whole[:, rest]))
+        del res, want, whole, out_k
+    else:
+        kw = ({"out": torch.empty((n, d), dtype=torch.float32,
+                                  device=m0.device)} if f32_out else {})
+        m_k = m0.clone()
+        out_k = momentum_update(m_k, pay, ids, block_size=bs, beta=beta,
+                                **kw)
+        if not f32_out:
+            out_k = None
+        step = max(1, MOMENTUM_COLS // bs)
+        for b0 in range(0, d // bs, step):
+            b1 = min(d // bs, b0 + step)
+            cols = slice(b0 * bs, b1 * bs)
+            res = momentum_columns_ref(m0, pay, ids, bs, beta, b0, b1)
+            ok = ok and torch.equal(bits(torch, m_k[:, cols]),
+                                    bits(torch, to_dtype(res, dtype)))
+            err = max(err, max_abs_diff(m_k[:, cols], to_dtype(res, dtype)))
+            if out_k is not None:
+                ok = ok and torch.equal(bits(torch, out_k[:, cols]),
+                                        bits(torch, res))
+                err = max(err, max_abs_diff(out_k[:, cols], res))
+            del res
+        del out_k
     rec = {"shape": [n, d], "block_size": bs, "kb": kb, "local": local,
            "dtype": dt, "beta": beta, "neg_zero": neg_zero, "ok": ok,
            "max_abs_err": err}
+    if window is not None:
+        rec["window"] = list(window)
     if timed:
         from repro_torch.launch import roofline as RL
-        kern = lambda: momentum_update(m_k, pay, ids, **kw)  # noqa: E731
+        kern = lambda: momentum_update(m_k, pay, ids, block_size=bs,  # noqa
+                                       beta=beta, **kw)
         rec["ms"] = time_ms(torch, kern, 5)
         rec["host_us"] = host_us(torch, kern, 10)
         rec["seed"] = seed  # for profile_cases
-        del m_k
-        rec["plain_ms"] = time_ms(torch, lambda: momentum_scatter_ref(
-            m0, pay, ids, bs, beta, f32_out), 3)
+        if window is None:
+            del m_k
+            rec["plain_ms"] = time_ms(torch, lambda: momentum_scatter_ref(
+                m0, pay, ids, bs, beta, **kw), 3)
+            work = RL.momentum_work(n, d, kb, bs, m0.element_size(),
+                                    pay.element_size(), ids.numel(), f32_out)
+        else:
+            b0, b1 = window
+            rec["plain_ms"] = time_ms(torch, lambda: momentum_scatter_ref(
+                m0, pay, ids, bs, beta, **kw), 3)
+            # the window's own work: its bank columns, the payload blocks
+            # whose ids fall in it and the slot map's entries it reads
+            inside = int(((ids >= b0) & (ids < b1)).sum())
+            work = RL.momentum_work(n, (b1 - b0) * bs,
+                                    inside // (n if local else 1), bs,
+                                    m0.element_size(), pay.element_size(),
+                                    (b1 - b0) * (n if local else 1), f32_out)
         rec["library_ms"] = None  # no single call decays and scatter-adds
-        rec["bound_ms"], rec["bound_by"] = _bound(RL.momentum_work(
-            n, d, kb, bs, m0.element_size(), pay.element_size(),
-            ids.numel(), f32_out), "f32")
+        rec["bound_ms"], rec["bound_by"] = _bound(work, "f32")
     return rec
 
 
 def momentum_fn(torch, case, seed: int, device: str = "cuda"):
     """The momentum kernel's call on the inputs :func:`momentum_case` makes
-    from ``seed`` (on a copy of the bank, updated in place each call)."""
+    from ``seed`` (on a copy of the bank, updated in place each call; a
+    windowed case with its slot map and buffer made once)."""
     from repro_torch.kernels.randk import momentum_update
-    n, d, bs, kb, local, dt, beta, neg_zero = case
+    n, d, bs, kb, local, dt, beta, neg_zero = case[:8]
     m0, pay, ids = momentum_inputs(torch, case, seed, device)
-    f32_out = m0.dtype != torch.float32
+    if len(case) > 8:
+        kw = momentum_window_args(torch, case, m0, ids)
+    elif m0.dtype != torch.float32:
+        kw = {"out": torch.empty((n, d), dtype=torch.float32,
+                                 device=m0.device)}
+    else:
+        kw = {}
     return lambda: momentum_update(m0, pay, ids, block_size=bs, beta=beta,
-                                   f32_out=f32_out)
+                                   **kw)
+
+
+def momentum_sweep_fns(torch, case, inputs, device: str = "cuda"):
+    """The payload round's steps 5 and 6 over every window of ``case[8]``
+    blocks of the case's bank, as ``algorithms._rosdhb_payload_round``
+    launches them (one slot map, one reused float32 slice), on ``inputs``
+    (:func:`momentum_inputs`): ``({"momentum_scatter": the momentum kernel
+    over the windows, "cwtm": CWTM (f = 1) over each window's slice into
+    the direction}, (slots, buf), windows)``. One sweep runs first (it
+    fills the slice)."""
+    from repro_torch.core import AggregatorConfig, make_aggregator
+    from repro_torch.kernels.randk import momentum_update, slot_map
+    n, d, bs, kb, local, dt, beta, _, step = case
+    m0, pay, ids = inputs
+    nb = d // bs
+    slots = slot_map(ids, nb)
+    buf = torch.empty(n * step * bs, dtype=torch.float32, device=device)
+    r = torch.empty(d, dtype=torch.float32, device=device)
+    agg = make_aggregator(AggregatorConfig(name="cwtm", f=1), device=device)
+    wins = [(b0, min(nb, b0 + step)) for b0 in range(0, nb, step)]
+
+    def slice_of(b0, b1):
+        return buf[:n * (b1 - b0) * bs].view(n, (b1 - b0) * bs)
+
+    def momentum():
+        for b0, b1 in wins:
+            momentum_update(m0, pay, ids, block_size=bs, beta=beta,
+                            window=(b0, b1), slots=slots,
+                            out=slice_of(b0, b1))
+
+    def cwtm():
+        for b0, b1 in wins:
+            r[b0 * bs:b1 * bs] = agg(slice_of(b0, b1))
+
+    momentum()
+    return {"momentum_scatter": momentum, "cwtm": cwtm}, (slots, buf), wins
+
+
+def momentum_sweep_case(torch, case, timed: bool, seed: int,
+                        device: str = "cuda") -> dict:
+    """The momentum kernel over every window of the bank
+    (:func:`momentum_sweep_fns`): after one sweep, the bank at its first, a
+    middle and its last window held bitwise to the plain version from the
+    initial bank there, the slice (the last window's float32 momenta) too.
+    Timed: the sweep of the momentum kernel and of CWTM over the slices,
+    each between two CUDA events (loop ms) and on the host; the plain
+    version's sweep; the bound of each sweep's work, its windows' summed."""
+    from repro_torch.kernels.randk import momentum_scatter_ref
+    from repro_torch.kernels.randk.ref import momentum_columns_ref
+    from repro_torch.launch import roofline as RL
+    n, d, bs, kb, local, dt, beta, _, step = case
+    m0, pay, ids = momentum_inputs(torch, case, seed, device)
+    nb = d // bs
+    wins = [(b0, min(nb, b0 + step)) for b0 in range(0, nb, step)]
+    checked = [wins[0], wins[len(wins) // 2], wins[-1]]
+    before = [m0[:, b0 * bs:b1 * bs].clone() for b0, b1 in checked]
+    fns, (slots, buf), wins = momentum_sweep_fns(torch, case, (m0, pay, ids),
+                                                 device)
+    ok, err = True, 0.0
+    for (b0, b1), init in zip(checked, before):
+        cols = slice(b0 * bs, b1 * bs)
+        got = m0[:, cols].clone()
+        m0[:, cols] = init
+        res = momentum_columns_ref(m0, pay, ids, bs, beta, b0, b1)
+        ok = ok and torch.equal(bits(torch, got), bits(torch, m0[:, cols]))
+        err = max(err, max_abs_diff(got, m0[:, cols]))
+        if (b0, b1) == wins[-1]:
+            last = buf[:n * (b1 - b0) * bs].view(n, -1)
+            ok = ok and torch.equal(bits(torch, last), bits(torch, res))
+            err = max(err, max_abs_diff(last, res))
+        del got, res
+    del before
+    rec = {"shape": [n, d], "block_size": bs, "kb": kb, "local": local,
+           "dtype": dt, "beta": beta, "neg_zero": False,
+           "window_blocks": step, "windows": len(wins), "ok": ok,
+           "max_abs_err": err, "checked_windows": [list(w) for w in checked]}
+    if timed:
+        rec["seed"] = seed  # for profile_cases
+        # the work of each window: its bank columns, the payload blocks
+        # whose ids fall in it and the slot map's entries it reads; CWTM
+        # reads the window's float32 slice and writes its columns of r
+        works = {"momentum_scatter": [0, 0], "cwtm": [0, 0]}
+        for b0, b1 in wins:
+            inside = int(((ids >= b0) & (ids < b1)).sum())
+            for i, v in enumerate(RL.momentum_work(
+                    n, (b1 - b0) * bs, inside, bs, m0.element_size(),
+                    pay.element_size(), b1 - b0, True)):
+                works["momentum_scatter"][i] += v
+            for i, v in enumerate(RL.sorted_weight_work(
+                    1, n, (b1 - b0) * bs, 4)):
+                works["cwtm"][i] += v
+        for name, fn in fns.items():
+            t = {"ms": time_ms(torch, fn, 3, warmup=1),
+                 "host_us": host_us(torch, fn, 3, warmup=1),
+                 "library_ms": None}
+            t["bound_ms"], t["bound_by"] = _bound(tuple(works[name]), "f32")
+            rec[name] = t
+
+        def plain():
+            for b0, b1 in wins:
+                w = (b1 - b0) * bs
+                momentum_scatter_ref(m0, pay, ids, bs, beta, window=(b0, b1),
+                                     out=buf[:n * w].view(n, w))
+
+        rec["momentum_scatter"]["plain_ms"] = time_ms(torch, plain, 1,
+                                                      warmup=0)
+    del fns, m0, pay, ids, slots, buf
+    return rec
 
 
 def float8_store_case(torch, device: str = "cuda") -> dict:
@@ -1210,7 +1514,8 @@ def float8_store_case(torch, device: str = "cuda") -> dict:
     nb = width // bs
     bank = torch.zeros((1, width), dtype=FLOAT8, device=device)
     ids = torch.arange(nb, dtype=torch.int32, device=device)
-    momentum_update(bank, pay, ids, block_size=bs, beta=0.0, f32_out=True)
+    momentum_update(bank, pay, ids, block_size=bs, beta=0.0,
+                    out=torch.empty_like(pay))
     # the update is fma(0, m, 1 * p): p itself, but +0.0 for -0.0
     want = to_float8(pay + 0.0)
     ok = torch.equal(bits(torch, bank), bits(torch, want))
@@ -1292,13 +1597,18 @@ def randk_phase(torch, device: str = "cuda", path=RANDK_PATH,
                 audio=RANDK_AUDIO, momentum_audio=MOMENTUM_AUDIO,
                 families=RANDK_FAMILIES,
                 momentum_families=MOMENTUM_FAMILIES, lowp=RANDK_LOWP,
-                momentum_lowp=MOMENTUM_LOWP) -> dict:
+                momentum_lowp=MOMENTUM_LOWP,
+                momentum_vlm=MOMENTUM_VLM,
+                momentum_sweep=MOMENTUM_VLM_SWEEP) -> dict:
     """Block-RandK kernel cases: awkward shapes (float16 and float8 among
     them), the audio train path's (``audio``), the families' train paths'
     (``families``: compress only, timed), the LLM path's bank in float16
     and float8 (``lowp``, timed), then the LLM path's (timed, last); the
-    momentum kernel likewise (the families' and then ``momentum_lowp``
-    last, timed); the float8 store at its edges
+    momentum kernel likewise (the families' and then ``momentum_lowp``,
+    timed), its windowed awkward cases and the vlm's float8 bank at its
+    first and last window (``momentum_vlm``, timed) and over all its
+    windows with CWTM on their slices (``momentum_sweep``, timed,
+    :func:`momentum_sweep_case`); the float8 store at its edges
     (:func:`float8_store_case`); then one server round, payload route
     against dense round, at the LLM path's shape (``round_shape`` ``(n, d,
     bs)`` overrides it)."""
@@ -1331,22 +1641,31 @@ def randk_phase(torch, device: str = "cuda", path=RANDK_PATH,
         failures += [f"{k} {case}" for k, v in rec["ok"].items() if not v]
         if device == "cuda":
             torch.cuda.empty_cache()
-    cases = ([(c, False) for c in MOMENTUM_AWKWARD]
+    # the windowed cases last: the seeds of the cases before stay as they
+    # were
+    whole = [c for c in MOMENTUM_AWKWARD if len(c) == 8]
+    whole_lowp = [c for c in MOMENTUM_AWKWARD_LOWP if len(c) == 8]
+    windowed = [c for c in MOMENTUM_AWKWARD + MOMENTUM_AWKWARD_LOWP
+                if len(c) > 8]
+    cases = ([(c, False) for c in whole]
              + [(c, True) for c in momentum_path])
     cases = ([(c, t, 400 + i) for i, (c, t) in enumerate(cases)]
              + [(momentum_audio, False, 400 + len(cases))]
              + [(c, True, 400 + len(cases) + 1 + i)
                 for i, c in enumerate(momentum_families)]
-             + [(c, False, 460 + i)
-                for i, c in enumerate(MOMENTUM_AWKWARD_LOWP)]
-             + [(c, True, 450 + i) for i, c in enumerate(momentum_lowp)])
+             + [(c, False, 460 + i) for i, c in enumerate(whole_lowp)]
+             + [(c, True, 450 + i) for i, c in enumerate(momentum_lowp)]
+             + [(c, False, 480 + i) for i, c in enumerate(windowed)]
+             + [(c, True, 470 + i) for i, c in enumerate(momentum_vlm)])
     for case, timed, seed in cases:
         rec = momentum_case(torch, case, timed and device == "cuda",
                             seed=seed, device=device)
         out["momentum"].append(rec)
         line = (f"kernel momentum_scatter n={case[0]} d={case[1]} "
                 f"bs={case[2]} kb={case[3]} local={case[4]} {case[5]} "
-                f"beta={case[6]} -0.0={case[7]}: bitwise {rec['ok']}")
+                f"beta={case[6]} -0.0={case[7]}"
+                + (f" window={case[8]}" if len(case) > 8 else "")
+                + f": bitwise {rec['ok']}")
         if "ms" in rec:
             line += (f" | ms={rec['ms']:.5f} plain_ms={rec['plain_ms']:.5f}"
                      f" bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']})"
@@ -1356,6 +1675,25 @@ def randk_phase(torch, device: str = "cuda", path=RANDK_PATH,
             failures.append(f"momentum_scatter {case}")
         if device == "cuda":
             torch.cuda.empty_cache()
+    rec = momentum_sweep_case(torch, momentum_sweep, device == "cuda",
+                              seed=490, device=device)
+    out["momentum_sweep"] = [rec]
+    line = (f"kernel momentum_scatter n={rec['shape'][0]} d={rec['shape'][1]}"
+            f" {rec['dtype']}: {rec['windows']} windows of "
+            f"{rec['window_blocks']} blocks, bitwise {rec['ok']} at "
+            f"{rec['checked_windows']}")
+    for name in ("momentum_scatter", "cwtm"):
+        if name in rec:
+            t = rec[name]
+            line += (f" | {name} sweep ms={t['ms']:.5f} host_us="
+                     f"{t['host_us']:.1f} bound_ms={t['bound_ms']:.5f}"
+                     + (f" plain_ms={t['plain_ms']:.5f}" if "plain_ms" in t
+                        else ""))
+    log(line)
+    if not rec["ok"]:
+        failures.append(f"momentum_scatter sweep {momentum_sweep}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"block kernels disagree: {failures}")
     out["float8_store"] = float8_store_case(torch, device)
@@ -1566,11 +1904,12 @@ def flash_fns(torch, case, seed: int, device: str = "cuda") -> dict:
 
 def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
                 audio=FLASH_AUDIO, zamba=FLASH_ZAMBA,
-                gemma=FLASH_GEMMA) -> list:
+                gemma=FLASH_GEMMA, vlm=FLASH_VLM) -> list:
     """Flash attention kernel cases: awkward shapes, then
     transformer-table1's folded call, the audio train path's (``audio``),
     zamba2_7b's shared block at head dim 112, zero-padded to 128
-    (``zamba``), gemma_2b's at head dim 256 (``gemma``) and the LLM path's
+    (``zamba``), gemma_2b's at head dim 256 (``gemma``), the vlm's
+    self-attention (``vlm``: GQA, 32 heads of 128 on 8) and the LLM path's
     (timed; the LLM path's last). Fails where ptxas reports a spill in
     any flash kernel."""
     out, failures = [], []
@@ -1583,6 +1922,7 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
                 (audio, True, 500 + n_awk + 2),
                 (zamba, True, 500 + n_awk + 3),
                 (gemma, True, 500 + n_awk + 4),
+                (vlm, True, 500 + n_awk + 5),
                 (path, True, 500 + n_awk + 1)])
     for case, timed, seed in cases:
         rec = flash_case(torch, case, timed and device == "cuda",
@@ -2231,12 +2571,15 @@ def llm_argv(device: str, steps: int, n_layers: int = LLM_LAYERS) -> list:
 
 def llm_launches(cfg, plan, steps: int, on_card: bool, **server) -> dict:
     """Expected launches of ``steps`` LLM steps: the flash kernels per
-    self-attention application (:func:`flash_layers`) and worker, and the
-    server kernels given (per step)."""
+    self-attention application (:func:`flash_layers`) and worker, CWTM
+    once a window of the payload round (:func:`payload_slices`), and the
+    server kernels given (per step; a callable is called with ``plan``)."""
     per_step = flash_layers(cfg, True) * plan.n_workers
     want = {"flash_fwd": per_step * steps, "flash_bwd": per_step * steps,
-            "cwtm": steps, "pairdist": 0, "median": 0,
-            **{k: v * steps for k, v in server.items()}}
+            "cwtm": payload_slices(plan) * steps, "pairdist": 0,
+            "median": 0,
+            **{k: (v(plan) if callable(v) else v) * steps
+               for k, v in server.items()}}
     return want if on_card else {k: 0 for k in want}
 
 
@@ -2283,7 +2626,7 @@ def llm_phase(torch, device: str = "cuda", steps: int = LLM_STEPS,
     # step; no dense wire, so no decompress
     check_launches("llm", launches, llm_launches(
         cfg, plan, steps, on_card, block_compress=1, block_decompress=0,
-        momentum_scatter=1))
+        momentum_scatter=payload_slices))
 
     prof = None
     if on_card:
@@ -2344,11 +2687,24 @@ def llm_run(torch, device: str, label: str, argv: list, steps: int,
         raise AssertionError(f"llm {label}: non-finite loss or |R|")
     plan = res["plan"]
     check_launches(f"llm {label}", launches, llm_launches(
-        plan.model, plan, steps, device == "cuda",
-        **{k: v(plan) if callable(v) else v for k, v in server.items()}))
+        plan.model, plan, steps, device == "cuda", **server))
     held = (res["held_bytes"] / 2**20 if res["held_bytes"] is not None
             else float("nan"))
     return {**res, "peak_mib": peak, "held_mib": held, "launches": launches}
+
+
+def payload_slices(plan) -> int:
+    """Launches of ``momentum_scatter`` and CWTM a step of RoSDHB under
+    ``plan``: one a window of the payload round
+    (``algorithms._payload_window``: ``DENSE_COLUMNS // block_size`` blocks
+    at banks narrower than float32, the whole bank elsewhere), one a step
+    off the payload route."""
+    from repro_torch.core import algorithms as alg
+    d = plan.bank_width
+    if alg._payload_route(plan.algo, d):
+        nb = d // plan.algo.sparsifier.block_size
+        return -(-nb // alg._payload_window(plan.algo, d))
+    return 1
 
 
 def dasha_slices(plan) -> int:
@@ -2410,7 +2766,8 @@ def llm_options(torch, device: str = "cuda", local_steps: int = 2,
 
     res = llm_run(torch, device, "bfloat16 banks", llm_argv(
         device, bf16_steps) + ["--momentum-dtype", "bfloat16"], bf16_steps,
-        block_compress=1, block_decompress=0, momentum_scatter=1)
+        block_compress=1, block_decompress=0,
+        momentum_scatter=payload_slices)
     if res["state"].server.momentum.dtype != torch.bfloat16:
         raise AssertionError("llm bfloat16 banks: the momentum bank is "
                              f"{res['state'].server.momentum.dtype}")
@@ -2426,7 +2783,7 @@ def llm_options(torch, device: str = "cuda", local_steps: int = 2,
         argv = llm_argv(device, lowp_steps) + ["--momentum-dtype", dt]
         res = llm_run(torch, device, f"{dt} banks", argv, lowp_steps,
                       block_compress=1, block_decompress=0,
-                      momentum_scatter=1)
+                      momentum_scatter=payload_slices)
         if res["state"].server.momentum.dtype != getattr(torch, dt):
             raise AssertionError(f"llm {dt} banks: the momentum bank is "
                                  f"{res['state'].server.momentum.dtype}")
@@ -2463,7 +2820,7 @@ def llm_options(torch, device: str = "cuda", local_steps: int = 2,
     res = llm_run(torch, device, "stream", argv + [
         "--stream", "--chunk-size", str(chunk), "--prefetch-depth", "2",
         "--checkpoint", str(ckpt)], stream_steps, block_compress=1,
-        block_decompress=0, momentum_scatter=1)
+        block_decompress=0, momentum_scatter=payload_slices)
     streamed = res["state"].params
     stream_rec = {k: res[k] for k in ("losses", "step_ms", "peak_mib",
                                       "launches", "host_high_water_bytes")}
@@ -3863,7 +4220,7 @@ def decode_phase(torch, device: str = "cuda", profile: bool = True) -> dict:
     plan = res["plan"]
     check_launches("decode audio train", launches, llm_launches(
         plan.model, plan, AUDIO_STEPS, on_card, block_compress=1,
-        block_decompress=0, momentum_scatter=1))
+        block_decompress=0, momentum_scatter=payload_slices))
     losses, norms = res["losses"], res["dir_norms"]
     if not all(math.isfinite(v) for v in losses + norms):
         raise AssertionError(f"decode audio train: non-finite {losses}")
@@ -3947,11 +4304,15 @@ FAMILY_LONG = ("mamba2_1_3b", 4100, 16)
 # the train paths: (arch, layers, bank dtype), full width, seq 4096, 8
 # workers, f = 1, ALIE, CWTM, global Block-RandK 0.05; bfloat16 banks at
 # D ~ 1e9, where two float32 [8, D] banks would fill 66 GB; gemma_2b's
-# (D = 744,499,200) takes the flash kernels at head dim 256 (MQA)
+# (D = 744,499,200) takes the flash kernels at head dim 256 (MQA); the
+# vlm's (VLM_BANK: 5 layers, the first with a cross layer) at float8 banks,
+# its payload round 128 windows a step (at bfloat16 banks its held state,
+# gradient bank and a worker's transients would not fit 80 GB)
 FAMILY_TRAIN = (("deepseek_v2_lite_16b", 2, "bfloat16"),
                 ("mamba2_1_3b", 2, "float32"),
                 ("zamba2_7b", 6, "bfloat16"),
-                ("gemma_2b", 2, "bfloat16"))
+                ("gemma_2b", 2, "bfloat16"),
+                (VLM_BANK[0], 5, VLM_BANK[2]))
 FAMILY_STEPS, FAMILY_CHECK_STEPS = 4, 2
 
 
@@ -4100,9 +4461,9 @@ def family_cut_case(torch, arch: str, layers: int, dtype: str,
 def family_train_case(torch, arch: str, layers: int, mdt: str,
                       dev_args: list, on_card: bool) -> dict:
     """``launch.train`` on ``arch`` at full width cut to ``layers`` (the
-    payload route: compress, ``momentum_scatter`` and CWTM once a step, no
-    decompress; the flash kernels once a self-attention application and
-    worker), ``FAMILY_STEPS`` steps with finite losses, then its first
+    payload route: compress once a step, ``momentum_scatter`` and CWTM once
+    a window of its round (:func:`payload_slices`), no decompress; the
+    flash kernels once a self-attention application and worker), ``FAMILY_STEPS`` steps with finite losses, then its first
     ``FAMILY_CHECK_STEPS`` against the plain path."""
     from repro_torch import kernels as K
     from repro_torch.launch import train
@@ -4118,7 +4479,7 @@ def family_train_case(torch, arch: str, layers: int, mdt: str,
     plan = res["plan"]
     check_launches(label, launches, llm_launches(
         plan.model, plan, FAMILY_STEPS, on_card, block_compress=1,
-        block_decompress=0, momentum_scatter=1))
+        block_decompress=0, momentum_scatter=payload_slices))
     losses, norms = res["losses"], res["dir_norms"]
     if not all(math.isfinite(v) for v in losses + norms):
         raise AssertionError(f"{label}: non-finite {losses} {norms}")
@@ -4143,7 +4504,8 @@ def family_train_case(torch, arch: str, layers: int, mdt: str,
         torch.cuda.empty_cache()
     log(f"{label}: layers={plan.model.n_layers} D="
         f"{plan.flat_spec.padded_size:,} bank width {plan.bank_width:,} "
-        f"({bank}) seq={plan.shape.seq_len} n={plan.n_workers}: losses "
+        f"({bank}, {payload_slices(plan)} windows a payload round) seq="
+        f"{plan.shape.seq_len} n={plan.n_workers}: losses "
         f"{losses}, |R| {norms}, wall ms "
         f"{', '.join(f'{v:.3f}' for v in step_ms)}, peak {peak} MiB, "
         f"launches {launches}; kernel vs plain over {FAMILY_CHECK_STEPS} "
@@ -4153,6 +4515,7 @@ def family_train_case(torch, arch: str, layers: int, mdt: str,
     if rel_l > LLM_TOL_LOSS or rel_r > LLM_TOL_DIR or bank != mdt:
         raise AssertionError(f"{label}: kernel and plain paths disagree")
     return {"arch": arch, "layers": plan.model.n_layers,
+            "slices": payload_slices(plan),
             "D": plan.flat_spec.padded_size, "bank_width": plan.bank_width,
             "bank_dtype": bank, "seq": plan.shape.seq_len,
             "workers": plan.n_workers, "steps": FAMILY_STEPS,
@@ -4702,7 +5065,7 @@ def roofline_phase(torch, device: str = "cuda", llm=None,
     if llm is None and families is None:
         res = llm_run(torch, device, "roofline step", llm_argv(device, 1), 1,
                       block_compress=1, block_decompress=0,
-                      momentum_scatter=1)
+                      momentum_scatter=payload_slices)
         llm = {"peak_mib": res["peak_mib"], "held_mib": res["held_mib"]}
         del res
         if device == "cuda":
@@ -4877,9 +5240,10 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "shape")},
         "device_us": head.get("device_us"), "host_us": head["host_us"],
-        "shapes": [{k: r.get(k) for k in ("shape", "dtype", "ms", "plain_ms",
-                                          "bound_ms", "max_abs_err",
-                                          "device_us", "host_us")}
+        "shapes": [{k: r.get(k) for k in ("shape", "dtype", "window", "ms",
+                                          "plain_ms", "bound_ms",
+                                          "max_abs_err", "device_us",
+                                          "host_us")}
                    for r in recs]})
     audio = decode["audio_train"]["launches"]
     for k in record["kernels"]:
@@ -4934,6 +5298,29 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
                                    "bound_ms", "bound_by", "library_ms",
                                    "host_us", "shape")},
             "device_us": mom.get("device_us")})
+    # the kernel a window at a time: the vlm's float8 bank at its first and
+    # last window, and over the step's windows as the round launches them
+    wins = [r for r in randk["momentum"] if "ms" in r and "window" in r]
+    first, last = wins[0], wins[-1]
+    sweep = randk["momentum_sweep"][0]
+    vlm_train = families["train"][VLM_BANK[0]]
+    record["kernels"].append({
+        "name": "momentum_scatter_window", "route": "cuda",
+        **KERNELS["momentum_scatter"], "dtype": VLM_BANK[2],
+        "launches": vlm_train["launches"]["momentum_scatter"],
+        "max_abs_err": max(r["max_abs_err"] for r in randk["momentum"]
+                           if "window" in r),
+        **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "host_us", "shape",
+                                 "window")},
+        "device_us": first.get("device_us"),
+        "last_window": {k: last.get(k) for k in (
+            "window", "ms", "plain_ms", "bound_ms", "device_us", "host_us")},
+        "step_windows": sweep["windows"],
+        "step_sweep": {name: {k: sweep[name].get(k) for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "device_us",
+            "device_ops", "host_us")} for name in ("momentum_scatter",
+                                                   "cwtm")}})
     return record
 
 

@@ -27,6 +27,9 @@ builds the dense wire: the Byzantine overwrite runs on the
 ``[n, kb * block_size]`` payload and the momentum kernel
 (``repro_torch.kernels.randk.momentum_update``) decays the bank and adds
 the payload into the selected blocks in one pass, bitwise the dense round.
+Past :data:`DENSE_COLUMNS` at banks narrower than float32 it runs a window
+of blocks at a time, each window's float32 momenta aggregated before the
+next (:func:`_payload_window`).
 
 The lanes of a grid (``grads [B, n, D]``, :func:`_lanes_round`) carry an
 explicit leading lane axis. Each lane's values are those of its lone round:
@@ -461,24 +464,72 @@ def _rosdhb_dense_columns(cfg: AlgorithmConfig, agg, state: ServerState,
     return r, state._replace(momentum=momentum, step=state.step + 1)
 
 
+def _payload_window(cfg: AlgorithmConfig, d: int) -> int:
+    """Blocks a window of the payload round (:func:`_rosdhb_payload_round`)
+    takes: ``DENSE_COLUMNS // block_size`` where the bank is narrower than
+    float32 (its float32 momenta would otherwise be a new ``[n, D]`` bank)
+    and the aggregator works coordinate by coordinate (CWTM, the median or
+    the mean, without NNM); the whole bank otherwise. A float32 bank holds
+    its float32 momenta itself, and any other aggregator takes every column
+    at once."""
+    bs = cfg.sparsifier.block_size
+    nb = d // bs
+    if (cfg.momentum_dtype != "float32"
+            and cfg.aggregator.name in ("cwtm", "median", "mean")
+            and not cfg.aggregator.pre_nnm):
+        return min(nb, max(1, DENSE_COLUMNS // bs))
+    return nb
+
+
 def _rosdhb_payload_round(cfg: AlgorithmConfig, agg, state: ServerState,
                           grads: torch.Tensor, draws, hparams,
                           attack_params=None) -> Tuple[torch.Tensor,
                                                        ServerState]:
     # Steps 1-3 on the wire: the block ids and the [n, kb*bs] payload; step
     # 4 on its rows (the attack is per coordinate, so the selected columns
-    # get the dense attack's values); step 5 decays the bank in place and
-    # adds (1-beta)*payload into the selected blocks in one pass (a
-    # bfloat16 bank also hands back the unrounded float32 momenta); step 6
-    # aggregates the float32 momenta.
+    # get the dense attack's values); then steps 5 and 6 a window of
+    # _payload_window whole blocks at a time, the slot map built once: the
+    # momentum kernel decays the caller's bank in place there and adds
+    # (1-beta)*payload into the selected blocks in one pass (a bank
+    # narrower than float32 also hands back the unrounded float32 momenta,
+    # into one reused slice), and the aggregator (one CWTM or median launch
+    # a window) turns the float32 momenta into r's columns. Bitwise one
+    # window over the whole bank: every step works coordinate by
+    # coordinate. At the vlm's D = 2.1e9 the whole bank's float32 momenta
+    # [n, D] (65 GiB at n = 8) would not fit one card; a window's are 512
+    # MiB.
     sp = cfg.sparsifier
+    n, d = grads.shape
+    bs = sp.block_size
+    nb = d // bs
     payload, ids = C.compressed_payload(grads, draws, sp)
     payload = _byzantine_overwrite(cfg, payload, attack_params, draws)
-    m = RK.momentum_update(state.momentum, payload, ids,
-                           block_size=sp.block_size, beta=hparams[0],
-                           f32_out=state.momentum.dtype != torch.float32)
-    del payload
-    return agg(m), state._replace(step=state.step + 1)
+    slots = RK.slot_map(ids.to(device=grads.device, dtype=torch.int32)
+                        .contiguous(), nb)
+    step = _payload_window(cfg, d)
+    flat = (torch.empty(n * step * bs, dtype=torch.float32,
+                        device=grads.device)
+            if state.momentum.dtype != torch.float32 else None)
+    r = None
+    for b0 in range(0, nb, step):
+        b1 = min(nb, b0 + step)
+        w = (b1 - b0) * bs
+        m = RK.momentum_update(
+            state.momentum, payload, ids, block_size=bs, beta=hparams[0],
+            window=(b0, b1), slots=slots,
+            out=None if flat is None else flat[:n * w].view(n, w))
+        if b1 == nb:
+            del payload, slots  # the last aggregation needs neither
+        part = agg(m)
+        del m
+        if b1 - b0 == nb:
+            r = part
+        else:
+            if r is None:
+                r = part.new_empty(part.shape[:-1] + (d,))
+            r[..., b0 * bs:b1 * bs] = part
+        del part
+    return r, state._replace(step=state.step + 1)
 
 
 def _dasha_wire(state_m: torch.Tensor, state_h: torch.Tensor,
@@ -747,8 +798,10 @@ def server_round(cfg: AlgorithmConfig, state: ServerState,
     Args:
       cfg: algorithm configuration.
       state: current server state, consumed: the payload route updates
-        its momentum in place, and the rounds by column slices (RoSDHB's
-        dense round past ``DENSE_COLUMNS``, dasha's) write each slice of
+        its momentum in place (past ``DENSE_COLUMNS`` at banks narrower
+        than float32 a window of blocks at a time), and the rounds by
+        column slices (RoSDHB's dense round past ``DENSE_COLUMNS``,
+        dasha's) write each slice of
         the new momentum and mirror (and, under gradients narrower than
         float32, previous gradients) over the old one. A caller that
         reuses a state passes a copy.

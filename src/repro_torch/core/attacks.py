@@ -14,10 +14,12 @@ The worker-axis statistics reproduce the reference's rounding: the mean is a
 sequential row sum times ``1/h`` and the population variance (no Bessel
 correction, as ``jnp.std``) a sequential fused multiply-add of squares
 divided by ``h``, the order XLA's fused reduction takes. Both run in
-float32 on bfloat16 rows too, rounded where the reference rounds. On
-float8_e4m3fn rows, which PyTorch has no arithmetic for, every operation
-runs in float32 and rounds as the reference's does
-(``utils.dtypes.lowp``), NaN past float8's range included.
+float32 on bfloat16 and float16 rows too, rounded where the reference
+rounds. On float8_e4m3fn rows, which PyTorch has no arithmetic for, every
+operation runs in float32 and rounds to float8 as the reference's does
+(``utils.dtypes.lowp``), NaN past float8's range included; there the
+reference's mean and variance stay in float8 (``jnp.mean`` widens only
+float16 and bfloat16), each partial sum rounded (:func:`_stats8`).
 
 :data:`ZERO_PRESERVING` names the attacks that send zero wherever every
 honest row is zero: under a global mask their Byzantine rows are zero off
@@ -32,7 +34,8 @@ import statistics
 
 import torch
 
-from repro_torch.utils.dtypes import is_float8, lowp, to_dtype
+from repro_torch.utils.dtypes import (FLOAT8, is_float8, lowp, to_dtype,
+                                      to_float8)
 
 
 def _alie_z(n: int, f: int) -> float:
@@ -50,13 +53,38 @@ def _mean32(x: torch.Tensor) -> torch.Tensor:
     rows = x.unbind(-2)
     acc = rows[0].to(torch.float32, copy=True)
     for row in rows[1:]:
-        acc += row.float() if is_float8(row) else row
+        acc += row
     return acc * (1.0 / x.shape[-2])
 
 
 def _row_mean(x: torch.Tensor) -> torch.Tensor:
-    """Mean over the worker axis, rounded once to ``x``'s dtype."""
+    """Mean over the worker axis, rounded once to ``x``'s dtype (float8
+    rows: :func:`_stats8`)."""
+    if is_float8(x):
+        return _stats8(x)[0]
     return to_dtype(_mean32(x), x.dtype)
+
+
+def _stats8(x: torch.Tensor, std: bool = False):
+    """``(mean, std or None)`` over the worker axis of float8 rows as the
+    reference computes them there: in float8, each operation (an add of the
+    next row to the partial sum, the division by ``h`` rounded to float8,
+    the centring, the square, the root) rounded to float8."""
+    h = _as_dtype(x.shape[-2], FLOAT8)
+
+    def mean(rows):
+        acc = 0.0  # XLA's sum starts at +0
+        for row in rows:
+            acc = to_float8(row.float() + acc).float()
+        return to_float8(acc / h)
+
+    mu = mean(x.unbind(-2))
+    if not std:
+        return mu, None
+    var = mean(to_float8(torch.square(to_float8(row.float() - mu.float())
+                                      .float()))
+               for row in x.unbind(-2))
+    return mu, to_float8(torch.sqrt(var.double()))
 
 
 def _row_std(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
@@ -69,7 +97,7 @@ def _row_std(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     variance to bfloat16, takes its float32 root and rounds that."""
     acc = torch.zeros_like(mu)
     for row in x.unbind(-2):
-        c = ((row.float() if is_float8(row) else row) - mu).double()
+        c = (row - mu).double()
         acc = torch.addcmul(acc.double(), c, c).to(mu.dtype)
     var = acc / x.shape[-2]
     if x.dtype != torch.float32:
@@ -80,6 +108,8 @@ def _row_std(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
 def _row_stats(x: torch.Tensor):
     """``(mean, std)`` over the worker axis in ``x``'s dtype; the std is
     taken around the unrounded float32 mean."""
+    if is_float8(x):
+        return _stats8(x, std=True)
     mu = _mean32(x)
     return to_dtype(mu, x.dtype), _row_std(x, mu)
 
@@ -106,6 +136,10 @@ def alie(honest: torch.Tensor, f: int, z: float | None = None
         z = _alie_z(h + f, f)
     mu, sd = _row_stats(honest)
     zc = _as_dtype(z, mu.dtype)
+    if mu.dtype == torch.float16:
+        # XLA fuses mu - z * sd on float16 rows and keeps the product in
+        # float32 there (bfloat16's it rounds): one rounding
+        return _rows((mu.float() - zc * sd.float()).half(), f)
     t = lowp(lambda s: zc * s, sd, dtype=mu.dtype)
     return _rows(lowp(torch.sub, mu, t, dtype=mu.dtype), f)
 

@@ -66,9 +66,17 @@
 // blocks the fused add of a +0.0 product stays, not a bare beta * m, so
 // that a -0.0 momentum gives +0.0 as the dense step's does. A bank
 // narrower than float32 is updated in float32 and rounded once on store;
-// the unrounded float32 result can be written to a second [n, d] output
-// too (the aggregation reads that one, as the reference aggregates the
-// float32 momentum and stores its rounding).
+// the unrounded float32 result can be written to a second output too (the
+// aggregation reads that one, as the reference aggregates the float32
+// momentum and stores its rounding).
+//
+// A launch covers a window [b0, b1) of destination blocks (the whole bank
+// is [0, nb)): only those are decayed and fed, block b0 + j reading
+// slots[b0 + j], and the float32 result goes to an [n, (b1 - b0) * bs]
+// output of row stride out_stride. The RoSDHB round at an LLM's width runs
+// window after window into one reused float32 slice, aggregating each
+// before the next (a float32 [n, d] copy of a bank of 2.1e9 columns would
+// not fit the card); every value's arithmetic is the same in any window.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -218,16 +226,18 @@ __device__ __forceinline__ void store4(T* p, float4 v) {
   *reinterpret_cast<W*>(p) = w;
 }
 
-// grid (nb, n), block (bs / 4): thread t owns values 4t .. 4t+3 of the
-// destination block
+// grid (b1 - b0, n), block (bs / 4): thread t owns values 4t .. 4t+3 of
+// destination block b0 + blockIdx.x
 template <typename TM, typename TP>
 __global__ void momentum_kernel(TM* __restrict__ m,
                                 const TP* __restrict__ payload,
                                 const int* __restrict__ slots,
-                                float* __restrict__ out32, int nb, int kb,
-                                int bs, int slots_stride, float beta,
+                                float* __restrict__ out32, int nb, int b0,
+                                int kb, int bs, int slots_stride,
+                                long long out_stride, float beta,
                                 float omb) {
-  const long long i = blockIdx.x;
+  const long long j = blockIdx.x;
+  const long long i = b0 + j;
   const long long r = blockIdx.y;
   const int slot = slots[r * slots_stride + i];
   const long long at = (r * nb + i) * bs + 4 * threadIdx.x;
@@ -249,7 +259,8 @@ __global__ void momentum_kernel(TM* __restrict__ m,
                     fmaf(beta, mv.z, omb * p.z), fmaf(beta, mv.w, omb * p.w));
   }
   store4(m + at, o);
-  if (out32 != nullptr) store4(out32 + at, o);
+  if (out32 != nullptr)
+    store4(out32 + r * out_stride + j * bs + 4 * threadIdx.x, o);
 }
 
 // Calls f with a value of the type of dtype code 0-3; false for another.
@@ -323,31 +334,35 @@ extern "C" int block_decompress(const void* payload, const void* slots,
   return (int)cudaGetLastError();
 }
 
-// m [n, nb*bs] (updated in place), payload [n, kb*bs], slots int32 [nb]
-// (slots_stride 0) or [n, nb] (slots_stride nb), out32 float [n, nb*bs] or
-// null. m_dtype and p_dtype as block_compress's dtype. beta and omb =
-// (float)(1 - beta) are the float32 constants. Returns the launch's
-// cudaError_t.
+// m [n, nb*bs] (updated in place on blocks b0 .. b1-1), payload [n,
+// kb*bs], slots int32 [nb] (slots_stride 0) or [n, nb] (slots_stride nb),
+// out32 float [n, (b1-b0)*bs] of row stride out_stride (a multiple of 4,
+// at least (b1-b0)*bs) or null. m_dtype and p_dtype as block_compress's
+// dtype. beta and omb = (float)(1 - beta) are the float32 constants.
+// Returns the launch's cudaError_t.
 extern "C" int momentum_scatter(void* m, const void* payload,
                                 const void* slots, void* out32, int n, int nb,
-                                int kb, int bs, int slots_stride, float beta,
-                                float omb, int m_dtype, int p_dtype,
-                                void* stream) {
+                                int b0, int b1, int kb, int bs,
+                                int slots_stride, long long out_stride,
+                                float beta, float omb, int m_dtype,
+                                int p_dtype, void* stream) {
   if (m_dtype < 0 || m_dtype > 3 || p_dtype < 0 || p_dtype > 3 ||
       n < 1 || n > 65535 || nb < 1 || kb < 1 || bs < 4 || bs % 4 != 0 ||
-      bs / 4 > 1024)
+      bs / 4 > 1024 || b0 < 0 || b1 <= b0 || b1 > nb ||
+      (out32 != nullptr &&
+       (out_stride < (long long)(b1 - b0) * bs || out_stride % 4 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* sp = static_cast<const int*>(slots);
   float* o = static_cast<float*>(out32);
-  const dim3 grid((unsigned)nb, (unsigned)n);
+  const dim3 grid((unsigned)(b1 - b0), (unsigned)n);
   with_dtype(m_dtype, [&](auto tm) {
     with_dtype(p_dtype, [&](auto tp) {
       using TM = decltype(tm);
       using TP = decltype(tp);
       momentum_kernel<TM, TP><<<grid, bs / 4, 0, s>>>(
-          static_cast<TM*>(m), static_cast<const TP*>(payload), sp, o, nb, kb,
-          bs, slots_stride, beta, omb);
+          static_cast<TM*>(m), static_cast<const TP*>(payload), sp, o, nb, b0,
+          kb, bs, slots_stride, out_stride, beta, omb);
     });
   });
   return (int)cudaGetLastError();

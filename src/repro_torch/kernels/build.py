@@ -54,9 +54,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "block_compress": (P, P, P, I, LL, I, I, I, F, I, P),
         # payload, slots, dense, n, nb, kb, bs, slots_stride, dtype, stream
         "block_decompress": (P, P, P, I, I, I, I, I, I, P),
-        # m, payload, slots, out32, n, nb, kb, bs, slots_stride, beta, omb,
-        # m_dtype, p_dtype, stream
-        "momentum_scatter": (P, P, P, P, I, I, I, I, I, F, F, I, I, P),
+        # m, payload, slots, out32, n, nb, b0, b1, kb, bs, slots_stride,
+        # out_stride, beta, omb, m_dtype, p_dtype, stream
+        "momentum_scatter": (P, P, P, P, I, I, I, I, I, I, I, LL, F, F, I, I,
+                             P),
     },
     "flash_attention": {
         # q, k, v, o, lse, B, Sq, Sk, H, KV, D, causal, window, q_offset,

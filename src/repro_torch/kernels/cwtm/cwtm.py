@@ -74,20 +74,24 @@ class PlanStruct(ctypes.Structure):
     """``struct SortedWeightPlan`` of the source, field for field."""
     _fields_ = [("d", ctypes.c_longlong), ("B", ctypes.c_int),
                 ("n", ctypes.c_int), ("dtype", ctypes.c_int),
-                ("threads", ctypes.c_int), ("weights", RankWeights)]
+                ("threads", ctypes.c_int), ("nan_out", ctypes.c_int),
+                ("weights", RankWeights)]
 
 
 def plan_struct(b: int, n: int, d: int, dtype: torch.dtype,
-                weights: Sequence[float], sm_count: int) -> PlanStruct:
-    """The C launch plan: the block size for the card and the weights as
-    float32, zero past ``n``."""
+                weights: Sequence[float], sm_count: int,
+                nan_out: bool = False) -> PlanStruct:
+    """The C launch plan: the block size for the card, the weights as
+    float32, zero past ``n``, and whether a NaN among a coordinate's values
+    makes it NaN (``nan_out``, the median) or sorts last (CWTM)."""
     w = RankWeights()
     w.w[:len(weights)] = [float(v) for v in weights]
     return PlanStruct(d, b, n, DTYPES[dtype],
-                      sorted_weight_threads(b, d, sm_count), w)
+                      sorted_weight_threads(b, d, sm_count), int(nan_out), w)
 
 
-#: ``{(B, n, d, dtype, device index, weights): (struct address, struct)}``.
+#: ``{(B, n, d, dtype, device index, weights, nan_out): (struct address,
+#: struct)}``.
 _LAUNCH: Dict[tuple, tuple] = {}
 
 
@@ -108,18 +112,21 @@ def _check(x: torch.Tensor, weights: Sequence[float]) -> None:
         raise ValueError("sorted-weight kernel needs a contiguous tensor")
 
 
-def sorted_weighted_cuda(x: torch.Tensor, weights: Sequence[float]
-                         ) -> torch.Tensor:
+def sorted_weighted_cuda(x: torch.Tensor, weights: Sequence[float],
+                         nan_out: bool = False) -> torch.Tensor:
     """Launch the kernel: x [B, n, d] -> [B, d] in x's dtype, where
-    ``weights[i]`` scales the i-th smallest value of each coordinate. The
-    callers (:func:`cwtm_cuda`, ``median_cuda``) count the launch."""
+    ``weights[i]`` scales the i-th smallest value of each coordinate, NaN
+    sorted after every number (``nan_out``: NaN wherever one is among the
+    values). The callers (:func:`cwtm_cuda`, ``median_cuda``) count the
+    launch."""
     _check(x, weights)
     b, n, d = x.shape
     idx = x.get_device()
-    key = (b, n, d, x.dtype, idx, tuple(weights))
+    key = (b, n, d, x.dtype, idx, tuple(weights), nan_out)
     launch = _LAUNCH.get(key)
     if launch is None:
-        struct = plan_struct(b, n, d, x.dtype, weights, build.sm_count(idx))
+        struct = plan_struct(b, n, d, x.dtype, weights, build.sm_count(idx),
+                             nan_out)
         launch = _LAUNCH[key] = (ctypes.addressof(struct), struct)
     out = x.new_empty((b, d))
     err = build.entry("sorted_weight", "sorted_weight")(

@@ -32,8 +32,9 @@ def median_weights(n: int) -> Tuple[float, ...]:
 
 
 def median_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Coordinate-wise median on the card: x [B, n, d] -> [B, d]."""
-    out = sorted_weighted_cuda(x, median_weights(x.shape[-2]))
+    """Coordinate-wise median on the card: x [B, n, d] -> [B, d], NaN
+    wherever a NaN is among a coordinate's values (``jnp.median``)."""
+    out = sorted_weighted_cuda(x, median_weights(x.shape[-2]), nan_out=True)
     median_cuda.launches += 1
     return out
 

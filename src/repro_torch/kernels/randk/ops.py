@@ -5,9 +5,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.randk.randk import (block_compress_cuda,
-                                             block_decompress_cuda,
-                                             momentum_scatter_cuda)
+from repro_torch.kernels.randk.randk import (  # noqa: F401 (slot_map)
+    block_compress_cuda, block_decompress_cuda, momentum_scatter_cuda,
+    slot_map)
 from repro_torch.kernels.randk.ref import (block_compress_ref,
                                            block_decompress_ref,
                                            momentum_scatter_ref)
@@ -36,13 +36,16 @@ def decompress(payload: torch.Tensor, ids: torch.Tensor, *, block_size: int,
 
 
 def momentum_update(m: torch.Tensor, payload: torch.Tensor, ids: torch.Tensor,
-                    *, block_size: int, beta: float,
-                    f32_out: bool = False) -> torch.Tensor:
+                    *, block_size: int, beta: float, window=None, slots=None,
+                    out=None) -> torch.Tensor:
     """RoSDHB step 5 on the wire payload, in place on the bank ``m``:
     ``m <- beta * m + (1 - beta) * wire`` with ``wire`` the decompressed
-    payload. Returns ``m``, or with ``f32_out`` (a bfloat16 bank) the
-    unrounded float32 result."""
+    payload. Returns ``m``, or ``out`` where given. ``window`` ``(b0,
+    b1)``: the destination blocks ``b0`` to ``b1 - 1`` alone; ``slots``:
+    the round's slot map (``randk.slot_map``), built once for a round of
+    windows; ``out`` (a bank narrower than float32): the caller's float32
+    ``[n, (b1 - b0) * block_size]`` buffer for the unrounded result."""
+    kw = dict(window=window, slots=slots, out=out)
     if _device_type(m, "momentum update") == "cpu":
-        return momentum_scatter_ref(m, payload, ids, block_size, beta,
-                                    f32_out)
-    return momentum_scatter_cuda(m, payload, ids, block_size, beta, f32_out)
+        return momentum_scatter_ref(m, payload, ids, block_size, beta, **kw)
+    return momentum_scatter_cuda(m, payload, ids, block_size, beta, **kw)

@@ -119,14 +119,21 @@ def block_decompress_cuda(payload: torch.Tensor, ids: torch.Tensor,
 
 def momentum_scatter_cuda(m: torch.Tensor, payload: torch.Tensor,
                           ids: torch.Tensor, block_size: int, beta: float,
-                          f32_out: bool = False) -> torch.Tensor:
+                          *, window=None, slots=None,
+                          out=None) -> torch.Tensor:
     """RoSDHB step 5 in place on the momentum bank ``m [n, d]`` (any of
     :data:`DTYPES`): every value decays by ``beta``, and the selected blocks
     add ``(1 - beta) * payload`` (``payload [n, kb * block_size]``, any of
     :data:`DTYPES`, the wire the ``ids`` compressed). Computed in float32,
-    rounded once to ``m``'s dtype. Returns ``m``, or with ``f32_out`` (a
-    bank narrower than float32 only) a new float32 ``[n, d]`` tensor holding
-    the unrounded result."""
+    rounded once to ``m``'s dtype. Returns ``m``, or ``out`` where given.
+
+    ``window`` ``(b0, b1)`` limits the launch to destination blocks ``b0``
+    to ``b1 - 1`` (default the whole bank); the rest of ``m`` is left as it
+    is. ``slots``: the round's :func:`slot_map` of ``ids``, built here when
+    not given (a round that runs window after window builds it once).
+    ``out`` (a bank narrower than float32 only): a float32 ``[n, (b1 - b0)
+    * block_size]`` tensor of unit column stride (any row stride that is a
+    multiple of 4) that receives the unrounded result."""
     _check_bank(m, "momentum_scatter")
     _check_bank(payload, "momentum_scatter payload")
     n, d = m.shape
@@ -140,26 +147,45 @@ def momentum_scatter_cuda(m: torch.Tensor, payload: torch.Tensor,
     if d % block_size or payload.shape[1] % block_size:
         raise ValueError(f"d={d} and the payload width {payload.shape[1]} "
                          f"must be multiples of block_size={block_size}")
-    if f32_out and m.dtype == torch.float32:
-        raise ValueError("f32_out is for a bank narrower than float32 (a "
+    if out is not None and m.dtype == torch.float32:
+        raise ValueError("out is for a bank narrower than float32 (a "
                          "float32 bank holds the float32 result itself)")
     for t in (m, payload):
         if t.data_ptr() % 16:
             raise ValueError("momentum_scatter needs 16-byte aligned banks")
     nb, kb = d // block_size, payload.shape[1] // block_size
+    b0, b1 = (0, nb) if window is None else (int(window[0]), int(window[1]))
+    if not 0 <= b0 < b1 <= nb:
+        raise ValueError(f"window [{b0}, {b1}) is not inside the bank's "
+                         f"{nb} blocks")
     ids, _ = _ids(ids, n, m.device)
     if ids.shape[-1] != kb:
         raise ValueError(f"{ids.shape[-1]} block ids for a payload of {kb} "
                          f"blocks")
-    slots = slot_map(ids, nb)
+    if slots is None:
+        slots = slot_map(ids, nb)
+    elif (slots.dtype != torch.int32 or slots.device != m.device
+          or slots.shape[-1] != nb or not slots.is_contiguous()
+          or slots.ndim != ids.ndim):
+        raise ValueError(f"slots must be the contiguous int32 slot map of "
+                         f"the ids on {m.device}, [{nb}] or [{n}, {nb}]")
     stride = 0 if slots.ndim == 1 else nb
-    out = (torch.empty((n, d), dtype=torch.float32, device=m.device)
-           if f32_out else None)
+    width = (b1 - b0) * block_size
+    if out is not None and (
+            out.dtype != torch.float32 or out.device != m.device
+            or tuple(out.shape) != (n, width) or out.stride(1) != 1
+            or out.stride(0) % 4 or out.data_ptr() % 16):
+        raise ValueError(f"out must be a 16-byte aligned float32 [{n}, "
+                         f"{width}] of unit column stride and a row stride "
+                         f"that is a multiple of 4 on {m.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} strides "
+                         f"{out.stride()} on {out.device}")
     lib = build.load("randk")
     err = lib.momentum_scatter(
         m.data_ptr(), payload.data_ptr(), slots.data_ptr(),
-        out.data_ptr() if out is not None else None, n, nb, kb, block_size,
-        stride, float(beta), float(1.0 - beta), DTYPES[m.dtype],
+        out.data_ptr() if out is not None else None, n, nb, b0, b1, kb,
+        block_size, stride, out.stride(0) if out is not None else 0,
+        float(beta), float(1.0 - beta), DTYPES[m.dtype],
         DTYPES[payload.dtype], build.stream_ptr(m.get_device()))
     build.check(err, "momentum_scatter")
     momentum_scatter_cuda.launches += 1

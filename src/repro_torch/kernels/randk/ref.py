@@ -84,46 +84,53 @@ def _weighted_payload(m: torch.Tensor, payload: torch.Tensor,
 
 def _columns(m: torch.Tensor, pf: torch.Tensor, ids: torch.Tensor,
              block_size: int, beta: float, b0: int, b1: int) -> torch.Tensor:
+    """The float32 momenta of blocks ``[b0, b1)``, written into ``m`` there
+    (rounded to its dtype)."""
     cols = slice(b0 * block_size, b1 * block_size)
     wire = _wire_columns(pf, ids, block_size, b0, b1)
     if m.dtype == torch.bfloat16:
-        return (m[:, cols].float() * beta).add_(wire, alpha=1.0 - beta)
-    return wire.add_(m[:, cols].float(), alpha=beta)
+        res = (m[:, cols].float() * beta).add_(wire, alpha=1.0 - beta)
+    else:
+        res = wire.add_(m[:, cols].float(), alpha=beta)
+    m[:, cols].copy_(to_float8(res) if is_float8(m) else res)
+    return res
 
 
 def momentum_columns_ref(m: torch.Tensor, payload: torch.Tensor,
                          ids: torch.Tensor, block_size: int, beta: float,
                          b0: int, b1: int) -> torch.Tensor:
-    """The float32 momenta of blocks ``[b0, b1)`` (columns ``b0 *
-    block_size`` to ``b1 * block_size``) of :func:`momentum_scatter_ref`,
-    from the bank ``m``, which is left as it is."""
+    """:func:`momentum_scatter_ref` on the window of blocks ``[b0, b1)``
+    (columns ``b0 * block_size`` to ``b1 * block_size``) in one pass: the
+    window of ``m`` updated in place, its float32 momenta returned."""
     return _columns(m, _weighted_payload(m, payload, beta), ids, block_size,
                     beta, b0, b1)
 
 
 def momentum_scatter_ref(m: torch.Tensor, payload: torch.Tensor,
                          ids: torch.Tensor, block_size: int, beta: float,
-                         f32_out: bool = False) -> torch.Tensor:
+                         *, window=None, slots=None,
+                         out=None) -> torch.Tensor:
     """The fused RoSDHB step 5 as the dense step computes it, one fused
     multiply-add (``torch.add`` with ``alpha``) in float32: on a float32
     bank the payload times ``1 - beta`` scattered into a zeroed bank plus
     ``beta * m``; on a bfloat16 bank ``beta * m`` plus ``1 - beta`` times
     the scattered payload. ``m`` is updated in place (rounded to its
-    dtype); returns ``m``, or with ``f32_out`` the float32 result. Runs
+    dtype); returns ``m``, or ``out`` holding the float32 result. Runs
     :data:`MOMENTUM_COLS` columns (whole blocks) at a time
     (:func:`momentum_columns_ref`), each coordinate's arithmetic as over
-    the whole bank."""
-    n, d = m.shape
+    the whole bank. ``window``, ``slots`` and ``out`` as the kernel's
+    wrapper takes them (``randk.momentum_scatter_cuda``): the blocks ``[b0,
+    b1)`` alone, the slot map (unused: the plain version reads the ids),
+    the float32 result written into ``out``."""
+    del slots
+    nb = m.shape[1] // block_size
+    b0, b1 = (0, nb) if window is None else (int(window[0]), int(window[1]))
     pf = _weighted_payload(m, payload, beta)
-    out = torch.empty((n, d), device=m.device) if f32_out else None
     step = max(1, MOMENTUM_COLS // block_size)
-    nb = d // block_size
-    for b0 in range(0, nb, step):
-        b1 = min(nb, b0 + step)
-        cols = slice(b0 * block_size, b1 * block_size)
-        res = _columns(m, pf, ids, block_size, beta, b0, b1)
-        m[:, cols].copy_(to_float8(res) if is_float8(m) else res)
+    for lo in range(b0, b1, step):
+        hi = min(b1, lo + step)
+        res = _columns(m, pf, ids, block_size, beta, lo, hi)
         if out is not None:
-            out[:, cols] = res
+            out[:, (lo - b0) * block_size:(hi - b0) * block_size] = res
         del res
-    return out if f32_out else m
+    return m if out is None else out

@@ -172,6 +172,9 @@ def server_counts(plan: S.TrainPlan) -> Dict:
         kb = max(1, int(round(sp.ratio * (d // bs))))  # global ids
         put("compress", *R.compress_work(n, kb, bs, w, kb))
         put("attack", (n + f) * kb * bs * w, 3 * n * kb * bs)
+        # by windows (algorithms._payload_window) the same bytes: the
+        # windows partition the bank and its float32 momenta, and their
+        # CWTM launches the aggregation's
         put("momentum", *R.momentum_work(n, d, kb, bs, w, w, kb, w != 4))
     else:  # the dense wire: every value of the bank moves
         put("compress", 2 * n * d * w, n * d)

@@ -63,3 +63,41 @@ def test_unported_attack_raises():
     ``repro_torch.adversary`` with their memory)."""
     with pytest.raises(ValueError, match="stateless"):
         A.apply_attack(A.AttackConfig(name="spectral"), torch.zeros(4, 3), 2)
+
+
+@pytest.mark.parametrize("mdt", ["bfloat16", "float16", "float8_e4m3fn"])
+@pytest.mark.parametrize("h,d", SHAPES[:2] + SHAPES[3:4])
+@pytest.mark.parametrize("scale", [1.0, 30.0])
+def test_alie_on_narrow_rows_is_the_references_compiled_attack(mdt, h, d,
+                                                               scale):
+    """ALIE and the honest mean on rows of a narrow bank dtype against the
+    reference's compiled ``alie`` (``jax.jit``), bitwise, NaN where it is:
+    on float8 rows ``jnp.mean`` and ``jnp.std`` stay in float8, each
+    partial sum rounded (scale 30 overflows their squares to NaN, as the
+    reference's do); on float16 rows XLA keeps ``z * sd`` in float32
+    inside ``mu - z * sd``. On float8 rows the reference's eager attack
+    (``jax.disable_jit``) reads the same (on the others XLA's fused
+    reductions round otherwise than its one-operation programs)."""
+    import jax
+    from repro_torch.utils.dtypes import to_dtype
+    x = _honest(h, d, 2) * (scale / 3)
+    jx = jnp.asarray(x, jnp.dtype(mdt))
+    tx = to_dtype(torch.tensor(x), getattr(torch, mdt))
+    np.testing.assert_array_equal(np.asarray(jx.astype(jnp.float32)),
+                                  tx.float().numpy())
+    got = A.alie(tx, 3).float().numpy()
+    mean = A._row_mean(tx).float().numpy()
+    wants = [jax.jit(lambda v: JA.alie(v, 3))(jx)]
+    if mdt == "float8_e4m3fn":
+        with jax.disable_jit():
+            wants.append(JA.alie(jx, 3))
+    for want in wants:
+        want = np.asarray(want.astype(jnp.float32))
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        fin = ~np.isnan(want)
+        np.testing.assert_array_equal(got[fin].view(np.uint32),
+                                      want[fin].view(np.uint32))
+    want = np.asarray(jnp.mean(jx, axis=0).astype(jnp.float32))
+    np.testing.assert_array_equal(mean.view(np.uint32), want.view(np.uint32))
+    if mdt == "float8_e4m3fn" and scale > 1:
+        assert np.isnan(got).any()

@@ -206,7 +206,8 @@ def test_randk_plain_versions_at_low_precision(dt):
     m = to_dtype(torch.tensor(rng.normal(size=(n, nb * bs)).astype(
         np.float32)) * 300, dt)
     m0 = m.clone()
-    out = momentum_scatter_ref(m, pay, ids, bs, 0.9, f32_out=True)
+    out = momentum_scatter_ref(m, pay, ids, bs, 0.9,
+                               out=torch.empty(n, nb * bs))
     wire = torch.zeros(n, nb, bs)
     wire[:, [5, 2]] = pay.float().reshape(n, kb, bs)
     want = (wire.reshape(n, -1) * (1 - 0.9)).add_(m0.float(), alpha=0.9)

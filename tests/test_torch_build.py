@@ -119,7 +119,7 @@ def test_plan_structs_match_the_c_structs(source, struct, py):
         else:
             assert t is expect, field
     if struct == "SortedWeightPlan":
-        assert ctypes.sizeof(cls) == 24 + 4 * 64
+        assert ctypes.sizeof(cls) == 28 + 4 * 64 + 4  # to 8-byte alignment
     else:
         assert ctypes.sizeof(cls) == 8 * 3 + 4 * 8
 

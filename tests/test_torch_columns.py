@@ -57,11 +57,15 @@ def test_momentum_plain_version_by_columns_is_bitwise(monkeypatch, bank,
     ids = (torch.stack([torch.randperm(nb)[:kb] for _ in range(n)])
            if local else torch.randperm(nb)[:kb]).int()
     f32 = dtype == torch.bfloat16
+
+    def out():
+        return {"out": torch.empty(n, nb * bs)} if f32 else {}
+
     m_whole = m0.clone()
-    out_whole = RR.momentum_scatter_ref(m_whole, pay, ids, bs, 0.9, f32)
+    out_whole = RR.momentum_scatter_ref(m_whole, pay, ids, bs, 0.9, **out())
     monkeypatch.setattr(RR, "MOMENTUM_COLS", 3 * bs)
     m_cols = m0.clone()
-    out_cols = RR.momentum_scatter_ref(m_cols, pay, ids, bs, 0.9, f32)
+    out_cols = RR.momentum_scatter_ref(m_cols, pay, ids, bs, 0.9, **out())
     assert torch.equal(_bits(m_cols), _bits(m_whole))
     assert torch.equal(_bits(out_cols), _bits(out_whole))
     # the one-pass update is the dense step (the reference's arithmetic)

@@ -73,6 +73,36 @@ def test_bf16_kernels_match_plain(card, b, n, f, d):
                                    x.float().square().sum(-1).max()))
 
 
+def _with_nan(b, n, d, seed, device):
+    """Draws with NaN (none, one or two a coordinate, in any row) and
+    +-inf among them."""
+    x = _x(b, n, d, seed, "cpu")
+    rng = np.random.default_rng(seed)
+    for j in range(d):
+        for r in rng.choice(n, size=j % 3, replace=False):
+            x[:, r, j] = float("nan")
+    x[:, rng.integers(n), ::7] = float("inf")
+    x[:, rng.integers(n), ::11] = -float("inf")
+    return x.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,f,d", [(1, 8, 1, 3000), (2, 13, 3, 1000),
+                                     (1, 7, 2, 999)])
+def test_sort_kernels_put_nan_last_as_their_plain_versions(card, b, n, f,
+                                                            d):
+    """CWTM and the median with NaN and +-inf among a coordinate's values:
+    the kernel sorts NaN after every number, as ``torch.sort`` (the plain
+    versions) does, so a NaN at a trimmed rank is trimmed (the earlier
+    network's fminf/fmaxf dropped it and repeated another value); the
+    median is NaN wherever one is present, as its plain version."""
+    x = _with_nan(b, n, d, 21, card)
+    torch.testing.assert_close(cwtm_cuda(x, f), cwtm_ref(x, f), rtol=1e-5,
+                               atol=1e-5, equal_nan=True)
+    torch.testing.assert_close(median_cuda(x), median_ref(x), rtol=0,
+                               atol=1e-6, equal_nan=True)
+
+
 @pytest.mark.cuda
 def test_launch_counters(card):
     x = _x(2, 13, 500, 3, card)
@@ -306,11 +336,12 @@ def test_momentum_kernel_bitwise(card, n, d, bs, kb, local, dtype, beta):
     ids = torch.tensor(np.stack([rng.permutation(nb)[:kb] for _ in range(n)])
                        if local else rng.permutation(nb)[:kb],
                        dtype=torch.int32, device=card)
-    f32_out = dtype == torch.bfloat16
+    f32 = (lambda: {"out": torch.empty(n, d, device=card)}
+           if dtype == torch.bfloat16 else {})
     K.reset_launches()
     m_k, m_p = m0.clone(), m0.clone()
-    out_k = momentum_scatter_cuda(m_k, pay, ids, bs, beta, f32_out)
-    out_p = momentum_scatter_ref(m_p, pay, ids, bs, beta, f32_out)
+    out_k = momentum_scatter_cuda(m_k, pay, ids, bs, beta, **f32())
+    out_p = momentum_scatter_ref(m_p, pay, ids, bs, beta, **f32())
     torch.cuda.synchronize()
     assert K.launches()["momentum_scatter"] == 1
     assert torch.equal(_bits(m_k), _bits(m_p))
@@ -322,8 +353,9 @@ def test_momentum_wrapper_rejects_what_the_kernel_does_not_take(card):
     from repro_torch.kernels.randk import momentum_scatter_cuda
     m = torch.zeros(2, 1024, device=card)
     pay = torch.zeros(2, 256, device=card)
-    with pytest.raises(ValueError, match="f32_out"):
-        momentum_scatter_cuda(m, pay, torch.tensor([0, 1]), 128, 0.9, True)
+    with pytest.raises(ValueError, match="narrower than float32"):
+        momentum_scatter_cuda(m, pay, torch.tensor([0, 1]), 128, 0.9,
+                              out=torch.empty(2, 1024, device=card))
     with pytest.raises(ValueError, match="block ids"):
         momentum_scatter_cuda(m, pay, torch.tensor([0]), 128, 0.9)
     with pytest.raises(ValueError, match="multiple of 4"):
@@ -331,6 +363,128 @@ def test_momentum_wrapper_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="aligned"):
         momentum_scatter_cuda(torch.zeros(2049, device=card)[1:].view(2, 1024),
                               pay, torch.tensor([0, 1]), 128, 0.9)
+
+
+def _lowp(x, dtype):
+    from repro_torch.utils.dtypes import to_dtype
+    return to_dtype(x, dtype)
+
+
+def _bits_any(t):
+    return t.view({4: torch.int32, 2: torch.int16,
+                   1: torch.uint8}[t.element_size()])
+
+
+WINDOW_DTYPES = [torch.float32, torch.bfloat16, torch.float16,
+                 torch.float8_e4m3fn]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("window", [(0, 5), (5, 12), (12, 19)])
+@pytest.mark.parametrize("dtype", WINDOW_DTYPES)
+def test_windowed_momentum_kernel_bitwise(card, dtype, window, local):
+    """The momentum kernel on a first, a middle and a ragged last window of
+    19 blocks, bitwise its plain version on the same window: the window of
+    the bank, the float32 result (banks narrower than float32, into a
+    caller's buffer of a wider row stride) and the rest of the bank left
+    as it was; one launch, the slot map built by the caller."""
+    from repro_torch.kernels.randk import (momentum_scatter_cuda,
+                                           momentum_scatter_ref, slot_map)
+    n, bs, nb, kb, beta = 4, 512, 19, 6, 0.9
+    b0, b1 = window
+    m0 = _lowp(_x(1, n, nb * bs, 16, card)[0] * 60, dtype)
+    m0[:, ::5] = -0.0
+    pay = _lowp(_x(1, n, kb * bs, 17, card)[0], dtype)
+    rng = np.random.default_rng(b0)
+    ids = torch.tensor(np.stack([rng.permutation(nb)[:kb] for _ in range(n)])
+                       if local else rng.permutation(nb)[:kb],
+                       dtype=torch.int32, device=card)
+    slots = slot_map(ids, nb)
+    narrow = dtype != torch.float32
+    w = (b1 - b0) * bs
+    wide_k = torch.full((n, w + bs), float("nan"), device=card)
+    out_p = torch.empty((n, w), device=card) if narrow else None
+    kw_k = {"out": wide_k[:, :w]} if narrow else {}
+    K.reset_launches()
+    m_k, m_p = m0.clone(), m0.clone()
+    got = momentum_scatter_cuda(m_k, pay, ids, bs, beta, window=(b0, b1),
+                                slots=slots, **kw_k)
+    torch.cuda.synchronize()
+    assert K.launches()["momentum_scatter"] == 1
+    want = momentum_scatter_ref(m_p, pay, ids, bs, beta, window=(b0, b1),
+                                out=out_p)
+    assert torch.equal(_bits_any(m_k), _bits_any(m_p))
+    cols = torch.zeros(nb * bs, dtype=torch.bool, device=card)
+    cols[b0 * bs:b1 * bs] = True
+    assert torch.equal(_bits_any(m_k[:, ~cols]), _bits_any(m0[:, ~cols]))
+    if narrow:
+        assert got is kw_k["out"]
+        assert torch.equal(_bits_any(got), _bits_any(want))
+        assert bool(torch.isnan(wide_k[:, w:]).all())
+    else:
+        assert got is m_k
+
+
+@pytest.mark.cuda
+def test_momentum_wrapper_rejects_a_bad_window(card):
+    from repro_torch.kernels.randk import momentum_scatter_cuda, slot_map
+    m = torch.zeros(2, 4 * 128, dtype=torch.bfloat16, device=card)
+    pay = torch.zeros(2, 128, dtype=torch.bfloat16, device=card)
+    ids = torch.tensor([1], dtype=torch.int32, device=card)
+    for window in ((2, 2), (-1, 2), (3, 5)):
+        with pytest.raises(ValueError, match="window"):
+            momentum_scatter_cuda(m, pay, ids, 128, 0.9, window=window)
+    with pytest.raises(ValueError, match="out must be"):
+        momentum_scatter_cuda(m, pay, ids, 128, 0.9, window=(0, 2),
+                              out=torch.empty(2, 128, device=card))
+    with pytest.raises(ValueError, match="out must be"):
+        momentum_scatter_cuda(m, pay, ids, 128, 0.9, window=(0, 2),
+                              out=torch.empty(2, 512, device=card)[:, 2:258])
+    with pytest.raises(ValueError, match="slots"):
+        momentum_scatter_cuda(m, pay, ids, 128, 0.9,
+                              slots=slot_map(ids, 4).long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdt", ["bfloat16", "float16", "float8_e4m3fn"])
+def test_sliced_payload_round_on_the_card_matches_the_cpu(card, mdt,
+                                                          monkeypatch):
+    """RoSDHB's payload round by column slices (windows of 5 blocks of 512
+    over 37: the last of 2), on the card against the same round on the
+    CPU: the bank bitwise (the kernel is its plain version), the direction
+    within rtol 1e-5 of max |R| (CWTM's kernel and plain version sum in
+    other orders), one compress and, a window, one ``momentum_scatter`` and
+    one CWTM launch."""
+    from repro_torch.core import algorithms as Alg
+    from repro_torch.core import make_aggregator
+    monkeypatch.setattr(Alg, "DENSE_COLUMNS", 5 * 512)
+    n, bs, nb = 8, 512, 37
+    cfg = AlgorithmConfig(
+        name="rosdhb", n_workers=n, f=1, beta=0.9, momentum_dtype=mdt,
+        sparsifier=SparsifierConfig(kind="block", ratio=0.25, block_size=bs),
+        aggregator=AggregatorConfig(name="cwtm", f=1),
+        attack=AttackConfig(name="alie"))
+    assert Alg._payload_window(cfg, nb * bs) == 5
+    dt = Alg.BANK_DTYPES[mdt]
+    g = _lowp(_x(1, n, nb * bs, 18, "cpu")[0], dt)
+    m0 = _lowp(_x(1, n, nb * bs, 19, "cpu")[0], dt)
+    ids = np.random.default_rng(1).permutation(nb)[:9]
+    out = {}
+    for dev in ("cpu", card):
+        state = Alg.init_state(cfg, nb * bs, device=dev)._replace(
+            momentum=m0.clone().to(dev))
+        K.reset_launches()
+        r, new, _ = Alg.server_round(
+            cfg, state, g.to(dev), ReplayDraws(dev, permutations=[ids]),
+            agg=make_aggregator(cfg.aggregator, device=dev))
+        out[str(dev)] = (r.cpu(), new.momentum.cpu(), K.launches())
+    (r_c, m_c, _), (r_g, m_g, got) = out["cpu"], out[str(card)]
+    assert got["block_compress"] == 1 and got["block_decompress"] == 0
+    assert got["momentum_scatter"] == got["cwtm"] == 8
+    assert torch.equal(_bits_any(m_g), _bits_any(m_c))
+    torch.testing.assert_close(r_g, r_c, rtol=0, atol=1e-5 * float(
+        r_c.abs().max()))
 
 
 @pytest.mark.cuda

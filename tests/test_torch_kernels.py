@@ -67,6 +67,33 @@ def test_median_plain_matches_reference(b, n, f, d):
         np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("b,n,f,d", AWKWARD[:4])
+def test_sort_plain_versions_with_nan_match_the_reference(b, n, f, d):
+    """NaN and +-inf among a coordinate's values (a float8 bank's ALIE rows
+    can hold NaN): the median is NaN wherever a NaN is present, as the
+    reference's ``jnp.median`` and its Pallas kernel give; CWTM sorts NaN
+    last and trims it at a trimmed rank, as the reference's ``jnp.sort``
+    oracle (the one its CPU rounds take) does."""
+    x = _x(b, n, d, b * d + n + 3)
+    rng = np.random.default_rng(d)
+    cols = np.arange(d)
+    for k in (1, 2):
+        pick = cols[cols % 3 == k]
+        for _ in range(k):
+            x[:, rng.integers(n, size=pick.size), pick] = np.nan
+    x[:, rng.integers(n), ::7] = np.inf
+    x[:, rng.integers(n), ::11] = -np.inf
+    got = median_ref(torch.tensor(x)).numpy()
+    assert np.isnan(got).any()
+    for want in (median_pallas_batched(jnp.asarray(x), block_d=256,
+                                       interpret=True),
+                 jax_median_ref(jnp.asarray(x))):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(cwtm_ref(torch.tensor(x), f).numpy(),
+                               np.asarray(jax_cwtm_ref(jnp.asarray(x), f)),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_median_even_n_is_midpoint_not_lower():
     """``torch.median`` returns the lower middle; the port keeps jnp's
     midpoint."""

@@ -75,8 +75,10 @@ def test_momentum_update_is_the_dense_step_in_place():
     assert torch.equal(_bits(bank), _bits(want))
     assert (_bits(bank[:, :bs]) == 0).all()  # +0.0, not -0.0
     mb = m.to(torch.bfloat16)
+    buf = torch.empty(n, d)
     out32 = momentum_update(mb, p.to(torch.bfloat16), ids, block_size=bs,
-                            beta=beta, f32_out=True)
+                            beta=beta, out=buf)
+    assert out32 is buf
     want32 = (m.to(torch.bfloat16).float() * beta).add_(
         wire.to(torch.bfloat16).float(), alpha=1.0 - beta)
     assert out32.dtype == torch.float32
