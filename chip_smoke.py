@@ -48,12 +48,16 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    64]``, at zamba2's ``[1, 4096, 32, 112]`` (zero-padded to 128), at
    gemma_2b's ``[1, 4096, 8, 256]`` with one kv head and at the LLM
    step's ``[1, 4096, 32, 80]``, where two backward runs must be bitwise
-   equal;
-   the flash kernels' ptxas registers and no spill at any head dim, and
-   their SASS must hold
-   ``wgmma`` (HGMMA) and TMA (UTMALDG) and no WMMA (HMMA). Times of the
-   kernel, the plain version and a PyTorch library call beside the least
-   time the card could take;
+   equal; the float32 kernels (``csrc/flash_attention_f32.cu``) on every
+   awkward case and, timed, at zamba2's, gemma_2b's, the vlm's ``[1,
+   4096, 32, 128]`` (8 kv heads) and the LLM step's shapes, within 1e-5 of
+   the plain version's largest entry (their launches on their own
+   counters), two backward runs bitwise equal, beside the float64 errors
+   of both; the flash kernels' ptxas registers and no spill at any head
+   dim, the bf16 kernels' SASS must hold ``wgmma`` (HGMMA) and TMA
+   (UTMALDG) and no WMMA (HMMA), the float32 kernels' FFMA and no HGMMA,
+   HMMA or tf32 instruction. Times of the kernel, the plain version and a
+   PyTorch library call beside the least time the card could take;
 4. main path, CNN: the ``fig1-alie`` RoSDHB cell (n=13, f=3, global RandK
    at 0.1, ALIE z=1.5, NNM+CWTM, beta=0.9, gamma=0.05) on the paper's CNN at
    full width (D = 11,958) for 30 rounds through ``Simulator``; the launch
@@ -82,7 +86,11 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    at its dtype, and 8 steps with
    ``--stream --chunk-size
    4 --prefetch-depth 2 --checkpoint``, bitwise equal to a per-step run over
-   the same ``(seed, t)`` batches, its checkpoint restored bitwise;
+   the same ``(seed, t)`` batches, its checkpoint restored bitwise; then
+   the cut at model dtype float32 (``launch.train.run(dtype="float32")``):
+   2 steps with the float32 flash kernels 16 times a step each way and
+   the bf16 ones not at all, finite losses, against 2 plain steps within
+   the same bounds, step ms and peak memory;
 7. the Table-1 grid engine (``repro_torch.core.sweep``): the ``table1``
    product (rosdhb, dasha, robust_dgd, dgd x alie, foe, signflip x cwtm,
    median; dgd takes the mean: 21 cells) on the CNN, 2 seeds, as 42 lanes
@@ -140,7 +148,8 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    forward over the same teacher-forced sequence (the flash kernel: one
    launch a self-attention layer, 32) within 5e-2 of max |h| and the same
    greedy tokens again; the same at full width cut to one group (5 layers)
-   in float32 within 1e-4; qwen25_3b at full depth under ``long_500k`` (the
+   in float32 within 1e-4, its train-mode forward on the float32 flash
+   kernel (4 launches, one a self-attention layer); qwen25_3b at full depth under ``long_500k`` (the
    8,192-slot ring) through a 9,216-token prompt and 16 decode steps
    against the windowed train-mode forward; gemma_2b, musicgen_medium and
    mistral_large_123b (4 layers), timed and held the same way;
@@ -219,7 +228,9 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
 15. the device µs and device kernels per call of pairdist, CWTM, median,
    the flash forward and backward (at ``[1, 4096, 32, 80]``, ``[1, 4096,
    24, 64]``, zamba2's ``[1, 4096, 32, 112]``, gemma_2b's ``[1, 4096, 8,
-   256]`` and transformer-table1's folded ``[288, 32, 2, 64]``) and their
+   256]``, the vlm's ``[1, 4096, 32, 128]`` and transformer-table1's
+   folded ``[288, 32, 2, 64]``; the float32 kernels at their four timed
+   shapes) and their
    library calls (SDPA, with ``enable_gqa`` on one kv head), and of compress,
    decompress and ``momentum_scatter`` at the LLM step's ``[8,
    416179200]`` and at the families' train paths' banks, from the
@@ -311,6 +322,12 @@ KERNELS = {
                   "replaces": "src/repro/kernels/flash_attention/flash.py:34"},
     "flash_bwd": {"source": "src/repro_torch/csrc/flash_attention.cu",
                   "replaces": "src/repro/kernels/flash_attention/flash.py:34"},
+    "flash_fwd_f32": {
+        "source": "src/repro_torch/csrc/flash_attention_f32.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash.py:34"},
+    "flash_bwd_f32": {
+        "source": "src/repro_torch/csrc/flash_attention_f32.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash.py:34"},
 }
 
 # The LLM path (``repro_torch.launch.train``): full-width stablelm_3b cut to
@@ -498,6 +515,18 @@ FLASH_TOL_GRAD = 2e-2
 FLASH_TILE_ROWS = 64
 FLASH_TILE_TOL_OUT = 1e-2
 FLASH_TILE_TOL_GRAD = 1e-2
+# The float32 kernels (csrc/flash_attention_f32.cu) against the plain
+# version on the same float32 inputs: both compute in float32 (FFMA, TF32
+# off for the plain version's matmuls) and differ only in summation order,
+# so out, dq, dk and dv within 1e-5 of max|plain|, and each 64-row tile's
+# rms(err) within 1e-4 of its rms(plain) (a tile of small entries, the last
+# keys of a causal mask, carries the rounding of the larger ones it sums).
+# The dropped tile reads 0.03 and more: it fails this bound many times over.
+FLASH_F32_TOL = 1e-5
+FLASH_F32_TILE_TOL = 1e-4
+# The float32 cases: every awkward case, then the timed rows at the LLM
+# path's, the vlm's, gemma_2b's and zamba2's shapes (zamba2's padded).
+FLASH_F32_TIMED = (FLASH_ZAMBA, FLASH_GEMMA, FLASH_VLM, FLASH_PATH)
 
 
 def log(msg: str) -> None:
@@ -893,7 +922,8 @@ def device_times(torch, cases, flash_cases=(), randk_cases=()) -> dict:
     and the library call's ``(device µs, device operations, names)`` per
     call (:func:`device_us`), on the input made from the seed; the same for
     the flash forward and backward of each ``(case, seed)`` of
-    ``flash_cases`` (:func:`flash_fns`), for the Block-RandK kernels of
+    ``flash_cases`` (:func:`flash_fns`; ``(case, seed, dtype)``), for the
+    Block-RandK kernels of
     each ``("block" | "momentum", case, seed, names)`` of ``randk_cases``
     (:func:`randk_fns`, :func:`momentum_fn`); and the host µs of
     ``x.neg()`` before and after those profiler windows."""
@@ -908,8 +938,8 @@ def device_times(torch, cases, flash_cases=(), randk_cases=()) -> dict:
         del kern, lib
         torch.cuda.empty_cache()
     flash = []
-    for case, seed in flash_cases:
-        fns = flash_fns(torch, tuple(case), seed)
+    for case, seed, dtype in flash_cases:
+        fns = flash_fns(torch, tuple(case), seed, dtype=dtype)
         flash.append({name: {who: device_us(torch, fn, 10) for who, fn in
                              zip(("kernel", "library"), pair)
                              if fn is not None}
@@ -953,7 +983,8 @@ def profile_cases(torch, results, fresh_process: bool = False,
               rec["reps"]) for name in SORT_KERNELS for rec in results[name]
              if "seed" in rec]
     timed_flash = [rec for rec in flash if "flash_fwd" in rec]
-    flash_cases = [(rec["case"], rec["seed"]) for rec in timed_flash]
+    flash_cases = [(rec["case"], rec["seed"], rec["dtype"])
+                   for rec in timed_flash]
     timed_randk = [] if randk is None else (
         [("block", rec) for rec in randk["block"] if "seed" in rec]
         + [("momentum", rec) for rec in randk["momentum"] if "seed" in rec]
@@ -1019,7 +1050,7 @@ def profile_cases(torch, results, fresh_process: bool = False,
                 key = "" if who == "kernel" else "library_"
                 rec[name].update({f"{key}device_us": us,
                                   f"{key}device_ops": ops})
-            log(f"flash {name} {rec['case']}: device us "
+            log(f"flash {name} {rec['case']} {rec['dtype']}: device us "
                 f"{rec[name]['device_us']:.3f} ({rec[name]['device_ops']:g}"
                 f" kernels a call), host us {rec[name]['host_us']:.3f}, "
                 f"SDPA device us {rec[name].get('library_device_us')}")
@@ -1774,47 +1805,84 @@ def launch_inputs(torch, q, k, v, dout) -> tuple:
         1.0 / math.sqrt(d),)
 
 
+def flash_tols(dtype: str) -> tuple:
+    """``(out, grad, tile out, tile grad)`` bounds of a flash case of
+    ``dtype``, as fractions of max|plain| and of each tile's rms(plain)."""
+    if dtype == "float32":
+        return (FLASH_F32_TOL,) * 2 + (FLASH_F32_TILE_TOL,) * 2
+    return (FLASH_TOL_OUT, FLASH_TOL_GRAD, FLASH_TILE_TOL_OUT,
+            FLASH_TILE_TOL_GRAD)
+
+
+def flash_inputs(torch, case, seed: int, dtype: str, device: str) -> tuple:
+    """q, k, v and dout of ``case`` from ``seed``: normal draws, rounded to
+    ``dtype``."""
+    b, sq, sk, h, kv, d = case[:6]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device=device).to(
+        getattr(torch, dtype)) for s in ((b, sq, h, d), (b, sk, kv, d),
+                                         (b, sk, kv, d), (b, sq, h, d)))
+
+
 def flash_case(torch, case, timed: bool, seed: int,
-               device: str = "cuda") -> dict:
+               device: str = "cuda", dtype: str = "bfloat16") -> dict:
     """Flash forward and backward against the plain version computed in
-    float32 from the same bf16 inputs: out, dq, dk, dv."""
+    float32 from the same inputs (bfloat16, or float32: the float32
+    kernels): out, dq, dk, dv; on the card the launches land on the
+    kernels of ``dtype`` (one forward, one backward)."""
+    from repro_torch import kernels as K
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     b, sq, sk, h, kv, d, causal, window, q_offset = case
-    gen = torch.Generator(device=device).manual_seed(seed)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=device).to(
-            torch.bfloat16)
-
-    q, k, v, dout = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d), \
-        rnd(b, sq, h, d)
+    q, k, v, dout = flash_inputs(torch, case, seed, dtype, device)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    K.reset_launches()
     o = flash_attention(*leaves, **kw)
     grads = torch.autograd.grad(o, leaves, dout)
+    launched = {n: c for n, c in K.launches().items() if c}
+    keys = ("flash_fwd_f32", "flash_bwd_f32") if dtype == "float32" else \
+        ("flash_fwd", "flash_bwd")
+    want_launched = {n: 1 for n in keys} if device == "cuda" else {}
     fl = [t.float().requires_grad_() for t in (q, k, v)]
     o_ref = attention_ref(*fl, **kw)
     grads_ref = torch.autograd.grad(o_ref, fl, dout.float())
-    errs, ok = {}, True
+    tol_out, tol_grad, tile_out, tile_grad = flash_tols(dtype)
+    errs, ok = {}, launched == want_launched
     for name, got, want, tol, tile_tol in [
-            ("out", o, o_ref, FLASH_TOL_OUT, FLASH_TILE_TOL_OUT)] + [
-            (n_, g_, w_, FLASH_TOL_GRAD, FLASH_TILE_TOL_GRAD) for n_, g_, w_
+            ("out", o, o_ref, tol_out, tile_out)] + [
+            (n_, g_, w_, tol_grad, tile_grad) for n_, g_, w_
             in zip(("dq", "dk", "dv"), grads, grads_ref)]:
         err = float((got.detach().float() - want.detach()).abs().max())
         scale = float(want.detach().abs().max())
         errs[name] = err
         errs[name + "_rel"] = err / scale
         errs[name + "_tile"] = tile_rel_err(torch, got, want)
-        ok = ok and got.shape == want.shape and math.isfinite(err) and \
-            err <= tol * scale and errs[name + "_tile"] <= tile_tol
+        ok = ok and got.shape == want.shape and got.dtype == q.dtype and \
+            math.isfinite(err) and err <= tol * scale and \
+            errs[name + "_tile"] <= tile_tol
+    if timed and dtype == "float32":
+        # the kernels and the plain version each against float64, as
+        # max|err| / max|float64|: whose rounding the distance above is
+        d64 = [t.double().requires_grad_() for t in (q, k, v)]
+        o64 = attention_ref(*d64, **kw)
+        want64 = [o64.detach(), *torch.autograd.grad(o64, d64,
+                                                     dout.double())]
+        for who, vals in (("kernel", [o, *grads]),
+                          ("plain", [o_ref, *grads_ref])):
+            errs[f"{who}_f64"] = {
+                n: float((a.detach().double() - w).abs().max()
+                         / w.abs().max())
+                for n, a, w in zip(("out", "dq", "dk", "dv"), vals, want64)}
+        del d64, o64, want64
     del fl, o_ref, grads_ref
-    rec = {"case": list(case), "errs": errs, "ok": ok,
-           "tolerance": f"max|err| <= {FLASH_TOL_OUT:g} max|plain| (out), "
-                        f"{FLASH_TOL_GRAD:g} max|plain| (dq, dk, dv); "
+    rec = {"case": list(case), "dtype": dtype, "errs": errs, "ok": ok,
+           "launched": launched,
+           "tolerance": f"max|err| <= {tol_out:g} max|plain| (out), "
+                        f"{tol_grad:g} max|plain| (dq, dk, dv); "
                         f"worst {FLASH_TILE_ROWS}-row tile rms(err) <= "
-                        f"{FLASH_TILE_TOL_OUT:g} rms(plain) (out), "
-                        f"{FLASH_TILE_TOL_GRAD:g} (dq, dk, dv)"}
+                        f"{tile_out:g} rms(plain) (out), "
+                        f"{tile_grad:g} (dq, dk, dv)"}
     if timed:
         from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
                                                          flash_fwd_cuda)
@@ -1830,8 +1898,10 @@ def flash_case(torch, case, timed: bool, seed: int,
         rec["seed"] = seed  # for profile_cases
         from repro_torch.launch.roofline import flash_work
         work = flash_work(b, sq, sk, h, kv, d,
-                          flash_pairs(sq, sk, causal, window, q_offset))
-        fns = flash_fns(torch, case, seed)
+                          flash_pairs(sq, sk, causal, window, q_offset),
+                          itemsize=q.element_size())
+        rate = "f32" if dtype == "float32" else "bf16"
+        fns = flash_fns(torch, case, seed, dtype=dtype)
         for name, (kern, lib) in fns.items():
             rec[name] = {"ms": time_ms(torch, kern, 10),
                          "host_us": host_us(torch, kern, 100),
@@ -1840,7 +1910,7 @@ def flash_case(torch, case, timed: bool, seed: int,
         rec["flash_fwd"]["plain_ms"] = time_ms(
             torch, lambda: attention_ref(q, k, v, **kw), 5)
         rec["flash_fwd"]["bound_ms"], rec["flash_fwd"]["bound_by"] = _bound(
-            work["flash_fwd"], "bf16")
+            work["flash_fwd"], rate)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         o_p = attention_ref(*leaves, **kw)
         rec["flash_bwd"]["plain_ms"] = time_ms(torch, lambda: torch.autograd
@@ -1848,7 +1918,7 @@ def flash_case(torch, case, timed: bool, seed: int,
                                                      retain_graph=True), 5)
         del o_p
         rec["flash_bwd"]["bound_ms"], rec["flash_bwd"]["bound_by"] = _bound(
-            work["flash_bwd"], "bf16")
+            work["flash_bwd"], rate)
         if rec["flash_fwd"]["library_ms"] is not None:
             sdpa, (qt, kt, vt, dt_) = sdpa_inputs(torch, q, k, v, dout)
             lt = [t.clone().requires_grad_() for t in (qt, kt, vt)]
@@ -1872,19 +1942,18 @@ def sdpa_inputs(torch, q, k, v, dout):
     return sdpa, [t.transpose(1, 2).contiguous() for t in (q, k, v, dout)]
 
 
-def flash_fns(torch, case, seed: int, device: str = "cuda") -> dict:
+def flash_fns(torch, case, seed: int, device: str = "cuda",
+              dtype: str = "bfloat16") -> dict:
     """``{"flash_fwd": (kernel, library), "flash_bwd": (kernel, library)}``
     calls on the inputs :func:`flash_case` makes from ``seed`` (the
-    kernels on :func:`launch_inputs`); the library call is SDPA's forward
-    or backward where it computes the same function (causal, full window,
-    Sq = Sk; GQA through its ``enable_gqa``), else None."""
+    kernels of ``dtype`` on :func:`launch_inputs`); the library call is
+    SDPA's forward or backward where it computes the same function
+    (causal, full window, Sq = Sk; GQA through its ``enable_gqa``; float32
+    with TF32 off as the script sets it), else None."""
     from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
                                                      flash_fwd_cuda)
     b, sq, sk, h, kv, d, causal, window, q_offset = case
-    gen = torch.Generator(device=device).manual_seed(seed)
-    q, k, v, dout = (torch.randn(s, generator=gen, device=device).to(
-        torch.bfloat16) for s in ((b, sq, h, d), (b, sk, kv, d),
-                                  (b, sk, kv, d), (b, sq, h, d)))
+    q, k, v, dout = flash_inputs(torch, case, seed, dtype, device)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     qp, kp, vp, dp_, sc = launch_inputs(torch, q, k, v, dout)
     o, lse = flash_fwd_cuda(qp, kp, vp, **kw, scale=sc)
@@ -1904,14 +1973,19 @@ def flash_fns(torch, case, seed: int, device: str = "cuda") -> dict:
 
 def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
                 audio=FLASH_AUDIO, zamba=FLASH_ZAMBA,
-                gemma=FLASH_GEMMA, vlm=FLASH_VLM) -> list:
+                gemma=FLASH_GEMMA, vlm=FLASH_VLM,
+                f32_timed=FLASH_F32_TIMED) -> list:
     """Flash attention kernel cases: awkward shapes, then
     transformer-table1's folded call, the audio train path's (``audio``),
     zamba2_7b's shared block at head dim 112, zero-padded to 128
     (``zamba``), gemma_2b's at head dim 256 (``gemma``), the vlm's
     self-attention (``vlm``: GQA, 32 heads of 128 on 8) and the LLM path's
-    (timed; the LLM path's last). Fails where ptxas reports a spill in
-    any flash kernel."""
+    (timed; the LLM path's last); the float32 kernels on every awkward
+    case and, timed, at ``f32_timed`` (zamba2's, gemma_2b's, the vlm's and
+    the LLM path's shapes). Fails where ptxas reports a spill in any flash
+    kernel, or where the SASS of a bfloat16 attention kernel lacks HGMMA or
+    TMA loads, or that of a float32 kernel lacks FFMA or holds a tensor
+    core or tf32 instruction."""
     out, failures = [], []
     # (case, timed, seed): the seeds of the cases before stay as they were
     n_awk = len(FLASH_AWKWARD) - len(FLASH_AWKWARD_256)
@@ -1922,14 +1996,22 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
                 (audio, True, 500 + n_awk + 2),
                 (zamba, True, 500 + n_awk + 3),
                 (gemma, True, 500 + n_awk + 4),
-                (vlm, True, 500 + n_awk + 5),
-                (path, True, 500 + n_awk + 1)])
-    for case, timed, seed in cases:
+                (vlm, True, 500 + n_awk + 5)])
+    cases = [(c, timed, seed, "bfloat16") for c, timed, seed in cases]
+    # the float32 kernels: every awkward case, then the timed rows; the
+    # bf16 path's case stays last (the kernel record's)
+    cases += ([(c, False, 700 + i, "float32")
+               for i, c in enumerate(FLASH_AWKWARD)]
+              + [(c, True, 800 + i, "float32")
+                 for i, c in enumerate(f32_timed)]
+              + [(path, True, 500 + n_awk + 1, "bfloat16")])
+    for case, timed, seed, dtype in cases:
         rec = flash_case(torch, case, timed and device == "cuda",
-                         seed=seed, device=device)
+                         seed=seed, device=device, dtype=dtype)
         out.append(rec)
         e = rec["errs"]
-        line = (f"kernel flash {case}: rel err out {e['out_rel']:.3g} dq "
+        line = (f"kernel flash {case} {dtype}: rel err out "
+                f"{e['out_rel']:.3g} dq "
                 f"{e['dq_rel']:.3g} dk {e['dk_rel']:.3g} dv {e['dv_rel']:.3g}"
                 f"; tile rel rms out {e['out_tile']:.3g} dq "
                 f"{e['dq_tile']:.3g} dk {e['dk_tile']:.3g} dv "
@@ -1951,42 +2033,63 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
         if "bwd_bitwise_repeat" in rec:
             line += (f" | two backward runs bitwise equal: "
                      f"{rec['bwd_bitwise_repeat']}")
+        for who in ("kernel", "plain"):
+            if f"{who}_f64" in e:
+                line += f" | {who} vs float64: " + ", ".join(
+                    f"{n} {r:.3g}" for n, r in e[f"{who}_f64"].items())
         log(line)
         if not rec["ok"]:
-            failures.append(str(case))
-    # the tile check would fail a kernel that dropped one tile on the path
+            failures.append(f"{case} {dtype} (launched {rec['launched']})")
+    # the tile check would fail a kernel that dropped one tile on the path,
+    # at either dtype's bounds
     fault = flash_fault_readings(torch, path, seed=499, device=device)
-    tols = {"out": FLASH_TILE_TOL_OUT, "dq": FLASH_TILE_TOL_GRAD,
-            "dk": FLASH_TILE_TOL_GRAD, "dv": FLASH_TILE_TOL_GRAD}
-    log(f"flash {path}: one dropped tile reads tile rel rms " + ", ".join(
-        f"{n} {r:.3g}" for n, r in fault.items()) + " (must exceed twice "
-        "the tile bounds)")
-    failures += [f"a dropped tile reads {n} {r:.3g}, within twice its "
-                 f"bound" for n, r in fault.items() if r <= 2 * tols[n]]
+    for dtype in ("bfloat16", "float32"):
+        _, _, tile_out, tile_grad = flash_tols(dtype)
+        tols = {"out": tile_out, "dq": tile_grad, "dk": tile_grad,
+                "dv": tile_grad}
+        log(f"flash {path}: one dropped tile reads tile rel rms " +
+            ", ".join(f"{n} {r:.3g}" for n, r in fault.items()) +
+            f" (must exceed twice the {dtype} tile bounds, {tile_out:g} "
+            f"out, {tile_grad:g} dq, dk, dv)")
+        failures += [f"a dropped tile reads {n} {r:.3g}, within twice its "
+                     f"{dtype} bound" for n, r in fault.items()
+                     if r <= 2 * tols[n]]
     for name, regs in sorted(FLASH_PTXAS.items()):
         log(f"flash ptxas {name}: {regs['registers']} registers, spill "
             f"stores {regs['spill_stores']} B, spill loads "
             f"{regs['spill_loads']} B")
         if regs["spill_stores"] or regs["spill_loads"]:
             failures.append(f"{name} spills ({regs})")
-    if FLASH_PTXAS:  # this process built the library: every head dim
-        from repro_torch.kernels.flash_attention import HEAD_DIMS
-        built = {name.split("<")[-1].rstrip(">'") for name in FLASH_PTXAS}
-        missing = {str(d) for d in HEAD_DIMS} - built
-        if missing:
-            failures.append(f"no ptxas report of the flash kernels at head "
-                            f"dims {sorted(missing)}")
+    # every kernel at every head dim in the report of each library this
+    # process built
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    missing = [f"{k}<{d}>" for lib, names in FLASH_KERNELS.items()
+               if lib in build.BUILD_LOG for k in names for d in HEAD_DIMS
+               if f"{k}<{d}>" not in FLASH_PTXAS]
+    if missing:
+        failures.append(f"no ptxas report of {missing}")
     if device == "cuda":
-        from repro_torch.kernels import build
-        sass = sass_counts(build.library_path("flash_attention"))
-        if not sass:
-            failures.append("no flash kernel in cuobjdump -sass")
+        sass = {}
+        for lib in FLASH_KERNELS:
+            sass.update(sass_counts(build.library_path(lib)))
+        if {n.split("<")[0] for n in sass} != {
+                k for names in FLASH_KERNELS.values() for k in names}:
+            failures.append(f"cuobjdump -sass shows the flash kernels "
+                            f"{sorted(sass)}")
         for name, ops in sorted(sass.items()):
             log(f"flash sass {name}: " + ", ".join(
                 f"{op} {n}" for op, n in ops.items()))
-            # the attention kernels run on wgmma and TMA, never on WMMA
-            if "delta" not in name and (not ops["HGMMA"] or
-                                        not ops["UTMALDG"] or ops["HMMA"]):
+            if "ffma" in name:
+                # the float32 kernels: FFMA on the CUDA cores, no tensor
+                # core instruction and nothing in tf32
+                if not ops["FFMA"] or ops["HGMMA"] or ops["HMMA"] or \
+                        ops["TF32"]:
+                    failures.append(f"{name} SASS {ops}")
+            # the bf16 attention kernels run on wgmma and TMA, never on
+            # WMMA
+            elif "delta" not in name and (not ops["HGMMA"] or
+                                          not ops["UTMALDG"] or ops["HMMA"]):
                 failures.append(f"{name} SASS {ops}")
         FLASH_SASS.update(sass)
     if failures:
@@ -2560,6 +2663,9 @@ LLM_CHECK_STEPS = 2
 # order. The honest loss averages 7 x 4095 token losses.
 LLM_TOL_LOSS = 5e-3   # relative, per step
 LLM_TOL_DIR = 2e-2    # relative |R|, per step
+# the LLM cut at model dtype float32 (the float32 flash kernels): steps run
+# on each path
+LLM_F32_STEPS = 2
 
 
 def llm_argv(device: str, steps: int, n_layers: int = LLM_LAYERS) -> list:
@@ -2570,12 +2676,16 @@ def llm_argv(device: str, steps: int, n_layers: int = LLM_LAYERS) -> list:
 
 
 def llm_launches(cfg, plan, steps: int, on_card: bool, **server) -> dict:
-    """Expected launches of ``steps`` LLM steps: the flash kernels per
+    """Expected launches of ``steps`` LLM steps: the flash kernels of the
+    model's dtype (:func:`flash_keys`, none of the other's) per
     self-attention application (:func:`flash_layers`) and worker, CWTM
     once a window of the payload round (:func:`payload_slices`), and the
     server kernels given (per step; a callable is called with ``plan``)."""
-    per_step = flash_layers(cfg, True) * plan.n_workers
-    want = {"flash_fwd": per_step * steps, "flash_bwd": per_step * steps,
+    per_step = flash_layers(cfg, on_card) * plan.n_workers
+    fwd, bwd = flash_keys(cfg)
+    want = {"flash_fwd": 0, "flash_bwd": 0, "flash_fwd_f32": 0,
+            "flash_bwd_f32": 0, fwd: per_step * steps,
+            bwd: per_step * steps,
             "cwtm": payload_slices(plan) * steps, "pairdist": 0,
             "median": 0,
             **{k: (v(plan) if callable(v) else v) * steps
@@ -2665,18 +2775,68 @@ def llm_phase(torch, device: str = "cuda", steps: int = LLM_STEPS,
     if on_card:
         torch.cuda.empty_cache()
     out["options"] = llm_options(torch, device, main=out)
+    out["f32"] = llm_f32(torch, device)
     return out
 
 
+def llm_f32(torch, device: str = "cuda", steps: int = LLM_F32_STEPS) -> dict:
+    """The LLM cut at model dtype float32 (``launch.train``'s plan and step
+    on stablelm_3b with its dtype overridden, float32 banks): q, k and v
+    float32, so the float32 flash kernels run once a self-attention
+    application and worker each way (16 a step) and the bf16 ones not at
+    all; finite losses, and the same steps against the plain path within
+    ``LLM_TOL_LOSS`` and ``LLM_TOL_DIR`` (float32 attention on both sides:
+    the bf16 model's bounds are loose for it)."""
+    from repro_torch.launch import train
+    on_card = device == "cuda"
+    res = llm_run(torch, device, "f32", llm_argv(device, steps), steps,
+                  dtype="float32", block_compress=1, block_decompress=0,
+                  momentum_scatter=payload_slices)
+    cfg = res["plan"].model
+    rec = {"dtype": cfg.dtype, "steps": steps, "losses": res["losses"],
+           "dir_norms": res["dir_norms"], "step_ms": res["step_ms"],
+           "peak_mib": res["peak_mib"], "held_mib": res["held_mib"],
+           "launches": res["launches"]}
+    del res
+    if on_card:
+        torch.cuda.empty_cache()
+    plain = train.run(llm_argv(device, steps), plain=True, log=log,
+                      dtype="float32")
+    rec["plain_rel_loss"] = max(abs(a - b) / abs(b) for a, b in zip(
+        rec["losses"], plain["losses"]))
+    rec["plain_rel_dir"] = max(abs(a - b) / abs(b) for a, b in zip(
+        rec["dir_norms"], plain["dir_norms"]))
+    rec["plain_step_ms"] = plain["step_ms"]
+    rec["plain_peak_mib"] = (plain["peak_bytes"] / 2**20
+                             if plain["peak_bytes"] is not None else None)
+    del plain
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"llm f32: {cfg.name} dtype={cfg.dtype} d_model={cfg.d_model} "
+        f"heads={cfg.n_heads}x{cfg.resolved_head_dim} layers={cfg.n_layers}"
+        f": step ms {', '.join(f'{v:.3f}' for v in rec['step_ms'])}, peak "
+        f"{rec['peak_mib']:.1f} MiB; kernel vs plain path over {steps} "
+        f"steps: honest loss max rel {rec['plain_rel_loss']:.3g} (bound "
+        f"{LLM_TOL_LOSS:g}), |R| max rel {rec['plain_rel_dir']:.3g} (bound "
+        f"{LLM_TOL_DIR:g}); plain steps "
+        f"{', '.join(f'{v:.3f}' for v in rec['plain_step_ms'])} ms, plain "
+        f"peak {rec['plain_peak_mib']} MiB")
+    if cfg.dtype != "float32" or rec["plain_rel_loss"] > LLM_TOL_LOSS or \
+            rec["plain_rel_dir"] > LLM_TOL_DIR:
+        raise AssertionError(f"llm f32: {rec}")
+    return rec
+
+
 def llm_run(torch, device: str, label: str, argv: list, steps: int,
-            **server) -> dict:
-    """One launcher run of ``steps`` steps with its launch counts checked
-    (``server``: the server kernels' launches a step); returns the step
-    times, the peak memory and the session."""
+            dtype=None, **server) -> dict:
+    """One launcher run of ``steps`` steps (``dtype``: the model's, in
+    place of the config's) with its launch counts checked (``server``: the
+    server kernels' launches a step); returns the step times, the peak
+    memory and the session."""
     from repro_torch import kernels as K
     from repro_torch.launch import train
     K.reset_launches()
-    res = train.run(argv, log=log)
+    res = train.run(argv, log=log, dtype=dtype)
     launches = K.launches()
     peak = (res["peak_bytes"] / 2**20 if res["peak_bytes"] is not None
             else float("nan"))
@@ -3795,10 +3955,11 @@ def _stream_phase(torch, device, rounds, tau_cap, grid_rounds, tt1_rounds,
 DECODE_ARCH = "llama32_vision_11b"  # full width and depth: 40 layers
 DECODE_F32_LAYERS = 5   # one group: 4 self-attention layers, 1 cross layer
 # Prefill and each decode step against the train-mode forward over the
-# same teacher-forced sequence, as max |diff| / max |h|. float32: plain
-# paths on both sides, summed in other orders (decode attention over the
-# cache against the chunked causal attention, matmuls of other row
-# counts); ~1e-6 on the CPU at d_model 512.
+# same teacher-forced sequence, as max |diff| / max |h|. float32: the plain
+# attention in prefill and decode, the float32 flash kernel (on the card)
+# in the train-mode forward, all in float32 and summed in other orders
+# (decode attention over the cache against the kernel's online softmax,
+# matmuls of other row counts); ~1e-6 on the CPU at d_model 512.
 DECODE_TOL_F32 = 1e-4
 # bfloat16: the train-mode forward takes the flash kernel (P rounded to
 # bf16 inside its online softmax) where prefill and decode take the plain
@@ -3833,16 +3994,33 @@ def self_layers(cfg) -> int:
     return cfg.n_layers
 
 
+def flash_keys(cfg) -> tuple:
+    """The launch counters ``(forward, backward)`` of the flash kernels
+    ``cfg``'s train-mode attention takes: the float32 kernels' at model
+    dtype float32, the bfloat16 ones' otherwise."""
+    return (("flash_fwd_f32", "flash_bwd_f32") if cfg.dtype == "float32"
+            else ("flash_fwd", "flash_bwd"))
+
+
 def flash_layers(cfg, on_card: bool) -> int:
-    """Flash forward launches of one train-mode forward: one per
-    self-attention application where the kernel takes the inputs
-    (bfloat16, head dims 64, 80, 128 and 256, the others up to 256
-    zero-padded to the next multiple of 128; never MLA, whose attention is
-    the plain one in the reference too), on the card only."""
-    from repro_torch.kernels.flash_attention.flash import HEAD_DIMS, padded_dim
-    takes = (cfg.dtype == "bfloat16" and not cfg.use_mla
-             and padded_dim(cfg.resolved_head_dim) in HEAD_DIMS)
-    return self_layers(cfg) if on_card and takes else 0
+    """Flash forward launches of one train-mode forward, under the counter
+    of :func:`flash_keys`: one per self-attention application where the
+    kernels take its q, k and v (their own ``refusal``, asked on the card
+    about tensors of the config's heads, head dim and dtype, with the zero
+    pad; never MLA, whose attention is the plain one in the reference
+    too), on the card only."""
+    if not on_card or cfg.use_mla:
+        return 0
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash import refusal
+    dt = getattr(torch, cfg.dtype)
+    q = torch.zeros((1, 1, cfg.n_heads, cfg.resolved_head_dim), dtype=dt,
+                    device="cuda")
+    k = torch.zeros((1, 1, cfg.n_kv_heads, cfg.resolved_head_dim),
+                    dtype=dt, device="cuda")
+    takes = refusal(q, k, k, True, cfg.sliding_window, 0, pad=True) is None
+    return self_layers(cfg) if takes else 0
 
 
 def teacher_forced(torch, cfg, params, prompt: dict, steps: int,
@@ -3855,8 +4033,10 @@ def teacher_forced(torch, cfg, params, prompt: dict, steps: int,
     (teacher-forced; padded past the end to a whole number of the plain
     attention's 1,024-query chunks, which causality leaves unread). Returns
     the generated tokens, max |diff| / max |h| of the prefill and of each
-    step, the flash forward launches of the train-mode forward alone, and
-    the prefill's and the steps' wall ms (each ends in a synchronise).
+    step, the flash forward launches of the train-mode forward alone (the
+    kernel of the model's dtype, :func:`flash_keys`; ``flash_fwd_other``
+    the other dtype's, summed over every train-mode forward), and the
+    prefill's and the steps' wall ms (each ends in a synchronise).
     ``prompt_only`` holds the prefill against the train-mode forward over
     the prompt alone instead (``rel_prefill``; its launches
     ``flash_fwd_prompt``): an MoE layer routes the same tokens the same way
@@ -3912,7 +4092,10 @@ def teacher_forced(torch, cfg, params, prompt: dict, steps: int,
             step_ms.append(wall(t0))
         del caches
         out = {"tokens": torch.cat(toks, dim=1), "prefill_ms": prefill_ms,
-               "step_ms": step_ms, "rel_steps": [], "flash_fwd": None}
+               "step_ms": step_ms, "rel_steps": [], "flash_fwd": None,
+               "flash_fwd_other": 0}
+        own = flash_keys(cfg)[0]
+        other = next(k for k in ("flash_fwd", "flash_fwd_f32") if k != own)
         finite = all(bool(torch.isfinite(h).all()) for h in [pre] + hs)
         moe = bool(pre_routes.calls)
 
@@ -3926,7 +4109,9 @@ def teacher_forced(torch, cfg, params, prompt: dict, steps: int,
                 h, _, _ = forward(params, cfg, batch, mode="train")
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            return h.float(), K.launches()["flash_fwd"], log.calls
+            launches = K.launches()
+            out["flash_fwd_other"] += launches[other]
+            return h.float(), launches[own], log.calls
 
         def flipped(given, own):
             return sum(int((a.sort(1).values != c.sort(1).values).any(1)
@@ -4038,7 +4223,7 @@ def serve_case(torch, label: str, argv: list, tol: float,
         f"{', '.join(f'{v:.3f}' for v in chk['step_ms'])} ms")
     bad = max([chk["rel_prefill"]] + chk["rel_steps"]) > tol
     if launches or not chk["finite"] or not same or bad or \
-            chk["flash_fwd"] != want_flash:
+            chk["flash_fwd"] != want_flash or chk["flash_fwd_other"]:
         raise AssertionError(f"decode {label}: {rec}")
     del res, chk
     return rec
@@ -4112,7 +4297,8 @@ def decode_phase(torch, device: str = "cuda", profile: bool = True) -> dict:
     reference's defaults: batch 4, prompt 32, 8 tokens): (1) llama32_vision_11b
     at full width and depth in bfloat16, timed, each step against the
     train-mode forward (the flash kernel, one launch a self-attention
-    layer); (2) the same at full width cut to one group in float32; (3) the
+    layer); (2) the same at full width cut to one group in float32 (the
+    float32 flash kernel in its train-mode forward); (3) the
     ring at its real window (qwen25_3b, long_500k's 8,192, a 9,216-token
     prompt, 16 steps); (4) gemma_2b, musicgen_medium and mistral_large_123b
     (4 layers), timed and self-consistent; (5) the audio family's train
@@ -4151,15 +4337,22 @@ def decode_phase(torch, device: str = "cuda", profile: bool = True) -> dict:
     prompt = {k: torch.from_numpy(v).to(dev) for k, v in serve.make_prompt(
         cfg, args.batch, args.prompt_len, np.random.default_rng(0)).items()}
     chk = teacher_forced(torch, cfg, params, prompt, args.tokens - 1)
+    # the train-mode forward takes the float32 flash kernel once a
+    # self-attention layer (4 of the group's 5)
+    want = flash_layers(cfg, on_card)
     log(f"decode vlm f32: {cfg.name} layers={cfg.n_layers} d_model="
         f"{cfg.d_model}: against the train-mode forward prefill "
         f"{chk['rel_prefill']:.3g}, steps "
         f"{', '.join(f'{v:.3g}' for v in chk['rel_steps'])} of max|h| "
-        f"{chk['max_h']:.4g} (bar {DECODE_TOL_F32:g})")
+        f"{chk['max_h']:.4g} (bar {DECODE_TOL_F32:g}), float32 flash "
+        f"forward launches {chk['flash_fwd']} (expected {want}), bf16 "
+        f"{chk['flash_fwd_other']}")
     if not chk["finite"] or max([chk["rel_prefill"]] + chk["rel_steps"]) \
-            > DECODE_TOL_F32 or chk["flash_fwd"] != 0:
+            > DECODE_TOL_F32 or chk["flash_fwd"] != want or \
+            chk["flash_fwd_other"]:
         raise AssertionError(f"decode vlm f32: {chk}")
     out["vlm_f32"] = {"layers": cfg.n_layers, "tol": DECODE_TOL_F32,
+                      "check_flash_fwd_f32": chk["flash_fwd"],
                       **{k: chk[k] for k in ("rel_prefill", "rel_steps",
                                              "max_h")}}
     del params, prompt, chk
@@ -4191,6 +4384,7 @@ def decode_phase(torch, device: str = "cuda", profile: bool = True) -> dict:
         f"{', '.join(f'{v:.3f}' for v in chk['step_ms'])} ms")
     if not chk["finite"] or max([chk["rel_prefill"]] + chk["rel_steps"]) \
             > DECODE_TOL_BF16 or chk["flash_fwd"] != want or \
+            chk["flash_fwd_other"] or \
             ring_prompt <= cfg.sliding_window:
         raise AssertionError(f"decode ring: {chk}")
     out["ring"] = {"arch": cfg.name, "layers": cfg.n_layers,
@@ -4411,7 +4605,7 @@ def family_serve_case(torch, arch: str, extra, dev_args: list,
         f"tokens reproduced {same}")
     if launches or not finite or not same or max(rels) > bar or \
             (floor is not None and floor > FAMILY_FLOOR_MAX) or \
-            chk["flash_fwd"] != want_flash \
+            chk["flash_fwd"] != want_flash or chk["flash_fwd_other"] \
             or (moe and rec["check_flash_fwd_prompt"] != want_flash):
         raise AssertionError(f"families {cfg.name}: {rec}")
     session = {"cfg": cfg, "params": res["params"]}
@@ -4450,7 +4644,7 @@ def family_cut_case(torch, arch: str, layers: int, dtype: str,
         f"{chk['max_h']:.4g} (bar {tol:g}), flash forward launches "
         f"{chk['flash_fwd']} (expected {want})")
     if not chk["finite"] or max([chk["rel_prefill"]] + chk["rel_steps"]) \
-            > tol or chk["flash_fwd"] != want:
+            > tol or chk["flash_fwd"] != want or chk["flash_fwd_other"]:
         raise AssertionError(f"families {cfg.name} {dtype} {layers}: {chk}")
     del params, prompt
     return {"arch": cfg.name, "layers": cfg.n_layers, "dtype": dtype,
@@ -5172,7 +5366,8 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
                         **split_record(r)} for r in recs]})
     timed_randk = randk["block"][-1]
     timed_flash = flash[-1]
-    flash_shapes = [rec for rec in flash if "flash_fwd" in rec]
+    flash_shapes = [rec for rec in flash if "flash_fwd" in rec
+                    and rec["dtype"] == "bfloat16"]
     for name, rec, err, shape in (
             ("block_compress", timed_randk,
              timed_randk["max_abs_err"]["block_compress"],
@@ -5222,6 +5417,37 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
                 k: FLASH_PTXAS.get(k) for k in kernels}
             record["kernels"][-1]["sass"] = {
                 k: FLASH_SASS.get(k) for k in kernels}
+    # the float32 kernels: their numbers at the LLM path's shape (the first
+    # of their timed rows at it), their launches on the float32 LLM cut
+    f32_shapes = [rec for rec in flash if "flash_fwd" in rec
+                  and rec["dtype"] == "float32"]
+    f32_path = next(r for r in f32_shapes if tuple(r["case"]) == FLASH_PATH)
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    for name, err, kernels in (
+            ("flash_fwd", f32_path["errs"]["out"], ["flash_fwd_ffma_kernel"]),
+            ("flash_bwd", max(f32_path["errs"][k] for k in ("dq", "dk",
+                                                            "dv")),
+             ["flash_bwd_ffma_delta_kernel", "flash_bwd_ffma_dkdv_kernel",
+              "flash_bwd_ffma_dq_kernel"])):
+        t = f32_path[name]
+        kernels = [f"{k}<{d}>" for d in HEAD_DIMS for k in kernels]
+        record["kernels"].append({
+            "name": f"{name}_f32", "route": "cuda",
+            **KERNELS[f"{name}_f32"], "dtype": "float32",
+            "launches": llm["f32"]["launches"][f"{name}_f32"],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": f32_path["case"],
+            "device_us": t.get("device_us"), "host_us": t["host_us"],
+            "library_device_us": t.get("library_device_us"),
+            "kernel_over_library": (t["ms"] / t["library_ms"]
+                                    if t["library_ms"] else None),
+            "shapes": [{"shape": r["case"], **{k: r[name].get(k) for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_us", "host_us", "library_device_us")}}
+                for r in f32_shapes],
+            "ptxas": {k: FLASH_PTXAS.get(k) for k in kernels},
+            "sass": {k: FLASH_SASS.get(k) for k in kernels}})
     # decompress runs on the main path no more; the local-mask run keeps it
     decompress = next(k for k in record["kernels"]
                       if k["name"] == "block_decompress")
@@ -5262,6 +5488,14 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
     flash_fwd["launches_families_checks"] = {
         arch: rec["check_flash_fwd"]
         for arch, rec in families["serve"].items()}
+    flash_fwd_f32 = next(k for k in record["kernels"]
+                         if k["name"] == "flash_fwd_f32")
+    flash_fwd_f32["launches_decode_checks"] = {
+        "vlm_f32": decode["vlm_f32"]["check_flash_fwd_f32"]}
+    flash_fwd_f32["launches_families_checks"] = {
+        name: rec["check_flash_fwd"]
+        for name, rec in families["cuts"].items()
+        if rec["dtype"] == "float32"}
     # the float16 and float8 banks' variants of compress, decompress and
     # the momentum kernel: their timed cases at the LLM path's bank, their
     # launches in the LLM runs at those dtypes (decompress: none, the
@@ -5349,11 +5583,23 @@ def ptxas_table(report: str) -> dict:
     return out
 
 
+#: The flash kernels of each library (``csrc/<name>.cu``): the bfloat16
+#: ones on the tensor cores, the float32 ones (``ffma``) on the CUDA cores;
+#: each is built at every head dim of ``HEAD_DIMS``.
+FLASH_KERNELS = {
+    "flash_attention": ("flash_fwd_kernel", "flash_bwd_delta_kernel",
+                        "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
+    "flash_attention_f32": ("flash_fwd_ffma_kernel",
+                            "flash_bwd_ffma_delta_kernel",
+                            "flash_bwd_ffma_dkdv_kernel",
+                            "flash_bwd_ffma_dq_kernel")}
 #: ptxas's registers and spills of the flash kernels, from this run's build.
 FLASH_PTXAS: dict = {}
-#: Hopper instructions in each flash kernel's SASS (``cuobjdump -sass``):
-#: HGMMA (wgmma), UTMALDG (TMA loads), HMMA (mma.sync, what WMMA becomes).
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+#: Instructions in each flash kernel's SASS (``cuobjdump -sass``): HGMMA
+#: (wgmma), UTMALDG (TMA loads), HMMA (mma.sync, what WMMA becomes), FFMA
+#: (float32 fused multiply-add on the CUDA cores), TF32 (any instruction
+#: on tf32 operands).
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "FFMA", "TF32")
 FLASH_SASS: dict = {}
 
 
@@ -5429,7 +5675,7 @@ def main() -> int:
             log(f"  ptxas {kernel}: {regs['registers']} registers, spill "
                 f"stores {regs['spill_stores']} B, spill loads "
                 f"{regs['spill_loads']} B")
-        if name == "flash_attention":
+        if name in FLASH_KERNELS:
             FLASH_PTXAS.update(table)
 
     phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else None
@@ -5508,7 +5754,8 @@ def main() -> int:
         "llm": {k: llm[k] for k in ("steps", "losses", "step_ms",
                                     "median_step_ms", "peak_mib",
                                     "plain_rel_loss", "plain_rel_dir",
-                                    "plain_step_ms", "profile", "options")},
+                                    "plain_step_ms", "profile", "options",
+                                    "f32")},
         "flash_sdpa_fwd_bwd_ms": flash[-1].get("library_fwd_bwd_ms"),
         "grid": {"table1": {k: v for k, v in grid["table1"].items()
                             if k not in ("round_ms", "rows")},

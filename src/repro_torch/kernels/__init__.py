@@ -14,8 +14,8 @@ from __future__ import annotations
 def kernel_wrappers():
     """``{name: wrapper}`` of every kernel wrapper with a launch counter."""
     from repro_torch.kernels.cwtm.cwtm import cwtm_cuda
-    from repro_torch.kernels.flash_attention.flash import (flash_bwd_cuda,
-                                                           flash_fwd_cuda)
+    from repro_torch.kernels.flash_attention.flash import (
+        flash_bwd_cuda, flash_bwd_f32_cuda, flash_fwd_cuda, flash_fwd_f32_cuda)
     from repro_torch.kernels.median.median import median_cuda
     from repro_torch.kernels.pairdist.pairdist import pairdist_cuda
     from repro_torch.kernels.randk.randk import (block_compress_cuda,
@@ -25,7 +25,9 @@ def kernel_wrappers():
             "median": median_cuda, "block_compress": block_compress_cuda,
             "block_decompress": block_decompress_cuda,
             "momentum_scatter": momentum_scatter_cuda,
-            "flash_fwd": flash_fwd_cuda, "flash_bwd": flash_bwd_cuda}
+            "flash_fwd": flash_fwd_cuda, "flash_bwd": flash_bwd_cuda,
+            "flash_fwd_f32": flash_fwd_f32_cuda,
+            "flash_bwd_f32": flash_bwd_f32_cuda}
 
 
 def reset_launches() -> None:

@@ -68,6 +68,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_bwd": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                       I, F, P),
     },
+    "flash_attention_f32": {
+        # the bf16 entries' arguments, every tensor float32
+        "flash_fwd_f32": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
+        "flash_bwd_f32": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                          I, I, F, P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -8,7 +8,12 @@ pass, then dk/dv per 128 keys (64 at head dim 256) and dq per 128 query
 rows, no atomics). Bound by operations at the model's shapes: Hopper
 kernels (``sm_90a``) with TMA loads into a 2-stage mbarrier ring,
 ``wgmma`` products with the accumulators in registers, one producer and
-two consumer warpgroups per block.
+two consumer warpgroups per block. Those take bfloat16; float32 inputs,
+which the TPU kernel takes too (it computes in float32 whatever its
+inputs), go to ``csrc/flash_attention_f32.cu``: the same forward and
+backward with every product an FFMA on the CUDA cores (tf32 ``wgmma``
+would round the inputs to a 10-bit mantissa), counted under their own
+wrappers, :func:`flash_fwd_f32_cuda` and :func:`flash_bwd_f32_cuda`.
 
 :class:`FlashAttention` is a ``torch.autograd.Function`` whose backward is
 a second Function, :class:`FlashBackward`: the forward saves the per-row
@@ -33,6 +38,10 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref)
 
 HEAD_DIMS = (64, 80, 128, 256)
+#: The input dtypes the kernels take: bfloat16 (``csrc/flash_attention.cu``,
+#: on the tensor cores) and float32 (``csrc/flash_attention_f32.cu``, on the
+#: CUDA cores).
+DTYPES = (torch.bfloat16, torch.float32)
 #: Head dims up to this one that the kernel is not built for are taken
 #: zero-padded to the next multiple of 128 (``ops.flash_attention``), as the
 #: reference's ``ops.attention`` pads to whole 128-lane tiles.
@@ -62,20 +71,25 @@ def refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool = True, window: Optional[int] = None,
             q_offset: int = 0, pad: bool = False
             ) -> Optional[Tuple[type, str]]:
-    """Why the kernel cannot take these inputs, as ``(exception type,
-    message)``, or ``None`` when it can: bfloat16 ``[B, S, heads, D]``
-    contiguous tensors, D in :data:`HEAD_DIMS` (with ``pad``, also a D
+    """Why the kernels cannot take these inputs, as ``(exception type,
+    message)``, or ``None`` when they can: bfloat16 or float32 (all three
+    of one dtype) ``[B, S, heads, D]`` contiguous tensors, D in
+    :data:`HEAD_DIMS` (with ``pad``, also a D
     up to :data:`PAD_MAX`, which ``ops.flash_attention`` zero-pads to the
     next multiple of 128), GQA heads, no query row without a visible key,
     on a CUDA device (checked last, so the other reasons read the same on
     the CPU). It reads only what a tensor under ``torch.func.vmap`` still
     has (shape, dtype, layout, device), so it answers for a batched tensor
-    as for the real one; the 16-byte alignment TMA needs is checked at the
-    launch (:func:`_check`)."""
+    as for the real one; the 16-byte alignment the loads need (TMA,
+    ``cp.async``) is checked at the launch (:func:`_check`)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            return TypeError, (f"flash attention kernel takes bfloat16, got "
-                               f"{name} {t.dtype}")
+        if t.dtype not in DTYPES:
+            return TypeError, (f"flash attention kernels take bfloat16 or "
+                               f"float32, got {name} {t.dtype}")
+        if t.dtype != q.dtype:
+            return TypeError, (f"flash attention kernels take q, k and v of "
+                               f"one dtype, got q {q.dtype} and {name} "
+                               f"{t.dtype}")
         if t.ndim != 4 or not t.is_contiguous():
             return ValueError, (f"flash attention kernel takes contiguous "
                                 f"[B, S, heads, D], got {name} "
@@ -119,14 +133,15 @@ def supports(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool, window: Optional[int], q_offset: int) -> None:
     """What the launch needs: :func:`refusal`, then the 16-byte alignment
-    of the real tensors (TMA)."""
+    of the real tensors (TMA loads, float32: 16-byte ``cp.async``)."""
     why = refusal(q, k, v, causal, window, q_offset)
     if why is not None:
         raise why[0](why[1])
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
-            raise ValueError(f"flash attention kernel loads with TMA and "
-                             f"needs 16-byte aligned tensors, got {name}")
+            raise ValueError(f"flash attention kernels load 16 bytes at a "
+                             f"time and need 16-byte aligned tensors, got "
+                             f"{name}")
 
 
 def _problem(q, k, causal, window, q_offset) -> tuple:
@@ -141,37 +156,22 @@ def _scale_arg(scale: Optional[float]) -> float:
     return 0.0 if scale is None else float(scale)
 
 
-def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool = True, window: Optional[int] = None,
-                   q_offset: int = 0, scale: Optional[float] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward: ``(o [B, Sq, H, D] bf16, lse [B, H, Sq] f32)``;
-    ``scale`` is the softmax scale (default ``1/sqrt(D)``)."""
-    _check(q, k, v, causal, window, q_offset)
+def _fwd(lib: str, fn: str, q, k, v, causal, window, q_offset, scale):
     b, sq, h, _ = q.shape
-    idx = q.get_device()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    err = build.entry("flash_attention", "flash_fwd")(
+    err = build.entry(lib, fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), *_problem(q, k, causal, window, q_offset),
-        _scale_arg(scale), build.stream_ptr(idx))
-    build.check(err, "flash_fwd")
-    flash_fwd_cuda.launches += 1
+        _scale_arg(scale), build.stream_ptr(q.get_device()))
+    build.check(err, fn)
     return o, lse
 
 
-def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-                   causal: bool = True, window: Optional[int] = None,
-                   q_offset: int = 0, scale: Optional[float] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward (delta, dk/dv, dq kernels): ``(dq, dk, dv)`` in
-    bf16, shaped like q, k, v."""
-    _check(q, k, v, causal, window, q_offset)
+def _bwd(lib: str, fn: str, q, k, v, o, lse, dout, causal, window,
+         q_offset, scale):
     dout = dout.contiguous()
-    for name, t, dt in (("o", o, torch.bfloat16), ("dout", dout,
-                                                   torch.bfloat16),
+    for name, t, dt in (("o", o, q.dtype), ("dout", dout, q.dtype),
                         ("lse", lse, torch.float32)):
         if t.device != q.device or t.dtype != dt or not t.is_contiguous() \
                 or t.data_ptr() % 16:
@@ -180,24 +180,96 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if o.shape != q.shape or dout.shape != q.shape:
         raise ValueError("flash backward: o and dout must be shaped like q")
     b, sq, h, _ = q.shape
-    idx = q.get_device()
+    if lse.shape != (b, h, sq):
+        raise ValueError(f"flash backward: lse must be [B, H, Sq] = "
+                         f"{[b, h, sq]}, got {list(lse.shape)}")
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    err = build.entry("flash_attention", "flash_bwd")(
+    err = build.entry(lib, fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(),
         *_problem(q, k, causal, window, q_offset), _scale_arg(scale),
-        build.stream_ptr(idx))
-    build.check(err, "flash_bwd")
-    flash_bwd_cuda.launches += 1
+        build.stream_ptr(q.get_device()))
+    build.check(err, fn)
     return dq, dk, dv
+
+
+def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True, window: Optional[int] = None,
+                   q_offset: int = 0, scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward: ``(o [B, Sq, H, D] bf16, lse [B, H, Sq] f32)``;
+    ``scale`` is the softmax scale (default ``1/sqrt(D)``). Float32 inputs
+    go to :func:`flash_fwd_f32_cuda`."""
+    if q.dtype == torch.float32:
+        return flash_fwd_f32_cuda(q, k, v, causal, window, q_offset, scale)
+    _check(q, k, v, causal, window, q_offset)
+    out = _fwd("flash_attention", "flash_fwd", q, k, v, causal, window,
+               q_offset, scale)
+    flash_fwd_cuda.launches += 1
+    return out
+
+
+def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   causal: bool = True, window: Optional[int] = None,
+                   q_offset: int = 0, scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward (delta, dk/dv, dq kernels): ``(dq, dk, dv)`` in
+    bf16, shaped like q, k, v. Float32 inputs go to
+    :func:`flash_bwd_f32_cuda`."""
+    if q.dtype == torch.float32:
+        return flash_bwd_f32_cuda(q, k, v, o, lse, dout, causal, window,
+                                  q_offset, scale)
+    _check(q, k, v, causal, window, q_offset)
+    out = _bwd("flash_attention", "flash_bwd", q, k, v, o, lse, dout,
+               causal, window, q_offset, scale)
+    flash_bwd_cuda.launches += 1
+    return out
+
+
+def _check_f32(q: torch.Tensor, k, v, causal, window, q_offset) -> None:
+    _check(q, k, v, causal, window, q_offset)
+    if q.dtype != torch.float32:
+        raise TypeError(f"the float32 flash kernels take float32, got "
+                        f"{q.dtype}")
+
+
+def flash_fwd_f32_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool = True, window: Optional[int] = None,
+                       q_offset: int = 0, scale: Optional[float] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the float32 forward (``csrc/flash_attention_f32.cu``): ``(o
+    [B, Sq, H, D], lse [B, H, Sq])``, both float32."""
+    _check_f32(q, k, v, causal, window, q_offset)
+    out = _fwd("flash_attention_f32", "flash_fwd_f32", q, k, v, causal,
+               window, q_offset, scale)
+    flash_fwd_f32_cuda.launches += 1
+    return out
+
+
+def flash_bwd_f32_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                       causal: bool = True, window: Optional[int] = None,
+                       q_offset: int = 0, scale: Optional[float] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the float32 backward (delta, dk/dv, dq kernels of
+    ``csrc/flash_attention_f32.cu``): ``(dq, dk, dv)`` in float32; o and
+    dout float32, lse the forward's."""
+    _check_f32(q, k, v, causal, window, q_offset)
+    out = _bwd("flash_attention_f32", "flash_bwd_f32", q, k, v, o, lse,
+               dout, causal, window, q_offset, scale)
+    flash_bwd_f32_cuda.launches += 1
+    return out
 
 
 flash_fwd_cuda.launches = 0
 flash_bwd_cuda.launches = 0
+flash_fwd_f32_cuda.launches = 0
+flash_bwd_f32_cuda.launches = 0
 
 
 def fold(tensors: Sequence[torch.Tensor], in_dims: Sequence[Optional[int]],
@@ -227,7 +299,8 @@ def _device_of(q: torch.Tensor) -> str:
 
 class FlashBackward(torch.autograd.Function):
     """``(dq, dk, dv)`` of flash attention: the backward kernels on CUDA
-    tensors, the plain backward on CPU tensors. Not differentiable again."""
+    tensors (bfloat16 or float32), the plain backward on CPU tensors. Not
+    differentiable again."""
 
     @staticmethod
     def forward(q, k, v, o, lse, dout, causal, window, q_offset,

@@ -216,19 +216,20 @@ def momentum_work(n: int, d: int, kb: int, bs: int, itemsize: int,
 
 
 def flash_work(b: int, sq: int, sk: int, h: int, kv: int, d: int,
-               pairs: int) -> Dict[str, tuple]:
-    """The flash kernels on bf16 ``q [b, sq, h, d]``, ``k, v [b, sk, kv,
-    d]`` with ``pairs`` visible (query, key) pairs a head: the forward
-    reads q, k, v and writes the output and the float32 log-sum-exp (two
-    matmuls, 4 operations a pair and lane); the backward reads them and
-    the output's gradient and writes dq, dk and dv (2.5 times the
-    forward's operations)."""
+               pairs: int, itemsize: int = 2) -> Dict[str, tuple]:
+    """The flash kernels on ``q [b, sq, h, d]``, ``k, v [b, sk, kv, d]``
+    of ``itemsize`` bytes (2: bf16; 4: the float32 kernels) with ``pairs``
+    visible (query, key) pairs a head: the forward reads q, k, v and
+    writes the output and the float32 log-sum-exp (two matmuls, 4
+    operations a pair and lane); the backward reads them and the output's
+    gradient and writes dq, dk and dv (2.5 times the forward's
+    operations)."""
     q, kvn = b * sq * h * d, b * sk * kv * d
-    io = 2 * q * 2 + 2 * kvn * 2  # q and o, k and v
+    io = (2 * q + 2 * kvn) * itemsize  # q and o, k and v
     lse = b * h * sq * 4
     fwd = 4 * b * h * d * pairs
     return {"flash_fwd": (io + lse, fwd),
-            "flash_bwd": (io + q * 2 + lse + q * 2 + 2 * kvn * 2,
+            "flash_bwd": (io + (2 * q + 2 * kvn) * itemsize + lse,
                           2.5 * fwd)}
 
 

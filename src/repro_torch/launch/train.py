@@ -113,11 +113,15 @@ def make_model_batch(gen: np.random.Generator, cfg, n_workers: int,
     return batch
 
 
-def setup(args: argparse.Namespace, *, plain: bool = False) -> Dict:
+def setup(args: argparse.Namespace, *, plain: bool = False,
+          dtype: Optional[str] = None) -> Dict:
     """Plan, step function, initial state and batch source for ``args``.
     ``plain`` runs the kernels' plain versions on the same device (the
     dense mask multiply, the plain CWTM sort, ``causal_attention``): the
-    comparison path. ``batch_fn()`` draws the per-step schedule's next
+    comparison path. ``dtype`` replaces the model's compute dtype, the
+    activations' (float32: the LLM cut's float32 train step); the
+    reference's launcher has no flag for it, so this one has none either.
+    ``batch_fn()`` draws the per-step schedule's next
     batch; ``batch_at(t)`` is the streamed schedule's numpy batch of step
     ``t``."""
     dev = resolve_device(args.device)
@@ -133,6 +137,8 @@ def setup(args: argparse.Namespace, *, plain: bool = False) -> Dict:
         shape = InputShape("host_train", 128, 16, "train")
     if args.n_layers is not None:
         model = model.with_overrides(n_layers=args.n_layers)
+    if dtype is not None:
+        model = model.with_overrides(dtype=dtype)
     if args.global_batch is not None:
         shape = InputShape(shape.name, shape.seq_len, args.global_batch,
                            shape.kind)
@@ -179,7 +185,7 @@ def setup(args: argparse.Namespace, *, plain: bool = False) -> Dict:
 
 
 def run(argv: Optional[List[str]] = None, *, plain: bool = False,
-        log=print) -> Dict:
+        log=print, dtype: Optional[str] = None) -> Dict:
     """Parse ``argv``, train ``--steps`` rounds and print the reference's
     step lines. Returns the per-step honest loss and |R|, the wall ms of
     each step (of each chunk with ``--stream``; host clock around work that
@@ -187,12 +193,12 @@ def run(argv: Optional[List[str]] = None, *, plain: bool = False,
     host high-water bytes, the device bytes the setup left allocated (the
     state held between steps: parameters, server banks, the adversary's
     memory) and the session (plan, step function, final state,
-    batches)."""
+    batches). ``plain`` and ``dtype``: :func:`setup`'s."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
     on_card = dev.type == "cuda"
     before = torch.cuda.memory_allocated(dev) if on_card else None
-    s = setup(args, plain=plain)
+    s = setup(args, plain=plain, dtype=dtype)
     # the returned dict gives the initial state up: a round that allocates
     # its banks anew (dasha) would otherwise keep it alive beside every
     # step's

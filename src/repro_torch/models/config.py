@@ -71,9 +71,9 @@ class ModelConfig:
 
     # --- attention backend: None or True takes the flash-attention kernel
     #     path (``repro_torch.kernels.flash_attention``: the CUDA kernels on
-    #     the card, which take bf16 only, and their plain dense version on
-    #     the CPU); False takes the plain query-chunked ``causal_attention``.
-    #     Train-mode self-attention only. ---
+    #     the card, which take bfloat16 and float32, and their plain dense
+    #     version on the CPU); False takes the plain query-chunked
+    #     ``causal_attention``. Train-mode self-attention only. ---
     use_flash_attention: Optional[bool] = None
 
     dtype: str = "bfloat16"

@@ -255,10 +255,10 @@ def attn_apply(p: Params, cfg, x: torch.Tensor, *, mode: str = "train",
     Otherwise self-attention at absolute positions ``pos + [0, S)``:
 
     * ``train``: no cache. ``cfg.use_flash_attention``: ``None`` takes the
-      flash-attention kernels where they take the inputs (``flash.supports``:
-      bfloat16, head dims 64, 80, 128 and 256, the others up to 256
-      zero-padded to the next multiple of 128, on the card) and the plain
-      ``causal_attention`` elsewhere (float32 inputs), a
+      flash-attention kernels where they take the inputs (``flash.refusal``:
+      bfloat16 or float32, head dims 64, 80, 128 and 256, the others up to
+      256 zero-padded to the next multiple of 128, on the card) and the
+      plain ``causal_attention`` elsewhere (float16 inputs), a
       choice made before the call, as the
       reference takes its kernel only for what it runs; ``True`` asks for
       the kernel path (the plain dense version on the CPU) and raises on the

@@ -78,8 +78,32 @@ def test_bench_on_the_cpu_holds_its_gates_and_writes_only_its_files(
     cross = res["cross_algo_grid"]
     assert (cross["bank_compiles"], cross["per_algo_compiles"]) == (1, 4)
     assert cross["chosen"] in ("fused", "partitioned")
+    assert len(cross["gate_chosen_s"]) == len(cross["gate_best_s"]) == \
+        B.GATE_TURNS
+    assert cross["chosen_over_best"] == B.chosen_over_best(
+        cross["gate_chosen_s"], cross["gate_best_s"])
     assert res["sharded"]["n_devices"] == 1 and res["sharded"]["skipped"]
     assert len(res["attack_fusion"]["crossings"]) == len(B.ATTACKS)
+
+
+def test_chosen_plan_gate_reads_the_median_ratio_of_its_turns():
+    """The chosen-plan gate's arithmetic on given readings: the median over
+    the turns of the chosen plan's seconds over the best static plan's in
+    the same turn. Drift of the host that slows both plans in a turn
+    cancels in its ratio; one slow turn of either plan moves the median no
+    further than the next turn; a chosen plan 1.3x slower in every turn
+    still fails the 1.25x slack."""
+    assert B.CHOSEN_SLACK == 1.25 and B.GATE_TURNS == 5
+    assert B.chosen_over_best([2.0, 4.0, 1.0], [2.0, 4.0, 1.0]) == 1.0
+    assert B.chosen_over_best([1.0, 9.0, 1.1, 1.0, 1.05],
+                              [1.0] * 5) == pytest.approx(1.05)
+    assert B.chosen_over_best([1.0] * 5, [1.0, 0.1, 1.0, 0.95, 1.0]) == \
+        pytest.approx(1.0)
+    assert B.chosen_over_best([1.3, 1.4], [1.0, 1.0]) == pytest.approx(1.35)
+    assert B.chosen_over_best([1.3] * 5, [1.0] * 5) > B.CHOSEN_SLACK
+    for chosen, best in (([1.0], []), ([], [])):
+        with pytest.raises(ValueError):
+            B.chosen_over_best(chosen, best)
 
 
 def test_the_launch_rule_counts_each_kernel_once_a_round_per_bank():

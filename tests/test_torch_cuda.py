@@ -644,12 +644,84 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(card):
     from repro_torch.kernels.flash_attention import flash_fwd_cuda
     q = torch.zeros(1, 64, 4, 64, dtype=torch.bfloat16, device=card)
     with pytest.raises(TypeError):
-        flash_fwd_cuda(q.float(), q.float(), q.float())
+        flash_fwd_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_fwd_cuda(q.float(), q, q)
     with pytest.raises(ValueError, match="head dims"):
         flash_fwd_cuda(q[..., :48].contiguous(), q[..., :48].contiguous(),
                        q[..., :48].contiguous())
     with pytest.raises(ValueError, match="no visible key"):
         flash_fwd_cuda(q, q, q, window=8, q_offset=80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,q_offset", FLASH)
+def test_float32_flash_kernels_match_plain(card, b, sq, sk, h, kv, d, causal,
+                                           window, q_offset):
+    """The float32 kernels (``csrc/flash_attention_f32.cu``) at every
+    bf16 case: out, dq, dk and dv float32 within 1e-5 of the plain
+    version's largest entry (float32 on both sides, sums in other orders),
+    one launch of each float32 wrapper and none of the bf16 ones."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    gen = torch.Generator(device=card).manual_seed(sq + sk + d)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=card)  # noqa
+    q, k, v, dout = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d), \
+        rnd(b, sq, h, d)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    K.reset_launches()
+    out = flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, dout)
+    got = K.launches()
+    assert (got["flash_fwd_f32"], got["flash_bwd_f32"], got["flash_fwd"],
+            got["flash_bwd"]) == (1, 1, 0, 0)
+    fl = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = attention_ref(*fl, **kw)
+    ref_grads = torch.autograd.grad(ref, fl, dout)
+    for g, w in [(out, ref)] + list(zip(grads, ref_grads)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        err = (g.detach() - w.detach()).abs().max()
+        assert float(err) <= 1e-5 * float(w.detach().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [80, 256])
+def test_float32_flash_backward_repeats_bitwise(card, d):
+    from repro_torch.kernels.flash_attention import (flash_bwd_f32_cuda,
+                                                     flash_fwd_f32_cuda)
+    q = _x(1, 256, 16 * d, 1, card).reshape(1, 256, 16, d)
+    k = q[:, :, :4].contiguous()
+    o, lse = flash_fwd_f32_cuda(q, k, k)
+    assert o.dtype == lse.dtype == torch.float32
+    a = flash_bwd_f32_cuda(q, k, k, o, lse, q)
+    b = flash_bwd_f32_cuda(q, k, k, o, lse, q)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError, match="dout"):
+        flash_bwd_f32_cuda(q, k, k, o, lse, q.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_float32_attention_launches_the_float32_kernels(card):
+    """A float32 config's train-mode attention takes the float32 kernels
+    (``use_flash_attention=None``): a 2-layer model's loss and gradients
+    launch each float32 wrapper once a layer and no bf16 one, and agree
+    with the plain path within 1e-5 (loss, relative) and 1e-4 of each
+    gradient's largest entry (float32 sums in other orders through two
+    layers)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("stablelm_3b").model.reduced(
+        n_layers=2, d_model=256).with_overrides(dtype="float32")
+    K.reset_launches()
+    loss, grads = _lm_loss_and_grads(card, cfg)
+    got = K.launches()
+    assert (got["flash_fwd_f32"], got["flash_bwd_f32"], got["flash_fwd"],
+            got["flash_bwd"]) == (2, 2, 0, 0)
+    ploss, pgrads = _lm_loss_and_grads(
+        card, cfg.with_overrides(use_flash_attention=False))
+    assert float(loss) == pytest.approx(float(ploss), rel=1e-5)
+    for g, w in zip(grads, pgrads):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
 def _reduced_llm_steps(card, plain: bool, steps: int = 2):
@@ -730,18 +802,19 @@ def _lm_loss_and_grads(card, cfg, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["float32"])
+@pytest.mark.parametrize("case", ["float16"])
 def test_attention_takes_the_plain_path_where_the_kernel_cannot(card, case):
-    """A float32 config (the kernels compute in bf16 on the tensor cores)
-    runs forward and backward on the card through ``causal_attention``,
-    equal to the plain path, with no flash launch; asking for the kernel
+    """A float16 config (the kernels take bfloat16 and float32) runs
+    forward and backward on the card through ``causal_attention``, equal
+    to the plain path, with no flash launch; asking for the kernel
     raises."""
     from repro_torch.configs import get_arch
     base = get_arch("stablelm_3b").model.reduced(n_layers=1, d_model=256)
-    cfg = base.with_overrides(dtype="float32")
+    cfg = base.with_overrides(dtype=case)
     K.reset_launches()
     loss, grads = _lm_loss_and_grads(card, cfg)
-    assert K.launches()["flash_fwd"] == K.launches()["flash_bwd"] == 0
+    assert all(K.launches()[k] == 0 for k in (
+        "flash_fwd", "flash_bwd", "flash_fwd_f32", "flash_bwd_f32"))
     ploss, pgrads = _lm_loss_and_grads(
         card, cfg.with_overrides(use_flash_attention=False))
     assert torch.equal(loss, ploss)

@@ -393,8 +393,8 @@ def test_the_launcher_lets_the_initial_state_go(monkeypatch, one_thread):
 
     real, alive = TR.setup, []
 
-    def setup(args, plain=False):
-        s = real(args, plain=plain)
+    def setup(args, plain=False, dtype=None):
+        s = real(args, plain=plain, dtype=dtype)
         first = weakref.ref(s["state"].server.momentum)
         step = s["step"]
 

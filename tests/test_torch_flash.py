@@ -135,7 +135,8 @@ def _qkv(dtype=torch.bfloat16, d=64, sq=8, sk=8, h=2, kv=2):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("float32", "bfloat16"),
+    ("float16", "bfloat16 or float32"),
+    ("mixed", "one dtype"),
     ("head_dim_320", "head dims"),
     ("head_dim_48", "head dims"),
     ("strided", "contiguous"),
@@ -150,8 +151,10 @@ def test_supports_states_each_refusal(case, match):
     from repro_torch.kernels.flash_attention import flash as FK
     q, k, v = _qkv()
     kw = {}
-    if case == "float32":
-        q, k, v = _qkv(torch.float32)
+    if case == "float16":
+        q, k, v = _qkv(torch.float16)
+    elif case == "mixed":
+        q = _qkv(torch.float32)[0]
     elif case == "head_dim_320":
         q, k, v = _qkv(d=320)
     elif case == "head_dim_48":
@@ -170,6 +173,19 @@ def test_supports_states_each_refusal(case, match):
                            kw.get("q_offset", 0))
     with pytest.raises(why[0], match=match):
         FK._check(q, k, v, True, kw.get("window"), kw.get("q_offset", 0))
+
+
+@pytest.mark.parametrize("pad", [False, True])
+def test_refusal_takes_float32_as_bfloat16(pad):
+    """Float32 q, k and v (the float32 kernels') are refused for the same
+    reasons as bfloat16 ones and no other: on the CPU only for the
+    device, at head dim 112 only without the pad."""
+    from repro_torch.kernels.flash_attention import flash as FK
+    for d in (64, 80, 128, 256, 112):
+        got = FK.refusal(*_qkv(torch.float32, d=d), pad=pad)
+        want = FK.refusal(*_qkv(torch.bfloat16, d=d), pad=pad)
+        assert got == want and got is not None
+        assert ("needs CUDA" in got[1]) == (pad or d != 112)
 
 
 def test_default_attention_takes_the_plain_path_where_the_kernel_cannot():
@@ -312,7 +328,7 @@ def test_nested_vmap_of_grad_is_one_call_each_way():
     torch.testing.assert_close(g, gw, rtol=0, atol=_grad_bar(gw))
 
 
-@pytest.mark.parametrize("case", ["ok", "float32", "head_dim_48", "strided",
+@pytest.mark.parametrize("case", ["ok", "float16", "head_dim_48", "strided",
                                   "window"])
 def test_refusal_reads_the_same_under_vmap(case):
     """``refusal`` on a tensor under ``vmap`` (no storage, no data
@@ -320,7 +336,7 @@ def test_refusal_reads_the_same_under_vmap(case):
     from torch.func import vmap
 
     from repro_torch.kernels.flash_attention import flash as FK
-    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    dtype = torch.float16 if case == "float16" else torch.bfloat16
     d = 48 if case == "head_dim_48" else 64
     q = torch.zeros(3, 1, 8, 2, d, dtype=dtype)
     k = torch.zeros(3, 1, 8, 2, d, dtype=dtype)

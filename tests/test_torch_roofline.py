@@ -135,3 +135,26 @@ def test_kernel_work_gives_the_recorded_bounds(i):
     digits = len(want.replace(".", "").lstrip("0"))
     assert float(f"{ms:.{digits}g}") == float(want)
     assert by == ("operations" if rate == "bf16" else "bytes")
+
+
+F32_FLASH_BOUNDS = [
+    ((1, 4096, 4096, 32, 32, 80), "flash_fwd", "1.28239"),
+    ((1, 4096, 4096, 32, 32, 80), "flash_bwd", "3.20598"),
+    ((1, 4096, 4096, 8, 1, 256), "flash_fwd", "1.02591"),
+    ((1, 4096, 4096, 8, 1, 256), "flash_bwd", "2.56479"),
+]
+
+
+@pytest.mark.parametrize("shape,name,want", F32_FLASH_BOUNDS)
+def test_float32_flash_work_gives_the_recorded_bounds(shape, name, want):
+    """The float32 flash kernels' work (``itemsize=4``) at the float32
+    peak, bound by operations, is PERF.md's float32 rows' bound; their
+    tensors count twice the bf16 kernels' bytes, the float32 lse the
+    same."""
+    work = R.flash_work(*shape, PAIRS_4096, itemsize=4)[name]
+    ms, by = R.bound_ms(work, R.H100_F32_FLOPS)
+    digits = len(want.replace(".", "").lstrip("0"))
+    assert float(f"{ms:.{digits}g}") == float(want) and by == "operations"
+    bf16 = R.flash_work(*shape, PAIRS_4096)[name]
+    lse = shape[0] * shape[3] * shape[1] * 4
+    assert work[1] == bf16[1] and work[0] - lse == 2 * (bf16[0] - lse)

@@ -14,6 +14,7 @@ same rows every round."""
 import glob
 import json
 import os
+import time
 
 import jax
 import numpy as np
@@ -313,11 +314,57 @@ def test_timeout_fires_partial_round(targets):
     assert server.step_traces == 1
 
 
+def _ingest_together(server, updates):
+    """Add ``updates`` to the open round's buffer in one critical section,
+    each as the server's ingest thread adds it (``RoundBuffer.add``, its
+    decision observed): the batcher sees all of them or none."""
+    with server._cond:
+        for u in updates:
+            status = server._buffer.add(u, time.perf_counter())
+            server.metrics.observe_decision(
+                status, round_id=server._buffer.round_id)
+        server._cond.notify_all()
+
+
+def _run_holding_the_late(server, pool, rounds, round_timeout=60.0):
+    """``run_service``'s announce -> submit -> apply cycle with the clock
+    taken out of who is in a round: each round's on-time updates enter the
+    buffer together (:func:`_ingest_together`), so the wall-clock timeout
+    cannot fire the round between two of them however slow the host, and
+    the late ones are held until the round they are due in has fired,
+    then enter the next round's buffer, where they are stale whatever the
+    clock."""
+    server.start()
+    held, results = [], []
+    try:
+        for _ in range(rounds):
+            ann = server.announce(timeout=round_timeout)
+            t = ann.round_id
+            now = []
+            for sched in pool.round_payloads(ann):
+                if not sched.drop:
+                    (now if sched.deliver_round <= t else held).append(sched)
+            _ingest_together(server, [sc.update for sc in now])
+            results.append(server.wait_round(t, timeout=round_timeout))
+            _ingest_together(server, [sc.update for sc in held
+                                      if sc.deliver_round <= t])
+            held = [sc for sc in held if sc.deliver_round > t]
+    finally:
+        server.stop()
+    return results
+
+
 def test_byzantine_all_late_drop_policy(targets):
+    """All f byzantine clients always late (2 rounds) + stale_policy='drop'
+    and the 0.05 s timeout: every round aggregates exactly the 10 honest
+    clients, and the late rows are dropped as stale. The rounds' rows are
+    the pool's fates alone (:func:`_run_holding_the_late`): under
+    ``run_service`` a host slower than the timeout between two honest
+    submissions fires a round short of them."""
     serve = ServeConfig(quorum=10, timeout_s=0.05, stale_policy="drop")
     beh = ClientBehavior(stragglers=(0, 1, 2), straggle_rounds=2)
     server, _, results = _served(_cfg(), targets, rounds=4, serve=serve,
-                                 behavior=beh)
+                                 behavior=beh, run=_run_holding_the_late)
     assert all(r.n_updates == 10 and min(r.client_ids) >= 3
                for r in results)
     assert server.metrics.summary()["ingest_decisions"].get(

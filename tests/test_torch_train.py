@@ -42,13 +42,14 @@ def _overrides(sp, agg, atk):
             "attack": atk(name="alie")}
 
 
-def _run_both(jov, ov, steps=STEPS, use_pallas=True):
+def _run_both(jov, ov, steps=STEPS, use_pallas=True, n_layers=2,
+              **model_over):
     """``steps`` steps of the reference (compiled once) and of the port,
     from the same parameters, batches and block ids; ``jov`` and ``ov``
-    are the two packages' plan overrides."""
+    are the two packages' plan overrides, ``model_over`` both models'."""
     jmodel = jax_get_arch("stablelm_3b").model.reduced(
-        n_layers=2, d_model=256).with_overrides(vocab_size=512,
-                                                use_flash_attention=False)
+        n_layers=n_layers, d_model=256).with_overrides(
+            vocab_size=512, use_flash_attention=False, **model_over)
     shape = ("host_train", SEQ, N, "train")
     mesh = make_host_mesh()
     jov = dict(jov)
@@ -91,7 +92,8 @@ def _run_both(jov, ov, steps=STEPS, use_pallas=True):
     ref["momentum"] = np.asarray(jstate.server.momentum.astype(jnp.float32))
 
     model = get_arch("stablelm_3b").model.reduced(
-        n_layers=2, d_model=256).with_overrides(vocab_size=512)
+        n_layers=n_layers, d_model=256).with_overrides(vocab_size=512,
+                                                       **model_over)
     plan = S.make_train_plan(ArchSpec(model, "test"), InputShape(*shape), ov,
                              n_workers=N)
     step = S.build_train_step(plan, device="cpu")
@@ -110,6 +112,8 @@ def _run_both(jov, ov, steps=STEPS, use_pallas=True):
     port["draws_left"] = state.draws.remaining
     port["plan"] = plan
     ref["plan"] = jplan
+    ref["p0_tree"] = p0
+    ref["batches"] = batches
     ref["p0"] = jax.tree_util.tree_leaves(p0)
     ref["ids"] = ids
     return ref, port
@@ -268,3 +272,54 @@ def test_dasha_steps_match_the_reference(runs_dasha):
     assert port["payload"] == ref["payload"]
     np.testing.assert_allclose(port["loss"], ref["loss"], rtol=2e-3)
     np.testing.assert_allclose(port["dir_norm"], ref["dir_norm"], rtol=2e-2)
+
+
+# ----------------------------------------------------------------------- #
+# model dtype float32: the float32 flash kernels' train step
+# ----------------------------------------------------------------------- #
+
+
+@pytest.fixture(scope="module")
+def runs_f32():
+    """Two steps of both packages on reduced stablelm_3b cut to 1 layer at
+    model dtype float32 (the LLM cut's float32 train step: both steps
+    differentiate with respect to bf16 parameters, but the activations,
+    and so q, k and v, stay float32): RoSDHB, float32 banks."""
+    return _run_both(_overrides(JSp, JAgg, JAtk),
+                     _overrides(SparsifierConfig, AggregatorConfig,
+                                AttackConfig), steps=2, n_layers=1,
+                     dtype="float32")
+
+
+def test_float32_model_steps_match_the_reference(runs_f32):
+    """Honest loss within rtol 1e-5 and |R| within rtol 1e-4 at both
+    steps, far inside the bfloat16 model's 2e-3 and 2e-2: with float32
+    activations on both sides the two frameworks differ only in float32
+    summation order until each rounds its gradients to the bf16
+    parameters' dtype (read: 2e-7 on the loss, 4e-6 on |R|)."""
+    ref, port = runs_f32
+    assert port["plan"].model.dtype == ref["plan"].model.dtype == "float32"
+    np.testing.assert_allclose(port["loss"], ref["loss"], rtol=1e-5)
+    np.testing.assert_allclose(port["dir_norm"], ref["dir_norm"], rtol=1e-4)
+
+
+def test_float32_model_loss_matches_the_pallas_kernel(runs_f32):
+    """The step's forward at float32 through the reference's Pallas flash
+    kernel in interpret mode (``use_flash_attention=True``; its gradient
+    fails, so the reference's steps above take its plain attention): the
+    reference's loss at the initial parameters and the first batch against
+    the port's (the kernels' plain forward on the CPU) within rtol 1e-5,
+    and against the reference's own plain attention within 1e-5."""
+    from repro.models import transformer as JTm
+    from repro_torch.models import lm_loss
+    ref, port = runs_f32
+    jcfg = ref["plan"].model
+    batch = {"tokens": jnp.asarray(ref["batches"][0][0])}
+    pallas = float(JTm.lm_loss(ref["p0_tree"], jcfg.with_overrides(
+        use_flash_attention=True), batch))
+    plain = float(JTm.lm_loss(ref["p0_tree"], jcfg, batch))
+    cfg = port["plan"].model.with_overrides(use_flash_attention=True)
+    got = float(lm_loss(from_jax_params(ref["p0_tree"]), cfg,
+                        {"tokens": torch.from_numpy(ref["batches"][0][0])}))
+    assert pallas == pytest.approx(plain, rel=1e-5)
+    assert got == pytest.approx(pallas, rel=1e-5)
