@@ -49,11 +49,13 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    gemma_2b's ``[1, 4096, 8, 256]`` with one kv head and at the LLM
    step's ``[1, 4096, 32, 80]``, where two backward runs must be bitwise
    equal; the float32 kernels (``csrc/flash_attention_f32.cu``) on every
-   awkward case and, timed, at zamba2's, gemma_2b's, the vlm's ``[1,
-   4096, 32, 128]`` (8 kv heads) and the LLM step's shapes, within 1e-5 of
-   the plain version's largest entry (their launches on their own
-   counters), two backward runs bitwise equal, beside the float64 errors
-   of both; the flash kernels' ptxas registers and no spill at any head
+   awkward case, at head dim 112 unpadded, on the dk/dv split's awkward
+   shapes and, timed, at zamba2's (112, unpadded), gemma_2b's (its dk/dv
+   blocks split), the vlm's ``[1, 4096, 32, 128]`` (8 kv heads) and the
+   LLM step's shapes, within 1e-5 of the plain version's largest entry
+   (their launches on their own counters), two backward runs bitwise equal
+   in every case, beside the float64 errors of both (dk's among them) at
+   the timed shapes; the flash kernels' ptxas registers and no spill at any head
    dim, the bf16 kernels' SASS must hold ``wgmma`` (HGMMA) and TMA
    (UTMALDG) and no WMMA (HMMA), the float32 kernels' FFMA and no HGMMA,
    HMMA or tf32 instruction. Times of the kernel, the plain version and a
@@ -168,7 +170,8 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    would flip reported; zamba2's at full depth within 1.5 times its own
    bfloat16 floor measured in the same call, the floor within 0.1 of max
    |h|, see ``FAMILY_BF16_FLOOR``; flash forward launches 4, 0, 0 and 13, the
-   last at head dim 112 zero-padded to 128); the cuts of ``FAMILY_CUTS``
+   last at head dim 112 zero-padded to 128; mamba2's and zamba2's gap
+   logged block by block, ``FAMILY_LAYER_GAPS``); the cuts of ``FAMILY_CUTS``
    (float32 within 1e-4, zamba2 at full depth among them; zamba2 at 7
    layers in bfloat16 within 5e-2); mamba2_1_3b through a 4,100-token
    prompt (16 chunks of 256 and a padded 17th) and 16 steps; the train
@@ -242,11 +245,17 @@ TF32 is off for matmuls and cuDNN convolutions throughout: the parity bars
 are float32 ones. The last line is ``{"ok": true, "device": {...}}``; the
 two before it are the ``{"kernels": [...]}`` record and the card's name and
 power limit, after a ``{"summary": ...}`` line of the main-path numbers.
+
+``python3 chip_smoke.py --flash-f32-ab A.cu [B.cu ...]`` times other
+versions of ``csrc/flash_attention_f32.cu`` against the tree's in turns
+(:func:`flash_f32_ab`; a partial run, exit 3, its records also in
+``build/chip_smoke/flash_f32_ab.json``).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -525,8 +534,21 @@ FLASH_TILE_TOL_GRAD = 1e-2
 FLASH_F32_TOL = 1e-5
 FLASH_F32_TILE_TOL = 1e-4
 # The float32 cases: every awkward case, then the timed rows at the LLM
-# path's, the vlm's, gemma_2b's and zamba2's shapes (zamba2's padded).
+# path's, the vlm's, gemma_2b's and zamba2's shapes (zamba2's at head dim
+# 112, which the float32 kernels take unpadded).
 FLASH_F32_TIMED = (FLASH_ZAMBA, FLASH_GEMMA, FLASH_VLM, FLASH_PATH)
+# The float32 kernels at head dim 112, unpadded (F32_HEAD_DIMS), at the
+# tile edges of the other head dims' cases; and the dk/dv blocks' split
+# (flash.dkdv_plan: every small grid splits) where Sk is no multiple of a
+# key block, under a window, with q_offset > 0, MQA at head dim 256 and
+# GQA at 80.
+FLASH_F32_112 = [(2, 129, 129, 8, 2, 112, True, None, 0),
+                 (1, 127, 127, 8, 1, 112, True, None, 0),
+                 (1, 257, 257, 4, 2, 112, True, 100, 0),
+                 (2, 65, 193, 4, 1, 112, True, 70, 128),
+                 (1, 63, 191, 8, 2, 112, False, None, 0)]
+FLASH_F32_SPLIT = [(1, 300, 1000, 8, 1, 256, True, 200, 700),
+                   (2, 250, 700, 16, 2, 80, True, 300, 450)]
 
 
 def log(msg: str) -> None:
@@ -1791,13 +1813,13 @@ def flash_fault_readings(torch, case, seed: int,
 def launch_inputs(torch, q, k, v, dout) -> tuple:
     """What the kernels are launched on for a case: ``(q, k, v, dout,
     scale)`` as they are (scale None: ``1/sqrt(D)``), or at a head dim
-    they are not built for zero-padded to 128 with the head dim's own
+    they are not built for (bf16 at 112) zero-padded to 128 with the head dim's own
     scale ``1/sqrt(D)`` (``ops.padded_attention``; dout's padded lanes are
     zero, as the slice's gradient is)."""
     import torch.nn.functional as Fn
     from repro_torch.kernels.flash_attention import padded_dim
     d = q.shape[-1]
-    dp = padded_dim(d)
+    dp = padded_dim(d, q.dtype)
     if dp == d:
         return q, k, v, dout, None
     pad = (0, dp - d)
@@ -1883,18 +1905,26 @@ def flash_case(torch, case, timed: bool, seed: int,
                         f"worst {FLASH_TILE_ROWS}-row tile rms(err) <= "
                         f"{tile_out:g} rms(plain) (out), "
                         f"{tile_grad:g} (dq, dk, dv)"}
-    if timed:
+    if dtype == "float32" and device == "cuda":
+        # the dk/dv blocks' split on this card (flash.dkdv_plan)
+        from repro_torch.kernels import build
+        from repro_torch.kernels.flash_attention import dkdv_plan
+        rec["nsplit"] = dkdv_plan(*case, sms=build.sm_count(
+            q.get_device()))["nsplit"]
+    if (timed or dtype == "float32") and device == "cuda":
         from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
                                                          flash_fwd_cuda)
         qp, kp, vp, dp_, sc = launch_inputs(torch, q, k, v, dout)
         o_k, lse = flash_fwd_cuda(qp, kp, vp, **kw, scale=sc)
-        # no atomics: two backward runs are bitwise equal
+        # no atomics (the split's partial sums added in a fixed order): two
+        # backward runs are bitwise equal
         runs = [flash_bwd_cuda(qp, kp, vp, o_k, lse, dp_, **kw, scale=sc)
                 for _ in range(2)]
         rec["bwd_bitwise_repeat"] = all(
             torch.equal(a, b_) for a, b_ in zip(*runs))
         rec["ok"] = rec["ok"] and rec["bwd_bitwise_repeat"]
         del runs, o_k, lse, qp, kp, vp, dp_
+    if timed:
         rec["seed"] = seed  # for profile_cases
         from repro_torch.launch.roofline import flash_work
         work = flash_work(b, sq, sk, h, kv, d,
@@ -2002,6 +2032,8 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
     # bf16 path's case stays last (the kernel record's)
     cases += ([(c, False, 700 + i, "float32")
                for i, c in enumerate(FLASH_AWKWARD)]
+              + [(c, False, 750 + i, "float32")
+                 for i, c in enumerate(FLASH_F32_112 + FLASH_F32_SPLIT)]
               + [(c, True, 800 + i, "float32")
                  for i, c in enumerate(f32_timed)]
               + [(path, True, 500 + n_awk + 1, "bfloat16")])
@@ -2033,6 +2065,8 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
         if "bwd_bitwise_repeat" in rec:
             line += (f" | two backward runs bitwise equal: "
                      f"{rec['bwd_bitwise_repeat']}")
+        if "nsplit" in rec:
+            line += f" | dk/dv split {rec['nsplit']}"
         for who in ("kernel", "plain"):
             if f"{who}_f64" in e:
                 line += f" | {who} vs float64: " + ", ".join(
@@ -2040,6 +2074,10 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
         log(line)
         if not rec["ok"]:
             failures.append(f"{case} {dtype} (launched {rec['launched']})")
+        if device == "cuda" and dtype == "float32" and (
+                case in FLASH_F32_SPLIT or case == gemma) and \
+                rec["nsplit"] < 2:
+            failures.append(f"{case} float32: its dk/dv blocks do not split")
     # the tile check would fail a kernel that dropped one tile on the path,
     # at either dtype's bounds
     fault = flash_fault_readings(torch, path, seed=499, device=device)
@@ -2063,10 +2101,9 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
     # every kernel at every head dim in the report of each library this
     # process built
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
     missing = [f"{k}<{d}>" for lib, names in FLASH_KERNELS.items()
-               if lib in build.BUILD_LOG for k in names for d in HEAD_DIMS
-               if f"{k}<{d}>" not in FLASH_PTXAS]
+               if lib in build.BUILD_LOG for k in names
+               for d in flash_dims(lib, k) if f"{k}<{d}>" not in FLASH_PTXAS]
     if missing:
         failures.append(f"no ptxas report of {missing}")
     if device == "cuda":
@@ -2095,6 +2132,181 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
     if failures:
         raise AssertionError(f"flash kernels disagree: {failures}")
     return out
+
+
+def kernel_split_us(torch, fn, reps: int = 3) -> dict:
+    """Device µs per call of each kernel ``fn`` launches, by name (the
+    profiler's events, summed over ``reps`` calls)."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+_kernel)", e.name)
+            name = m[1] if m else e.name[:40]
+            out[name] += (e.time_range.end - e.time_range.start) / reps
+    return dict(out)
+
+
+def flash_f32_ab(torch, parents, reps: int = 10,
+                 cases=FLASH_F32_TIMED) -> list:
+    """The float32 flash kernels of this tree against other versions of
+    ``csrc/flash_attention_f32.cu`` (``parents``, e.g. the parent commit's,
+    ``git show HEAD:src/repro_torch/csrc/flash_attention_f32.cu``), each
+    built with the same ``nvcc`` flags under ``build/flash_f32_ab``. At
+    each case (the float32 timed shapes), forward and backward, each
+    version and the tree are timed in turns, version, tree, tree, version,
+    as :func:`time_ms` loops of ``reps`` calls, each launched as the port
+    launched it (a head dim the library is not built for, zero-padded to
+    128 with the head dim's own scale; a backward with a dk/dv split, with
+    its plan and scratch), with the device µs of each backward kernel.
+    Returns a record a version, case and direction: both readings of each,
+    their means, and max|tree - version| / max|version| of the outputs."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import build
+
+    out_dir = ROOT / "build" / "flash_f32_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for i, src in enumerate(parents):
+        so = out_dir / f"lib{i}.so"
+        jobs.append((src, so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    new = build.load("flash_attention_f32")
+    for name, (secs, report) in build.BUILD_LOG.items():
+        for kernel, regs in ptxas_table(report).items():
+            log(f"  ptxas {kernel}: {regs['registers']} registers, spill "
+                f"stores {regs['spill_stores']} B, spill loads "
+                f"{regs['spill_loads']} B")
+    records = []
+    for src, so, proc in jobs:
+        report, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src}:\n{report}")
+        text = re.sub(r"//[^\n]*", "", Path(src).read_text())
+        m = re.search(r'extern\s+"C"\s+int\s+flash_bwd_f32\s*\(([^)]*)\)',
+                      text)
+        split_args = m is not None and "nsplit" in m[1]
+        dims = [int(d) for d in re.findall(r"case (\d+):", text)]
+        regs = {k: v["registers"] for k, v in ptxas_table(report).items()
+                if "<80>" in k or "<256>" in k}
+        log(f"flash f32 ab {src}: registers {regs}")
+        records += _flash_f32_ab_one(torch, ctypes.CDLL(str(so)), new,
+                                     split_args, dims, str(src), reps, cases)
+    return records
+
+
+def _flash_f32_ab_one(torch, old, new, split_args: bool, dims, label: str,
+                      reps: int, cases) -> list:
+    import ctypes
+
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (dkdv_plan,
+                                                     f32_bwd_scratch,
+                                                     padded_dim)
+    P, I, F = build.P, build.I, build.F
+    old.flash_fwd_f32.argtypes = [P] * 5 + [I] * 9 + [F, P]
+    old.flash_bwd_f32.argtypes = ([P] * 11 + [I] * 10 if split_args else
+                                  [P] * 10 + [I] * 9) + [F, P]
+    old.flash_fwd_f32.restype = old.flash_bwd_f32.restype = ctypes.c_int
+    stream = build.stream_ptr(0)
+    sms = build.sm_count(0)
+    records = []
+    for i, case in enumerate(cases):
+        b, sq, sk, h, kv, d, causal, window, q_offset = case
+        q, k, v, dout = flash_inputs(torch, case, 900 + i, "float32", "cuda")
+        calls = {}
+        for who, lib in (("parent", old), ("tree", new)):
+            built = dims if who == "parent" else flash_dims(
+                "flash_attention_f32")
+            splits = split_args or who == "tree"
+            dp = d if d in built else padded_dim(d)
+            pad = (0, dp - d)
+            qp, kp, vp, dop = (Fn.pad(t, pad).contiguous()
+                               for t in (q, k, v, dout))
+            scale = 1.0 / math.sqrt(d)
+            o, dq = torch.empty_like(qp), torch.empty_like(qp)
+            dk, dv = torch.empty_like(kp), torch.empty_like(kp)
+            lse = torch.empty((b, h, sq), device="cuda")
+            delta = torch.empty_like(lse)
+            dims_args = (b, sq, sk, h, kv, dp, int(causal), window or 0,
+                         q_offset)
+            split = ()
+            if splits:
+                nsplit = dkdv_plan(b, sq, sk, h, kv, dp, causal, window,
+                                   q_offset, sms)["nsplit"]
+                n = f32_bwd_scratch(b, sq, sk, h, kv, dp, nsplit)
+                part = torch.empty(n, device="cuda") if n else None
+                split = (0 if part is None else part.data_ptr(), nsplit)
+
+            def fwd(lib=lib, qp=qp, kp=kp, vp=vp, o=o, lse=lse,
+                    a=dims_args, scale=scale):
+                build.check(lib.flash_fwd_f32(
+                    qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                    o.data_ptr(), lse.data_ptr(), *a, scale, stream), "fwd")
+
+            def bwd(lib=lib, qp=qp, kp=kp, vp=vp, o=o, dop=dop, lse=lse,
+                    delta=delta, dq=dq, dk=dk, dv=dv, split=split,
+                    a=dims_args, scale=scale):
+                build.check(lib.flash_bwd_f32(
+                    qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                    o.data_ptr(), dop.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), *split, *a, scale, stream), "bwd")
+            fwd()
+            bwd()
+            torch.cuda.synchronize()
+            calls[who] = {"fwd": fwd, "bwd": bwd, "outs": [
+                t[..., :d] for t in (o, dq, dk, dv)]}
+        diff = max(float((a - b_).abs().max() / b_.abs().max()) for a, b_
+                   in zip(calls["tree"]["outs"], calls["parent"]["outs"]))
+        times = {}
+        for name in ("fwd", "bwd"):
+            times[name] = {"parent": [], "tree": []}
+            for who in ("parent", "tree", "tree", "parent"):
+                times[name][who].append(time_ms(torch, calls[who][name],
+                                                reps))
+        # after the timed loops: the profiler slows the launches after it
+        split_us = {who: kernel_split_us(torch, calls[who]["bwd"])
+                    for who in ("parent", "tree")}
+        for name in ("fwd", "bwd"):
+            t = times[name]
+            rec = {"version": label, "case": list(case), "kernel": name,
+                   "parent_ms": t["parent"], "tree_ms": t["tree"],
+                "parent_mean_ms": sum(t["parent"]) / 2,
+                "tree_mean_ms": sum(t["tree"]) / 2,
+                "tree_vs_parent_rel_diff": diff}
+            rec["speedup"] = rec["parent_mean_ms"] / rec["tree_mean_ms"]
+            if name == "bwd":
+                rec["bwd_kernels_us"] = split_us
+            records.append(rec)
+            log(f"flash f32 ab {case} {name}: version "
+                f"{', '.join(f'{x:.5f}' for x in t['parent'])} ms, tree "
+                f"{', '.join(f'{x:.5f}' for x in t['tree'])} ms, "
+                f"parent/tree {rec['speedup']:.3f}; outputs differ by "
+                f"{diff:.3g} of max|version|" + (
+                    "; backward kernels µs " + str({w: {k: round(v, 1) for
+                                                      k, v in u.items()}
+                                                  for w, u in rec[
+                                                      "bwd_kernels_us"]
+                                                  .items()})
+                    if name == "bwd" else ""))
+        del calls, q, k, v, dout
+        torch.cuda.empty_cache()
+    return records
 
 
 # ----------------------------------------------------------------------- #
@@ -4492,6 +4704,12 @@ FAMILY_CUTS = (("deepseek_v2_lite_16b", 2, "float32"),
 FAMILY_BF16_FLOOR = ("zamba2_7b",)
 FAMILY_FLOOR_FACTOR = 1.5
 FAMILY_FLOOR_MAX = 0.1
+# The bfloat16 models at full depth whose served gap grows with depth
+# (mamba2_1_3b: 48 layers, zamba2_7b: 81 and its shared attention block's
+# applications): each block's output in prefill and decode against the
+# same block's in the train-mode forward, in units of that block's
+# max |h| (:func:`layer_gaps`), logged; the bars above stay the checks.
+FAMILY_LAYER_GAPS = ("mamba2_1_3b", "zamba2_7b")
 # mamba2_1_3b through a long prompt: 16 whole chunks of 256 and a padded
 # 17th (the chunk recurrence, the pad, the conv state), then 16 steps
 FAMILY_LONG = ("mamba2_1_3b", 4100, 16)
@@ -4508,6 +4726,55 @@ FAMILY_TRAIN = (("deepseek_v2_lite_16b", 2, "bfloat16"),
                 ("gemma_2b", 2, "bfloat16"),
                 (VLM_BANK[0], 5, VLM_BANK[2]))
 FAMILY_STEPS, FAMILY_CHECK_STEPS = 4, 2
+
+
+@contextlib.contextmanager
+def layer_outputs():
+    """Record every block's output by the forward's mode while the context
+    is open: ``{"prefill" | "decode" | "train": [(kind, float32 [B, S,
+    D])]}`` in call order (``kind`` "attn" or "ssm"), by wrapping the
+    decoder stack's block functions."""
+    from repro_torch.models import transformer as TR
+    rec = {"prefill": [], "decode": [], "train": []}
+    names = {"_attn_block_apply": "attn", "_ssm_block_apply": "ssm"}
+    orig = {n: getattr(TR, n) for n in names}
+
+    def wrap(name):
+        def block(*args, **kw):
+            out = orig[name](*args, **kw)
+            x = out[0] if isinstance(out, tuple) else out
+            rec[kw["mode"]].append((names[name], x.detach().float()))
+            return out
+        return block
+    try:
+        for n in names:
+            setattr(TR, n, wrap(n))
+        yield rec
+    finally:
+        for n, fn in orig.items():
+            setattr(TR, n, fn)
+
+
+def layer_gaps(rec: dict, prompt: int, steps: int) -> dict:
+    """Per block of :func:`layer_outputs`'s record of one
+    :func:`teacher_forced` check: the served output (the prefill's
+    positions, then each decode step's) against the train-mode forward's
+    over the same ``prompt + steps`` positions, as max|diff| / max|train|
+    of that block. Returns ``{"kinds", "gaps"}``."""
+    import torch
+    pre, dec, train = rec["prefill"], rec["decode"], rec["train"]
+    n = len(pre)
+    if len(train) != n or len(dec) != n * steps:
+        raise ValueError(f"layer_gaps: {n} prefill, {len(dec)} decode, "
+                         f"{len(train)} train block outputs for {steps} "
+                         f"steps")
+    gaps = []
+    for j in range(n):
+        served = torch.cat([pre[j][1]] + [dec[i * n + j][1]
+                                          for i in range(steps)], dim=1)
+        ref = train[j][1][:, :prompt + steps]
+        gaps.append(float((served - ref).abs().max() / ref.abs().max()))
+    return {"kinds": [kind for kind, _ in pre], "gaps": gaps}
 
 
 def family_serve_case(torch, arch: str, extra, dev_args: list,
@@ -4544,8 +4811,27 @@ def family_serve_case(torch, arch: str, extra, dev_args: list,
                                   "peak_mib")}, "serve_launches": launches}
     del res["caches"]
     moe = cfg.family == "moe"
-    chk = teacher_forced(torch, cfg, res["params"], res["batch"], steps,
-                         max_len=s + n_tok, full=not moe, prompt_only=moe)
+    per_layer = arch in FAMILY_LAYER_GAPS and cfg.dtype == "bfloat16"
+    with (layer_outputs() if per_layer else contextlib.nullcontext()) as lo:
+        chk = teacher_forced(torch, cfg, res["params"], res["batch"], steps,
+                             max_len=s + n_tok, full=not moe,
+                             prompt_only=moe)
+    if per_layer:
+        rec["layer_gaps"] = layer_gaps(lo, s, steps)
+        gaps = rec["layer_gaps"]["gaps"]
+        # the largest step from one block to the next against the median
+        # step: a block whose gap jumps where the others grow smoothly
+        rises = sorted(b_ - a for a, b_ in zip(gaps, gaps[1:]))
+        rec["layer_gaps"]["max_rise"] = rises[-1] if rises else 0.0
+        rec["layer_gaps"]["median_rise"] = (rises[len(rises) // 2]
+                                            if rises else 0.0)
+        log(f"families {cfg.name}: per block against the train-mode "
+            f"forward, of each block's max|h| ({len(gaps)} blocks, "
+            f"{rec['layer_gaps']['kinds'].count('attn')} attention): "
+            + ", ".join(f"{g:.3g}" for g in gaps)
+            + f"; largest rise {rec['layer_gaps']['max_rise']:.3g}, "
+            f"median rise {rec['layer_gaps']['median_rise']:.3g}")
+        del lo
     same = torch.equal(chk["tokens"], res["tokens"][:, :steps + 1])
     rec.update(rel_prefill=chk["rel_prefill"], max_h=chk["max_h"],
                tokens_reproduced=same, warm_prefill_ms=chk["prefill_ms"],
@@ -5422,15 +5708,16 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
     f32_shapes = [rec for rec in flash if "flash_fwd" in rec
                   and rec["dtype"] == "float32"]
     f32_path = next(r for r in f32_shapes if tuple(r["case"]) == FLASH_PATH)
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
     for name, err, kernels in (
             ("flash_fwd", f32_path["errs"]["out"], ["flash_fwd_ffma_kernel"]),
             ("flash_bwd", max(f32_path["errs"][k] for k in ("dq", "dk",
                                                             "dv")),
              ["flash_bwd_ffma_delta_kernel", "flash_bwd_ffma_dkdv_kernel",
-              "flash_bwd_ffma_dq_kernel"])):
+              "flash_bwd_ffma_dkdv_sum_kernel",
+              "flash_bwd_ffma_dq_kernel", "flash_bwd_ffma_dq_ds_kernel"])):
         t = f32_path[name]
-        kernels = [f"{k}<{d}>" for d in HEAD_DIMS for k in kernels]
+        kernels = [f"{k}<{d}>" for k in kernels
+                   for d in flash_dims("flash_attention_f32", k)]
         record["kernels"].append({
             "name": f"{name}_f32", "route": "cuda",
             **KERNELS[f"{name}_f32"], "dtype": "float32",
@@ -5442,10 +5729,14 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
             "library_device_us": t.get("library_device_us"),
             "kernel_over_library": (t["ms"] / t["library_ms"]
                                     if t["library_ms"] else None),
-            "shapes": [{"shape": r["case"], **{k: r[name].get(k) for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "device_us", "host_us", "library_device_us")}}
-                for r in f32_shapes],
+            "shapes": [{"shape": r["case"], "nsplit": r.get("nsplit"),
+                        "kernel_f64": r["errs"].get("kernel_f64"),
+                        "plain_f64": r["errs"].get("plain_f64"),
+                        **{k: r[name].get(k) for k in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "device_us", "host_us",
+                            "library_device_us")}}
+                       for r in f32_shapes],
             "ptxas": {k: FLASH_PTXAS.get(k) for k in kernels},
             "sass": {k: FLASH_SASS.get(k) for k in kernels}})
     # decompress runs on the main path no more; the local-mask run keeps it
@@ -5585,14 +5876,33 @@ def ptxas_table(report: str) -> dict:
 
 #: The flash kernels of each library (``csrc/<name>.cu``): the bfloat16
 #: ones on the tensor cores, the float32 ones (``ffma``) on the CUDA cores;
-#: each is built at every head dim of ``HEAD_DIMS``.
+#: each is built at every head dim of its library's :func:`flash_dims`.
 FLASH_KERNELS = {
     "flash_attention": ("flash_fwd_kernel", "flash_bwd_delta_kernel",
                         "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
     "flash_attention_f32": ("flash_fwd_ffma_kernel",
                             "flash_bwd_ffma_delta_kernel",
                             "flash_bwd_ffma_dkdv_kernel",
-                            "flash_bwd_ffma_dq_kernel")}
+                            "flash_bwd_ffma_dkdv_sum_kernel",
+                            "flash_bwd_ffma_dq_kernel",
+                            "flash_bwd_ffma_dq_ds_kernel")}
+
+
+def flash_dims(lib: str, kernel: str = "") -> tuple:
+    """The head dims a flash library is built for (``flash.head_dims``:
+    the float32 one adds 112), or those of one of its kernels: the float32
+    library builds dq from dS^T (``flash_bwd_ffma_dq_ds_kernel``) at
+    ``flash.F32_DS_DIMS`` and the recomputing dq at the others."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash import (F32_DS_DIMS,
+                                                           head_dims)
+    dims = head_dims(torch.float32 if lib == "flash_attention_f32" else None)
+    if kernel == "flash_bwd_ffma_dq_ds_kernel":
+        return tuple(d for d in dims if d in F32_DS_DIMS)
+    if kernel == "flash_bwd_ffma_dq_kernel":
+        return tuple(d for d in dims if d not in F32_DS_DIMS)
+    return dims
 #: ptxas's registers and spills of the flash kernels, from this run's build.
 FLASH_PTXAS: dict = {}
 #: Instructions in each flash kernel's SASS (``cuobjdump -sass``): HGMMA
@@ -5652,6 +5962,17 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if len(sys.argv) > 2 and sys.argv[1] == "--flash-f32-ab":
+        # the float32 flash kernels against other versions', in turns
+        log(f"gpu: {gpu_line()}")
+        records = flash_f32_ab(torch, [Path(a).resolve()
+                                       for a in sys.argv[2:]])
+        out = ROOT / "build" / "chip_smoke" / "flash_f32_ab.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"gpu": gpu_line(), "records": records},
+                                  indent=1))
+        log(json.dumps(records))
+        return 3
     if len(sys.argv) > 2 and sys.argv[1] == "--device-times":
         # one JSON line: profile_cases in a fresh process
         cases = json.loads(sys.argv[2])

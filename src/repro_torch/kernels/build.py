@@ -71,8 +71,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_attention_f32": {
         # the bf16 entries' arguments, every tensor float32
         "flash_fwd_f32": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
-        "flash_bwd_f32": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                          I, I, F, P),
+        # ... and before B the dk/dv split's scratch and nsplit
+        "flash_bwd_f32": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                          I, I, I, I, F, P),
     },
 }
 

@@ -14,6 +14,10 @@ inputs), go to ``csrc/flash_attention_f32.cu``: the same forward and
 backward with every product an FFMA on the CUDA cores (tf32 ``wgmma``
 would round the inputs to a 10-bit mantissa), counted under their own
 wrappers, :func:`flash_fwd_f32_cuda` and :func:`flash_bwd_f32_cuda`.
+Those are built for head dim 112 too (:data:`F32_HEAD_DIMS`: no tile width
+asks for a pad on the CUDA cores), and their dk/dv blocks split their loop
+over query heads and tiles across blocks where the grid would not fill the
+card (:func:`dkdv_plan`).
 
 :class:`FlashAttention` is a ``torch.autograd.Function`` whose backward is
 a second Function, :class:`FlashBackward`: the forward saves the per-row
@@ -38,6 +42,9 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref)
 
 HEAD_DIMS = (64, 80, 128, 256)
+#: The head dims the float32 kernels are built for: the bfloat16 ones' and
+#: zamba2's 112, taken unpadded.
+F32_HEAD_DIMS = (64, 80, 112, 128, 256)
 #: The input dtypes the kernels take: bfloat16 (``csrc/flash_attention.cu``,
 #: on the tensor cores) and float32 (``csrc/flash_attention_f32.cu``, on the
 #: CUDA cores).
@@ -48,11 +55,98 @@ DTYPES = (torch.bfloat16, torch.float32)
 PAD_MAX = 256
 
 
-def padded_dim(d: int) -> int:
-    """The head dim the kernel runs for a model's head dim ``d``: ``d``
-    itself where it is built for it or past :data:`PAD_MAX`, else the next
-    multiple of 128 (112 -> 128, 192 -> 256)."""
-    return d if d in HEAD_DIMS or d > PAD_MAX else -(-d // 128) * 128
+def head_dims(dtype: Optional[torch.dtype] = None) -> tuple:
+    """The head dims the kernels of ``dtype`` are built for (bfloat16's
+    where ``dtype`` is None)."""
+    return F32_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS
+
+
+def padded_dim(d: int, dtype: Optional[torch.dtype] = None) -> int:
+    """The head dim the kernel of ``dtype`` (bfloat16's where None) runs for
+    a model's head dim ``d``: ``d`` itself where it is built for it or past
+    :data:`PAD_MAX`, else the next multiple of 128 (112 -> 128 in bfloat16,
+    192 -> 256)."""
+    return d if d in head_dims(dtype) or d > PAD_MAX else -(-d // 128) * 128
+
+
+#: The float32 dk/dv kernel's tiles by head dim (``DkdvTile<D>`` in
+#: ``csrc/flash_attention_f32.cu``: 16 RM keys a block, 16 KW query rows a
+#: streamed tile).
+F32_DKDV_TILES = {64: (128, 64), 80: (128, 64), 112: (128, 48),
+                  128: (64, 64), 256: (64, 16)}
+
+
+#: Head dims where the float32 dk/dv kernel writes dS^T to scratch and dq
+#: reads it (``kDsPath`` in the .cu: at 256 a resident Q and dO leave too
+#: little shared memory to recompute S and dP in wide tiles), and the rows
+#: of a dq block there (``DqDsTile``), to which each dS^T row is padded.
+F32_DS_DIMS = (256,)
+F32_DQ_DS_ROWS = 128
+
+
+def f32_bwd_scratch(b: int, sq: int, sk: int, h: int, kv: int, d: int,
+                    nsplit: int) -> int:
+    """Floats of float32 scratch the float32 backward takes: the dk/dv
+    split's partial sums ``[2, nsplit, B, Sk, KV, D]`` where ``nsplit > 1``,
+    then at a head dim of :data:`F32_DS_DIMS` dS^T ``[B, H, Sk, Sq]`` with
+    its rows padded to whole dq blocks; 0 where it needs none."""
+    n = 2 * nsplit * b * sk * kv * d if nsplit > 1 else 0
+    if d in F32_DS_DIMS:
+        n += b * h * sk * (-(-sq // F32_DQ_DS_ROWS) * F32_DQ_DS_ROWS)
+    return n
+
+
+def _query_tiles(j0: int, keys: int, tile: int, sq: int, sk: int,
+                 causal: bool, window: Optional[int], q_offset: int) -> int:
+    """Query tiles of ``tile`` rows that some row seeing a key of ``[j0, j0
+    + keys)`` falls in: the kernel's ``query_range``, begin aligned down to
+    ``tile``."""
+    jlast = min(j0 + keys, sk) - 1
+    begin, end = 0, sq
+    if causal:
+        begin = max(0, j0 - q_offset)
+    if window:
+        end = min(end, jlast + window - q_offset)
+    begin = begin // tile * tile
+    return -(-(end - begin) // tile) if end > begin else 0
+
+
+def dkdv_plan(b: int, sq: int, sk: int, h: int, kv: int, d: int,
+              causal: bool, window: Optional[int], q_offset: int,
+              sms: int) -> dict:
+    """The float32 dk/dv kernel's launch plan on a card of ``sms`` SMs.
+
+    A block owns one key block of one kv head of one batch entry, and a run
+    of its units: the (query head, query tile) pairs some row of which sees
+    a key of the block, head-major (``rep`` heads of ``tiles[kb]`` tiles
+    each). Where ``kv * b * key blocks`` is under twice ``sms`` the grid
+    would leave SMs idle, so each key block's units are split into
+    ``nsplit`` runs, ``ceil(4 sms / blocks)`` but no more than the heaviest
+    block's units (nor than 65,535 grid rows): split ``s`` takes units
+    ``[units * s // nsplit, units * (s + 1) // nsplit)``. Each run's dK and
+    dV go unscaled to float32 scratch ``[2, nsplit, B, Sk, KV, D]``, and
+    ``flash_bwd_ffma_dkdv_sum_kernel`` adds them in split order: ``dk = sum_s
+    fma(part_k[s], scale, .)``, ``dv = sum_s part_v[s]``, ``s = 0, 1, ...``.
+    The grid runs key block 0 first (the heaviest under a causal mask).
+
+    Returns ``{"nsplit", "keys", "rows", "tiles": [tiles a key block],
+    "runs": {(kb, s): (u0, u1)}}``: a pure function of the shape and
+    ``sms``."""
+    keys, rows = F32_DKDV_TILES[d]
+    nkb = -(-sk // keys)
+    tiles = [_query_tiles(kb * keys, keys, rows, sq, sk, causal, window,
+                          q_offset) for kb in range(nkb)]
+    rep = h // kv
+    heaviest = rep * max(tiles)
+    blocks = kv * b * nkb
+    nsplit = 1
+    if blocks < 2 * sms:
+        nsplit = max(1, min(-(-4 * sms // blocks), heaviest, 65535 // nkb))
+    runs = {(kb, s): (rep * tiles[kb] * s // nsplit,
+                      rep * tiles[kb] * (s + 1) // nsplit)
+            for kb in range(nkb) for s in range(nsplit)}
+    return {"nsplit": nsplit, "keys": keys, "rows": rows, "tiles": tiles,
+            "runs": runs}
 
 
 def fully_masked_rows(sq: int, sk: int, causal: bool, window: Optional[int],
@@ -74,7 +168,7 @@ def refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Why the kernels cannot take these inputs, as ``(exception type,
     message)``, or ``None`` when they can: bfloat16 or float32 (all three
     of one dtype) ``[B, S, heads, D]`` contiguous tensors, D in
-    :data:`HEAD_DIMS` (with ``pad``, also a D
+    :data:`HEAD_DIMS` (float32: :data:`F32_HEAD_DIMS`; with ``pad``, also a D
     up to :data:`PAD_MAX`, which ``ops.flash_attention`` zero-pads to the
     next multiple of 128), GQA heads, no query row without a visible key,
     on a CUDA device (checked last, so the other reasons read the same on
@@ -99,11 +193,12 @@ def refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         return ValueError, (f"k {tuple(k.shape)} and v {tuple(v.shape)} do "
                             f"not fit q {tuple(q.shape)}")
-    if (padded_dim(d) if pad else d) not in HEAD_DIMS:
+    dims = head_dims(q.dtype)
+    if (padded_dim(d, q.dtype) if pad else d) not in dims:
         return ValueError, (f"flash attention kernel is built for head dims "
-                            f"{HEAD_DIMS}" + (f" and takes those up to "
-                                              f"{PAD_MAX} zero-padded"
-                                              if pad else "") + f", got {d}")
+                            f"{dims}" + (f" and takes those up to "
+                                         f"{PAD_MAX} zero-padded"
+                                         if pad else "") + f", got {d}")
     if h % kv or b > 65535 or h > 65535:
         return ValueError, (f"H={h} must be a multiple of KV={kv}; B, H <= "
                             f"65535")
@@ -187,10 +282,21 @@ def _bwd(lib: str, fn: str, q, k, v, o, lse, dout, causal, window,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    split = ()
+    if q.dtype == torch.float32:
+        # the dk/dv blocks' split, and the scratch of its partial sums and
+        # of dS^T where the kernels take them
+        sk, kv, d = k.shape[1], k.shape[2], k.shape[3]
+        nsplit = dkdv_plan(b, sq, sk, h, kv, d, causal, window, q_offset,
+                           build.sm_count(q.get_device()))["nsplit"]
+        n = f32_bwd_scratch(b, sq, sk, h, kv, d, nsplit)
+        part = torch.empty(n, dtype=torch.float32, device=q.device) \
+            if n else None
+        split = (0 if part is None else part.data_ptr(), nsplit)
     err = build.entry(lib, fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *split,
         *_problem(q, k, causal, window, q_offset), _scale_arg(scale),
         build.stream_ptr(q.get_device()))
     build.check(err, fn)
@@ -256,9 +362,10 @@ def flash_bwd_f32_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool = True, window: Optional[int] = None,
                        q_offset: int = 0, scale: Optional[float] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the float32 backward (delta, dk/dv, dq kernels of
-    ``csrc/flash_attention_f32.cu``): ``(dq, dk, dv)`` in float32; o and
-    dout float32, lse the forward's."""
+    """Launch the float32 backward (delta, dk/dv, its sum pass where
+    :func:`dkdv_plan` splits, dq kernels of ``csrc/flash_attention_f32.cu``;
+    at head dim 256 dq from the dS^T dk/dv wrote): ``(dq, dk, dv)`` in
+    float32; o and dout float32, lse the forward's."""
     _check_f32(q, k, v, causal, window, q_offset)
     out = _bwd("flash_attention_f32", "flash_bwd_f32", q, k, v, o, lse,
                dout, causal, window, q_offset, scale)

@@ -1,7 +1,8 @@
 """Dispatch for flash attention: the plain version for CPU tensors, the
 CUDA kernels (forward and backward, under ``torch.func`` too) for CUDA
 tensors. A head dim up to 256 that the kernels are not built for (zamba2's
-112) is zero-padded to the next multiple of 128 around the kernel call,
+112 in bfloat16; the float32 kernels take it as it is) is zero-padded to
+the next multiple of 128 around the kernel call,
 outside its ``autograd.Function``, as the reference's ``ops.attention``
 pads to whole 128-lane tiles; the kernels take the head dim's own softmax
 scale as an argument."""
@@ -37,6 +38,19 @@ def _kernel(q, k, v, causal, window, q_offset, scale=None):
     return FlashAttention.apply(q, k, v, causal, window, q_offset, scale)[0]
 
 
+def kernel_attention(attend: Callable, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, causal: bool, window: Optional[int],
+                     q_offset: int) -> torch.Tensor:
+    """``attend(q, k, v, causal, window, q_offset[, scale])`` at the head
+    dim the kernels of q's dtype are built for: as it is (float32 at 112
+    too), else zero-padded (:func:`padded_attention`, bfloat16 at 112)."""
+    dp = padded_dim(q.shape[-1], q.dtype)
+    if dp != q.shape[-1]:
+        return padded_attention(attend, q, k, v, dp, causal, window,
+                                q_offset)
+    return attend(q, k, v, causal, window, q_offset)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0) -> torch.Tensor:
@@ -48,8 +62,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda tensors, got "
                          f"{q.device}")
-    dp = padded_dim(q.shape[-1])
-    if dp != q.shape[-1]:
-        return padded_attention(_kernel, q, k, v, dp, causal, window,
-                                q_offset)
-    return _kernel(q, k, v, causal, window, q_offset)
+    return kernel_attention(_kernel, q, k, v, causal, window, q_offset)

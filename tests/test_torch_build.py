@@ -182,3 +182,21 @@ def test_tile_rel_err_reads_the_worst_block():
     zero = torch.zeros_like(want)
     assert chip_smoke.tile_rel_err(torch, zero, zero) == 0.0
     assert chip_smoke.tile_rel_err(torch, want, zero) == float("inf")
+
+
+def test_flash_dims_name_every_kernel_the_libraries_build():
+    """``chip_smoke.flash_dims``: the bf16 library at its four head dims,
+    the float32 one at five (112 too), its dq from dS^T at 256 alone and
+    its recomputing dq at the other four; every float32 kernel name is a
+    ``flash_*_ffma_*_kernel`` the SASS check reads."""
+    assert chip_smoke.flash_dims("flash_attention") == (64, 80, 128, 256)
+    f32 = "flash_attention_f32"
+    assert chip_smoke.flash_dims(f32) == (64, 80, 112, 128, 256)
+    assert chip_smoke.flash_dims(f32, "flash_bwd_ffma_dq_ds_kernel") == (256,)
+    assert chip_smoke.flash_dims(f32, "flash_bwd_ffma_dq_kernel") == (
+        64, 80, 112, 128)
+    names = chip_smoke.FLASH_KERNELS[f32]
+    assert "flash_bwd_ffma_dkdv_sum_kernel" in names
+    assert all("ffma" in n and n.endswith("_kernel") for n in names)
+    text = (build.CSRC / "flash_attention_f32.cu").read_text()
+    assert all(f"{n}(" in text for n in names)

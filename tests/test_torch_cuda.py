@@ -701,6 +701,53 @@ def test_float32_flash_backward_repeats_bitwise(card, d):
         flash_bwd_f32_cuda(q, k, k, o, lse, q.to(torch.bfloat16))
 
 
+# the float32 kernels at head dim 112, which they take unpadded, and where
+# their dk/dv blocks split (flash.dkdv_plan: Sk no multiple of a key block,
+# a window, q_offset > 0; MQA at 256, where dq reads dk/dv's dS^T, and GQA
+# at 80)
+FLASH_F32_EXTRA = [(2, 129, 129, 8, 2, 112, True, None, 0),
+                   (1, 257, 257, 4, 2, 112, True, 100, 0),
+                   (2, 65, 193, 4, 1, 112, True, 70, 128),
+                   (1, 300, 1000, 8, 1, 256, True, 200, 700),
+                   (2, 250, 700, 16, 2, 80, True, 300, 450)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,q_offset",
+                         FLASH_F32_EXTRA)
+def test_float32_flash_kernels_take_112_and_split_dkdv(
+        card, b, sq, sk, h, kv, d, causal, window, q_offset):
+    """Head dim 112 runs unpadded on the float32 kernels, and the dk/dv
+    split adds up: out, dq, dk and dv within 1e-5 of the plain version's
+    largest entry, the backward bitwise equal on repeat, and the split
+    where the plan says (every small grid here splits)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     dkdv_plan,
+                                                     flash_bwd_f32_cuda,
+                                                     flash_fwd_f32_cuda,
+                                                     padded_dim)
+    assert padded_dim(d, torch.float32) == d
+    case = (b, sq, sk, h, kv, d, causal, window, q_offset)
+    assert dkdv_plan(*case, sms=build.sm_count(0))["nsplit"] > 1
+    gen = torch.Generator(device=card).manual_seed(sq + sk + d)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=card)  # noqa
+    q, k, v, dout = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d), \
+        rnd(b, sq, h, d)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = flash_fwd_f32_cuda(q, k, v, **kw)
+    grads = flash_bwd_f32_cuda(q, k, v, o, lse, dout, **kw)
+    again = flash_bwd_f32_cuda(q, k, v, o, lse, dout, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    fl = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = attention_ref(*fl, **kw)
+    ref_grads = torch.autograd.grad(ref, fl, dout)
+    for g, w in [(o, ref)] + list(zip(grads, ref_grads)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        err = (g - w.detach()).abs().max()
+        assert float(err) <= 1e-5 * float(w.detach().abs().max())
+
+
 @pytest.mark.cuda
 def test_float32_attention_launches_the_float32_kernels(card):
     """A float32 config's train-mode attention takes the float32 kernels

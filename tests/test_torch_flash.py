@@ -179,13 +179,15 @@ def test_supports_states_each_refusal(case, match):
 def test_refusal_takes_float32_as_bfloat16(pad):
     """Float32 q, k and v (the float32 kernels') are refused for the same
     reasons as bfloat16 ones and no other: on the CPU only for the
-    device, at head dim 112 only without the pad."""
+    device; at head dim 112, which the float32 kernels are built for,
+    float32 is taken with or without the pad, bfloat16 only with it."""
     from repro_torch.kernels.flash_attention import flash as FK
     for d in (64, 80, 128, 256, 112):
         got = FK.refusal(*_qkv(torch.float32, d=d), pad=pad)
         want = FK.refusal(*_qkv(torch.bfloat16, d=d), pad=pad)
-        assert got == want and got is not None
-        assert ("needs CUDA" in got[1]) == (pad or d != 112)
+        assert got is not None and "needs CUDA" in got[1]
+        assert (got == want) == (pad or d != 112)
+        assert ("needs CUDA" in want[1]) == (pad or d != 112)
 
 
 def test_default_attention_takes_the_plain_path_where_the_kernel_cannot():
