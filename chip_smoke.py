@@ -346,6 +346,20 @@ LLM_LAYERS, LLM_WORKERS, LLM_SEQ = 2, 8, 4096
 LLM_D = 416_179_200  # make_flat_spec(pad_to=8) of the 2-layer model
 LLM_BS = 512
 LLM_KB = 40_642      # max(1, round(0.05 * D / 512))
+# The sort kernels on float16 and float8_e4m3fn inputs (RoSDHB's compute
+# dtypes below float32): the fig1 shapes (n = 13 padded to 16), the table1
+# grid's batched one and the LLM path's CWTM (f = 1), timed; SORT_EDGES and
+# SORT_NAN at both dtypes
+LOWP_SORT_SHAPES = [(1, 13, 11958), (36, 13, 11958), (1, 13, 1048576)]
+LOWP_CWTM_LLM = (1, 8, LLM_D)
+# RoSDHB's round at a float16 or float8 compute dtype (the compute dtypes
+# phase): [8, LLM_D] with a bfloat16 wire on the card, then the same round
+# at LOWP_CHECK_D columns on the card and on the CPU (a CPU round at LLM_D
+# takes minutes)
+LOWP_ROUNDS = (("float16", "float32"), ("float16", "float8_e4m3fn"),
+               ("float8_e4m3fn", "float32"),
+               ("float8_e4m3fn", "float8_e4m3fn"))
+LOWP_CHECK_D = 1 << 22
 # The audio family's train path (the decode phase): full-width
 # musicgen_medium cut to 2 layers, the same workers, ratio and blocks; its
 # flash calls are [1, 4096, 24, 64]
@@ -505,6 +519,10 @@ FLASH_GEMMA = (1, LLM_SEQ, LLM_SEQ, 8, 1, 256, True, None, 0)
 # llama32_vision_11b's self-attention layers: 32 query heads of 128 on 8
 # kv heads (GQA)
 FLASH_VLM = (1, LLM_SEQ, LLM_SEQ, 32, 8, 128, True, None, 0)
+# qwen25_3b's (16 query heads on 2 KV heads: groups of 8) and
+# mistral_large_123b's (96 on 8: groups of 12) self-attention
+FLASH_QWEN = (1, LLM_SEQ, LLM_SEQ, 16, 2, 128, True, None, 0)
+FLASH_MISTRAL = (1, LLM_SEQ, LLM_SEQ, 96, 8, 128, True, None, 0)
 # transformer-table1's folded call: 8 lanes x 9 workers x 4 sequences of 32
 # tokens, 2 heads of 64 (the stream phase's grid under torch.func)
 FLASH_TT1 = (288, 32, 32, 2, 2, 64, True, None, 0)
@@ -668,8 +686,9 @@ def case_fns(torch, name: str, shape, f: int, dtype, seed: int) -> tuple:
     from repro_torch.kernels.cwtm import cwtm_cuda, cwtm_ref
     from repro_torch.kernels.median import median_cuda, median_ref
     from repro_torch.kernels.pairdist import pairdist_cuda, pairdist_ref
+    from repro_torch.utils.dtypes import to_dtype
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dtype)
+    x = to_dtype(torch.randn(shape, generator=gen, device="cuda") * 3, dtype)
     if name == "pairdist":
         kern, plain = (lambda: pairdist_cuda(x)), (lambda: pairdist_ref(x))
         lib = lambda: torch.cdist(x.float(), x.float())  # noqa: E731
@@ -679,8 +698,8 @@ def case_fns(torch, name: str, shape, f: int, dtype, seed: int) -> tuple:
     else:
         kern, plain = (lambda: median_cuda(x)), (lambda: median_ref(x))
         # torch.median returns the lower middle: the same function for odd n
-        lib = ((lambda: torch.median(x, dim=1).values) if shape[1] % 2
-               else None)
+        lib = ((lambda: torch.median(x, dim=1).values)
+               if shape[1] % 2 and dtype != torch.float8_e4m3fn else None)
     return x, kern, plain, lib
 
 
@@ -708,6 +727,16 @@ def kernel_case(torch, name: str, shape, f: int, dtype, timed: bool,
         rule = (f"|d| <= 1e-5 * max sq = {tol:.3g} of the {reference} "
                 f"version, diagonal exactly 0, symmetric, ticket counters "
                 f"back at 0")
+    elif dtype in (torch.float16, torch.float8_e4m3fn):
+        # the kernel sums w * v in rank order, the plain version the sum
+        # times 1/k: at most one step of the dtype apart (the median's
+        # weights are 1 or 1/2, exact: bitwise)
+        lim = 1 if name == "cwtm" else 0
+        off = int(narrow_steps(torch, got, want,
+                               finite_max(torch, x)).max())
+        ok = off <= lim and bool(torch.isfinite(got.float()).all())
+        rule = (f"within {lim} step of {str(dtype).split('.')[-1]} or "
+                f"{SUM_ROUNDING:g} of max |x| ({off} at most)")
     elif name == "cwtm":
         tol = 1e-5 if dtype == torch.float32 else 5e-2
         ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
@@ -840,7 +869,8 @@ PAIRDIST_REREAD_TOL = 0.05
 SORT_NAN = [(1, 8, 1, 65536), (2, 13, 3, 4099), (1, 7, 2, 999)]
 
 
-def sort_nan_cases(torch, device: str = "cuda") -> list:
+def sort_nan_cases(torch, device: str = "cuda", dtype: str = "float32"
+                   ) -> list:
     """The sort kernels against their plain versions where a coordinate
     holds NaN (a float8 bank's ALIE rows can): the kernel sorts NaN after
     every number, as ``torch.sort`` does, so CWTM trims a NaN at a trimmed
@@ -850,6 +880,7 @@ def sort_nan_cases(torch, device: str = "cuda") -> list:
     import numpy as np
     from repro_torch.kernels.cwtm import cwtm, cwtm_ref
     from repro_torch.kernels.median import median, median_ref
+    from repro_torch.utils.dtypes import to_dtype
     out = []
     for i, (b, n, f, d) in enumerate(SORT_NAN):
         rng = np.random.default_rng(700 + i)
@@ -861,24 +892,34 @@ def sort_nan_cases(torch, device: str = "cuda") -> list:
                 x[:, rng.integers(n, size=pick.size), pick] = np.nan
         x[:, rng.integers(n), ::7] = np.inf
         x[:, rng.integers(n), ::11] = -np.inf
-        x = torch.tensor(x, device=device)
+        # float8 has no inf: its +-inf become NaN, more of them
+        x = to_dtype(torch.tensor(x, device=device), getattr(torch, dtype))
         for name, kern, plain, tol in (
                 ("cwtm", lambda t: cwtm(t, f), lambda t: cwtm_ref(t, f),
                  1e-5),
                 ("median", median, median_ref, 1e-6)):
             got, want = kern(x), plain(x)
-            same_nan = torch.equal(torch.isnan(got), torch.isnan(want))
-            fin = torch.isfinite(want)
-            err = (float((got[fin] - want[fin]).abs().max())
+            same_nan = torch.equal(torch.isnan(got.float()),
+                                   torch.isnan(want.float()))
+            fin = torch.isfinite(want.float())
+            err = (float((got[fin].float() - want[fin].float()).abs().max())
                    if bool(fin.any()) else 0.0)
-            ok = same_nan and torch.equal(got[~fin].nan_to_num(),
-                                          want[~fin].nan_to_num()) and \
-                err <= tol * max(1.0, float(want[fin].abs().max()))
-            log(f"kernel {name} with NaN and +-inf {(b, n, d)} f={f}: "
-                f"NaN at the plain version's places {same_nan}, max|err| "
-                f"{err:.3g} ({tol:g}) {'ok' if ok else 'FAIL'}")
+            if dtype == "float32":
+                ok = same_nan and torch.equal(
+                    got[~fin].nan_to_num(), want[~fin].nan_to_num()) and \
+                    err <= tol * max(1.0, float(want[fin].abs().max()))
+                rule = f"{tol:g}"
+            else:  # as kernel_case holds the narrow input classes
+                lim = 1 if name == "cwtm" else 0
+                ok = same_nan and int(narrow_steps(
+                    torch, got, want, finite_max(torch, x)).max()) <= lim
+                rule = (f"within {lim} step of {dtype} or "
+                        f"{SUM_ROUNDING:g} of max |x|")
+            log(f"kernel {name} {dtype} with NaN and +-inf {(b, n, d)} "
+                f"f={f}: NaN at the plain version's places {same_nan}, "
+                f"max|err| {err:.3g} ({rule}) {'ok' if ok else 'FAIL'}")
             out.append({"name": name, "shape": [b, n, d], "f": f,
-                        "ok": ok, "max_abs_err": err})
+                        "dtype": dtype, "ok": ok, "max_abs_err": err})
     return out
 
 
@@ -928,9 +969,27 @@ def kernel_phase(torch) -> dict:
             log_case(rec)
             if not rec["ok"]:
                 failures.append(f"{name} {shape} {rec['dtype']}")
+    # float16 and float8_e4m3fn inputs (last: the seeds above stay)
+    for name in SORT_KERNELS:
+        cases = [((b, n, d), f, dt, False) for (b, n, f, d) in SORT_EDGES
+                 for dt in LOWP_DTYPES if name != "pairdist"]
+        cases += [(shape, F, dt, True) for shape in LOWP_SORT_SHAPES
+                  for dt in LOWP_DTYPES]
+        if name == "cwtm":
+            cases += [(LOWP_CWTM_LLM, 1, dt, True) for dt in LOWP_DTYPES]
+        for i, (shape, f, dt, timed) in enumerate(cases):
+            rec = kernel_case(torch, name, shape, f, getattr(torch, dt),
+                              timed, seed=900 + i)
+            results[name].append(rec)
+            log_case(rec)
+            if not rec["ok"]:
+                failures.append(f"{name} {shape} {rec['dtype']}")
+            torch.cuda.empty_cache()
     results["nan"] = sort_nan_cases(torch)
-    failures += [f"{r['name']} {r['shape']} with NaN" for r in results["nan"]
-                 if not r["ok"]]
+    for dt in LOWP_DTYPES:
+        results["nan"] += sort_nan_cases(torch, dtype=dt)
+    failures += [f"{r['name']} {r['shape']} {r.get('dtype', '')} with NaN"
+                 for r in results["nan"] if not r["ok"]]
     # the wrappers' host cost before any profiler runs in this process
     results["wrapper_pieces"] = wrapper_pieces(torch)
     if failures:
@@ -1248,6 +1307,49 @@ def bits(torch, x):
     and NaN from NaN)."""
     return x.view({1: torch.uint8, 2: torch.int16,
                    4: torch.int32}[x.element_size()])
+
+
+def ulps_off(torch, got, want):
+    """How many steps of their (one, narrow) dtype two tensors are apart,
+    from their bit patterns as signed magnitudes; NaN against NaN is 0.
+    float32 tensors are compared as float32."""
+    size = got.element_size()
+    wide = bits(torch, got).to(torch.int64), bits(torch, want).to(torch.int64)
+    top = 1 << (8 * size - 1)
+
+    def key(v):
+        v = v & (2 * top - 1)
+        return torch.where(v >= top, top - v, v)
+
+    both = torch.isnan(got.float()) & torch.isnan(want.float())
+    return torch.where(both, 0, (key(wide[0]) - key(wide[1])).abs())
+
+
+#: Where two float32 sums of the same terms differ (another order, or the
+#: 1/k factor applied to each term or to the sum), by up to this fraction
+#: of the terms' largest magnitude: a result near zero rounds such a
+#: difference to several of its narrow dtype's (fine) steps.
+SUM_ROUNDING = 2.0 ** -20
+
+
+def narrow_steps(torch, got, want, scale: float):
+    """:func:`ulps_off`, taken as 0 where the two differ by no more than
+    the float32 sums' rounding of terms of magnitude ``scale``
+    (:data:`SUM_ROUNDING`)."""
+    off = ulps_off(torch, got, want)
+    near = (got.float() - want.float()).abs() <= SUM_ROUNDING * scale
+    return torch.where(near, torch.zeros_like(off), off)
+
+
+def finite_max(torch, x) -> float:
+    """max |x| over the finite entries (0 if none), 2^26 values at a time
+    (a float32 copy of CWTM's [1, 8, 416179200] input is 13 GB)."""
+    out = 0.0
+    for part in x.reshape(-1).split(1 << 26):
+        pf = part.float()
+        out = max(out, float(torch.where(torch.isfinite(pf), pf.abs(),
+                                         0.0).max()))
+    return out
 
 
 def max_abs_diff(a, b) -> float:
@@ -2009,8 +2111,9 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
     transformer-table1's folded call, the audio train path's (``audio``),
     zamba2_7b's shared block at head dim 112, zero-padded to 128
     (``zamba``), gemma_2b's at head dim 256 (``gemma``), the vlm's
-    self-attention (``vlm``: GQA, 32 heads of 128 on 8) and the LLM path's
-    (timed; the LLM path's last); the float32 kernels on every awkward
+    self-attention (``vlm``: GQA, 32 heads of 128 on 8), qwen25_3b's (16
+    on 2) and mistral_large_123b's (96 on 8), and the LLM path's (timed;
+    the LLM path's last); the float32 kernels on every awkward
     case and, timed, at ``f32_timed`` (zamba2's, gemma_2b's, the vlm's and
     the LLM path's shapes). Fails where ptxas reports a spill in any flash
     kernel, or where the SASS of a bfloat16 attention kernel lacks HGMMA or
@@ -2026,7 +2129,9 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
                 (audio, True, 500 + n_awk + 2),
                 (zamba, True, 500 + n_awk + 3),
                 (gemma, True, 500 + n_awk + 4),
-                (vlm, True, 500 + n_awk + 5)])
+                (vlm, True, 500 + n_awk + 5),
+                (FLASH_QWEN, True, 500 + n_awk + 6),
+                (FLASH_MISTRAL, True, 500 + n_awk + 7)])
     cases = [(c, timed, seed, "bfloat16") for c, timed, seed in cases]
     # the float32 kernels: every awkward case, then the timed rows; the
     # bf16 path's case stays last (the kernel record's)
@@ -4719,12 +4824,18 @@ FAMILY_LONG = ("mamba2_1_3b", 4100, 16)
 # (D = 744,499,200) takes the flash kernels at head dim 256 (MQA); the
 # vlm's (VLM_BANK: 5 layers, the first with a cross layer) at float8 banks,
 # its payload round 128 windows a step (at bfloat16 banks its held state,
-# gradient bank and a worker's transients would not fit 80 GB)
+# gradient bank and a worker's transients would not fit 80 GB); qwen25_3b's
+# (D = 776,485,888; QKV bias, 16 query heads on 2 KV heads, an untied
+# 151,936-row head) at bfloat16 banks; mistral_large_123b's one 12288-wide
+# layer (D = 2,189,463,552; 96 query heads on 8) at float8 banks, 131
+# windows a step
 FAMILY_TRAIN = (("deepseek_v2_lite_16b", 2, "bfloat16"),
                 ("mamba2_1_3b", 2, "float32"),
                 ("zamba2_7b", 6, "bfloat16"),
                 ("gemma_2b", 2, "bfloat16"),
-                (VLM_BANK[0], 5, VLM_BANK[2]))
+                (VLM_BANK[0], 5, VLM_BANK[2]),
+                ("qwen25_3b", 2, "bfloat16"),
+                ("mistral_large_123b", 1, "float8_e4m3fn"))
 FAMILY_STEPS, FAMILY_CHECK_STEPS = 4, 2
 
 
@@ -5600,8 +5711,269 @@ def split_record(rec) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------- #
+# RoSDHB's server round at float16 and float8_e4m3fn compute
+# ----------------------------------------------------------------------- #
+
+
+def lowp_cfg(cdt: str, mdt: str, n: int = LLM_WORKERS, f: int = 1,
+             pre_nnm: bool = False, sparsifier=None, rule: str = "cwtm"):
+    from repro_torch.core import (AggregatorConfig, AlgorithmConfig,
+                                  AttackConfig, SparsifierConfig)
+    return AlgorithmConfig(
+        name="rosdhb", n_workers=n, f=f, gamma=0.05, beta=0.9,
+        sparsifier=sparsifier or SparsifierConfig(
+            kind="block", ratio=0.05, block_size=LLM_BS),
+        aggregator=AggregatorConfig(name=rule, f=f, pre_nnm=pre_nnm),
+        attack=AttackConfig(name="alie", z=1.5 if n == 13 else None),
+        momentum_dtype=mdt, server_compute_dtype=cdt)
+
+
+def compare_rounds(torch, label: str, got: tuple, want: tuple) -> dict:
+    """A round on the card against the same round on the CPU: the bank
+    bitwise, the direction bitwise but where the kernels' float32 sums
+    round across a step of the compute dtype (CWTM's weighted sum against
+    the plain version's sum times 1/k), within one step there or within
+    the sums' rounding (:func:`narrow_steps`); the coordinates that are
+    not bitwise are counted."""
+    (r_g, m_g), (r_c, m_c) = got, want
+    m_g = m_g.cpu()
+    bank_off = bits(torch, m_g) != bits(torch, m_c)
+    bank = not bool(bank_off.any())
+    if not bank:  # where and what, before the check fails
+        idx = bank_off.nonzero()[:4]
+        log(f"{label}: bank differs at {int(bank_off.sum()):,} entries, "
+            f"rows {sorted(set(idx[:, 0].tolist()))}, e.g. at "
+            f"{idx.tolist()}: card "
+            f"{[float(m_g[tuple(i)]) for i in idx.tolist()]}, cpu "
+            f"{[float(m_c[tuple(i)]) for i in idx.tolist()]}")
+    r_g = r_g.cpu()
+    n_off = int((bits(torch, r_g) != bits(torch, r_c)).sum())
+    worst = int(narrow_steps(torch, r_g, r_c, finite_max(torch, m_c)).max())
+    finite = bool(torch.isfinite(r_g.float()).all())
+    ok = bank and worst <= 1 and finite
+    log(f"{label}: card vs cpu bank bitwise {bank}, direction "
+        f"{r_g.numel() - n_off:,} of {r_g.numel():,} coordinates bitwise, "
+        f"{n_off:,} not (worst {worst} step of "
+        f"{str(r_g.dtype).split('.')[-1]} past {SUM_ROUNDING:g} of the "
+        f"momenta's max |m|), finite {finite} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: card and cpu disagree")
+    return {"bank_bitwise": bank, "dir_coords": r_g.numel(),
+            "dir_off_one_step": n_off, "dir_worst_steps": worst}
+
+
+def lowp_round_inputs(torch, cfg, d: int, seed: int, device: str):
+    """A bfloat16 gradient bank, a momentum bank in ``momentum_dtype`` and
+    the round's block ids, from ``seed``."""
+    import numpy as np
+    from repro_torch.core import algorithms as alg
+    from repro_torch.utils.dtypes import to_dtype
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = cfg.n_workers
+    g = torch.empty((n, d), dtype=torch.bfloat16, device=device)
+    m = torch.empty((n, d), dtype=alg.BANK_DTYPES[cfg.momentum_dtype],
+                    device=device)
+    for i in range(n):  # a row at a time: float32 draws of [8, D] are big
+        g[i] = torch.randn(d, generator=gen, device=device) * 3
+        m[i] = to_dtype(torch.randn(d, generator=gen, device=device) * 20,
+                        m.dtype)
+    nb = d // LLM_BS
+    ids = np.random.default_rng(seed).permutation(nb)[:kept_blocks(d)]
+    return g, m, ids
+
+
+def lowp_round(torch, cfg, g, m, ids, device: str) -> tuple:
+    """One RoSDHB server round on ``device``: ``(direction, bank, launches,
+    ms)``."""
+    from repro_torch import kernels as K
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import make_aggregator
+    from repro_torch.testing import ReplayDraws
+    state = alg.init_state(cfg, 1, device=device)._replace(momentum=m)
+    agg = make_aggregator(cfg.aggregator, device=device)
+    sync(torch, device)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    r, new, _ = alg.server_round(cfg, state, g,
+                                 ReplayDraws(device, permutations=[ids]),
+                                 agg=agg)
+    sync(torch, device)
+    return r, new.momentum, K.launches(), (time.perf_counter() - t0) * 1e3
+
+
+def cnn_bank(torch, device: str):
+    """The fig1-alie CNN's gradient bank ``[13, D]`` (one batch of its
+    testbed, float32) and D."""
+    from repro_torch.core import Simulator, mnist_testbed
+    from repro_torch.utils import tree as T
+    loss_fn, params0, batch_fn, _, _ = mnist_testbed(
+        13, per_worker=100, batch=60, seed=0, device=device)
+    sim = Simulator(loss_fn, params0, fig1_alie(), device=device)
+    params = T.tree_unravel(sim.init(seed=0).params_flat, sim.spec)
+    grads, _ = sim._grad_fn(params, sim._on_device(batch_fn(0)))
+    return T.stacked_ravel(grads, sim.spec).detach(), sim.d
+
+
+def compute_dtypes_phase(torch, device: str = "cuda") -> dict:
+    """RoSDHB's round at ``server_compute_dtype`` float16 and float8_e4m3fn
+    on the card: (b) at [8, LLM_D] with a bfloat16 wire, float32 and float8
+    banks, CWTM (the dense route: compress and decompress, the momentum in
+    the compute dtype, CWTM on its momenta), then the same round at
+    LOWP_CHECK_D columns against the CPU (:func:`compare_rounds`); (c) the
+    fig1-alie CNN round (n = 13, NNM+CWTM, and the median, on the CNN's
+    own gradient bank), three rounds card against CPU; (d) the LLM cut's launcher at float8
+    compute, 2 steps against its plain path. Every count is the kernels'
+    launches in those runs."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core import make_aggregator
+    from repro_torch.launch import train
+    from repro_torch.testing import ReplayDraws
+    on_card = device == "cuda"
+    out = {"rounds": {}, "cnn": {}, "launches": {}}
+    total = {k: 0 for k in K.kernel_wrappers()}
+    # the sort kernels' launches on each compute dtype's momenta
+    by_class = {dt: {k: 0 for k in SORT_KERNELS} for dt in LOWP_DTYPES}
+
+    def add(launches, cdt):
+        for k, v in launches.items():
+            total[k] += v
+            if k in SORT_KERNELS:
+                by_class[cdt][k] += v
+
+    d_full = LLM_D if on_card else LOWP_CHECK_D
+    for cdt, mdt in LOWP_ROUNDS:
+        cfg = lowp_cfg(cdt, mdt)
+        label = f"compute dtypes round {cdt} over {mdt} banks"
+        g, m, ids = lowp_round_inputs(torch, cfg, d_full, 51, device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        r, bank, launches, ms = lowp_round(torch, cfg, g, m, ids, device)
+        peak = (torch.cuda.max_memory_allocated() / 2**20 if on_card
+                else None)
+        add(launches, cdt)
+        finite = bool(torch.isfinite(r.float()).all())
+        want = {"block_compress": 1, "block_decompress": 1, "cwtm": 1,
+                "momentum_scatter": 0, "pairdist": 0}
+        if not on_card:
+            want = {k: 0 for k in want}
+        log(f"{label} [{LLM_WORKERS}, {d_full:,}] bfloat16 wire: "
+            f"{ms:.3f} ms (host clock), peak {peak} MiB, direction "
+            f"{r.dtype} finite {finite}, launches {launches}")
+        check_launches(label, launches, want)
+        if not finite or r.dtype != alg.COMPUTE_DTYPES[cdt] or \
+                bank.dtype != alg.BANK_DTYPES[mdt]:
+            raise AssertionError(f"{label}: {r.dtype}, {bank.dtype}, "
+                                 f"finite {finite}")
+        del g, m, r, bank
+        if on_card:
+            torch.cuda.empty_cache()
+        # the same round at LOWP_CHECK_D columns, card against CPU
+        g, m, ids = lowp_round_inputs(torch, cfg, LOWP_CHECK_D, 52, "cpu")
+        r_c, m_c, _, cpu_ms = lowp_round(torch, cfg, g, m.clone(), ids,
+                                         "cpu")
+        r_g, m_g, chk, _ = lowp_round(torch, cfg, g.to(device),
+                                      m.to(device), ids, device)
+        add(chk, cdt)
+        cmp = compare_rounds(torch, f"{label} [{LLM_WORKERS}, "
+                             f"{LOWP_CHECK_D:,}]", (r_g, m_g), (r_c, m_c))
+        out["rounds"][f"{cdt}/{mdt}"] = {
+            "D": d_full, "ms": ms, "peak_mib": peak, "launches": launches,
+            "check_D": LOWP_CHECK_D, "check_cpu_ms": cpu_ms, **cmp}
+        del g, m, r_c, m_c, r_g, m_g
+    # (c) the CNN's fig1-alie round, three rounds card against CPU
+    from repro_torch.core import SparsifierConfig
+    g32, d = cnn_bank(torch, "cpu")
+    k = fig1_alie().sparsifier.k(d)
+    perms = replay_indices(3, d, k, 7)
+    for cdt, rule in [(c, r) for c in LOWP_DTYPES
+                      for r in ("nnm_cwtm", "median")]:
+        cfg = lowp_cfg(cdt, "float32", n=13, f=F, pre_nnm=rule != "median",
+                       sparsifier=SparsifierConfig(kind="randk", ratio=0.1),
+                       rule=rule.split("_")[-1])
+        runs = {}
+        for dev in ("cpu", device):
+            agg = make_aggregator(cfg.aggregator, device=dev)
+            state = alg.init_state(cfg, d, device=dev)
+            draws = ReplayDraws(dev, permutations=perms)
+            K.reset_launches()
+            rs = []
+            for _ in range(3):
+                r, state, _ = alg.server_round(cfg, state, g32.to(dev),
+                                               draws, agg=agg)
+                rs.append(r)
+            runs[dev] = (rs, state.momentum, K.launches())
+        add(runs[device][2], cdt)
+        label = f"compute dtypes cnn fig1-alie {cdt} {rule}"
+        want = ({"pairdist": 3, "cwtm": 3, "median": 0}
+                if rule != "median" else
+                {"pairdist": 0, "cwtm": 0, "median": 3})
+        if not on_card:
+            want = {k: 0 for k in want}
+        check_launches(label, runs[device][2], want)
+        cmp = [compare_rounds(torch, f"{label} round {t}",
+                              (runs[device][0][t], runs[device][1]),
+                              (runs["cpu"][0][t], runs["cpu"][1]))
+               for t in range(3)]
+        out["cnn"][f"{cdt}/{rule}"] = {"D": d, "rounds": 3,
+                                       "launches": runs[device][2],
+                                       "checks": cmp}
+        del runs
+    # (d) the LLM cut's launcher at float8 compute (bfloat16 banks: the
+    # dense round's float32 transients of [8, D] beside float32 banks would
+    # not fit), 2 steps against its plain path
+    argv = llm_argv(device, LLM_CHECK_STEPS) + [
+        "--momentum-dtype", "bfloat16", "--server-compute-dtype",
+        "float8_e4m3fn"]
+    K.reset_launches()
+    res = train.run(argv, log=log)
+    launches = K.launches()
+    add(launches, "float8_e4m3fn")
+    plan = res["plan"]
+    label = "compute dtypes llm float8"
+    check_launches(label, launches, llm_launches(
+        plan.model, plan, LLM_CHECK_STEPS, on_card, block_compress=1,
+        block_decompress=1, momentum_scatter=0,
+        cwtm=lambda _: 1))
+    losses, norms = res["losses"], res["dir_norms"]
+    peak = (res["peak_bytes"] / 2**20 if res["peak_bytes"] is not None
+            else None)
+    step_ms = res["step_ms"]
+    del res
+    if on_card:
+        torch.cuda.empty_cache()
+    plain = train.run(argv, plain=True, log=log)
+    rel_l = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                   plain["losses"]))
+    # |R| is a float8 scalar: equal, or one float8 step (2^-3 relative)
+    rel_r = max(abs(a - b) / max(abs(b), 1e-30)
+                for a, b in zip(norms, plain["dir_norms"]))
+    log(f"{label}: D={plan.flat_spec.padded_size:,} losses {losses}, |R| "
+        f"{norms} (float8), steps "
+        f"{', '.join(f'{v:.3f}' for v in step_ms)} ms, peak {peak} MiB, "
+        f"launches {launches}; against the plain path loss max rel "
+        f"{rel_l:.3g} (bound {LLM_TOL_LOSS:g}), |R| {plain['dir_norms']} "
+        f"(max rel {rel_r:.3g}, bound 0.125)")
+    if not all(math.isfinite(v) for v in losses + norms) or \
+            rel_l > LLM_TOL_LOSS or rel_r > 0.125:
+        raise AssertionError(f"{label}: kernel and plain paths disagree")
+    out["llm"] = {"D": plan.flat_spec.padded_size, "losses": losses,
+                  "dir_norms": norms, "step_ms": step_ms, "peak_mib": peak,
+                  "launches": launches, "plain_rel_loss": rel_l,
+                  "plain_rel_dir": rel_r, "plain_step_ms": plain["step_ms"]}
+    del plain
+    if on_card:
+        torch.cuda.empty_cache()
+    out["launches"], out["launches_by_class"] = total, by_class
+    log(f"compute dtypes: launches {total}, the sort kernels' by compute "
+        f"dtype {by_class}")
+    return out
+
+
 def kernel_record(results, randk, flash, cnn, quad, llm, grid,
-                  serve, stream, decode, families, paper) -> dict:
+                  serve, stream, decode, families, paper, lowp) -> dict:
     """The ``{"kernels": [...]}`` line: every kernel of the port, its
     launches on the main paths and its numbers at its main path's shape.
     ``launches`` is the CNN path's count (the median's first path is the
@@ -5618,7 +5990,8 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
     (``benchmarks/bench_torch_run.py``, each suite's sum over its rows)."""
     record = {"kernels": []}
     for name in SORT_KERNELS:
-        recs = [r for r in results[name] if "ms" in r]
+        recs = [r for r in results[name] if "ms" in r
+                and r["dtype"] not in LOWP_DTYPES]
         head = recs[0]  # the CNN path's shape
         grid_launches = grid["table1"]["launches"][name]
         record["kernels"].append({
@@ -5787,6 +6160,26 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
         name: rec["check_flash_fwd"]
         for name, rec in families["cuts"].items()
         if rec["dtype"] == "float32"}
+    # the sort kernels' float16 and float8_e4m3fn input classes: their
+    # launches on the compute dtypes phase's runs, their numbers at the
+    # CNN's shape
+    for name in SORT_KERNELS:
+        for dt in LOWP_DTYPES:
+            recs = [r for r in results[name] if "ms" in r
+                    and r["dtype"] == dt]
+            head = recs[0]
+            record["kernels"].append({
+                "name": f"{name}_{dt}", "dtype": dt, "route": "cuda",
+                **KERNELS[name],
+                "launches": lowp["launches_by_class"][dt][name],
+                "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"], "shape": head["shape"],
+                "device_us": head["kernel"].get("device_us"),
+                "shapes": [{**{k: r[k] for k in (
+                    "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "max_abs_err")}, **split_record(r)} for r in recs]})
     # the float16 and float8 banks' variants of compress, decompress and
     # the momentum kernel: their timed cases at the LLM path's bank, their
     # launches in the LLM runs at those dtypes (decompress: none, the
@@ -6019,6 +6412,7 @@ def main() -> int:
                          ("decode", decode_phase),
                          ("families", families_then_profiles),
                          ("floor", floor_phase), ("paper", paper_phase),
+                         ("lowp", compute_dtypes_phase),
                          ("benches", benches_phase),
                          ("roofline", roofline_phase)):
             if want(name):
@@ -6037,6 +6431,8 @@ def main() -> int:
     cnn = cnn_phase(torch)
     quad = quadratic_phase(torch)
     llm = llm_phase(torch)
+    torch.cuda.empty_cache()
+    lowp = compute_dtypes_phase(torch)
     torch.cuda.empty_cache()
     grid = grid_phase(torch)
     torch.cuda.empty_cache()
@@ -6063,7 +6459,7 @@ def main() -> int:
     profile_cases(torch, results, fresh_process=True,  # see profile_cases
                   flash=flash, randk=randk)
     record = kernel_record(results, randk, flash, cnn, quad, llm, grid,
-                           serve, stream, decode, families, paper)
+                           serve, stream, decode, families, paper, lowp)
     log(json.dumps({"summary": {
         "cnn": {k: cnn[k] for k in ("rounds", "median_round_ms", "acc",
                                     "cpu_rel_diff", "profile")},
@@ -6072,6 +6468,7 @@ def main() -> int:
                           for k in ("kernel", "plain")}
                       for a in ("rosdhb", "dasha")},
         "server_round": randk["server_round"],
+        "compute_dtypes": lowp,
         "llm": {k: llm[k] for k in ("steps", "losses", "step_ms",
                                     "median_step_ms", "peak_mib",
                                     "plain_rel_loss", "plain_rel_dir",

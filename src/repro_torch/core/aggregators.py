@@ -27,6 +27,8 @@ from repro_torch.kernels.cwtm.ops import cwtm as cwtm_op
 from repro_torch.kernels.median.ops import median as median_op
 from repro_torch.kernels.median.ref import median_ref
 from repro_torch.kernels.pairdist.ops import pairdist
+from repro_torch.utils.dtypes import (FLOAT8, divide, lowp, to_dtype,
+                                     to_float8, xla_sum_f8)
 
 Aggregator = Callable[[torch.Tensor], torch.Tensor]
 
@@ -42,9 +44,31 @@ DEFAULT_BANK: Tuple[Tuple[str, bool], ...] = (
 PORTED_RULES: Tuple[str, ...] = BANK_NAMES
 
 
+def _mean(x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """``jnp.mean`` over ``dim`` as the reference's compiled round gives it:
+    at float16 a float32 sum times ``1/k`` (XLA multiplies by the
+    reciprocal) rounded once; at float8 the float8 sum of
+    :func:`xla_sum_f8` divided by ``k`` as a float8 count, rounded; PyTorch's
+    mean otherwise."""
+    k = x.shape[dim]
+    if x.dtype == torch.float16:
+        return (x.float().sum(dim=dim) * (1.0 / k)).half()
+    if x.dtype == FLOAT8:
+        kk = float(to_float8(torch.tensor(float(k))).float())
+        return to_float8(divide(xla_sum_f8(x, dim), kk))
+    return x.mean(dim=dim)
+
+
+def _sort(x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """Sorted values; float8 sorts as float32 (the same order, NaN last)."""
+    if x.dtype == FLOAT8:
+        return torch.sort(x.float(), dim=dim).values.to(FLOAT8)
+    return torch.sort(x, dim=dim).values
+
+
 def mean(x: torch.Tensor) -> torch.Tensor:
     """Plain averaging: NOT robust, the non-robust baseline."""
-    return x.mean(dim=-2)
+    return _mean(x)
 
 
 def coordinate_median(x: torch.Tensor) -> torch.Tensor:
@@ -58,12 +82,12 @@ def trimmed_mean(x: torch.Tensor, f: int) -> torch.Tensor:
     middle ``n - 2f``."""
     n = x.shape[-2]
     if f == 0:
-        return x.mean(dim=-2)
+        return _mean(x)
     if n - 2 * f <= 0:
         raise ValueError(f"trimmed_mean requires n > 2f, got n={n}, f={f}")
 
     def trim(cols: torch.Tensor) -> torch.Tensor:
-        return torch.sort(cols, dim=-2).values[..., f:n - f, :].mean(dim=-2)
+        return _mean(_sort(cols)[..., f:n - f, :])
 
     # Column slices bound the sort's int64 indices (every column is sorted
     # on its own, so the result is the same): at an LLM's D they would
@@ -82,7 +106,10 @@ def geometric_median(x: torch.Tensor, iters: int = 8,
                      eps: float = 1e-8) -> torch.Tensor:
     """Smoothed Weiszfeld iteration for the geometric median, from the mean,
     ``iters`` times: weights ``1 / sqrt(||x_i - z||^2 + eps)``, normalised.
-    Plain PyTorch (the reference has no kernel for it)."""
+    Plain PyTorch (the reference has no kernel for it); float8 values are
+    taken in float32 and the result rounded to float8 once."""
+    if x.dtype == FLOAT8:
+        return to_float8(geometric_median(x.float(), iters, eps))
     z = x.mean(dim=-2)
     for _ in range(iters):
         dist = torch.sqrt(torch.sum(torch.square(x - z.unsqueeze(-2)),
@@ -95,17 +122,41 @@ def geometric_median(x: torch.Tensor, iters: int = 8,
 
 def _pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
     """The reference rule: squared norms from row sums, so the diagonal
-    keeps the cancellation noise of ``sq_i + sq_i - 2 G_ii``."""
+    keeps the cancellation noise of ``sq_i + sq_i - 2 G_ii``. At float8
+    each operation rounds to float8 as the compiled reference does: the
+    squares, every add of their sum (:func:`xla_sum_f8`), the Gram matrix
+    (a float32 product rounded to float16, then to float8) and each term."""
+    if x.dtype == FLOAT8:
+        sq = xla_sum_f8(lowp(torch.square, x, dtype=FLOAT8))
+        xf = x.float()
+        g = to_float8((xf @ xf.mT).half())
+        d2 = lowp(lambda a, b: a - b,
+                  lowp(torch.add, sq[..., :, None], sq[..., None, :],
+                       dtype=FLOAT8),
+                  lowp(lambda v: 2.0 * v, g, dtype=FLOAT8), dtype=FLOAT8)
+        return lowp(lambda v: v.clamp_min(0.0), d2, dtype=FLOAT8)
     sq = x.square().sum(dim=-1)
+    if x.dtype == torch.float16:
+        # XLA sums the three float16 terms in float32, rounding once
+        g = (x @ x.mT).float()
+        d2 = sq[..., :, None].float() + sq[..., None, :].float() - 2.0 * g
+        return d2.half().clamp_min(0.0)
     d2 = sq[..., :, None] + sq[..., None, :] - 2.0 * (x @ x.mT)
     return d2.clamp_min(0.0)
+
+
+def _argsort(x: torch.Tensor) -> torch.Tensor:
+    """Stable argsort over the last axis (float8 as float32)."""
+    return torch.argsort(x.float() if x.dtype == FLOAT8 else x, dim=-1,
+                         stable=True)
 
 
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x [..., n, d]`` rows at ``idx [..., m, q]`` -> ``[..., m, q, d]``."""
     flat = idx.reshape(idx.shape[:-2] + (-1,))
-    rows = torch.take_along_dim(x, flat[..., None], dim=-2)
-    return rows.reshape(idx.shape + (x.shape[-1],))
+    src = x.view(torch.uint8) if x.dtype == FLOAT8 else x
+    rows = torch.take_along_dim(src, flat[..., None], dim=-2)
+    return rows.reshape(idx.shape + (x.shape[-1],)).view(x.dtype)
 
 
 def krum(x: torch.Tensor, f: int, m: int = 1) -> torch.Tensor:
@@ -114,18 +165,21 @@ def krum(x: torch.Tensor, f: int, m: int = 1) -> torch.Tensor:
     n = x.shape[-2]
     q = max(1, n - f - 2)
     eye = torch.eye(n, dtype=torch.bool, device=x.device)
-    d2 = _pairwise_sq_dists(x).masked_fill(eye, float("inf"))
+    d2 = _pairwise_sq_dists(x)
+    if d2.dtype == FLOAT8:  # sorted and summed in float32
+        d2 = d2.float()
+    d2 = d2.masked_fill(eye, float("inf"))
     scores = torch.sort(d2, dim=-1).values[..., :q].sum(dim=-1)
     sel = torch.argsort(scores, dim=-1, stable=True)[..., :m]
-    return _gather_rows(x, sel[..., None, :])[..., 0, :, :].mean(dim=-2)
+    return _mean(_gather_rows(x, sel[..., None, :])[..., 0, :, :])
 
 
 def nnm(x: torch.Tensor, f: int) -> torch.Tensor:
     """Nearest-Neighbour Mixing: replace each vector by the average of its
     ``n - f`` nearest neighbours (itself included)."""
     q = x.shape[-2] - f
-    idx = torch.argsort(_pairwise_sq_dists(x), dim=-1, stable=True)[..., :q]
-    return _gather_rows(x, idx).mean(dim=-2)
+    idx = _argsort(_pairwise_sq_dists(x))[..., :q]
+    return _mean(_gather_rows(x, idx))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,10 +239,10 @@ def _kernel_nnm(f: int) -> Aggregator:
     def pre(x: torch.Tensor) -> torch.Tensor:
         n = x.shape[-2]
         q = n - f
-        idx = torch.argsort(pairdist(x), dim=-1, stable=True)[..., :q]
+        idx = _argsort(pairdist(x))[..., :q]
         w = torch.zeros(idx.shape[:-1] + (n,), dtype=torch.float32,
                         device=x.device).scatter_(-1, idx, 1.0) / q
-        return (w @ x.float()).to(x.dtype)
+        return to_dtype(w @ x.float(), x.dtype)
 
     return pre
 
@@ -213,7 +267,7 @@ def _kernel_base_rule(name: str, f: int) -> Optional[Aggregator]:
             # the selection as weights: ONE [n] x [n, d] product
             w = torch.zeros(sel.shape[:-1] + (n,), dtype=torch.float32,
                             device=x.device).scatter_(-1, sel, 1.0 / m)
-            return (w[..., None, :] @ x.float())[..., 0, :].to(x.dtype)
+            return to_dtype((w[..., None, :] @ x.float())[..., 0, :], x.dtype)
         return rule
     return None
 

@@ -15,7 +15,7 @@ server banks are float32, bfloat16, float16 or float8_e4m3fn
 (``momentum_dtype``); every store into a float8 bank rounds as the
 reference's does (``utils.dtypes.to_dtype``: NaN past the largest finite
 value, where PyTorch saturates). RoSDHB's momentum and aggregation run in
-``server_compute_dtype`` (float32, bfloat16 or float16).
+``server_compute_dtype`` (float32, bfloat16, float16 or float8_e4m3fn).
 
 The streaming parameter server (``repro_torch.serve``) runs the memoryless
 algorithms split in two: the clients' wire half (:func:`make_wire_fn`) and
@@ -57,7 +57,7 @@ from repro_torch.core import compression as C
 from repro_torch.core import wire as W
 from repro_torch.device import resolve_device
 from repro_torch.kernels.randk import ops as RK
-from repro_torch.utils.dtypes import FLOAT8, lowp, to_dtype
+from repro_torch.utils.dtypes import FLOAT8, lowp, to_dtype, to_float8
 
 #: Branch order of the full algorithm bank (and the known algorithms).
 ALGO_BANK: Tuple[str, ...] = ("rosdhb", "dasha", "robust_dgd", "dgd")
@@ -67,10 +67,12 @@ PORTED_ALGORITHMS: Tuple[str, ...] = ALGO_BANK + ("bank",)
 BANK_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                "float16": torch.float16, "float8_e4m3fn": FLOAT8}
 #: The dtypes of RoSDHB's server arithmetic
-#: (``AlgorithmConfig.server_compute_dtype``). float8 is not one: PyTorch
-#: has no float8 arithmetic, so a float8 compute dtype raises.
+#: (``AlgorithmConfig.server_compute_dtype``). PyTorch has no float8
+#: arithmetic: at float8_e4m3fn each operation runs in float32 and rounds as
+#: the reference's compiled round does (:func:`_momentum`,
+#: ``aggregators.trimmed_mean``).
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-                  "float16": torch.float16}
+                  "float16": torch.float16, "float8_e4m3fn": FLOAT8}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,10 +242,8 @@ def _check_ported(cfg: AlgorithmConfig) -> torch.dtype:
         raise ValueError(f"momentum_dtype {cfg.momentum_dtype!r} is not "
                          f"ported (ported: {'|'.join(BANK_DTYPES)})")
     if cfg.server_compute_dtype not in COMPUTE_DTYPES:
-        why = (": PyTorch has no float8 arithmetic" if "float8" in
-               cfg.server_compute_dtype else "")
         raise ValueError(f"server_compute_dtype {cfg.server_compute_dtype!r}"
-                         f" is not ported{why} (ported: "
+                         f" is not ported (ported: "
                          f"{'|'.join(COMPUTE_DTYPES)})")
     return BANK_DTYPES[cfg.momentum_dtype]
 
@@ -338,7 +338,8 @@ def _momentum_fma(m_prev: torch.Tensor, wire: torch.Tensor, beta: float,
 
 def _momentum(m_prev: torch.Tensor, wire: torch.Tensor, beta: float,
               one_m_beta: float, cdt: torch.dtype, present=None,
-              discount=None) -> Tuple[torch.Tensor, torch.Tensor]:
+              discount=None, byz: int = 0) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
     """Step 5 in the compute dtype ``cdt``: ``beta * m_prev + (1 - beta) *
     discount * wire`` on the rows that reported, ``m_prev`` on the others.
     Returns ``(m, keep)``: the momenta the aggregation takes and what the
@@ -356,25 +357,49 @@ def _momentum(m_prev: torch.Tensor, wire: torch.Tensor, beta: float,
     float16, then one float32 fused multiply-add of the other onto it,
     rounded to float16, which every bank keeps; the product rounded first
     is ``(1-beta) * w`` on float32 and float16 banks, ``beta * m`` on
-    bfloat16 and float8 ones (the products XLA contracts there)."""
+    bfloat16 and float8 ones (the products XLA contracts there), and
+    ``beta * m`` on the first ``byz`` rows at every bank (a scaled-mean
+    attack's rows, :func:`_attacked_rows`). float8 rounds every operation to float8 as XLA's float8 round does on the CPU
+    (``test_torch_compute_dtypes.py::test_float8_momentum_is_the_compiled_
+    reference``): ``beta`` and ``1-beta`` are float8 constants (0.9 is
+    0.875), each product is rounded, then their sum, which the aggregation
+    takes and every bank keeps, but a float16 bank keeps the sum rounded to
+    float16 only (XLA computes float8 in float16 and elides the round trip
+    there). Every float8 product and sum of float8 operands is exact in
+    float32, so one rounding of the float32 result is XLA's."""
     if cdt == torch.float32:
         w = wire if discount is None else wire.float() * discount[:, None]
         m = _momentum_fma(m_prev, w, beta, one_m_beta)
         if present is not None:
             m = torch.where(present[:, None], m, m_prev.float())
         return m, m
-    rnd = lambda v: float(torch.tensor(v, dtype=cdt))  # noqa: E731
-    mp = m_prev.to(cdt)
-    w = wire.to(cdt)
+    rnd = lambda v: float(to_dtype(torch.tensor(v), cdt))  # noqa: E731
+    mp = to_dtype(m_prev, cdt)
+    w = to_dtype(wire, cdt)
     if discount is not None:
-        w = w * discount.to(cdt)[:, None]
+        w = lowp(torch.mul, w, to_dtype(discount, cdt)[:, None], dtype=cdt)
+    if cdt == FLOAT8:
+        s = to_float8(mp.float().mul_(rnd(beta))).float()
+        t = to_float8(w.float().mul_(rnd(one_m_beta)))
+        s.add_(t.float())
+        del t
+        m = to_float8(s)
+        if present is not None:
+            m = torch.where(present[:, None], m, mp)
+            s = torch.where(present[:, None], s, mp.float())
+        return m, (s.half() if m_prev.dtype == torch.float16 else m)
     if cdt == torch.float16:
-        if m_prev.dtype in (torch.bfloat16, FLOAT8):
-            m = (mp * rnd(beta)).float().add_(w.float(),
-                                              alpha=rnd(one_m_beta))
-        else:
-            m = (w * rnd(one_m_beta)).float().add_(mp.float(),
-                                                   alpha=rnd(beta))
+        def fma16(mp, w, beta_first):
+            if beta_first:
+                return (mp * rnd(beta)).float().add_(
+                    w.float(), alpha=rnd(one_m_beta))
+            return (w * rnd(one_m_beta)).float().add_(
+                mp.float(), alpha=rnd(beta))
+
+        beta_first = m_prev.dtype in (torch.bfloat16, FLOAT8)
+        m = fma16(mp, w, beta_first)
+        if byz and not beta_first:
+            m[:byz] = fma16(mp[:byz], w[:byz], True)
         m = m.to(cdt)
         if present is not None:
             m = torch.where(present[:, None], m, mp)
@@ -384,6 +409,17 @@ def _momentum(m_prev: torch.Tensor, wire: torch.Tensor, beta: float,
         keep = torch.where(present[:, None], keep, mp.float())
     m = keep.to(cdt)
     return m, (keep if m_prev.dtype == torch.float32 else m)
+
+
+#: Attacks whose Byzantine rows are a scalar times the honest mean.
+SCALED_MEAN_ATTACKS = ("signflip", "ipm", "foe")
+
+
+def _attacked_rows(cfg: AlgorithmConfig) -> int:
+    """The rows whose float16 momentum rounds ``beta * m`` first at every
+    bank (:func:`_momentum`): the first ``f``, where a scaled-mean attack
+    wrote them (XLA fuses its ``-c * mu`` into their momentum)."""
+    return cfg.f if cfg.attack.name in SCALED_MEAN_ATTACKS else 0
 
 
 def _rosdhb_apply(cfg: AlgorithmConfig, agg, state: ServerState,
@@ -398,7 +434,7 @@ def _rosdhb_apply(cfg: AlgorithmConfig, agg, state: ServerState,
     # momentum_dtype.
     m, keep = _momentum(state.momentum, wire, hparams[0], hparams[2],
                         COMPUTE_DTYPES[cfg.server_compute_dtype], present,
-                        discount)
+                        discount, _attacked_rows(cfg))
     r = agg(m)
     new = state._replace(momentum=to_dtype(keep, state.momentum.dtype),
                          step=state.step + 1)
@@ -454,7 +490,7 @@ def _rosdhb_dense_columns(cfg: AlgorithmConfig, agg, state: ServerState,
             grads[:, cols], mask[..., cols], cfg.sparsifier), attack_params,
             draws)
         m, keep = _momentum(state.momentum[:, cols], wire, hparams[0],
-                            hparams[2], cdt)
+                            hparams[2], cdt, byz=_attacked_rows(cfg))
         part = agg(m)
         if r is None:
             r = part.new_empty(part.shape[:-1] + (d,))
@@ -1244,5 +1280,12 @@ def _bank_payload_floats(entries: Sequence[str], d: int,
 def apply_direction(params_flat: torch.Tensor, r: torch.Tensor,
                     gamma: float) -> torch.Tensor:
     """Step 7: theta <- theta - gamma R, one fused multiply-add (as XLA
-    compiles the reference's round)."""
+    compiles the reference's round). A float8 direction raises, as the
+    reference's does (JAX promotes float8 with no other float type)."""
+    if r.dtype == FLOAT8 and params_flat.dtype != FLOAT8:
+        raise TypeError(
+            f"a float8_e4m3fn direction cannot update {params_flat.dtype} "
+            "parameters: float8 promotes with no other float type (the "
+            "reference's apply_direction raises TypePromotionError); the "
+            "launcher's step casts the direction to each parameter's dtype")
     return torch.add(params_flat, r, alpha=-gamma)

@@ -34,8 +34,8 @@ import statistics
 
 import torch
 
-from repro_torch.utils.dtypes import (FLOAT8, is_float8, lowp, to_dtype,
-                                      to_float8)
+from repro_torch.utils.dtypes import (FLOAT8, divide, is_float8, lowp,
+                                      to_dtype, to_float8)
 
 
 def _alie_z(n: int, f: int) -> float:
@@ -76,7 +76,7 @@ def _stats8(x: torch.Tensor, std: bool = False):
         acc = 0.0  # XLA's sum starts at +0
         for row in rows:
             acc = to_float8(row.float() + acc).float()
-        return to_float8(acc / h)
+        return to_float8(divide(acc, h))
 
     mu = mean(x.unbind(-2))
     if not std:
@@ -99,7 +99,7 @@ def _row_std(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     for row in x.unbind(-2):
         c = (row - mu).double()
         acc = torch.addcmul(acc.double(), c, c).to(mu.dtype)
-    var = acc / x.shape[-2]
+    var = divide(acc, x.shape[-2])
     if x.dtype != torch.float32:
         var = to_dtype(var, x.dtype)
     return to_dtype(torch.sqrt(var.double()).to(torch.float32), x.dtype)

@@ -39,6 +39,9 @@
 //     a ticket (atomicAdd on the row's int counter). The last cluster of the
 //     row sums the groups' partials in group order, finalises, and sets the
 //     counter back to 0, so every call leaves the counters at zero.
+// Inputs are float32, bfloat16, float16 or float8_e4m3fn (dtype codes 0-3,
+// those of randk.cu), staged in their own type and widened to float32 as a
+// column pair is read, as the TPU kernel widens them; the output is float32.
 // No float atomics: every sum runs in a fixed order, so the same inputs give
 // the same bits whichever cluster finishes last. The squared norms are G's
 // own diagonal, so the result's diagonal is exactly 0 and it is symmetric.
@@ -47,6 +50,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -61,7 +66,7 @@ struct PairdistPlan {
   void* counters;     // int32 [B] tickets, zero between calls
   int B;
   int n;
-  int dtype;          // 0 = float32, 1 = bfloat16
+  int dtype;          // 0 = float32, 1 = bfloat16, 2 = float16, 3 = float8
   int phases;         // threads = n_block_pairs * phases
   int cluster;        // CTAs per cluster, 1..16
   int groups;         // clusters per batch row
@@ -126,6 +131,11 @@ __device__ __forceinline__ void entry_ij(int e, int nb, int* i, int* j) {
   *j = pj * 4 + e % 4;
 }
 
+// float8_e4m3fn values, moved as their bits
+struct E4M3 {
+  unsigned char x;
+};
+
 template <typename T>
 __device__ __forceinline__ T zero();
 template <>
@@ -134,12 +144,33 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16(0.0f);
 }
+template <>
+__device__ __forceinline__ __half zero<__half>() {
+  return __float2half(0.0f);
+}
+template <>
+__device__ __forceinline__ E4M3 zero<E4M3>() {
+  return E4M3{0};
+}
 
 __device__ __forceinline__ float2 load_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load_pair(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
+__device__ __forceinline__ float2 load_pair(const E4M3* p) {
+  const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
+      *reinterpret_cast<const __nv_fp8x2_storage_t*>(p), __NV_E4M3));
+  return __half22float2(h);
+}
+
+// Bytes of an element of dtype code `dtype`.
+__host__ __device__ constexpr int esize_of(int dtype) {
+  return dtype == 0 ? 4 : (dtype == 3 ? 1 : 2);
 }
 
 template <int BYTES>
@@ -487,10 +518,21 @@ int copy_bytes(const void* x, long long d, int esize) {
   return 0;
 }
 
+template <typename T>
+cudaError_t launch_2byte(const void* x, float* o, const PairdistPlan& p,
+                         cudaStream_t s) {
+  switch (copy_bytes(x, p.d, 2)) {
+    case 16: return launch<T, 16>(x, o, p, s);
+    case 8: return launch<T, 8>(x, o, p, s);
+    case 4: return launch<T, 4>(x, o, p, s);
+    default: return launch<T, 0>(x, o, p, s);
+  }
+}
+
 bool valid_plan(const PairdistPlan& p) {
   if (p.n < 1 || p.n > kMaxN || p.B < 1 || p.B > 65535 || p.d < 1)
     return false;
-  if (p.dtype != 0 && p.dtype != 1) return false;
+  if (p.dtype < 0 || p.dtype > 3) return false;
   if (p.phases < 1 || p.phases > kTile / 2 || (p.phases & (p.phases - 1)))
     return false;
   if (block_pairs(p.n) * p.phases > kMaxThreads) return false;
@@ -502,12 +544,13 @@ bool valid_plan(const PairdistPlan& p) {
   if ((long long)p.groups * p.cluster > 0x7fffffffLL) return false;
   if (p.groups > 1 && (p.scratch == nullptr || p.counters == nullptr))
     return false;
-  return p.smem == smem_bytes(p.n, p.phases, p.dtype == 0 ? 4 : 2);
+  return p.smem == smem_bytes(p.n, p.phases, esize_of(p.dtype));
 }
 
 }  // namespace
 
-// x: [B, n, d] (plan->dtype 0 = float32, 1 = bfloat16), contiguous.
+// x: [B, n, d] (plan->dtype 0 = float32, 1 = bfloat16, 2 = float16,
+// 3 = float8_e4m3fn), contiguous.
 // out: float32 [B, n, n]. plan: the launch plan (see PairdistPlan), which
 // holds the scratch and the zeroed ticket counters when groups > 1.
 // Returns the launch's cudaError_t (0 on success); it runs on `stream`.
@@ -526,12 +569,16 @@ extern "C" int pairdist(const void* x, void* out, const void* plan,
       case 8: err = launch<float, 8>(x, o, p, s); break;
       default: err = launch<float, 4>(x, o, p, s); break;
     }
+  } else if (p.dtype == 1) {
+    err = launch_2byte<__nv_bfloat16>(x, o, p, s);
+  } else if (p.dtype == 2) {
+    err = launch_2byte<__half>(x, o, p, s);
   } else {
-    switch (copy_bytes(x, p.d, 2)) {
-      case 16: err = launch<__nv_bfloat16, 16>(x, o, p, s); break;
-      case 8: err = launch<__nv_bfloat16, 8>(x, o, p, s); break;
-      case 4: err = launch<__nv_bfloat16, 4>(x, o, p, s); break;
-      default: err = launch<__nv_bfloat16, 0>(x, o, p, s); break;
+    switch (copy_bytes(x, p.d, 1)) {
+      case 16: err = launch<E4M3, 16>(x, o, p, s); break;
+      case 8: err = launch<E4M3, 8>(x, o, p, s); break;
+      case 4: err = launch<E4M3, 4>(x, o, p, s); break;
+      default: err = launch<E4M3, 0>(x, o, p, s); break;
     }
   }
   return (int)err;

@@ -36,8 +36,19 @@
 //     so a call converts no weights on the host.
 // The sum is taken in rank order in float32, skipping zero weights and
 // multiplying only by weights other than one, as the TPU kernel does.
+//
+// Inputs are float32, bfloat16, float16 or float8_e4m3fn (dtype codes 0-3,
+// those of randk.cu), each value widened to float32 on load, as the TPU
+// kernel widens it; the result is stored in the input's dtype, rounded to
+// nearest even once. A float8 store gives NaN (with the value's sign) past
+// 464, for inf and for NaN, as the reference's cast and randk.cu's store
+// do (repro_torch/utils/dtypes.py: to_float8). The padding past n is +inf
+// in float32 registers, never a float8 value: float8_e4m3fn has no inf (the
+// TPU kernel pads in the input's dtype, so its float8 padding is NaN).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -58,7 +69,7 @@ struct SortedWeightPlan {
   long long d;
   int B;
   int n;
-  int dtype;    // 0 = float32, 1 = bfloat16
+  int dtype;    // 0 = float32, 1 = bfloat16, 2 = float16, 3 = float8_e4m3fn
   int threads;  // 64, 128 or 256 a block
   int nan_out;  // 1: NaN wherever a NaN is among the n values (the median)
   RankWeights weights;  // weights.w[i] scales the i-th smallest value
@@ -66,13 +77,39 @@ struct SortedWeightPlan {
 
 namespace {
 
+// float8_e4m3fn values, moved as their bits
+struct E4M3 {
+  unsigned char x;
+};
+
 __device__ __forceinline__ float load_as_float(const float* p) { return *p; }
 __device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ float load_as_float(const __half* p) {
+  return __half2float(*p);
+}
+__device__ __forceinline__ float load_as_float(const E4M3* p) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(p->x, __NV_E4M3)));
+}
 __device__ __forceinline__ void store_from_float(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_from_float(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store_from_float(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
+// Nearest even; NaN of v's sign past 464, for +-inf and for NaN; a zero of
+// v's sign up to 2^-10 (randk.cu's from_f32<E4M3>).
+__device__ __forceinline__ void store_from_float(E4M3* p, float v) {
+  const float a = fabsf(v);
+  const unsigned char sign = signbit(v) ? 0x80 : 0x00;
+  if (!(a <= 464.0f))
+    p->x = sign | 0x7F;
+  else if (a <= 0x1p-10f)
+    p->x = sign;
+  else
+    p->x = (unsigned char)__nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3);
 }
 
 __device__ __forceinline__ float min_nan(float a, float b) {
@@ -194,6 +231,10 @@ extern "C" int sorted_weight(const void* x, void* out, const void* plan,
     err = launch<float>(x, out, p, s);
   } else if (p.dtype == 1) {
     err = launch<__nv_bfloat16>(x, out, p, s);
+  } else if (p.dtype == 2) {
+    err = launch<__half>(x, out, p, s);
+  } else if (p.dtype == 3) {
+    err = launch<E4M3>(x, out, p, s);
   } else {
     err = cudaErrorInvalidValue;
   }

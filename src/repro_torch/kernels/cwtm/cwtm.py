@@ -25,7 +25,9 @@ from repro_torch.kernels import build
 
 MAX_N = 64
 MAX_B = 65535
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The input dtypes and their codes (those of ``csrc/randk.cu``).
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+          torch.float8_e4m3fn: 3}
 THREADS = (256, 128, 64)  # block sizes, widest first
 
 
@@ -99,7 +101,8 @@ def _check(x: torch.Tensor, weights: Sequence[float]) -> None:
     if not x.is_cuda:
         raise ValueError(f"sorted-weight kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in DTYPES:
-        raise TypeError(f"sorted-weight kernel takes float32 or bfloat16, got {x.dtype}")
+        raise TypeError("sorted-weight kernel takes float32, bfloat16, "
+                        f"float16 or float8_e4m3fn, got {x.dtype}")
     if x.ndim != 3:
         raise ValueError(f"sorted-weight kernel takes [B, n, d], got {tuple(x.shape)}")
     b, n, d = x.shape

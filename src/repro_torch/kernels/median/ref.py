@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.cwtm.ref import by_columns
+from repro_torch.utils.dtypes import to_dtype
 
 
 def median_ref(x: torch.Tensor) -> torch.Tensor:
@@ -20,7 +21,8 @@ def median_ref(x: torch.Tensor) -> torch.Tensor:
         lo = xs[..., (n - 1) // 2, :]
         hi = xs[..., n // 2, :]
         # torch.sort puts NaN last: the top rank is NaN where one is present
-        return torch.where(torch.isnan(xs[..., -1, :]), xs[..., -1, :],
-                           (lo + hi) * 0.5).to(x.dtype)
+        return to_dtype(torch.where(torch.isnan(xs[..., -1, :]),
+                                    xs[..., -1, :], (lo + hi) * 0.5),
+                        x.dtype)
 
     return by_columns(mid, x)

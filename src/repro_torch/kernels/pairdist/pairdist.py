@@ -34,7 +34,9 @@ BLOCKS_PER_SM = 4     # target CTAs per SM, over all batch rows
 SMEM_LIMIT = 232_448  # shared memory a block can use on Hopper (227 KB)
 MAX_N = 64
 MAX_B = 65535
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The input dtypes and their codes (those of ``csrc/randk.cu``).
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+          torch.float8_e4m3fn: 3}
 
 
 class PairdistPlan(NamedTuple):
@@ -156,7 +158,8 @@ def _check(x: torch.Tensor) -> None:
     if not x.is_cuda:
         raise ValueError(f"pairdist_cuda needs a CUDA tensor, got {x.device}")
     if x.dtype not in DTYPES:
-        raise TypeError(f"pairdist_cuda takes float32 or bfloat16, got {x.dtype}")
+        raise TypeError("pairdist_cuda takes float32, bfloat16, float16 or "
+                        f"float8_e4m3fn, got {x.dtype}")
     if x.ndim != 3:
         raise ValueError(f"pairdist_cuda takes [B, n, d], got {tuple(x.shape)}")
     b, n, d = x.shape
@@ -168,7 +171,8 @@ def _check(x: torch.Tensor) -> None:
 
 
 def pairdist_cuda(x: torch.Tensor) -> torch.Tensor:
-    """x [B, n, d] (CUDA, float32 or bfloat16) -> [B, n, n] float32."""
+    """x [B, n, d] (CUDA, float32, bfloat16, float16 or float8_e4m3fn) ->
+    [B, n, n] float32."""
     _check(x)
     b, n, d = x.shape
     idx = x.get_device()

@@ -51,6 +51,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import flatten as SF
 from repro_torch.sharding import partitioning as SP
 from repro_torch.utils import tree as T
+from repro_torch.utils.dtypes import vector_norm
 
 
 class TrainState(NamedTuple):
@@ -179,7 +180,7 @@ def build_train_step(plan: TrainPlan, device: DeviceLike = None):
             for p, r in zip(T.tree_leaves(state.params), dir_leaves)])
         metrics = {
             "loss": torch.stack(losses)[algo.f:].mean(),
-            "dir_norm": torch.linalg.vector_norm(direction),
+            "dir_norm": vector_norm(direction),
             "payload_floats_per_worker": float(C.payload_floats(
                 fspec.padded_size, algo.sparsifier)),
         }

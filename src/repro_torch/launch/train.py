@@ -60,6 +60,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--local-masks", action="store_true")
     p.add_argument("--momentum-dtype", default="float32",
                    choices=list(alg.BANK_DTYPES))
+    p.add_argument("--server-compute-dtype", default="float32",
+                   choices=list(alg.COMPUTE_DTYPES),
+                   help="dtype of RoSDHB's momentum and aggregation (the "
+                        "reference's AlgorithmConfig.server_compute_dtype; "
+                        "below float32 the round takes the dense wire)")
     p.add_argument("--checkpoint", default=None,
                    help="save the final parameters here (.npz + .meta.json)")
     p.add_argument("--seed", type=int, default=0)
@@ -149,6 +154,7 @@ def setup(args: argparse.Namespace, *, plain: bool = False,
     overrides = {
         "name": args.algo, "gamma": args.gamma,
         "momentum_dtype": args.momentum_dtype,
+        "server_compute_dtype": args.server_compute_dtype,
         "sparsifier": SparsifierConfig(
             kind="block", ratio=args.ratio, block_size=512,
             local=args.local_masks, use_kernels=not plain),

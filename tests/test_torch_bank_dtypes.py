@@ -4,7 +4,7 @@ JAX's on every float8 value, the boundary around 448 and 464, the
 subnormals, +-inf and NaN; RoSDHB and dasha rollouts on the quadratic with
 such banks against the reference's ``Simulator.rollout`` on its own draws;
 the randk kernels' plain versions at those dtypes; and what stays refused
-(a float8 compute dtype)."""
+(a float8 direction onto float32 parameters)."""
 
 import dataclasses
 
@@ -171,10 +171,19 @@ def test_server_state_bytes_read_the_itemsize(mdt):
 
 
 def test_float8_compute_dtype_raises_with_its_reason():
+    """A float8 compute dtype is ported (``test_torch_compute_dtypes.py``),
+    but its float8 direction cannot update float32 parameters: the
+    simulator's step raises, with the reason, as the reference's
+    ``apply_direction`` does; an unknown compute dtype is refused."""
     _, port = _cell("rosdhb", "float8_e4m3fn")
-    bad = dataclasses.replace(port, server_compute_dtype="float8_e4m3fn")
-    with pytest.raises(ValueError, match="no float8 arithmetic"):
-        Alg.init_state(bad, 16, device="cpu")
+    f8 = dataclasses.replace(port, server_compute_dtype="float8_e4m3fn")
+    Alg.init_state(f8, 16, device="cpu")
+    with pytest.raises(TypeError, match="float8 promotes with no other"):
+        Alg.apply_direction(torch.zeros(16), torch.zeros(16, dtype=FLOAT8),
+                            0.05)
+    with pytest.raises(ValueError, match="is not ported"):
+        Alg.init_state(dataclasses.replace(port, server_compute_dtype="int8"),
+                       16, device="cpu")
     Alg.init_state(dataclasses.replace(port, server_compute_dtype="float16"),
                    16, device="cpu")
 

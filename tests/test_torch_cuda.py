@@ -1299,3 +1299,87 @@ def test_hybrid_train_forward_launches_flash_once_a_group_at_head_dim_112(
                                 leaves)
     assert K.launches()["flash_fwd"] == K.launches()["flash_bwd"] == 3
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def _ulps_off(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """How many steps of their dtype apart two tensors of one narrow dtype
+    are (NaN alike), by their bit patterns taken as signed magnitudes."""
+    bits = {1: torch.uint8, 2: torch.int16}[got.element_size()]
+    wide = lambda t: t.view(bits).to(torch.int32)  # noqa: E731
+    top = 1 << (8 * got.element_size() - 1)
+
+    def key(t):
+        v = wide(t) & (2 * top - 1)
+        return torch.where(v >= top, top - v, v)
+
+    both_nan = torch.isnan(got.float()) & torch.isnan(want.float())
+    return torch.where(both_nan, 0, (key(got) - key(want)).abs())
+
+
+def _steps_off(got, want, x):
+    """:func:`_ulps_off`, 0 where the two differ by no more than 2^-20 of
+    max |x| (two float32 sums of x's values in other orders: near zero
+    that is several steps of a float16 result)."""
+    xf = x.float()
+    scale = float(xf[torch.isfinite(xf)].abs().max())
+    near = (got.float() - want.float()).abs() <= 2.0 ** -20 * scale
+    return torch.where(near, 0, _ulps_off(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("b,n,f,d", [(1, 13, 3, 11958), (3, 13, 3, 300),
+                                     (2, 8, 1, 1001), (1, 7, 0, 130),
+                                     (2, 64, 20, 999), (1, 5, 2, 257)])
+def test_float16_and_float8_inputs_match_plain(card, dt, b, n, f, d):
+    """pairdist, CWTM and the median on float16 and float8_e4m3fn inputs
+    (n = 13 and 5 padded): pairdist float32 within 1e-5 of max |x|^2 with
+    a zero diagonal; CWTM and the median in the input dtype, within one
+    step of it of their plain versions (the kernel sums rank weights, the
+    plain version the sum times 1/k), the median bitwise (its weights are
+    1 or 1/2: exact). Near zero "one step" reads as 2^-20 of max |x|
+    (:func:`_steps_off`)."""
+    from repro_torch.utils.dtypes import to_dtype
+    x = to_dtype(_x(b, n, d, 31, card), dt)
+    got = pairdist_cuda(x)
+    want = pairdist_ref(x)
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        x.float().square().sum(-1).max())
+    assert bool((got.diagonal(dim1=1, dim2=2) == 0).all())
+    if n > 2 * f:
+        c = cwtm_cuda(x, f)
+        assert c.dtype == dt and torch.isfinite(c.float()).all()
+        assert int(_steps_off(c, cwtm_ref(x, f), x).max()) <= 1
+    m = median_cuda(x)
+    assert m.dtype == dt
+    assert int(_ulps_off(m, median_ref(x)).max()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float16, torch.float8_e4m3fn])
+def test_sort_kernels_order_nan_last_at_float16_and_float8(card, dt):
+    """NaN among a coordinate's float16 or float8 values: CWTM trims it,
+    the median is NaN, as their plain versions."""
+    from repro_torch.utils.dtypes import to_dtype
+    x = _with_nan(2, 13, 777, 23, card)
+    x = to_dtype(x.clamp(-400, 400), dt)  # float8 has no inf
+    assert int(_steps_off(cwtm_cuda(x, 3), cwtm_ref(x, 3), x).max()) <= 1
+    assert int(_ulps_off(median_cuda(x), median_ref(x)).max()) == 0
+
+
+@pytest.mark.cuda
+def test_cwtm_at_float16_compute_through_make_aggregator(card):
+    """RoSDHB at ``server_compute_dtype="float16"`` hands float16 momenta to
+    its aggregator: CWTM (and NNM's pairdist) on CUDA tensors launch the
+    kernels on them, matching the CPU run within one float16 step."""
+    from repro_torch.core.aggregators import make_aggregator
+    x = _x(1, 8, 5000, 41, card, torch.float16)[0]
+    for pre in (False, True):
+        cfg = AggregatorConfig(name="cwtm", f=1, pre_nnm=pre)
+        K.reset_launches()
+        got = make_aggregator(cfg, device="cuda")(x)
+        launched = K.launches()
+        assert launched["cwtm"] == 1 and launched["pairdist"] == int(pre)
+        want = make_aggregator(cfg, device="cpu")(x.cpu())
+        assert got.dtype == torch.float16
+        assert int(_steps_off(got.cpu(), want, x).max()) <= 1

@@ -192,6 +192,8 @@ def test_cli_writes_the_reports(tmp_path):
     rep = json.loads(out.read_text())
     assert rep["hardware"] == "h100" and len(rep["reports"]) == 1
     assert rep["reports"][0]["ok"]
+    # a compute dtype the port does not take (float8_e4m3fn is taken now:
+    # test_torch_compute_dtypes.py) is refused by the CLI
     with pytest.raises(SystemExit):
         D.main(["--arch", "qwen25_3b", "--shape", "long_500k",
-                "--server-compute-dtype", "float8_e4m3fn"])
+                "--server-compute-dtype", "float64"])

@@ -19,6 +19,17 @@ from repro_torch.kernels.flash_attention import (attention_ref,
                                                  fully_masked_rows)
 from repro_torch.models.layers import causal_attention
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: the suite's parallel workers each starting a
+    thread per core slow the CPU steps down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # (B, Sq, Sk, H, KV, D, window, q_offset): GQA 2:1 and 4:1, MHA, MQA, a
 # sliding window, a continuation chunk at q_offset, D in {64, 80, 128,
 # 256}; at 256 (gemma_2b's, MQA) a causal case and a windowed continuation

@@ -28,6 +28,17 @@ from repro_torch.kernels.flash_attention import (F32_HEAD_DIMS, HEAD_DIMS,
 from repro_torch.kernels.flash_attention import flash as FK
 from repro_torch.kernels.flash_attention import ops as FO
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: the suite's parallel workers each starting a
+    thread per core slow the CPU steps down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SMS = 132  # an H100's SMs
 # (B, Sq, Sk, H, KV, D, causal, window, q_offset): the four timed float32
 # shapes (zamba2's, gemma_2b's, the vlm's, the LLM cut's), then small ones:

@@ -18,6 +18,17 @@ from repro_torch.models import mla as MLA
 from repro_torch.models.config import ModelConfig
 from repro_torch.testing import from_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: the suite's parallel workers each starting a
+    thread per core slow the CPU steps down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _BASE = dict(family="moe", d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
              vocab_size=64, use_mla=True, kv_lora_rank=32,
              qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,

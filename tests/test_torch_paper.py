@@ -52,6 +52,17 @@ from repro.core import (AggregatorConfig as JAggregatorConfig,  # noqa: E402
 from repro.models import cnn_init as jax_cnn_init  # noqa: E402
 from repro_torch.testing import ReplayDraws, from_jax_params  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: the suite's parallel workers each starting a
+    thread per core slow the CPU steps down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REL = 1e-5
 # the reference's lists, from its sources: benchmarks/run.py's suites in
 # order, bench_table1.py's cells, bench_momentum.py's betas and seeds

@@ -397,9 +397,11 @@ def test_the_dry_run_counts_the_sliced_rounds_bytes():
 def test_the_cards_train_paths_slice_as_chip_smoke_counts():
     """``chip_smoke.payload_slices``: a window of 32,768 blocks a launch of
     ``momentum_scatter`` and CWTM at the narrow banks of the LLM cut (25),
-    deepseek (62), zamba2 (54), gemma_2b (45) and the vlm at 5 layers and
+    deepseek (62), zamba2 (54), gemma_2b (45), the vlm at 5 layers and
     float8 banks (128: its bank of 4,182,105 blocks ends in a window of
-    20,569, ``chip_smoke.VLM_WINDOWS``); one at float32 banks."""
+    20,569, ``chip_smoke.VLM_WINDOWS``), qwen25_3b at 2 layers (47) and
+    mistral_large_123b at 1 layer and float8 banks (131); one at float32
+    banks."""
     from repro_torch.configs import INPUT_SHAPES, get_arch
     from repro_torch.configs.base import ArchSpec
     from repro_torch.launch.steps import make_train_plan
@@ -416,7 +418,8 @@ def test_the_cards_train_paths_slice_as_chip_smoke_counts():
             n_workers=8)
 
     want = {"deepseek_v2_lite_16b": 62, "mamba2_1_3b": 1, "zamba2_7b": 54,
-            "gemma_2b": 45, "llama32_vision_11b": 128}
+            "gemma_2b": 45, "llama32_vision_11b": 128, "qwen25_3b": 47,
+            "mistral_large_123b": 131}
     assert {a for a, _, _ in chip_smoke.FAMILY_TRAIN} == set(want)
     for arch, layers, mdt in chip_smoke.FAMILY_TRAIN:
         assert chip_smoke.payload_slices(plan(arch, layers, mdt)) == \

@@ -26,6 +26,17 @@ from repro_torch.core import Simulator, quadratic_testbed
 from repro_torch.models import cnn_loss
 from repro_torch.testing import ReplayDraws, from_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: the suite's parallel workers each starting a
+    thread per core slow the CPU steps down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N, F = 13, 3
 
 

@@ -17,6 +17,17 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 from repro_torch.testing import from_jax_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: the suite's parallel workers each starting a
+    thread per core slow the CPU steps down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _BASE = dict(family="ssm", d_model=64, n_heads=1, n_kv_heads=1, d_ff=0,
              vocab_size=64, ssm_state=16, ssm_expand=2, ssm_head_dim=16,
              ssm_conv_width=4, ssm_chunk=8, dtype="float32")

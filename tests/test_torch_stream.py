@@ -17,6 +17,16 @@ from repro_torch.launch import train as TR
 from repro_torch.utils.tree import tree_leaves
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: the suite's parallel workers each starting a
+    thread per core slow the CPU steps down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def batch_fn(t):
     """A per-step batch tree that is a pure function of t."""
     rng = np.random.default_rng((3, t))

@@ -25,6 +25,17 @@ from repro_torch.core import sweep as S
 from repro_torch.core.simulator import Simulator
 from repro_torch.testing import ReplayDraws
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: the suite's parallel workers each starting a
+    thread per core slow the CPU steps down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 QD = 64
 SEEDS = (0, 1)
 

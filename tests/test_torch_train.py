@@ -31,6 +31,17 @@ from repro_torch.launch import train as TR
 from repro_torch.testing import ReplayDraws, from_jax_params
 from repro_torch.utils.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: the suite's parallel workers each starting a
+    thread per core slow the CPU steps down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N, SEQ, STEPS, GAMMA = 8, 128, 3, 0.5
 
 
@@ -43,11 +54,12 @@ def _overrides(sp, agg, atk):
 
 
 def _run_both(jov, ov, steps=STEPS, use_pallas=True, n_layers=2,
-              **model_over):
+              arch="stablelm_3b", **model_over):
     """``steps`` steps of the reference (compiled once) and of the port,
     from the same parameters, batches and block ids; ``jov`` and ``ov``
-    are the two packages' plan overrides, ``model_over`` both models'."""
-    jmodel = jax_get_arch("stablelm_3b").model.reduced(
+    are the two packages' plan overrides, ``model_over`` both models'
+    (``arch`` reduced to ``n_layers`` at d_model 256)."""
+    jmodel = jax_get_arch(arch).model.reduced(
         n_layers=n_layers, d_model=256).with_overrides(
             vocab_size=512, use_flash_attention=False, **model_over)
     shape = ("host_train", SEQ, N, "train")
@@ -72,7 +84,7 @@ def _run_both(jov, ov, steps=STEPS, use_pallas=True, n_layers=2,
     # (key, round_key), algorithms.py:819 (mask_key, atk_key),
     # compression.py:275 permutes the block ids (local masks and dasha:
     # compression.py:175 splits the mask key per worker first)
-    nb = d // 512
+    nb = -(-d // 512)  # whole blocks (compression.py:87)
     kb = max(1, int(round(0.05 * nb)))
     local = jplan.algo.sparsifier.local or jplan.algo.name == "dasha"
     ids = []
@@ -91,14 +103,15 @@ def _run_both(jov, ov, steps=STEPS, use_pallas=True, n_layers=2,
                      jax.tree_util.tree_leaves(jstate.params)]
     ref["momentum"] = np.asarray(jstate.server.momentum.astype(jnp.float32))
 
-    model = get_arch("stablelm_3b").model.reduced(
+    model = get_arch(arch).model.reduced(
         n_layers=n_layers, d_model=256).with_overrides(vocab_size=512,
                                                        **model_over)
     plan = S.make_train_plan(ArchSpec(model, "test"), InputShape(*shape), ov,
                              n_workers=N)
     step = S.build_train_step(plan, device="cpu")
     state = S.TrainState(from_jax_params(p0),
-                         Alg.init_state(plan.algo, d, device="cpu"), 0,
+                         Alg.init_state(plan.algo, plan.bank_width,
+                                        device="cpu"), 0,
                          ReplayDraws("cpu", permutations=ids))
     port = {"loss": [], "dir_norm": [], "payload": []}
     for b in batches:
@@ -323,3 +336,33 @@ def test_float32_model_loss_matches_the_pallas_kernel(runs_f32):
                         {"tokens": torch.from_numpy(ref["batches"][0][0])}))
     assert pallas == pytest.approx(plain, rel=1e-5)
     assert got == pytest.approx(pallas, rel=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen25_3b", "mistral_large_123b"])
+def test_new_train_paths_match_the_reference(arch):
+    """The train paths the card runs at full width, at 1 layer and d_model
+    256: qwen25_3b (QKV bias, grouped KV heads, an untied head) and
+    mistral_large_123b, two steps against the reference's
+    ``build_train_step`` at the float32 run's bounds (honest loss rtol
+    2e-3, |R| rtol 2e-2, each parameter within 5e-2 of the reference's
+    own update), and every coordinate of no selected block bitwise."""
+    ref, port = _run_both(_overrides(JSp, JAgg, JAtk),
+                          _overrides(SparsifierConfig, AggregatorConfig,
+                                     AttackConfig),
+                          steps=2, n_layers=1, arch=arch)
+    assert port["plan"].flat_spec.padded_size == \
+        ref["plan"].flat_spec.padded_size
+    assert port["draws_left"] == 0
+    np.testing.assert_allclose(port["loss"], ref["loss"], rtol=2e-3)
+    np.testing.assert_allclose(port["dir_norm"], ref["dir_norm"], rtol=2e-2)
+    for got, want, p0 in zip(port["params"], ref["params"], ref["p0"]):
+        update = np.abs(want - p0).max()
+        assert np.abs(got - want).max() <= 5e-2 * update + 1e-7
+    flat = lambda leaves: np.concatenate(  # noqa: E731
+        [np.ravel(a) for a in leaves])
+    p0, got = flat(ref["p0"]), flat(port["params"])
+    sel = np.zeros(port["plan"].bank_width // 512, bool)
+    for ids in ref["ids"]:
+        sel[ids] = True
+    untouched = ~np.repeat(sel, 512)[:p0.size]
+    np.testing.assert_array_equal(got[untouched], p0[untouched])

@@ -77,14 +77,15 @@ def one_thread():
 def test_transformer_table1_streams_bitwise_its_materialised_run(
         testbeds, one_thread):
     """The registry spec (rosdhb, robust_dgd x alie, signflip, CWTM+NNM,
-    n = 9, f = 2) streamed for 8 rounds (chunk 4, depth 2) gives the rows of
-    the materialised run exactly; every row finite, accuracy in [0, 1]."""
+    n = 9, f = 2) streamed for 4 rounds (chunks of 2, depth 2: the second
+    chunk prefetched while the first runs) gives the rows of the
+    materialised run exactly; every row finite, accuracy in [0, 1]."""
     _, (loss, p0, batch, eval_fn, eval_batch) = testbeds
     cells = R.expand_scenario("transformer-table1")
     assert len(cells) == 4
-    kw = dict(loss_fn=loss, params0=p0, batches=batch, seeds=(0,), steps=8,
+    kw = dict(loss_fn=loss, params0=p0, batches=batch, seeds=(0,), steps=4,
               eval_fn=eval_fn, eval_batch=eval_batch, device="cpu")
-    streamed = S.run_scenarios(cells, streaming=True, stream_chunk_size=4,
+    streamed = S.run_scenarios(cells, streaming=True, stream_chunk_size=2,
                                prefetch_depth=2, **kw)
     assert streamed == S.run_scenarios(cells, **kw)
     assert [r["scenario"] for r in streamed] == [c.label for c in cells]

@@ -38,6 +38,17 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.testing import from_jax_params
 from repro_torch.utils.tree import make_flat_spec, tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: the suite's parallel workers each starting a
+    thread per core slow the CPU steps down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NEW_ARCHS = ["gemma_2b", "mistral_large_123b", "musicgen_medium",
              "llama32_vision_11b"]
 # the MoE, MLA, SSM and hybrid architectures

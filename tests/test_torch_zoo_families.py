@@ -19,6 +19,16 @@ from repro_torch.utils.tree import tree_leaves
 from test_torch_zoo import FAMILY_ARCHS, FAMILY_CONFIGS, _close, _family
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread: the suite's parallel workers each starting a
+    thread per core slow the CPU steps down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("name", list(FAMILY_CONFIGS))
 def test_family_forward_in_every_mode_matches(name):
     """Train mode (with the MoE aux loss), then prefill of 14 tokens and 4
