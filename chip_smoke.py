@@ -45,11 +45,13 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    awkward shapes (ragged lengths, GQA, MQA, windows, offsets, head dims
    64/80/128/256, the Hopper kernels' tile edges), at transformer-table1's
    folded ``[288, 32, 2, 64]``, at the audio train step's ``[1, 4096, 24,
-   64]``, at zamba2's ``[1, 4096, 32, 112]`` (zero-padded to 128), at
-   gemma_2b's ``[1, 4096, 8, 256]`` with one kv head and at the LLM
-   step's ``[1, 4096, 32, 80]``, where two backward runs must be bitwise
-   equal; the float32 kernels (``csrc/flash_attention_f32.cu``) on every
-   awkward case, at head dim 112 unpadded, on the dk/dv split's awkward
+   64]``, at zamba2's ``[1, 4096, 32, 112]`` (unpadded), at gemma_2b's
+   ``[1, 4096, 8, 256]`` with one kv head (dk/dv split 9 ways, dq from
+   dS^T), at the vlm's, qwen25_3b's and mistral's and at the LLM step's
+   ``[1, 4096, 32, 80]``, and where the bf16 dk/dv blocks split
+   (``FLASH_SPLIT``, 112 among them), two backward runs bitwise equal in
+   every bf16 case; the float32 kernels (``csrc/flash_attention_f32.cu``)
+   on every awkward case, at head dim 112 unpadded, on the dk/dv split's awkward
    shapes and, timed, at zamba2's (112, unpadded), gemma_2b's (its dk/dv
    blocks split), the vlm's ``[1, 4096, 32, 128]`` (8 kv heads) and the
    LLM step's shapes, within 1e-5 of the plain version's largest entry
@@ -170,7 +172,7 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    would flip reported; zamba2's at full depth within 1.5 times its own
    bfloat16 floor measured in the same call, the floor within 0.1 of max
    |h|, see ``FAMILY_BF16_FLOOR``; flash forward launches 4, 0, 0 and 13, the
-   last at head dim 112 zero-padded to 128; mamba2's and zamba2's gap
+   last at head dim 112; mamba2's and zamba2's gap
    logged block by block, ``FAMILY_LAYER_GAPS``); the cuts of ``FAMILY_CUTS``
    (float32 within 1e-4, zamba2 at full depth among them; zamba2 at 7
    layers in bfloat16 within 5e-2); mamba2_1_3b through a 4,100-token
@@ -246,10 +248,11 @@ are float32 ones. The last line is ``{"ok": true, "device": {...}}``; the
 two before it are the ``{"kernels": [...]}`` record and the card's name and
 power limit, after a ``{"summary": ...}`` line of the main-path numbers.
 
-``python3 chip_smoke.py --flash-f32-ab A.cu [B.cu ...]`` times other
-versions of ``csrc/flash_attention_f32.cu`` against the tree's in turns
-(:func:`flash_f32_ab`; a partial run, exit 3, its records also in
-``build/chip_smoke/flash_f32_ab.json``).
+``python3 chip_smoke.py --flash-ab A.cu [B.cu ...]`` times other versions
+of ``csrc/flash_attention.cu`` or ``csrc/flash_attention_f32.cu`` (by the
+entries each defines) against the tree's in turns, beside SDPA
+(:func:`flash_ab`; a partial run, exit 3, its records also in
+``build/chip_smoke/flash_ab.json``).
 """
 
 from __future__ import annotations
@@ -259,6 +262,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -498,10 +502,10 @@ FLASH_AWKWARD += [case for d in (64, 80, 128) for case in (
     (2, 65, 193, 4, 1, d, True, 70, 128),
     (1, 63, 191, 8, 2, d, False, None, 0))]
 # Head dim 256 (gemma_2b's), whose tiles differ (Tiles<256> in the .cu: 64
-# keys a forward stage, dk/dv blocks of 64 keys split into dV and dK, 32
-# keys a dq stage): MQA and GQA at a tile + 1 and - 1, a window across a
-# 64-key tile, q_offset > 0 with Sq < Sk and a window, a ragged non-causal
-# case, and a continuation chunk shorter than a dq stage's 32 keys.
+# keys a forward stage and a dk/dv block, each consumer half of dK and dV;
+# dq from dS^T in stages of 128 keys): MQA and GQA at a tile + 1 and - 1,
+# a window across a 64-key tile, q_offset > 0 with Sq < Sk and a window, a
+# ragged non-causal case, and a continuation chunk of 33 rows.
 FLASH_AWKWARD_256 = [(2, 129, 129, 8, 1, 256, True, None, 0),
                      (1, 127, 127, 8, 2, 256, True, None, 0),
                      (1, 257, 257, 4, 1, 256, True, 100, 0),
@@ -512,7 +516,7 @@ FLASH_AWKWARD += FLASH_AWKWARD_256
 FLASH_PATH = (1, LLM_SEQ, LLM_SEQ, 32, 32, 80, True, None, 0)
 # musicgen_medium's train path: 24 heads of 64 at seq 4096
 FLASH_AUDIO = (1, LLM_SEQ, LLM_SEQ, 24, 24, 64, True, None, 0)
-# zamba2_7b's shared attention block: 32 heads of 112, zero-padded to 128
+# zamba2_7b's shared attention block: 32 heads of 112 (unpadded)
 FLASH_ZAMBA = (1, LLM_SEQ, LLM_SEQ, 32, 32, 112, True, None, 0)
 # gemma_2b's train path: 8 query heads of 256 on one kv head (MQA)
 FLASH_GEMMA = (1, LLM_SEQ, LLM_SEQ, 8, 1, 256, True, None, 0)
@@ -555,6 +559,12 @@ FLASH_F32_TILE_TOL = 1e-4
 # path's, the vlm's, gemma_2b's and zamba2's shapes (zamba2's at head dim
 # 112, which the float32 kernels take unpadded).
 FLASH_F32_TIMED = (FLASH_ZAMBA, FLASH_GEMMA, FLASH_VLM, FLASH_PATH)
+FLASH_BF16_TIMED = (FLASH_PATH, FLASH_TT1, FLASH_AUDIO, FLASH_ZAMBA,
+                    FLASH_GEMMA, FLASH_VLM, FLASH_QWEN, FLASH_MISTRAL)
+# Rounds of (version, tree, tree, version) readings an A/B takes at each
+# case: the spread between calls of one build reaches 4% at table1's
+# backward, so two readings each cannot resolve a 3% difference.
+FLASH_AB_ROUNDS = 4
 # The float32 kernels at head dim 112, unpadded (F32_HEAD_DIMS), at the
 # tile edges of the other head dims' cases; and the dk/dv blocks' split
 # (flash.dkdv_plan: every small grid splits) where Sk is no multiple of a
@@ -567,6 +577,17 @@ FLASH_F32_112 = [(2, 129, 129, 8, 2, 112, True, None, 0),
                  (1, 63, 191, 8, 2, 112, False, None, 0)]
 FLASH_F32_SPLIT = [(1, 300, 1000, 8, 1, 256, True, 200, 700),
                    (2, 250, 700, 16, 2, 80, True, 300, 450)]
+# The bf16 kernels where their dk/dv blocks split (flash.dkdv_plan with the
+# bf16 tiles: every small grid splits) and head dim 112 at bf16: the
+# float32 cases above (112 at the tile edges; 256 with a window and a
+# q_offset, MQA, Sk no multiple of a 64-key block; GQA at 80, Sk no multiple
+# of 128), then KV 2 at 128 with Sk no multiple of a key block. Each must
+# split, and its backward repeat bitwise.
+FLASH_SPLIT = FLASH_F32_112 + FLASH_F32_SPLIT + [
+    (1, 1000, 1000, 8, 2, 128, True, None, 0)]
+# The row-7 and row-7b shapes (PERF.md), the parent's kernels against the
+# tree's in one call (``--flash-ab``): the LLM path's, table1's, musicgen's,
+# zamba2's, gemma_2b's, the vlm's, qwen25_3b's and mistral's.
 
 
 def log(msg: str) -> None:
@@ -1915,9 +1936,9 @@ def flash_fault_readings(torch, case, seed: int,
 def launch_inputs(torch, q, k, v, dout) -> tuple:
     """What the kernels are launched on for a case: ``(q, k, v, dout,
     scale)`` as they are (scale None: ``1/sqrt(D)``), or at a head dim
-    they are not built for (bf16 at 112) zero-padded to 128 with the head dim's own
-    scale ``1/sqrt(D)`` (``ops.padded_attention``; dout's padded lanes are
-    zero, as the slice's gradient is)."""
+    they are not built for (192) zero-padded to the next multiple of 128
+    with the head dim's own scale ``1/sqrt(D)`` (``ops.padded_attention``;
+    dout's padded lanes are zero, as the slice's gradient is)."""
     import torch.nn.functional as Fn
     from repro_torch.kernels.flash_attention import padded_dim
     d = q.shape[-1]
@@ -2007,13 +2028,16 @@ def flash_case(torch, case, timed: bool, seed: int,
                         f"worst {FLASH_TILE_ROWS}-row tile rms(err) <= "
                         f"{tile_out:g} rms(plain) (out), "
                         f"{tile_grad:g} (dq, dk, dv)"}
-    if dtype == "float32" and device == "cuda":
-        # the dk/dv blocks' split on this card (flash.dkdv_plan)
+    if device == "cuda":
+        # the dk/dv blocks' split on this card (flash.dkdv_plan) and the
+        # backward's scratch (its partial sums, dS^T at 256)
         from repro_torch.kernels import build
-        from repro_torch.kernels.flash_attention import dkdv_plan
+        from repro_torch.kernels.flash_attention import (bwd_scratch,
+                                                         dkdv_plan)
         rec["nsplit"] = dkdv_plan(*case, sms=build.sm_count(
-            q.get_device()))["nsplit"]
-    if (timed or dtype == "float32") and device == "cuda":
+            q.get_device()), dtype=q.dtype)["nsplit"]
+        rec["scratch_mib"] = bwd_scratch(
+            *case[:6], rec["nsplit"], q.dtype) / 2 ** 20
         from repro_torch.kernels.flash_attention import (flash_bwd_cuda,
                                                          flash_fwd_cuda)
         qp, kp, vp, dp_, sc = launch_inputs(torch, q, k, v, dout)
@@ -2109,13 +2133,14 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
                 f32_timed=FLASH_F32_TIMED) -> list:
     """Flash attention kernel cases: awkward shapes, then
     transformer-table1's folded call, the audio train path's (``audio``),
-    zamba2_7b's shared block at head dim 112, zero-padded to 128
-    (``zamba``), gemma_2b's at head dim 256 (``gemma``), the vlm's
-    self-attention (``vlm``: GQA, 32 heads of 128 on 8), qwen25_3b's (16
-    on 2) and mistral_large_123b's (96 on 8), and the LLM path's (timed;
-    the LLM path's last); the float32 kernels on every awkward
-    case and, timed, at ``f32_timed`` (zamba2's, gemma_2b's, the vlm's and
-    the LLM path's shapes). Fails where ptxas reports a spill in any flash
+    zamba2_7b's shared block at head dim 112 (``zamba``), gemma_2b's at
+    head dim 256 (``gemma``), the vlm's self-attention (``vlm``: GQA, 32
+    heads of 128 on 8), qwen25_3b's (16 on 2) and mistral_large_123b's (96
+    on 8), and the LLM path's (timed; the LLM path's last), then
+    ``FLASH_SPLIT`` (bf16 dk/dv splits, 112), each bf16 backward twice and
+    bitwise equal; the float32 kernels on every awkward case and, timed,
+    at ``f32_timed`` (zamba2's, gemma_2b's, the vlm's and the LLM path's
+    shapes). Fails where ptxas reports a spill in any flash
     kernel, or where the SASS of a bfloat16 attention kernel lacks HGMMA or
     TMA loads, or that of a float32 kernel lacks FFMA or holds a tensor
     core or tf32 instruction."""
@@ -2131,7 +2156,8 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
                 (gemma, True, 500 + n_awk + 4),
                 (vlm, True, 500 + n_awk + 5),
                 (FLASH_QWEN, True, 500 + n_awk + 6),
-                (FLASH_MISTRAL, True, 500 + n_awk + 7)])
+                (FLASH_MISTRAL, True, 500 + n_awk + 7)]
+             + [(c, False, 650 + i) for i, c in enumerate(FLASH_SPLIT)])
     cases = [(c, timed, seed, "bfloat16") for c, timed, seed in cases]
     # the float32 kernels: every awkward case, then the timed rows; the
     # bf16 path's case stays last (the kernel record's)
@@ -2158,7 +2184,8 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
             if name in rec:
                 t = rec[name]
                 lib = t["library_ms"]
-                line += (f" | {name} ms={t['ms']:.5f} plain_ms="
+                line += (f" | {name} ms={t['ms']:.5f} host_us="
+                         f"{t['host_us']:.1f} plain_ms="
                          f"{t['plain_ms']:.5f} bound_ms={t['bound_ms']:.5f}"
                          f" ({t['bound_by']}) library_ms="
                          f"{'null' if lib is None else f'{lib:.5f}'}")
@@ -2171,7 +2198,8 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
             line += (f" | two backward runs bitwise equal: "
                      f"{rec['bwd_bitwise_repeat']}")
         if "nsplit" in rec:
-            line += f" | dk/dv split {rec['nsplit']}"
+            line += (f" | dk/dv split {rec['nsplit']}, backward scratch "
+                     f"{rec['scratch_mib']:.3f} MiB")
         for who in ("kernel", "plain"):
             if f"{who}_f64" in e:
                 line += f" | {who} vs float64: " + ", ".join(
@@ -2179,10 +2207,10 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
         log(line)
         if not rec["ok"]:
             failures.append(f"{case} {dtype} (launched {rec['launched']})")
-        if device == "cuda" and dtype == "float32" and (
-                case in FLASH_F32_SPLIT or case == gemma) and \
-                rec["nsplit"] < 2:
-            failures.append(f"{case} float32: its dk/dv blocks do not split")
+        must_split = (FLASH_F32_SPLIT + [gemma] if dtype == "float32" else
+                      FLASH_SPLIT + [gemma, FLASH_QWEN])
+        if device == "cuda" and case in must_split and rec["nsplit"] < 2:
+            failures.append(f"{case} {dtype}: its dk/dv blocks do not split")
     # the tile check would fail a kernel that dropped one tile on the path,
     # at either dtype's bounds
     fault = flash_fault_readings(torch, path, seed=499, device=device)
@@ -2229,9 +2257,9 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
                         ops["TF32"]:
                     failures.append(f"{name} SASS {ops}")
             # the bf16 attention kernels run on wgmma and TMA, never on
-            # WMMA
-            elif "delta" not in name and (not ops["HGMMA"] or
-                                          not ops["UTMALDG"] or ops["HMMA"]):
+            # WMMA (the delta and sum passes are plain loads and adds)
+            elif "delta" not in name and "sum" not in name and (
+                    not ops["HGMMA"] or not ops["UTMALDG"] or ops["HMMA"]):
                 failures.append(f"{name} SASS {ops}")
         FLASH_SASS.update(sass)
     if failures:
@@ -2261,26 +2289,29 @@ def kernel_split_us(torch, fn, reps: int = 3) -> dict:
     return dict(out)
 
 
-def flash_f32_ab(torch, parents, reps: int = 10,
-                 cases=FLASH_F32_TIMED) -> list:
-    """The float32 flash kernels of this tree against other versions of
-    ``csrc/flash_attention_f32.cu`` (``parents``, e.g. the parent commit's,
-    ``git show HEAD:src/repro_torch/csrc/flash_attention_f32.cu``), each
-    built with the same ``nvcc`` flags under ``build/flash_f32_ab``. At
-    each case (the float32 timed shapes), forward and backward, each
-    version and the tree are timed in turns, version, tree, tree, version,
-    as :func:`time_ms` loops of ``reps`` calls, each launched as the port
+def flash_ab(torch, parents, reps: int = 10) -> list:
+    """The flash kernels of this tree against other versions of their
+    source (``parents``, e.g. the parent commit's ``git show
+    HEAD:src/repro_torch/csrc/flash_attention.cu``): a version that defines
+    ``flash_bwd_f32`` is the float32 library's, timed at
+    :data:`FLASH_F32_TIMED`, else the bf16 one's, at
+    :data:`FLASH_BF16_TIMED`; each built with the same ``nvcc`` flags under
+    ``build/flash_ab``. At each case, forward and backward, each version and
+    the tree are timed in turns, version, tree, tree, version,
+    :data:`FLASH_AB_ROUNDS` times, as :func:`time_ms` loops of ``reps`` calls, each launched as the port
     launched it (a head dim the library is not built for, zero-padded to
     128 with the head dim's own scale; a backward with a dk/dv split, with
-    its plan and scratch), with the device µs of each backward kernel.
-    Returns a record a version, case and direction: both readings of each,
-    their means, and max|tree - version| / max|version| of the outputs."""
+    its plan and scratch), beside SDPA's forward or backward where it
+    computes the same function, with the device µs of each backward
+    kernel. Returns a record a version, case and direction: the readings of
+    each, their means and medians, SDPA's, and max|tree - version| /
+    max|version| of the outputs."""
     import ctypes
     import re
 
     from repro_torch.kernels import build
 
-    out_dir = ROOT / "build" / "flash_f32_ab"
+    out_dir = ROOT / "build" / "flash_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = []
     for i, src in enumerate(parents):
@@ -2288,57 +2319,62 @@ def flash_f32_ab(torch, parents, reps: int = 10,
         jobs.append((src, so, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    new = build.load("flash_attention_f32")
-    for name, (secs, report) in build.BUILD_LOG.items():
-        for kernel, regs in ptxas_table(report).items():
-            log(f"  ptxas {kernel}: {regs['registers']} registers, spill "
-                f"stores {regs['spill_stores']} B, spill loads "
-                f"{regs['spill_loads']} B")
     records = []
     for src, so, proc in jobs:
         report, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {src}:\n{report}")
         text = re.sub(r"//[^\n]*", "", Path(src).read_text())
-        m = re.search(r'extern\s+"C"\s+int\s+flash_bwd_f32\s*\(([^)]*)\)',
-                      text)
+        f32 = "flash_bwd_f32" in text
+        lib = "flash_attention_f32" if f32 else "flash_attention"
+        new = build.load(lib)
+        m = re.search(r'extern\s+"C"\s+int\s+flash_bwd(?:_f32)?\s*'
+                      r'\(([^)]*)\)', text)
         split_args = m is not None and "nsplit" in m[1]
         dims = [int(d) for d in re.findall(r"case (\d+):", text)]
         regs = {k: v["registers"] for k, v in ptxas_table(report).items()
                 if "<80>" in k or "<256>" in k}
-        log(f"flash f32 ab {src}: registers {regs}")
-        records += _flash_f32_ab_one(torch, ctypes.CDLL(str(so)), new,
-                                     split_args, dims, str(src), reps, cases)
+        log(f"flash ab {src}: registers {regs}")
+        records += _flash_ab_one(
+            torch, ctypes.CDLL(str(so)), new, f32, split_args, dims,
+            str(src), reps, FLASH_F32_TIMED if f32 else FLASH_BF16_TIMED)
     return records
 
 
-def _flash_f32_ab_one(torch, old, new, split_args: bool, dims, label: str,
-                      reps: int, cases) -> list:
+def _flash_ab_one(torch, old, new, f32: bool, split_args: bool, dims,
+                  label: str, reps: int, cases) -> list:
     import ctypes
 
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import (dkdv_plan,
-                                                     f32_bwd_scratch,
-                                                     padded_dim)
+    from repro_torch.kernels.flash_attention import bwd_scratch, dkdv_plan
     P, I, F = build.P, build.I, build.F
-    old.flash_fwd_f32.argtypes = [P] * 5 + [I] * 9 + [F, P]
-    old.flash_bwd_f32.argtypes = ([P] * 11 + [I] * 10 if split_args else
-                                  [P] * 10 + [I] * 9) + [F, P]
-    old.flash_fwd_f32.restype = old.flash_bwd_f32.restype = ctypes.c_int
+    suffix = "_f32" if f32 else ""
+    dtype = torch.float32 if f32 else torch.bfloat16
+    for lib in (old, new):
+        fwd_fn = getattr(lib, "flash_fwd" + suffix)
+        bwd_fn = getattr(lib, "flash_bwd" + suffix)
+        fwd_fn.argtypes = [P] * 5 + [I] * 9 + [F, P]
+        fwd_fn.restype = bwd_fn.restype = ctypes.c_int
+    getattr(new, "flash_bwd" + suffix).argtypes = [P] * 11 + [I] * 10 + [
+        F, P]
+    getattr(old, "flash_bwd" + suffix).argtypes = (
+        [P] * 11 + [I] * 10 if split_args else [P] * 10 + [I] * 9) + [F, P]
     stream = build.stream_ptr(0)
     sms = build.sm_count(0)
     records = []
     for i, case in enumerate(cases):
         b, sq, sk, h, kv, d, causal, window, q_offset = case
-        q, k, v, dout = flash_inputs(torch, case, 900 + i, "float32", "cuda")
+        q, k, v, dout = flash_inputs(torch, case, 900 + i, str(dtype)[6:],
+                                     "cuda")
         calls = {}
         for who, lib in (("parent", old), ("tree", new)):
             built = dims if who == "parent" else flash_dims(
-                "flash_attention_f32")
+                "flash_attention_f32" if f32 else "flash_attention")
             splits = split_args or who == "tree"
-            dp = d if d in built else padded_dim(d)
+            # a head dim the version is not built for: zero-padded to 128
+            dp = d if d in built else -(-d // 128) * 128
             pad = (0, dp - d)
             qp, kp, vp, dop = (Fn.pad(t, pad).contiguous()
                                for t in (q, k, v, dout))
@@ -2352,57 +2388,76 @@ def _flash_f32_ab_one(torch, old, new, split_args: bool, dims, label: str,
             split = ()
             if splits:
                 nsplit = dkdv_plan(b, sq, sk, h, kv, dp, causal, window,
-                                   q_offset, sms)["nsplit"]
-                n = f32_bwd_scratch(b, sq, sk, h, kv, dp, nsplit)
-                part = torch.empty(n, device="cuda") if n else None
+                                   q_offset, sms, dtype)["nsplit"]
+                n = bwd_scratch(b, sq, sk, h, kv, dp, nsplit, dtype)
+                part = torch.empty(n, dtype=torch.uint8, device="cuda") \
+                    if n else None
                 split = (0 if part is None else part.data_ptr(), nsplit)
+            fwd_fn = getattr(lib, "flash_fwd" + suffix)
+            bwd_fn = getattr(lib, "flash_bwd" + suffix)
 
-            def fwd(lib=lib, qp=qp, kp=kp, vp=vp, o=o, lse=lse,
+            def fwd(fn=fwd_fn, qp=qp, kp=kp, vp=vp, o=o, lse=lse,
                     a=dims_args, scale=scale):
-                build.check(lib.flash_fwd_f32(
-                    qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                    o.data_ptr(), lse.data_ptr(), *a, scale, stream), "fwd")
+                build.check(fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                               o.data_ptr(), lse.data_ptr(), *a, scale,
+                               stream), "fwd")
 
-            def bwd(lib=lib, qp=qp, kp=kp, vp=vp, o=o, dop=dop, lse=lse,
+            def bwd(fn=bwd_fn, qp=qp, kp=kp, vp=vp, o=o, dop=dop, lse=lse,
                     delta=delta, dq=dq, dk=dk, dv=dv, split=split,
                     a=dims_args, scale=scale):
-                build.check(lib.flash_bwd_f32(
-                    qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                    o.data_ptr(), dop.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                    dv.data_ptr(), *split, *a, scale, stream), "bwd")
+                build.check(fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                               o.data_ptr(), dop.data_ptr(), lse.data_ptr(),
+                               delta.data_ptr(), dq.data_ptr(),
+                               dk.data_ptr(), dv.data_ptr(), *split, *a,
+                               scale, stream), "bwd")
             fwd()
             bwd()
             torch.cuda.synchronize()
             calls[who] = {"fwd": fwd, "bwd": bwd, "outs": [
                 t[..., :d] for t in (o, dq, dk, dv)]}
-        diff = max(float((a - b_).abs().max() / b_.abs().max()) for a, b_
+        diff = max(float((a.float() - b_.float()).abs().max()
+                         / b_.float().abs().max()) for a, b_
                    in zip(calls["tree"]["outs"], calls["parent"]["outs"]))
+        fns = flash_fns(torch, case, 900 + i, dtype=str(dtype)[6:])
         times = {}
         for name in ("fwd", "bwd"):
             times[name] = {"parent": [], "tree": []}
-            for who in ("parent", "tree", "tree", "parent"):
-                times[name][who].append(time_ms(torch, calls[who][name],
-                                                reps))
+            for _ in range(FLASH_AB_ROUNDS):
+                for who in ("parent", "tree", "tree", "parent"):
+                    times[name][who].append(time_ms(torch, calls[who][name],
+                                                    reps))
+            lib_fn = fns["flash_" + name][1]
+            times[name]["sdpa"] = (time_ms(torch, lib_fn, reps)
+                                   if lib_fn is not None else None)
+        del fns
         # after the timed loops: the profiler slows the launches after it
         split_us = {who: kernel_split_us(torch, calls[who]["bwd"])
                     for who in ("parent", "tree")}
         for name in ("fwd", "bwd"):
             t = times[name]
             rec = {"version": label, "case": list(case), "kernel": name,
-                   "parent_ms": t["parent"], "tree_ms": t["tree"],
-                "parent_mean_ms": sum(t["parent"]) / 2,
-                "tree_mean_ms": sum(t["tree"]) / 2,
-                "tree_vs_parent_rel_diff": diff}
+                   "dtype": str(dtype)[6:], "parent_ms": t["parent"],
+                   "tree_ms": t["tree"],
+                   "parent_mean_ms": sum(t["parent"]) / len(t["parent"]),
+                   "tree_mean_ms": sum(t["tree"]) / len(t["tree"]),
+                   "parent_median_ms": statistics.median(t["parent"]),
+                   "tree_median_ms": statistics.median(t["tree"]),
+                   "sdpa_ms": t["sdpa"],
+                   "tree_vs_parent_rel_diff": diff}
             rec["speedup"] = rec["parent_mean_ms"] / rec["tree_mean_ms"]
+            if t["sdpa"]:
+                rec["tree_over_sdpa"] = rec["tree_mean_ms"] / t["sdpa"]
             if name == "bwd":
                 rec["bwd_kernels_us"] = split_us
             records.append(rec)
-            log(f"flash f32 ab {case} {name}: version "
+            log(f"flash ab {case} {rec['dtype']} {name}: version "
                 f"{', '.join(f'{x:.5f}' for x in t['parent'])} ms, tree "
                 f"{', '.join(f'{x:.5f}' for x in t['tree'])} ms, "
-                f"parent/tree {rec['speedup']:.3f}; outputs differ by "
-                f"{diff:.3g} of max|version|" + (
+                f"parent/tree {rec['speedup']:.3f} (medians "
+                f"{rec['parent_median_ms'] / rec['tree_median_ms']:.3f})"
+                + (f", sdpa {t['sdpa']:.5f} ms, tree/sdpa "
+                   f"{rec['tree_over_sdpa']:.3f}" if t["sdpa"] else "")
+                + f"; outputs differ by {diff:.3g} of max|version|" + (
                     "; backward kernels µs " + str({w: {k: round(v, 1) for
                                                       k, v in u.items()}
                                                   for w, u in rec[
@@ -6065,11 +6120,13 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "device_us", "host_us", "library_device_us")}}
                     for r in flash_shapes])
-            from repro_torch.kernels.flash_attention import HEAD_DIMS
-            kernels = [f"{k}<{d}>" for d in HEAD_DIMS for k in (
-                ["flash_fwd_kernel"] if name == "flash_fwd" else
+            kernels = [f"{k}<{d}>" for k in (
+                ["flash_fwd_kernel", "flash_fwd_short_kernel"]
+                if name == "flash_fwd" else
                 ["flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                 "flash_bwd_dq_kernel"])]
+                 "flash_bwd_dkdv_sum_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dq_ds_kernel"])
+                for d in flash_dims("flash_attention", k)]
             record["kernels"][-1]["kernel_over_library"] = (
                 t["ms"] / t["library_ms"] if t["library_ms"] else None)
             record["kernels"][-1]["ptxas"] = {
@@ -6271,8 +6328,10 @@ def ptxas_table(report: str) -> dict:
 #: ones on the tensor cores, the float32 ones (``ffma``) on the CUDA cores;
 #: each is built at every head dim of its library's :func:`flash_dims`.
 FLASH_KERNELS = {
-    "flash_attention": ("flash_fwd_kernel", "flash_bwd_delta_kernel",
-                        "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
+    "flash_attention": ("flash_fwd_kernel", "flash_fwd_short_kernel",
+                        "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                        "flash_bwd_dkdv_sum_kernel", "flash_bwd_dq_kernel",
+                        "flash_bwd_dq_ds_kernel"),
     "flash_attention_f32": ("flash_fwd_ffma_kernel",
                             "flash_bwd_ffma_delta_kernel",
                             "flash_bwd_ffma_dkdv_kernel",
@@ -6282,19 +6341,18 @@ FLASH_KERNELS = {
 
 
 def flash_dims(lib: str, kernel: str = "") -> tuple:
-    """The head dims a flash library is built for (``flash.head_dims``:
-    the float32 one adds 112), or those of one of its kernels: the float32
-    library builds dq from dS^T (``flash_bwd_ffma_dq_ds_kernel``) at
-    ``flash.F32_DS_DIMS`` and the recomputing dq at the others."""
+    """The head dims a flash library is built for (``flash.head_dims``),
+    or those of one of its kernels: each library builds dq from dS^T
+    (``flash_bwd_dq_ds_kernel``, ``flash_bwd_ffma_dq_ds_kernel``) at
+    ``flash.DS_DIMS`` and the recomputing dq at the others."""
     import torch
 
-    from repro_torch.kernels.flash_attention.flash import (F32_DS_DIMS,
-                                                           head_dims)
+    from repro_torch.kernels.flash_attention.flash import DS_DIMS, head_dims
     dims = head_dims(torch.float32 if lib == "flash_attention_f32" else None)
-    if kernel == "flash_bwd_ffma_dq_ds_kernel":
-        return tuple(d for d in dims if d in F32_DS_DIMS)
-    if kernel == "flash_bwd_ffma_dq_kernel":
-        return tuple(d for d in dims if d not in F32_DS_DIMS)
+    if kernel.endswith("dq_ds_kernel"):
+        return tuple(d for d in dims if d in DS_DIMS)
+    if kernel.endswith("dq_kernel"):
+        return tuple(d for d in dims if d not in DS_DIMS)
     return dims
 #: ptxas's registers and spills of the flash kernels, from this run's build.
 FLASH_PTXAS: dict = {}
@@ -6355,12 +6413,11 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if len(sys.argv) > 2 and sys.argv[1] == "--flash-f32-ab":
-        # the float32 flash kernels against other versions', in turns
+    if len(sys.argv) > 2 and sys.argv[1] == "--flash-ab":
+        # the flash kernels against other versions', in turns
         log(f"gpu: {gpu_line()}")
-        records = flash_f32_ab(torch, [Path(a).resolve()
-                                       for a in sys.argv[2:]])
-        out = ROOT / "build" / "chip_smoke" / "flash_f32_ab.json"
+        records = flash_ab(torch, [Path(a).resolve() for a in sys.argv[2:]])
+        out = ROOT / "build" / "chip_smoke" / "flash_ab.json"
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({"gpu": gpu_line(), "records": records},
                                   indent=1))

@@ -1343,7 +1343,7 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
 
 // delta: float32 scratch [B, H, Sq] the caller allocates. nsplit: the dk/dv
 // blocks' split (flash.dkdv_plan). part: float32 scratch the caller
-// allocates (flash.f32_bwd_scratch): with nsplit > 1 the partial sums [2,
+// allocates (flash.bwd_scratch bytes): with nsplit > 1 the partial sums [2,
 // nsplit, B, Sk, KV, D], then at D = 256 dS^T [B, H, Sk, Sq rounded up to
 // 128]; null where neither is needed.
 extern "C" int flash_bwd_f32(const void* q, const void* k, const void* v,

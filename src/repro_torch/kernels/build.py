@@ -63,15 +63,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # q, k, v, o, lse, B, Sq, Sk, H, KV, D, causal, window, q_offset,
         # scale, stream
         "flash_fwd": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
-        # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, D,
-        # causal, window, q_offset, scale, stream
-        "flash_bwd": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
-                      I, F, P),
+        # q, k, v, o, dout, lse, delta, dq, dk, dv, part, nsplit, B, Sq,
+        # Sk, H, KV, D, causal, window, q_offset, scale, stream
+        "flash_bwd": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                      I, I, I, F, P),
     },
     "flash_attention_f32": {
         # the bf16 entries' arguments, every tensor float32
         "flash_fwd_f32": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
-        # ... and before B the dk/dv split's scratch and nsplit
+        # the bf16 backward's arguments
         "flash_bwd_f32": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                           I, I, I, I, F, P),
     },

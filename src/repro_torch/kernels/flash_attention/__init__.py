@@ -1,7 +1,7 @@
 from repro_torch.kernels.flash_attention.flash import (
-    F32_HEAD_DIMS, HEAD_DIMS, FlashAttention, FlashBackward, dkdv_plan,
-    flash_bwd_cuda, flash_bwd_f32_cuda, flash_fwd_cuda, flash_fwd_f32_cuda,
-    f32_bwd_scratch, fully_masked_rows, head_dims, padded_dim)
+    F32_HEAD_DIMS, HEAD_DIMS, FlashAttention, FlashBackward, bwd_scratch,
+    dkdv_plan, flash_bwd_cuda, flash_bwd_f32_cuda, flash_fwd_cuda,
+    flash_fwd_f32_cuda, fully_masked_rows, head_dims, padded_dim)
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      padded_attention)
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
@@ -10,7 +10,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 
 __all__ = ["F32_HEAD_DIMS", "HEAD_DIMS", "FlashAttention", "FlashBackward",
-           "dkdv_plan", "f32_bwd_scratch", "head_dims",
+           "bwd_scratch", "dkdv_plan", "head_dims",
            "flash_attention", "flash_bwd_cuda", "flash_fwd_cuda",
            "flash_bwd_f32_cuda", "flash_fwd_f32_cuda",
            "fully_masked_rows", "padded_attention", "padded_dim",

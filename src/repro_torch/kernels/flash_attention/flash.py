@@ -14,10 +14,11 @@ inputs), go to ``csrc/flash_attention_f32.cu``: the same forward and
 backward with every product an FFMA on the CUDA cores (tf32 ``wgmma``
 would round the inputs to a 10-bit mantissa), counted under their own
 wrappers, :func:`flash_fwd_f32_cuda` and :func:`flash_bwd_f32_cuda`.
-Those are built for head dim 112 too (:data:`F32_HEAD_DIMS`: no tile width
-asks for a pad on the CUDA cores), and their dk/dv blocks split their loop
+Both libraries are built for head dims 64, 80, 112, 128 and 256
+(:data:`HEAD_DIMS`), and at both dtypes the dk/dv blocks split their loop
 over query heads and tiles across blocks where the grid would not fill the
-card (:func:`dkdv_plan`).
+card (:func:`dkdv_plan`, with each library's tiles), and at head dim 256
+dq reads the dS^T that dk/dv writes (:func:`bwd_scratch`).
 
 :class:`FlashAttention` is a ``torch.autograd.Function`` whose backward is
 a second Function, :class:`FlashBackward`: the forward saves the per-row
@@ -33,6 +34,7 @@ plain versions (``ref.attention_fwd_ref``, ``ref.attention_bwd_ref``).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -41,10 +43,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref)
 
-HEAD_DIMS = (64, 80, 128, 256)
-#: The head dims the float32 kernels are built for: the bfloat16 ones' and
-#: zamba2's 112, taken unpadded.
-F32_HEAD_DIMS = (64, 80, 112, 128, 256)
+#: The head dims both libraries are built for (112, zamba2's, unpadded).
+HEAD_DIMS = (64, 80, 112, 128, 256)
+#: The float32 kernels' head dims: the bfloat16 ones'.
+F32_HEAD_DIMS = HEAD_DIMS
 #: The input dtypes the kernels take: bfloat16 (``csrc/flash_attention.cu``,
 #: on the tensor cores) and float32 (``csrc/flash_attention_f32.cu``, on the
 #: CUDA cores).
@@ -56,19 +58,23 @@ PAD_MAX = 256
 
 
 def head_dims(dtype: Optional[torch.dtype] = None) -> tuple:
-    """The head dims the kernels of ``dtype`` are built for (bfloat16's
-    where ``dtype`` is None)."""
-    return F32_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS
+    """The head dims the kernels of ``dtype`` are built for: both
+    libraries', :data:`HEAD_DIMS`."""
+    return HEAD_DIMS
 
 
 def padded_dim(d: int, dtype: Optional[torch.dtype] = None) -> int:
     """The head dim the kernel of ``dtype`` (bfloat16's where None) runs for
     a model's head dim ``d``: ``d`` itself where it is built for it or past
-    :data:`PAD_MAX`, else the next multiple of 128 (112 -> 128 in bfloat16,
-    192 -> 256)."""
+    :data:`PAD_MAX`, else the next multiple of 128 (192 -> 256)."""
     return d if d in head_dims(dtype) or d > PAD_MAX else -(-d // 128) * 128
 
 
+#: The bfloat16 dk/dv kernel's tiles by head dim: (keys a block, query rows
+#: a streamed tile), ``Tiles<D>::kDkdvKeys`` and ``kBwdTile`` in
+#: ``csrc/flash_attention.cu``.
+DKDV_TILES = {64: (128, 64), 80: (128, 64), 112: (128, 64),
+              128: (128, 64), 256: (64, 64)}
 #: The float32 dk/dv kernel's tiles by head dim (``DkdvTile<D>`` in
 #: ``csrc/flash_attention_f32.cu``: 16 RM keys a block, 16 KW query rows a
 #: streamed tile).
@@ -76,23 +82,35 @@ F32_DKDV_TILES = {64: (128, 64), 80: (128, 64), 112: (128, 48),
                   128: (64, 64), 256: (64, 16)}
 
 
-#: Head dims where the float32 dk/dv kernel writes dS^T to scratch and dq
-#: reads it (``kDsPath`` in the .cu: at 256 a resident Q and dO leave too
-#: little shared memory to recompute S and dP in wide tiles), and the rows
-#: of a dq block there (``DqDsTile``), to which each dS^T row is padded.
-F32_DS_DIMS = (256,)
-F32_DQ_DS_ROWS = 128
+#: Waves of the card's SMs under which the dk/dv grid splits, by dtype. At
+#: bfloat16 a grid of one wave or more keeps its blocks whole: on an H100
+#: the vlm's 256 blocks split 3 ways ran 7.7% slower (the float32 partial
+#: sums' traffic outweighed the better balance), while the 64 blocks of
+#: gemma_2b and qwen25_3b split 9 ways ran 2.3-3.1x faster. The float32
+#: kernels' blocks take longer, and split under two waves.
+SPLIT_WAVES = {torch.bfloat16: 1, torch.float32: 2}
 
 
-def f32_bwd_scratch(b: int, sq: int, sk: int, h: int, kv: int, d: int,
-                    nsplit: int) -> int:
-    """Floats of float32 scratch the float32 backward takes: the dk/dv
-    split's partial sums ``[2, nsplit, B, Sk, KV, D]`` where ``nsplit > 1``,
-    then at a head dim of :data:`F32_DS_DIMS` dS^T ``[B, H, Sk, Sq]`` with
-    its rows padded to whole dq blocks; 0 where it needs none."""
-    n = 2 * nsplit * b * sk * kv * d if nsplit > 1 else 0
-    if d in F32_DS_DIMS:
-        n += b * h * sk * (-(-sq // F32_DQ_DS_ROWS) * F32_DQ_DS_ROWS)
+#: Head dims where the dk/dv kernels of both dtypes write dS^T to scratch
+#: and dq reads it (``kDsPath`` in each .cu: at 256 dq would recompute S and
+#: dP in narrow tiles), and the rows of a dq block there, to which each
+#: dS^T row is padded (``kDqDsRows`` in the bfloat16 .cu, ``DqDsTile`` in
+#: the float32 one).
+DS_DIMS = (256,)
+DQ_DS_ROWS = 128
+
+
+def bwd_scratch(b: int, sq: int, sk: int, h: int, kv: int, d: int,
+                nsplit: int, dtype: Optional[torch.dtype] = None) -> int:
+    """Bytes of scratch the backward of ``dtype`` (bfloat16's where None)
+    takes: the dk/dv split's float32 partial sums ``[2, nsplit, B, Sk, KV,
+    D]`` where ``nsplit > 1``, then at a head dim of :data:`DS_DIMS` dS^T
+    ``[B, H, Sk, Sq]`` in ``dtype`` with its rows padded to whole dq
+    blocks; 0 where it needs none."""
+    n = 4 * 2 * nsplit * b * sk * kv * d if nsplit > 1 else 0
+    if d in DS_DIMS:
+        item = 4 if dtype == torch.float32 else 2
+        n += item * b * h * sk * (-(-sq // DQ_DS_ROWS) * DQ_DS_ROWS)
     return n
 
 
@@ -111,28 +129,36 @@ def _query_tiles(j0: int, keys: int, tile: int, sq: int, sk: int,
     return -(-(end - begin) // tile) if end > begin else 0
 
 
+@functools.lru_cache(maxsize=256)
 def dkdv_plan(b: int, sq: int, sk: int, h: int, kv: int, d: int,
               causal: bool, window: Optional[int], q_offset: int,
-              sms: int) -> dict:
-    """The float32 dk/dv kernel's launch plan on a card of ``sms`` SMs.
+              sms: int, dtype: Optional[torch.dtype] = None) -> dict:
+    """The dk/dv kernel's launch plan for inputs of ``dtype`` (its tiles,
+    :data:`DKDV_TILES` or :data:`F32_DKDV_TILES`; bfloat16's where None) on
+    a card of ``sms`` SMs.
 
     A block owns one key block of one kv head of one batch entry, and a run
     of its units: the (query head, query tile) pairs some row of which sees
     a key of the block, head-major (``rep`` heads of ``tiles[kb]`` tiles
-    each). Where ``kv * b * key blocks`` is under twice ``sms`` the grid
-    would leave SMs idle, so each key block's units are split into
+    each). Where ``kv * b * key blocks`` is under :data:`SPLIT_WAVES` waves
+    of ``sms`` the grid would leave SMs idle, so each key block's units are
+    split into
     ``nsplit`` runs, ``ceil(4 sms / blocks)`` but no more than the heaviest
     block's units (nor than 65,535 grid rows): split ``s`` takes units
     ``[units * s // nsplit, units * (s + 1) // nsplit)``. Each run's dK and
-    dV go unscaled to float32 scratch ``[2, nsplit, B, Sk, KV, D]``, and
-    ``flash_bwd_ffma_dkdv_sum_kernel`` adds them in split order: ``dk = sum_s
-    fma(part_k[s], scale, .)``, ``dv = sum_s part_v[s]``, ``s = 0, 1, ...``.
-    The grid runs key block 0 first (the heaviest under a causal mask).
+    dV go unscaled to float32 scratch ``[2, nsplit, B, Sk, KV, D]``, and the
+    sum pass (``flash_bwd_dkdv_sum_kernel``, ``flash_bwd_ffma_dkdv_sum_
+    kernel``) adds them in split order: ``dk = sum_s fma(part_k[s], scale,
+    .)``, ``dv = sum_s part_v[s]``, ``s = 0, 1, ...``, rounded to bfloat16
+    last at bfloat16. The grid runs key block 0 first (the heaviest under a
+    causal mask).
 
     Returns ``{"nsplit", "keys", "rows", "tiles": [tiles a key block],
-    "runs": {(kb, s): (u0, u1)}}``: a pure function of the shape and
-    ``sms``."""
-    keys, rows = F32_DKDV_TILES[d]
+    "runs": {(kb, s): (u0, u1)}}``: a pure function of the shape, ``sms``
+    and ``dtype``, kept for the shapes of the last calls (every backward
+    launch asks for it; the caller must not change it)."""
+    keys, rows = (F32_DKDV_TILES if dtype == torch.float32 else
+                  DKDV_TILES)[d]
     nkb = -(-sk // keys)
     tiles = [_query_tiles(kb * keys, keys, rows, sq, sk, causal, window,
                           q_offset) for kb in range(nkb)]
@@ -140,7 +166,7 @@ def dkdv_plan(b: int, sq: int, sk: int, h: int, kv: int, d: int,
     heaviest = rep * max(tiles)
     blocks = kv * b * nkb
     nsplit = 1
-    if blocks < 2 * sms:
+    if blocks < SPLIT_WAVES.get(dtype, 1) * sms:
         nsplit = max(1, min(-(-4 * sms // blocks), heaviest, 65535 // nkb))
     runs = {(kb, s): (rep * tiles[kb] * s // nsplit,
                       rep * tiles[kb] * (s + 1) // nsplit)
@@ -282,21 +308,18 @@ def _bwd(lib: str, fn: str, q, k, v, o, lse, dout, causal, window,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    split = ()
-    if q.dtype == torch.float32:
-        # the dk/dv blocks' split, and the scratch of its partial sums and
-        # of dS^T where the kernels take them
-        sk, kv, d = k.shape[1], k.shape[2], k.shape[3]
-        nsplit = dkdv_plan(b, sq, sk, h, kv, d, causal, window, q_offset,
-                           build.sm_count(q.get_device()))["nsplit"]
-        n = f32_bwd_scratch(b, sq, sk, h, kv, d, nsplit)
-        part = torch.empty(n, dtype=torch.float32, device=q.device) \
-            if n else None
-        split = (0 if part is None else part.data_ptr(), nsplit)
+    # the dk/dv blocks' split, and the scratch of its partial sums and of
+    # dS^T where the kernels take them
+    sk, kv, d = k.shape[1], k.shape[2], k.shape[3]
+    nsplit = dkdv_plan(b, sq, sk, h, kv, d, causal, window, q_offset,
+                       build.sm_count(q.get_device()), q.dtype)["nsplit"]
+    n = bwd_scratch(b, sq, sk, h, kv, d, nsplit, q.dtype)
+    part = torch.empty(n, dtype=torch.uint8, device=q.device) if n else None
     err = build.entry(lib, fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), *split,
+        dk.data_ptr(), dv.data_ptr(),
+        0 if part is None else part.data_ptr(), nsplit,
         *_problem(q, k, causal, window, q_offset), _scale_arg(scale),
         build.stream_ptr(q.get_device()))
     build.check(err, fn)
@@ -324,9 +347,10 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True, window: Optional[int] = None,
                    q_offset: int = 0, scale: Optional[float] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward (delta, dk/dv, dq kernels): ``(dq, dk, dv)`` in
-    bf16, shaped like q, k, v. Float32 inputs go to
-    :func:`flash_bwd_f32_cuda`."""
+    """Launch the backward (delta, dk/dv, its sum pass where
+    :func:`dkdv_plan` splits, dq kernels; at head dim 256 dq from the dS^T
+    dk/dv wrote): ``(dq, dk, dv)`` in bf16, shaped like q, k, v. Float32
+    inputs go to :func:`flash_bwd_f32_cuda`."""
     if q.dtype == torch.float32:
         return flash_bwd_f32_cuda(q, k, v, o, lse, dout, causal, window,
                                   q_offset, scale)

@@ -1,8 +1,8 @@
 """Dispatch for flash attention: the plain version for CPU tensors, the
 CUDA kernels (forward and backward, under ``torch.func`` too) for CUDA
-tensors. A head dim up to 256 that the kernels are not built for (zamba2's
-112 in bfloat16; the float32 kernels take it as it is) is zero-padded to
-the next multiple of 128 around the kernel call,
+tensors. A head dim up to 256 that the kernels are not built for (192; both
+dtypes take zamba2's 112 as it is) is zero-padded to the next multiple of
+128 around the kernel call,
 outside its ``autograd.Function``, as the reference's ``ops.attention``
 pads to whole 128-lane tiles; the kernels take the head dim's own softmax
 scale as an argument."""
@@ -42,8 +42,8 @@ def kernel_attention(attend: Callable, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, causal: bool, window: Optional[int],
                      q_offset: int) -> torch.Tensor:
     """``attend(q, k, v, causal, window, q_offset[, scale])`` at the head
-    dim the kernels of q's dtype are built for: as it is (float32 at 112
-    too), else zero-padded (:func:`padded_attention`, bfloat16 at 112)."""
+    dim the kernels of q's dtype are built for: as it is (112 too), else
+    zero-padded (:func:`padded_attention`, 192 to 256)."""
     dp = padded_dim(q.shape[-1], q.dtype)
     if dp != q.shape[-1]:
         return padded_attention(attend, q, k, v, dp, causal, window,

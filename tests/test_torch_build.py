@@ -185,16 +185,27 @@ def test_tile_rel_err_reads_the_worst_block():
 
 
 def test_flash_dims_name_every_kernel_the_libraries_build():
-    """``chip_smoke.flash_dims``: the bf16 library at its four head dims,
-    the float32 one at five (112 too), its dq from dS^T at 256 alone and
-    its recomputing dq at the other four; every float32 kernel name is a
-    ``flash_*_ffma_*_kernel`` the SASS check reads."""
-    assert chip_smoke.flash_dims("flash_attention") == (64, 80, 128, 256)
+    """``chip_smoke.flash_dims``: both libraries at five head dims (112
+    too), each one's dq from dS^T at 256 alone and its recomputing dq at
+    the other four; every float32 kernel name is a
+    ``flash_*_ffma_*_kernel`` the SASS check reads, and every bf16 one is
+    defined in its .cu."""
+    for lib, ds, dq in (
+            ("flash_attention", "flash_bwd_dq_ds_kernel",
+             "flash_bwd_dq_kernel"),
+            ("flash_attention_f32", "flash_bwd_ffma_dq_ds_kernel",
+             "flash_bwd_ffma_dq_kernel")):
+        assert chip_smoke.flash_dims(lib) == (64, 80, 112, 128, 256)
+        assert chip_smoke.flash_dims(lib, ds) == (256,)
+        assert chip_smoke.flash_dims(lib, dq) == (64, 80, 112, 128)
+        assert chip_smoke.flash_dims(lib, "flash_fwd_kernel") == (
+            64, 80, 112, 128, 256)
     f32 = "flash_attention_f32"
-    assert chip_smoke.flash_dims(f32) == (64, 80, 112, 128, 256)
-    assert chip_smoke.flash_dims(f32, "flash_bwd_ffma_dq_ds_kernel") == (256,)
-    assert chip_smoke.flash_dims(f32, "flash_bwd_ffma_dq_kernel") == (
-        64, 80, 112, 128)
+    bf16 = chip_smoke.FLASH_KERNELS["flash_attention"]
+    assert {"flash_fwd_short_kernel", "flash_bwd_dkdv_sum_kernel",
+            "flash_bwd_dq_ds_kernel"} <= set(bf16)
+    text = (build.CSRC / "flash_attention.cu").read_text()
+    assert all(f"{n}(" in text for n in bf16)
     names = chip_smoke.FLASH_KERNELS[f32]
     assert "flash_bwd_ffma_dkdv_sum_kernel" in names
     assert all("ffma" in n and n.endswith("_kernel") for n in names)

@@ -600,11 +600,13 @@ def test_flash_kernels_match_plain(card, b, sq, sk, h, kv, d, causal, window,
 
 
 @pytest.mark.cuda
-def test_flash_at_head_dim_112_launches_the_kernel_padded_to_128(card):
-    """zamba2's shared attention head dim: ``flash_attention`` pads
-    [1, 256, 4, 112] to 128 around one forward and one backward launch,
-    held against the plain version at 112 (out within 1e-2, dq, dk, dv
-    within 2e-2 of the largest entry)."""
+def test_flash_at_head_dim_112_launches_the_kernel_unpadded(card):
+    """zamba2's shared attention head dim: ``flash_attention`` launches
+    the kernels at 112 as it is (one forward and one backward launch, no
+    pad: the kernels see the caller's tensors), held against the plain
+    version at 112 (out within 1e-2, dq, dk, dv within 2e-2 of the
+    largest entry)."""
+    from repro_torch.kernels.flash_attention import ops as FO
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     gen = torch.Generator(device=card).manual_seed(112)
@@ -612,9 +614,20 @@ def test_flash_at_head_dim_112_launches_the_kernel_padded_to_128(card):
         torch.bfloat16)
     q, k, v, dout = (rnd(1, 256, 4, 112) for _ in range(4))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    K.reset_launches()
-    out = flash_attention(*leaves)
-    grads = torch.autograd.grad(out, leaves, dout)
+    seen = []
+    kernel = FO._kernel
+
+    def spy(q, *args):
+        seen.append((q.shape[-1], args[5:]))  # args[5:]: a scale
+        return kernel(q, *args)
+    FO._kernel = spy
+    try:
+        K.reset_launches()
+        out = flash_attention(*leaves)
+        grads = torch.autograd.grad(out, leaves, dout)
+    finally:
+        FO._kernel = kernel
+    assert seen == [(112, ())]  # no pad, the default scale
     assert K.launches()["flash_fwd"] == K.launches()["flash_bwd"] == 1
     fl = [t.float().requires_grad_() for t in (q, k, v)]
     ref = attention_ref(*fl)
@@ -729,7 +742,8 @@ def test_float32_flash_kernels_take_112_and_split_dkdv(
                                                      padded_dim)
     assert padded_dim(d, torch.float32) == d
     case = (b, sq, sk, h, kv, d, causal, window, q_offset)
-    assert dkdv_plan(*case, sms=build.sm_count(0))["nsplit"] > 1
+    assert dkdv_plan(*case, sms=build.sm_count(0),
+                     dtype=torch.float32)["nsplit"] > 1
     gen = torch.Generator(device=card).manual_seed(sq + sk + d)
     rnd = lambda *s: torch.randn(s, generator=gen, device=card)  # noqa
     q, k, v, dout = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d), \
@@ -746,6 +760,105 @@ def test_float32_flash_kernels_take_112_and_split_dkdv(
         assert g.dtype == torch.float32 and g.shape == w.shape
         err = (g - w.detach()).abs().max()
         assert float(err) <= 1e-5 * float(w.detach().abs().max())
+
+
+# the bf16 kernels where their dk/dv blocks split (flash.dkdv_plan with the
+# bf16 tiles), at head dim 256 (dq from dk/dv's dS^T) with a window and a
+# q_offset, at 112, and at KV 2 with Sk no multiple of a key block; and
+# the short-sequence forward (Sq, Sk <= 64: one item a warpgroup),
+# transformer-table1's folded call and a GQA continuation chunk
+FLASH_BF16_SPLIT = [(1, 300, 1000, 8, 1, 256, True, 200, 700),
+                    (2, 129, 129, 8, 1, 256, True, None, 0),
+                    (2, 129, 129, 8, 2, 112, True, None, 0),
+                    (1, 1000, 1000, 8, 2, 128, True, None, 0)]
+FLASH_SHORT = [(288, 32, 32, 2, 2, 64, True, None, 0),
+               (3, 40, 64, 8, 2, 128, True, None, 24),
+               (2, 64, 64, 4, 1, 256, False, None, 0),
+               (5, 17, 33, 4, 4, 112, True, 8, 16)]
+
+
+def _bf16_case(card, case, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    b, sq, sk, h, kv, d = case[:6]
+    rnd = lambda *s: torch.randn(s, generator=gen, device=card).to(  # noqa
+        torch.bfloat16)
+    return rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d), \
+        rnd(b, sq, h, d)
+
+
+def _against_plain(q, k, v, out, grads, dout, kw):
+    """out within 1e-2 and dq, dk, dv within 2e-2 of the plain version's
+    largest entry (float32 from the same bf16 inputs)."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    fl = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = attention_ref(*fl, **kw)
+    ref_grads = torch.autograd.grad(ref, fl, dout.float())
+    for got, want, tol in [(out, ref, 1e-2)] + [
+            (g, w, 2e-2) for g, w in zip(grads, ref_grads)]:
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        err = (got.detach().float() - want.detach()).abs().max()
+        assert float(err) <= tol * float(want.detach().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,q_offset",
+                         FLASH_BF16_SPLIT)
+def test_bf16_flash_split_and_ds_paths_match_plain(card, b, sq, sk, h, kv,
+                                                   d, causal, window,
+                                                   q_offset):
+    """The bf16 backward where dk/dv splits (and at 256 writes dS^T for
+    dq) matches the plain version, with the split the plan says."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (dkdv_plan,
+                                                     flash_bwd_cuda,
+                                                     flash_fwd_cuda)
+    case = (b, sq, sk, h, kv, d, causal, window, q_offset)
+    assert dkdv_plan(*case, sms=build.sm_count(0))["nsplit"] > 1
+    q, k, v, dout = _bf16_case(card, case, sq + sk + d)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = flash_fwd_cuda(q, k, v, **kw)
+    grads = flash_bwd_cuda(q, k, v, o, lse, dout, **kw)
+    _against_plain(q, k, v, o, grads, dout, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 256])
+def test_bf16_flash_backward_repeats_bitwise(card, d):
+    """Two bf16 backward runs at a split shape (and at 256 through dS^T)
+    are bitwise equal: the partial sums are added in split order, no
+    atomics."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (dkdv_plan,
+                                                     flash_bwd_cuda,
+                                                     flash_fwd_cuda)
+    q = _x(1, 512, 8 * d, 1, card).reshape(1, 512, 8, d).to(torch.bfloat16)
+    k = q[:, :, :2].contiguous()
+    assert dkdv_plan(1, 512, 512, 8, 2, d, True, None, 0,
+                     build.sm_count(0))["nsplit"] > 1
+    o, lse = flash_fwd_cuda(q, k, k)
+    a = flash_bwd_cuda(q, k, k, o, lse, q)
+    b = flash_bwd_cuda(q, k, k, o, lse, q)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,q_offset",
+                         FLASH_SHORT)
+def test_bf16_short_forward_matches_plain(card, b, sq, sk, h, kv, d, causal,
+                                          window, q_offset):
+    """The forward at Sq, Sk <= 64 (each consumer warpgroup its own
+    (batch, head) item) matches the plain version, and so does the
+    backward after it."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    case = (b, sq, sk, h, kv, d, causal, window, q_offset)
+    q, k, v, dout = _bf16_case(card, case, 7 + sq + d)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    K.reset_launches()
+    out = flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert K.launches()["flash_fwd"] == K.launches()["flash_bwd"] == 1
+    _against_plain(q, k, v, out, grads, dout, kw)
 
 
 @pytest.mark.cuda

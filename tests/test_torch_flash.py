@@ -190,15 +190,15 @@ def test_supports_states_each_refusal(case, match):
 def test_refusal_takes_float32_as_bfloat16(pad):
     """Float32 q, k and v (the float32 kernels') are refused for the same
     reasons as bfloat16 ones and no other: on the CPU only for the
-    device; at head dim 112, which the float32 kernels are built for,
-    float32 is taken with or without the pad, bfloat16 only with it."""
+    device, at every head dim both are built for (112 too); at 192 both
+    only with the pad."""
     from repro_torch.kernels.flash_attention import flash as FK
-    for d in (64, 80, 128, 256, 112):
+    for d in (64, 80, 128, 256, 112, 192):
         got = FK.refusal(*_qkv(torch.float32, d=d), pad=pad)
         want = FK.refusal(*_qkv(torch.bfloat16, d=d), pad=pad)
-        assert got is not None and "needs CUDA" in got[1]
-        assert (got == want) == (pad or d != 112)
-        assert ("needs CUDA" in want[1]) == (pad or d != 112)
+        assert got is not None and want is not None
+        assert ("needs CUDA" in got[1]) == (pad or d != 192)
+        assert ("needs CUDA" in want[1]) == (pad or d != 192)
 
 
 def test_default_attention_takes_the_plain_path_where_the_kernel_cannot():
@@ -367,18 +367,21 @@ def test_refusal_reads_the_same_under_vmap(case):
         assert "needs CUDA" in real[1]
 
 
-def test_head_dim_112_is_taken_through_the_zero_pad():
-    """``refusal(pad=True)`` takes a head dim up to 256 that the kernel is
-    not built for (zamba2's 112: padded to 128; 192 to 256), the launch
-    itself does not; 256 (gemma_2b's) is built; 320 stays refused either
-    way."""
+def test_head_dim_112_is_built_and_192_is_taken_through_the_zero_pad():
+    """zamba2's 112 is built at bfloat16 (no pad: the launch takes it as it
+    is); ``refusal(pad=True)`` takes a head dim up to 256 that the kernel is
+    not built for (192: padded to 256), the launch itself does not; 256
+    (gemma_2b's) is built; 320 stays refused either way."""
     from repro_torch.kernels.flash_attention import flash as FK
     q, k, v = _qkv(d=112)
-    assert FK.padded_dim(112) == 128 and FK.padded_dim(80) == 80
+    assert FK.padded_dim(112) == 112 and FK.padded_dim(80) == 80
     assert FK.padded_dim(256) == 256 and FK.padded_dim(192) == 256
     assert FK.padded_dim(320) == 320 and 256 in FK.HEAD_DIMS
-    why = FK.refusal(q, k, v, True, None, 0, pad=True)
-    assert why is not None and "needs CUDA" in why[1]  # only the device
+    assert 112 in FK.HEAD_DIMS
+    for pad in (False, True):  # only the device
+        why = FK.refusal(q, k, v, True, None, 0, pad=pad)
+        assert why is not None and "needs CUDA" in why[1]
+    q, k, v = _qkv(d=192)
     assert "head dims" in FK.refusal(q, k, v)[1]
     for d in (192, 256):
         q, k, v = _qkv(d=d)
@@ -446,3 +449,48 @@ def test_head_dim_192_pads_to_256_and_equals_the_unpadded_attention(
     assert padded_dim(192) == 256
     _padded_equals_unpadded(192, 256, True, window, q_offset, kv=1, sq=40,
                             seed=192 + q_offset)
+
+
+def test_bf16_at_head_dim_112_unpadded_matches_the_reference():
+    """zamba2's head dim at bfloat16 through the port's routing of 112 (no
+    pad, the default scale 1/sqrt(112): what the card launches), here on
+    the kernels' plain version, against the reference's
+    ``ops.attention`` on the CPU (its Pallas kernel in interpret mode,
+    which pads to 128 and pre-scales q by sqrt(128/112) in bfloat16) and
+    the gradients against ``jax.grad`` of its ``attention_ref`` in float32
+    from the same bfloat16 inputs: out within 1e-2 and dq, dk, dv within
+    2e-2 of the largest entry (the card's bars: bf16 outputs, P and dS
+    rounded to bf16, and the reference's bf16 pre-scaled q)."""
+    from repro.kernels.flash_attention import attention as jax_attention
+    from repro_torch.kernels.flash_attention import FlashAttention
+    from repro_torch.kernels.flash_attention import ops as FO
+    rng = np.random.default_rng(112)
+    shapes = ((2, 48, 4, 112), (2, 48, 2, 112), (2, 48, 2, 112),
+              (2, 48, 4, 112))
+    q, k, v, dout = (np.asarray(jnp.asarray(rng.normal(size=s), jnp.bfloat16)
+                                .astype(jnp.float32)) for s in shapes)
+    seen = []
+
+    def attend(q, k, v, causal, window, q_offset, scale=None):
+        seen.append((q.shape[-1], scale))
+        return FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                    scale)[0]
+    leaves = [torch.tensor(a).to(torch.bfloat16).requires_grad_()
+              for a in (q, k, v)]
+    got = FO.kernel_attention(attend, *leaves, True, None, 0)
+    grads = torch.autograd.grad(got, leaves, torch.tensor(dout).to(
+        torch.bfloat16))
+    assert seen == [(112, None)]
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(jax_attention(*jb, use_pallas=True, interpret=True),
+                      np.float32)
+
+    def jloss(q, k, v):
+        return jnp.sum(jax_attention_ref(q, k, v) * dout)
+
+    want_grads = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    for a, w, tol in [(got, want, 1e-2)] + [
+            (g, np.asarray(wg), 2e-2) for g, wg in zip(grads, want_grads)]:
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        err = np.abs(a.detach().float().numpy() - w).max()
+        assert err <= tol * np.abs(w).max()

@@ -7,8 +7,8 @@ adds in split order. Here the plan is held to the visibility mask (every
 pair a key block needs is in exactly one run, at the timed shapes and small
 ones), its runs are summed as the kernels sum them and give the plain
 gradients, its tile table is the ``.cu``'s, and head dim 112 is routed
-unpadded at float32 (against the reference's attention at 112) while
-bfloat16 keeps its pad."""
+unpadded at float32 (against the reference's attention at 112) as at
+bfloat16."""
 
 import math
 import re
@@ -73,12 +73,13 @@ def test_the_split_plan_covers_every_unit_once(case, sms):
     one of its keys, and at the timed shapes on 132 SMs only gemma_2b's
     grid (64 key blocks of one kv head) splits."""
     b, sq, sk, h, kv, d = case[:6]
-    plan = dkdv_plan(*case, sms=sms)
+    plan = dkdv_plan(*case, sms=sms, dtype=torch.float32)
     keys, rows, nsplit = plan["keys"], plan["rows"], plan["nsplit"]
     nkb = -(-sk // keys)
     rep = h // kv
     assert len(plan["tiles"]) == nkb
     assert 1 <= nsplit and nkb * nsplit <= 65535
+    assert FK.SPLIT_WAVES[torch.float32] == 2
     assert (nsplit > 1) == (kv * b * nkb < 2 * sms and max(plan["tiles"]) * rep
                             > 1)
     if sms == SMS and case in TIMED:
@@ -144,7 +145,7 @@ def test_the_split_runs_add_up_in_split_order(case):
     q, k, v, dout = (torch.tensor(rng.normal(size=s), dtype=torch.float64)
                      for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d),
                                (b, sq, h, d)))
-    plan = dkdv_plan(*case, sms=2)
+    plan = dkdv_plan(*case, sms=2, dtype=torch.float32)
     keys, rows, nsplit = plan["keys"], plan["rows"], plan["nsplit"]
     assert nsplit > 1
     scale = 1.0 / math.sqrt(d)
@@ -206,29 +207,31 @@ def test_the_backward_scratch_holds_the_split_and_the_ds_rows(case):
     """The float32 backward's scratch: the split's partial sums ``[2,
     nsplit, B, Sk, KV, D]`` where it splits, then at head dim 256 dS^T
     ``[B, H, Sk, Sq]`` with rows padded to whole 128-row dq blocks (the
-    .cu's ``DqDsTile``, ``kDsPath``); none at the LLM cut's shape."""
+    .cu's ``DqDsTile``, ``kDsPath``), float32 both, counted in bytes; none
+    at the LLM cut's shape."""
     b, sq, sk, h, kv, d = case[:6]
-    nsplit = dkdv_plan(*case, sms=SMS)["nsplit"]
+    nsplit = dkdv_plan(*case, sms=SMS, dtype=torch.float32)["nsplit"]
     want = 2 * nsplit * b * sk * kv * d if nsplit > 1 else 0
     if d == 256:
         want += b * h * sk * (-(-sq // 128) * 128)
-    assert FK.f32_bwd_scratch(b, sq, sk, h, kv, d, nsplit) == want
+    assert FK.bwd_scratch(b, sq, sk, h, kv, d, nsplit,
+                          torch.float32) == 4 * want
     if case == TIMED[-1]:
         assert want == 0
     text = (build.CSRC / "flash_attention_f32.cu").read_text()
     assert "constexpr bool kDsPath = D == 256;" in text
-    assert FK.F32_DS_DIMS == (256,) and FK.F32_DQ_DS_ROWS == 16 * int(
+    assert FK.DS_DIMS == (256,) and FK.DQ_DS_ROWS == 16 * int(
         re.search(r"struct DqDsTile : Tile<D, (\d+),", text)[1])
 
 
-def test_head_dim_112_is_native_at_float32_and_padded_at_bfloat16():
-    """Routing: float32 runs the kernel at 112, bfloat16 at 128 (zero-padded,
-    the head dim's own scale), the other head dims as they are."""
+def test_head_dim_112_is_native_at_float32_and_bfloat16():
+    """Routing: both dtypes run the kernel at 112 as it is (the default
+    scale), 192 zero-padded to 256, the other head dims as they are."""
     assert padded_dim(112, torch.float32) == 112
-    assert padded_dim(112, torch.bfloat16) == padded_dim(112) == 128
-    assert padded_dim(192, torch.float32) == 256
-    assert 112 in head_dims(torch.float32) and 112 not in head_dims(None)
-    assert head_dims(torch.bfloat16) == HEAD_DIMS
+    assert padded_dim(112, torch.bfloat16) == padded_dim(112) == 112
+    assert padded_dim(192, torch.float32) == padded_dim(192) == 256
+    assert 112 in head_dims(torch.float32) and 112 in head_dims(None)
+    assert head_dims(torch.bfloat16) == HEAD_DIMS == F32_HEAD_DIMS
     seen = []
 
     def attend(q, k, v, causal, window, q_offset, scale=None):
@@ -239,8 +242,7 @@ def test_head_dim_112_is_native_at_float32_and_padded_at_bfloat16():
         q = torch.zeros((1, 8, 2, 112), dtype=dtype)
         out = FO.kernel_attention(attend, q, q, q, True, None, 0)
         assert out.shape == q.shape
-    assert seen == [(112, torch.float32, None),
-                    (128, torch.bfloat16, 1.0 / math.sqrt(112))]
+    assert seen == [(112, torch.float32, None), (112, torch.bfloat16, None)]
 
 
 @pytest.mark.parametrize("window,q_offset", [(None, 0), (40, 32)])
@@ -282,7 +284,7 @@ def test_float32_at_112_unpadded_matches_the_reference(window, q_offset):
     (96, torch.float32, False, "head dims"),
     (320, torch.float32, True, "head dims"),
     (48, torch.float32, False, "head dims"),
-    (112, torch.bfloat16, False, "head dims"),
+    (192, torch.bfloat16, False, "head dims"),
     (112, torch.float16, True, "bfloat16 or float32"),
     (112, torch.float32, False, "needs CUDA"),
     (96, torch.float32, True, "needs CUDA")])
