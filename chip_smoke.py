@@ -356,6 +356,10 @@ LLM_KB = 40_642      # max(1, round(0.05 * D / 512))
 # SORT_NAN at both dtypes
 LOWP_SORT_SHAPES = [(1, 13, 11958), (36, 13, 11958), (1, 13, 1048576)]
 LOWP_CWTM_LLM = (1, 8, LLM_D)
+# The sort kernels' narrow input classes, each timed at LOWP_SORT_SHAPES
+# (and CWTM at LOWP_CWTM_LLM) with the plan it ran: bfloat16 beside the
+# compute dtypes
+SORT_LOWP_DTYPES = ("bfloat16", "float16", "float8_e4m3fn")
 # RoSDHB's round at a float16 or float8 compute dtype (the compute dtypes
 # phase): [8, LLM_D] with a bfloat16 wire on the card, then the same round
 # at LOWP_CHECK_D columns on the card and on the CPU (a CPU round at LLM_D
@@ -791,7 +795,35 @@ def kernel_case(torch, name: str, shape, f: int, dtype, timed: bool,
         rec["seed"], rec["reps"] = seed, reps  # for profile_cases
         rec["bound_ms"], rec["bound_by"] = bound_ms(name, shape,
                                                     x.element_size())
+        rec["plan"] = sort_plan(name, x)
     return rec
+
+
+def sort_plan(name: str, x) -> dict:
+    """The launch plan the tree's wrapper takes for ``x``: pairdist's tile
+    columns, copy bytes and cut of d; the sorted-weight kernel's
+    coordinates a thread, load bytes and block size."""
+    from repro_torch.kernels import build
+    b, n, d = x.shape
+    size = x.element_size()
+    sms = build.sm_count(x.get_device())
+    if name == "pairdist":
+        from repro_torch.kernels.pairdist.pairdist import pairdist_plan
+        p = pairdist_plan(b, n, d, size, sms)
+        ptr = x.data_ptr()
+        # the float32 kernel's cp.async width (copy_bytes in the source);
+        # the narrow classes copy the 16-byte chunks that cover a row
+        copy = 16 if size < 4 else next(
+            (w for w in (16, 8) if ptr % w == 0 and d * 4 % w == 0), 4)
+        return {"tile_columns": p.tile, "copy_bytes": copy,
+                "cluster": p.cluster, "groups": p.groups,
+                "tiles_per_cta": p.tiles_per_cta, "smem": p.smem}
+    from repro_torch.kernels.cwtm.cwtm import (load_width, plan_vec,
+                                              sorted_weight_threads)
+    vec = plan_vec(b, n, d, size, sms)
+    return {"vec": vec, "load_bytes": load_width(x.data_ptr() % 16, d, size,
+                                                 vec),
+            "threads": sorted_weight_threads(b, d, sms, vec)}
 
 
 def wrapper_pieces(torch, reps: int = 10_000) -> dict:
@@ -863,7 +895,7 @@ def wrapper_pieces(torch, reps: int = 10_000) -> dict:
     pd_launch = pd._LAUNCH[key]
     sw_lib = build.entry("sorted_weight", "sorted_weight")
     sw_out = torch.empty((1, 11958), device="cuda")
-    sw_launch = cw._LAUNCH[key + (w, False)]  # CWTM: nan_out off
+    sw_launch = cw._LAUNCH[key + (w, False, x.data_ptr() % 16)]  # CWTM
     # five rounds of reps / 5 calls of each piece in turn, the median
     runs = {label: [] for label in pieces}
     for _ in range(5):
@@ -946,7 +978,8 @@ def sort_nan_cases(torch, device: str = "cuda", dtype: str = "float32"
 
 def kernel_phase(torch) -> dict:
     """pairdist, CWTM and median cases (``kernel_case``), then CWTM and the
-    median with NaN among their inputs (:func:`sort_nan_cases`)."""
+    median with NaN among their inputs (:func:`sort_nan_cases`); fails
+    where ptxas reported a spill in a sort kernel (:data:`SORT_PTXAS`)."""
     results = {k: [] for k in SORT_KERNELS}
     failures = []
     for name in SORT_KERNELS:
@@ -990,6 +1023,11 @@ def kernel_phase(torch) -> dict:
             log_case(rec)
             if not rec["ok"]:
                 failures.append(f"{name} {shape} {rec['dtype']}")
+            # each case's blocks go back before the next case is timed (a
+            # cached 48 GiB block doubled the host cost of later calls in
+            # one run on an H100 80GB HBM3 and left it as it was in
+            # another: --sort-ab's host_context)
+            torch.cuda.empty_cache()
     # float16 and float8_e4m3fn inputs (last: the seeds above stay)
     for name in SORT_KERNELS:
         cases = [((b, n, d), f, dt, False) for (b, n, f, d) in SORT_EDGES
@@ -1006,6 +1044,23 @@ def kernel_phase(torch) -> dict:
             if not rec["ok"]:
                 failures.append(f"{name} {shape} {rec['dtype']}")
             torch.cuda.empty_cache()
+    # bfloat16 at the same timed shapes (after the float16 and float8
+    # cases: their seeds stay); pairdist at 1M against the float64 version
+    # (see PAIRDIST_EDGES)
+    for name in SORT_KERNELS:
+        cases = [(shape, F, True) for shape in LOWP_SORT_SHAPES]
+        if name == "cwtm":
+            cases.append((LOWP_CWTM_LLM, 1, True))
+        for i, (shape, f, timed) in enumerate(cases):
+            ref = ("float64" if name == "pairdist" and shape[2] >= 1 << 20
+                   else "plain")
+            rec = kernel_case(torch, name, shape, f, torch.bfloat16, timed,
+                              seed=950 + i, reference=ref)
+            results[name].append(rec)
+            log_case(rec)
+            if not rec["ok"]:
+                failures.append(f"{name} {shape} {rec['dtype']}")
+            torch.cuda.empty_cache()
     results["nan"] = sort_nan_cases(torch)
     for dt in LOWP_DTYPES:
         results["nan"] += sort_nan_cases(torch, dtype=dt)
@@ -1013,6 +1068,10 @@ def kernel_phase(torch) -> dict:
                  for r in results["nan"] if not r["ok"]]
     # the wrappers' host cost before any profiler runs in this process
     results["wrapper_pieces"] = wrapper_pieces(torch)
+    # no sort kernel spills, at any N_PAD, V, load width or dtype (where
+    # this process built them)
+    failures += [f"{k} spills ({r})" for k, r in sorted(SORT_PTXAS.items())
+                 if r["spill_stores"] or r["spill_loads"]]
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{failures}")
@@ -1212,6 +1271,8 @@ def log_case(rec) -> None:
         if "bitwise_repeat" in rec:
             line += (f" | two launches bitwise equal: "
                      f"{rec['bitwise_repeat']}")
+        if "plan" in rec:
+            line += f" | plan {rec['plan']}"
     log(line)
 
 
@@ -2469,6 +2530,277 @@ def _flash_ab_one(torch, old, new, f32: bool, split_args: bool, dims,
     return records
 
 
+# The rows of PERF.md's kernel table for pairdist (row 1), CWTM (row 2) and
+# the median (row 3), each at every input dtype, for ``--sort-ab``: the
+# CNN's shape, the table1 grid's (18 lanes a rule, 36 under NNM), the
+# quadratic's, and CWTM's LLM column slice and whole LLM bank.
+SORT_AB_SHAPES = {
+    "pairdist": [(1, 13, 11958), (36, 13, 11958), (1, 13, 1048576),
+                 (8, 13, 1048576)],
+    "cwtm": [(1, 13, 11958), (18, 13, 11958), (36, 13, 11958),
+             (1, 13, 1048576), (1, LLM_WORKERS, 1 << 24),
+             (1, LLM_WORKERS, LLM_D)],
+    "median": [(1, 13, 11958), (18, 13, 11958), (36, 13, 11958),
+               (1, 13, 1048576)],
+}
+SORT_AB_DTYPES = ("float32",) + SORT_LOWP_DTYPES
+# Rounds of (version, tree, tree, version) readings a case takes: more
+# where a reading is a few µs of host cost, so that the spread of the
+# float32 rows (the same kernel and plan on both sides) shows what the
+# loop can resolve there.
+SORT_AB_ROUNDS = {"small": 12, "large": 4}
+# The exit code of ``--sort-ab`` when every check holds (a partial run, no
+# ok line; a mismatch raises, exit 1).
+SORT_AB_EXIT = 5
+# The wrapper modules ``--sort-ab`` loads from a version's checkout.
+SORT_AB_MODULES = {"pairdist": "repro_torch.kernels.pairdist.pairdist",
+                   "cwtm": "repro_torch.kernels.cwtm.cwtm",
+                   "median": "repro_torch.kernels.median.median",
+                   "build": "repro_torch.kernels.build"}
+
+
+def load_version(src: Path) -> dict:
+    """The wrapper modules (:data:`SORT_AB_MODULES`) of the ``repro_torch``
+    package under ``src``, another checkout's, imported beside this tree's:
+    ``src`` goes first on the path while they import, and their modules
+    leave ``sys.modules`` after, so that this tree's stay in place. Each
+    version builds its sources into its own checkout's ``build/kernels``."""
+    import importlib
+
+    def ours(name):
+        return name == "repro_torch" or name.startswith("repro_torch.")
+    tree = {k: sys.modules.pop(k) for k in list(sys.modules) if ours(k)}
+    sys.path.insert(0, str(src))
+    try:
+        mods = {k: importlib.import_module(m)
+                for k, m in SORT_AB_MODULES.items()}
+    finally:
+        sys.path.remove(str(src))
+        for k in [k for k in sys.modules if ours(k)]:
+            del sys.modules[k]
+        sys.modules.update(tree)
+    for m in mods.values():
+        if not Path(m.__file__).resolve().is_relative_to(src.resolve()):
+            raise RuntimeError(f"--sort-ab: {m.__name__} loaded from "
+                               f"{m.__file__}, not from {src}")
+    return mods
+
+
+def host_context(torch, label: str, reps: int = 2000) -> dict:
+    """Host µs a call, at this point of the process, of one PyTorch op and
+    of the tree's pairdist and CWTM wrappers and their raw C calls at the
+    CNN's [1, 13, 11958] float16 (:func:`host_us`, median of 3): how far
+    the state a run has reached moves the host cost of the same calls."""
+    import importlib
+    mods = {k: importlib.import_module(m) for k, m in SORT_AB_MODULES.items()}
+    x = (torch.randn((1, 13, 11958), device="cuda") * 3).to(torch.float16)
+    stream = mods["build"].stream_ptr(0)
+    fns = {"x.neg()": lambda: x.neg()}
+    for kernel in ("pairdist", "cwtm"):
+        wrapper, raw, _, _ = _sort_ab_calls(mods, kernel, x, F, stream)
+        fns[f"{kernel} wrapper"], fns[f"{kernel} raw"] = wrapper, raw
+    out = {k: statistics.median(host_us(torch, fn, reps) for _ in range(3))
+           for k, fn in fns.items()}
+    log(f"sort ab host µs {label}: " + ", ".join(f"{k} {v:.2f}"
+                                                  for k, v in out.items()))
+    return out
+
+
+def sort_ab(torch, versions, reps=None) -> list:
+    """The sort kernels of this tree against other versions (``versions``:
+    ``<checkout>/src/repro_torch/csrc/sorted_weight.cu`` or ``pairdist.cu``
+    of another checkout, e.g. the parent commit's ``git archive`` under
+    ``build/parent``). Each version runs with its own checkout's wrappers
+    (:func:`load_version`): they build its sources into that checkout's
+    ``build/kernels`` and make its launch plans. At every shape of
+    :data:`SORT_AB_SHAPES` and every dtype of :data:`SORT_AB_DTYPES`, the
+    version and the tree are timed in turns, version, tree, tree, version,
+    :data:`SORT_AB_ROUNDS` times: loops of raw C calls with the plan each
+    wrapper made, then loops of whole wrapper calls, with the host µs of
+    each. The sorted-weight kernel (CWTM and the median) must give the
+    version's bits; pairdist the version's bits at float32, at the narrow
+    classes within 1e-5 of max |x|^2 of it, and two calls of the tree's
+    the same bits. Returns a record a case; raises on any mismatch."""
+    import importlib
+    tree = {k: importlib.import_module(m) for k, m in SORT_AB_MODULES.items()}
+    build = tree["build"]
+    runs, loaded = [], {}
+    for cu in versions:
+        name = cu.stem
+        if name not in ("sorted_weight", "pairdist") or \
+                cu.parent.name != "csrc" or \
+                cu.parents[1].name != "repro_torch":
+            raise ValueError(f"--sort-ab takes <checkout>/src/repro_torch/"
+                             f"csrc/{{sorted_weight,pairdist}}.cu, got {cu}")
+        src = cu.parents[2]
+        if src not in loaded:
+            loaded[src] = load_version(src)
+        runs.append((cu, name, loaded[src]))
+    # every build at once: the versions' and the tree's
+    jobs = [(mods["build"], name, mods["build"]._start(name))
+            for _, name, mods in runs]
+    jobs += [(build, n, build._start(n)) for n in ("sorted_weight",
+                                                    "pairdist")]
+    for b, name, job in jobs:
+        if job is not None:
+            b._finish(name, job)
+    for name, (secs, report) in build.BUILD_LOG.items():
+        for kernel, regs in ptxas_table(report).items():
+            log(f"sort ab ptxas {kernel}: {regs['registers']} registers, "
+                f"spill stores {regs['spill_stores']} B, spill loads "
+                f"{regs['spill_loads']} B")
+    stream = build.stream_ptr(0)
+    records, failures = [], []
+    context = {"fresh": host_context(torch, "fresh")}
+    big = torch.empty(48 << 30, dtype=torch.uint8, device="cuda")
+    del big  # cached by the allocator, as after the LLM-shape cases
+    context["after 48 GiB, cached"] = host_context(torch, "after 48 GiB, "
+                                                   "cached")
+    torch.cuda.empty_cache()
+    context["after empty_cache"] = host_context(torch, "after empty_cache")
+    for cu, name, mods in runs:
+        log(f"sort ab {cu}: {name}, wrappers from {cu.parents[2]}")
+        kernels = ("pairdist",) if name == "pairdist" else ("cwtm", "median")
+        for kernel in kernels:
+            for i, shape in enumerate(SORT_AB_SHAPES[kernel]):
+                for dt in SORT_AB_DTYPES:
+                    rec = _sort_ab_one(torch, mods, tree, kernel, shape, dt,
+                                       1200 + i, stream, reps)
+                    rec["version"] = str(cu)
+                    records.append(rec)
+                    if not rec["ok"]:
+                        failures.append(f"{kernel} {shape} {dt}")
+                    torch.cuda.empty_cache()
+    context["after the cases"] = host_context(torch, "after the cases")
+    records.append({"host_context": context})
+    if failures:
+        raise AssertionError(f"--sort-ab: the tree's kernels disagree with "
+                             f"the versions' at {failures}")
+    return records
+
+
+def _sort_ab_calls(mods: dict, kernel: str, x, f: int, stream) -> tuple:
+    """``(wrapper, raw, out, keep)`` of one version at one input: its
+    wrapper, and a raw C call of its entry with the launch plan that its
+    wrapper made for ``x`` (the one entry of the wrapper's plan cache after
+    one call), into the buffer ``out``."""
+    import torch
+    owner = mods["pairdist" if kernel == "pairdist" else "cwtm"]
+    wrapper = {"pairdist": lambda: mods["pairdist"].pairdist_cuda(x),
+               "cwtm": lambda: mods["cwtm"].cwtm_cuda(x, f),
+               "median": lambda: mods["median"].median_cuda(x)}[kernel]
+    owner._LAUNCH.clear()
+    out = torch.empty_like(wrapper())
+    (launch,) = owner._LAUNCH.values()
+    lib = "pairdist" if kernel == "pairdist" else "sorted_weight"
+    entry = mods["build"].entry(lib, lib)
+
+    def raw():
+        mods["build"].check(entry(x.data_ptr(), out.data_ptr(), launch[0],
+                                  stream), kernel)
+    return wrapper, raw, out, launch
+
+
+def _sort_ab_one(torch, mods, tree, kernel: str, shape, dt: str, seed: int,
+                 stream, reps) -> dict:
+    from repro_torch.utils.dtypes import to_dtype
+    b, n, d = shape
+    f = 1 if n == LLM_WORKERS else F
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = to_dtype(torch.randn(shape, generator=gen, device="cuda") * 3,
+                 dtype)
+    calls, outs, keep = {}, {}, []
+    for who, m in (("version", mods), ("tree", tree)):
+        wrapper, raw, out, launch = _sort_ab_calls(m, kernel, x, f, stream)
+        raw()
+        torch.cuda.synchronize()
+        outs[who], outs[who + "_buffer"] = out.clone(), out
+        calls[who], calls[who + " wrapper"] = raw, wrapper
+        keep.append(launch)
+    rec = {"kernel": kernel, "shape": list(shape), "dtype": dt, "f": f,
+           "plan": sort_plan(kernel, x)}
+    bits = lambda t: t.view(torch.uint8)  # noqa: E731
+    if kernel == "pairdist":
+        calls["tree"]()  # again, into the same buffer
+        torch.cuda.synchronize()
+        rec["tree_repeats_bitwise"] = torch.equal(outs["tree"],
+                                                  outs["tree_buffer"])
+        rec["max_abs_diff"] = float((outs["tree"].double()
+                                     - outs["version"].double()).abs().max())
+        rec["bitwise"] = torch.equal(outs["tree"], outs["version"])
+        scale = float(x.float().square().sum(-1).max())
+        rec["ok"] = rec["tree_repeats_bitwise"] and (
+            rec["bitwise"] if dt == "float32"
+            else rec["max_abs_diff"] <= 1e-5 * scale)
+    else:
+        rec["bitwise"] = torch.equal(bits(outs["tree"]),
+                                     bits(outs["version"]))
+        rec["ok"] = rec["bitwise"]
+    reps = reps or case_reps(shape)
+    rounds = SORT_AB_ROUNDS["small" if reps >= 200 else "large"]
+    t = {k: [] for k in calls}
+    host = {k: [] for k in calls}
+    for kind in ("", " wrapper"):
+        for _ in range(rounds):
+            for who in ("version", "tree", "tree", "version"):
+                t[who + kind].append(time_ms(torch, calls[who + kind],
+                                             reps))
+                host[who + kind].append(host_us(torch, calls[who + kind],
+                                                reps))
+    med = statistics.median
+    rec.update(version_ms=t["version"], tree_ms=t["tree"],
+               version_median_ms=med(t["version"]),
+               tree_median_ms=med(t["tree"]),
+               wrapper_ms={w: t[w + " wrapper"] for w in ("version", "tree")},
+               wrapper_median_ms={w: med(t[w + " wrapper"])
+                                  for w in ("version", "tree")},
+               host_median_us={k: med(v) for k, v in host.items()},
+               reps=reps, rounds=rounds)
+    # the spread of a side's readings: (upper quartile - lower) / median
+    rec["spread"] = {k: (statistics.quantiles(v, n=4)[2]
+                         - statistics.quantiles(v, n=4)[0]) / med(v)
+                     for k, v in t.items()}
+    # device µs a call of each (the profiler, after this case's timed
+    # loops: where the call's host cost hides the kernel, this is its time)
+    rec["device_us"] = {who: sum(kernel_split_us(torch, calls[who],
+                                                 reps=20).values())
+                        for who in ("version", "tree")}
+    rec["version_over_tree"] = rec["version_median_ms"] / rec[
+        "tree_median_ms"]
+    rec["wrapper_version_over_tree"] = (rec["wrapper_median_ms"]["version"]
+                                        / rec["wrapper_median_ms"]["tree"])
+    from repro_torch.launch import roofline as RL
+    work = (RL.pairdist_work if kernel == "pairdist"
+            else RL.sorted_weight_work)(b, n, d, x.element_size())
+    rec["bound_ms"], rec["bound_by"] = _bound(work, "f32")
+    hu = rec["host_median_us"]
+    log(f"sort ab {kernel} {tuple(shape)} {dt}: version "
+        f"{', '.join(f'{v:.5f}' for v in t['version'])} ms, tree "
+        f"{', '.join(f'{v:.5f}' for v in t['tree'])} ms, medians "
+        f"{rec['version_median_ms']:.5f} -> {rec['tree_median_ms']:.5f} "
+        f"(version/tree {rec['version_over_tree']:.3f}, spreads "
+        f"{rec['spread']['version']:.3f} / {rec['spread']['tree']:.3f}; "
+        f"device µs {rec['device_us']['version']:.3f} -> "
+        f"{rec['device_us']['tree']:.3f}; host µs "
+        f"{hu['version']:.2f} -> {hu['tree']:.2f}; bound "
+        f"{rec['bound_ms']:.5f} ms, tree at "
+        f"{rec['bound_ms'] / rec['tree_median_ms']:.3f} of it); wrappers "
+        f"{rec['wrapper_median_ms']['version']:.5f} -> "
+        f"{rec['wrapper_median_ms']['tree']:.5f} ms (version/tree "
+        f"{rec['wrapper_version_over_tree']:.3f}, spreads "
+        f"{rec['spread']['version wrapper']:.3f} / "
+        f"{rec['spread']['tree wrapper']:.3f}; host µs "
+        f"{hu['version wrapper']:.2f} -> {hu['tree wrapper']:.2f}); bitwise "
+        f"{rec['bitwise']}"
+        + (f", max|tree - version| {rec['max_abs_diff']:.3g}, tree repeats "
+           f"bitwise {rec['tree_repeats_bitwise']}" if kernel == "pairdist"
+           else "")
+        + f" | plan {rec['plan']} {'ok' if rec['ok'] else 'FAIL'}")
+    del keep, calls, outs, x
+    return rec
+
+
 # ----------------------------------------------------------------------- #
 # main path
 # ----------------------------------------------------------------------- #
@@ -2498,8 +2830,10 @@ def sync(torch, device: str) -> None:
 
 
 #: The ``__global__`` names of the port's server kernels (``csrc/``): the
-#: pairdist, sorted-weight and Block-RandK kernels.
-PORT_SERVER_KERNELS = ("pairdist_kernel", "sorted_weight_kernel",
+#: pairdist and sorted-weight kernels (float32, then the narrow classes')
+#: and the Block-RandK kernels.
+PORT_SERVER_KERNELS = ("pairdist_kernel", "pairdist_narrow_kernel",
+                       "sorted_weight_kernel", "sorted_weight_pairs_kernel",
                        "compress_kernel", "decompress_kernel",
                        "momentum_kernel")
 
@@ -6046,7 +6380,7 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
     record = {"kernels": []}
     for name in SORT_KERNELS:
         recs = [r for r in results[name] if "ms" in r
-                and r["dtype"] not in LOWP_DTYPES]
+                and r["dtype"] not in SORT_LOWP_DTYPES]
         head = recs[0]  # the CNN path's shape
         grid_launches = grid["table1"]["launches"][name]
         record["kernels"].append({
@@ -6356,6 +6690,8 @@ def flash_dims(lib: str, kernel: str = "") -> tuple:
     return dims
 #: ptxas's registers and spills of the flash kernels, from this run's build.
 FLASH_PTXAS: dict = {}
+#: The same of the sort kernels (``csrc/sorted_weight.cu``, ``pairdist.cu``).
+SORT_PTXAS: dict = {}
 #: Instructions in each flash kernel's SASS (``cuobjdump -sass``): HGMMA
 #: (wgmma), UTMALDG (TMA loads), HMMA (mma.sync, what WMMA becomes), FFMA
 #: (float32 fused multiply-add on the CUDA cores), TF32 (any instruction
@@ -6423,6 +6759,16 @@ def main() -> int:
                                   indent=1))
         log(json.dumps(records))
         return 3
+    if len(sys.argv) > 2 and sys.argv[1] == "--sort-ab":
+        # the sort kernels against other versions', in turns
+        log(f"gpu: {gpu_line()}")
+        records = sort_ab(torch, [Path(a).resolve() for a in sys.argv[2:]])
+        out = ROOT / "build" / "chip_smoke" / "sort_ab.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"gpu": gpu_line(), "records": records},
+                                  indent=1))
+        log(gpu_line())
+        return SORT_AB_EXIT
     if len(sys.argv) > 2 and sys.argv[1] == "--device-times":
         # one JSON line: profile_cases in a fresh process
         cases = json.loads(sys.argv[2])
@@ -6448,6 +6794,8 @@ def main() -> int:
                 f"{regs['spill_loads']} B")
         if name in FLASH_KERNELS:
             FLASH_PTXAS.update(table)
+        elif name in ("sorted_weight", "pairdist"):
+            SORT_PTXAS.update(table)
 
     phases = set(sys.argv[1].split(",")) if len(sys.argv) > 1 else None
 

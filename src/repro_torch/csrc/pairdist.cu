@@ -17,8 +17,7 @@
 //     by cp.async (16, 8 or 4 bytes, the widest the row's address and d
 //     allow), so the next two tiles' loads fly while the current tile's FMAs
 //     run. TMA is no use here: a tensor map needs 16-byte row strides, and a
-//     float32 row of 11,958 values is 47,832 bytes. bfloat16 rows with odd d
-//     are not 4-byte aligned and take plain loads. Rows past n are zero.
+//     float32 row of 11,958 values is 47,832 bytes. Rows past n are zero.
 //   * FMAs: each thread owns one 4x4 block of (i, j) pairs of the upper
 //     triangle and a stride of the tile's column pairs (two columns per
 //     8-byte shared-memory read), accumulating in float32 FMA. No TF32 and
@@ -40,21 +39,49 @@
 //     row sums the groups' partials in group order, finalises, and sets the
 //     counter back to 0, so every call leaves the counters at zero.
 // Inputs are float32, bfloat16, float16 or float8_e4m3fn (dtype codes 0-3,
-// those of randk.cu), staged in their own type and widened to float32 as a
-// column pair is read, as the TPU kernel widens them; the output is float32.
-// No float atomics: every sum runs in a fixed order, so the same inputs give
-// the same bits whichever cluster finishes last. The squared norms are G's
-// own diagonal, so the result's diagonal is exactly 0 and it is symmetric.
+// those of randk.cu), widened to float32 as the TPU kernel widens them; the
+// output is float32. The narrow classes (pairdist_narrow_kernel) have a
+// design of their own. A first port staged them in the float32 kernel's
+// 256-column tiles (a 16-bit tile cost the float32 one's barriers and ring
+// turns for half its bytes), widened every column pair once per block pair
+// it fed, and took plain loads where a row's start is no multiple of 4
+// bytes (float8 with d = 11,958: 2.1x the float32 time). And a redesign
+// that staged 1 KB tiles and widened each value once into a float32 work
+// tile for the same FMAs ran 1.3-1.6x slower than that port at d =
+// 1,048,576 (H100 80GB HBM3, 700 W): the n(n+1)/2 FMAs a column do not
+// shrink with the bytes, and the conversion pass added to them. So there:
+//   * a staged row holds 1 KB at 16 bits (512 columns), 512 B at float8
+//     (512 columns: 1,024 left 2 CTAs an SM and ran 16-31% slower) and
+//     where n_pad > 32 (shared memory stays under 227 KB), copied by
+//     16-byte cp.async in the aligned chunks that cover it whatever its
+//     alignment: a row's bytes sit at its start's offset from 16 in the
+//     stage (the row stride's 16 bytes of padding hold the extra chunk), and
+//     the bytes past the row's end are zero-filled (src-size);
+//   * a conversion pass moves each staged value once into a 16-bit work
+//     tile, shifted back by that offset (word reads and funnel shifts, 8
+//     columns a thread at a time), float8 widened exactly to half, zero
+//     past the tile's valid columns and on the rows past n;
+//   * the tensor cores take the Gram blocks: 16-bit products are exact in
+//     float32, so mma.sync m16n8k16 (float16 or bfloat16 operands, float32
+//     results) replaces the FMAs, each 16-product sum added to a float32
+//     accumulator rounded to nearest (mma16816). One ldmatrix.x4 of a
+//     16-row group's 16 columns is both the A fragment and, as two n8
+//     halves, the B fragments of X X^T; each warp sums every (gi <= gj)
+//     16 x 16 block of its 16-column steps, and the warps' blocks are
+//     summed in warp order;
+//   * two barriers and one ring turn a tile, 256 threads a CTA.
+// The narrow classes' order of summation is not the float32 class's (its
+// kernel, tile and plan are as before).
 // Calls that overlap on two streams of one device must not share the
 // counters and scratch (the wrapper keeps one set per device).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
-#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -70,8 +97,10 @@ struct PairdistPlan {
   int phases;         // threads = n_block_pairs * phases
   int cluster;        // CTAs per cluster, 1..16
   int groups;         // clusters per batch row
-  int tiles_per_cta;  // 256-column tiles per CTA
+  int tiles_per_cta;  // tiles per CTA
   int smem;           // dynamic shared memory bytes
+  int tile;           // columns a tile: 256 at float32, else 1,024 or 512
+                      // bytes of columns (narrow_tile_bytes)
 };
 
 namespace {
@@ -112,6 +141,45 @@ __host__ __device__ constexpr int smem_bytes(int n, int phases, int esize) {
   return work_bytes(n, phases, esize) + block_pairs(n) * 16 * 4;
 }
 
+// The narrow classes: a staged row of TB bytes (1,024 at 16 bits, 512 at
+// float8 and where n_pad > 32; the wrapper's plan,
+// repro_torch/kernels/pairdist/pairdist.py: narrow_tile_bytes) plus 16 for
+// the chunk a misaligned row spills into; the 16-bit work tile holds the
+// staged tile's TB / itemsize columns a row plus 16 bytes that put
+// ldmatrix's eight rows on other banks, for 16 * ceil(n / 16) rows.
+constexpr int kNarrowThreads = 256;
+__host__ __device__ constexpr int narrow_row_bytes(int tb) { return tb + 16; }
+__host__ __device__ constexpr int work_row_bytes(int tb, int esize) {
+  return 2 * (tb / esize) + 16;
+}
+__host__ __device__ constexpr int narrow_rows(int n) {
+  return (n + 15) / 16 * 16;
+}
+
+// The narrow classes' work area (the ring and the work tile, later the
+// warps' Gram blocks, later the Gram matrix), rounded to 16; the CTA's
+// partial follows it.
+__host__ __device__ constexpr int narrow_work_bytes(int n, int tb,
+                                                    int esize) {
+  const int np = narrow_rows(n);
+  const int tiles = kStages * np * narrow_row_bytes(tb) +
+                    np * work_row_bytes(tb, esize);
+  const int red = kNarrowThreads / 32 * np * np * 4;
+  const int gram = n_pad_of(n) * n_pad_of(n) * 4;
+  const int m = tiles > red ? (tiles > gram ? tiles : gram)
+                            : (red > gram ? red : gram);
+  return (m + 15) / 16 * 16;
+}
+
+__host__ __device__ constexpr int narrow_smem_bytes(int n, int tb,
+                                                    int esize) {
+  return narrow_work_bytes(n, tb, esize) + block_pairs(n) * 16 * 4;
+}
+
+// Dynamic shared memory the narrow kernels are allowed (every plan of
+// narrow_smem_bytes at n <= 64 stays under it).
+constexpr int kNarrowSmemMax = 200 * 1024;
+
 // Upper-triangle block pair number p -> (bi, bj), bi <= bj < nb.
 __device__ __forceinline__ void block_pair(int p, int nb, int* bi, int* bj) {
   int i = 0;
@@ -140,32 +208,9 @@ template <typename T>
 __device__ __forceinline__ T zero();
 template <>
 __device__ __forceinline__ float zero<float>() { return 0.0f; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.0f);
-}
-template <>
-__device__ __forceinline__ __half zero<__half>() {
-  return __float2half(0.0f);
-}
-template <>
-__device__ __forceinline__ E4M3 zero<E4M3>() {
-  return E4M3{0};
-}
 
 __device__ __forceinline__ float2 load_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 load_pair(const __half* p) {
-  return __half22float2(*reinterpret_cast<const __half2*>(p));
-}
-__device__ __forceinline__ float2 load_pair(const E4M3* p) {
-  const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
-      *reinterpret_cast<const __nv_fp8x2_storage_t*>(p), __NV_E4M3));
-  return __half22float2(h);
 }
 
 // Bytes of an element of dtype code `dtype`.
@@ -191,39 +236,41 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// 16 bytes from src to dst, of which only the first src_bytes are read;
+// the rest of dst is zero-filled.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Stage columns [col0, col0 + valid) of rows [0, n) into `stage`. VB is the
-// copy width in bytes (16, 8 or 4, by cp.async), or 0 for plain loads. An
-// odd `valid` gets a zero in column `valid`: the FMAs read column pairs.
+// Stage columns [col0, col0 + valid) of rows [0, n) into `stage` (the
+// float32 kernel). VB is the copy width in bytes (16, 8 or 4, by cp.async).
+// An odd `valid` gets a zero in column `valid`: the FMAs read column pairs.
 template <typename T, int VB>
 __device__ __forceinline__ void load_tile(T* stage, const T* xb, int n,
                                           long long d, long long col0,
                                           int valid, int tid, int threads) {
   constexpr int S = row_stride<T>();
-  if constexpr (VB == 0) {
-    for (int e = tid; e < n * kTile; e += threads) {
-      const int r = e / kTile;
-      const int c = e % kTile;
-      stage[r * S + c] = c < valid ? xb[(long long)r * d + col0 + c] : zero<T>();
-    }
-  } else {
-    constexpr int V = VB / static_cast<int>(sizeof(T));
-    constexpr int kCopies = kTile / V;  // copies per row
-    const int copies = valid / V;       // d % V == 0: no copy is cut
-    for (int e = tid; e < n * kCopies; e += threads) {
-      const int r = e / kCopies;
-      const int c = e % kCopies;
-      if (c < copies)
-        cp_async<VB>(stage + r * S + c * V,
-                     xb + (long long)r * d + col0 + (long long)c * V);
-    }
-    if (valid & 1) {
-      for (int r = tid; r < n; r += threads) stage[r * S + valid] = zero<T>();
-    }
+  constexpr int V = VB / static_cast<int>(sizeof(T));
+  constexpr int kCopies = kTile / V;  // copies per row
+  const int copies = valid / V;       // d % V == 0: no copy is cut
+  for (int e = tid; e < n * kCopies; e += threads) {
+    const int r = e / kCopies;
+    const int c = e % kCopies;
+    if (c < copies)
+      cp_async<VB>(stage + r * S + c * V,
+                   xb + (long long)r * d + col0 + (long long)c * V);
+  }
+  if (valid & 1) {
+    for (int r = tid; r < n; r += threads) stage[r * S + valid] = zero<T>();
   }
 }
 
@@ -470,6 +517,233 @@ pairdist_kernel(const T* __restrict__ x, float* __restrict__ out,
   finish(part, n_entries, nb, p, out, smem, b, tid, threads);
 }
 
+// Four float8_e4m3fn values (a 32-bit word, the first in the low byte) as
+// two f16x2 words (exact: every float8 value is a half).
+__device__ __forceinline__ void e4m3x4_to_f16(unsigned w, unsigned& lo,
+                                              unsigned& hi) {
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;"
+      : "=r"(lo) : "h"((unsigned short)(w & 0xFFFFu)));
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;"
+      : "=r"(hi) : "h"((unsigned short)(w >> 16)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c += a b for one m16n8k16 tile, 16-bit operands (BF: bfloat16, else
+// float16): the tensor core sums the 16 exact products from zero (its
+// accumulation truncates, so a running sum kept in it drifts: 0.52 at d =
+// 4,099, 1.3e-5 of max |x|^2, on an H100), and each sum is added to c in
+// float32, rounded to nearest.
+template <bool BF>
+__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  float d[4];
+  if constexpr (BF) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %10, %10, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.0f));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %10, %10, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.0f));
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) c[k] += d[k];
+}
+
+// pairdist_kernel for bfloat16, float16 and float8_e4m3fn (module
+// comment): staged tiles of TB bytes (p.tile * sizeof(T) == TB), each
+// value realigned (and float8 widened to half) once into a 16-bit work
+// tile of NG groups of 16 rows, whose Gram blocks the tensor cores sum.
+template <typename T, int TB, int NG>
+__global__ void __launch_bounds__(kNarrowThreads)
+pairdist_narrow_kernel(const T* __restrict__ x, float* __restrict__ out,
+                       PairdistPlan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int ES = sizeof(T);
+  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int TILE = TB / ES;                  // columns a staged tile
+  constexpr int RB = narrow_row_bytes(TB);       // staged row stride
+  constexpr int CHUNKS = RB / 16;                // 16-byte copies a row
+  constexpr int NP = 16 * NG;                    // work tile rows
+  constexpr int WB = work_row_bytes(TB, ES);     // work row stride, bytes
+  constexpr int UNITS = TILE / 8;                // 8-column units a row
+  constexpr int PAIRS = NG * (NG + 1) / 2;       // 16 x 16 Gram blocks
+  constexpr int WARPS = kNarrowThreads / 32;
+  const int n = p.n;
+  const int nb = n_pad_of(n) / 4;
+  const int n_entries = block_pairs(n) * 16;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const long long b = blockIdx.y;
+  const long long d = p.d;
+  unsigned char* ring = smem;
+  unsigned char* work = smem + kStages * NP * RB;
+  float* part = reinterpret_cast<float*>(
+      smem + narrow_work_bytes(n, TB, ES));
+  const T* xb = x + b * n * d;
+
+  float acc[PAIRS][2][4];
+#pragma unroll
+  for (int q = 0; q < PAIRS; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[q][h][k] = 0.0f;
+
+  // the work tile's rows n..NP-1 are zero throughout
+  for (int e = tid; e < (NP - n) * (WB / 16); e += kNarrowThreads)
+    reinterpret_cast<uint4*>(work + n * WB)[e] = make_uint4(0, 0, 0, 0);
+  const long long n_tiles = (d + TILE - 1) / TILE;
+  const long long t_begin = (long long)blockIdx.x * p.tiles_per_cta;
+  long long t_end = t_begin + p.tiles_per_cta;
+  if (t_end > n_tiles) t_end = n_tiles;
+  const int count = t_end > t_begin ? (int)(t_end - t_begin) : 0;
+  auto valid = [&](int t) {
+    const long long left = d - (t_begin + t) * TILE;
+    return left < TILE ? (int)left : TILE;
+  };
+  // the 16-byte chunks that cover each row's bytes of tile t, zero past
+  // the row's valid bytes
+  auto issue = [&](int t) {
+    if (t < count) {
+      const long long col0 = (t_begin + t) * TILE;
+      const int bytes = valid(t) * ES;
+      unsigned char* st = ring + (t % kStages) * NP * RB;
+      for (int e = tid; e < n * CHUNKS; e += kNarrowThreads) {
+        const int r = e / CHUNKS;
+        const int k = e % CHUNKS;
+        const unsigned char* src = reinterpret_cast<const unsigned char*>(
+            xb + (long long)r * d + col0);
+        const int mis = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+        const int have = mis + bytes - 16 * k;
+        if (have > 0)
+          cp_async16_zfill(st + r * RB + 16 * k, src - mis + 16 * k,
+                           have < 16 ? have : 16);
+      }
+    }
+    cp_async_commit();
+  };
+  // ldmatrix rows and columns of this lane: matrices (rows 0-7, 8-15) x
+  // (columns 0-7, 8-15), in the m16n8k16 A fragment's order
+  const int lrow = lane % 8 + 8 * ((lane / 8) % 2);
+  const int lcol = 8 * (lane / 16);
+  issue(0);
+  issue(1);
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+  for (int t = 0; t < count; ++t) {
+    // stage (t + 2) % 3 was last read by tile t - 1's conversion
+    issue(t + kStages - 1);
+    const unsigned char* st = ring + (t % kStages) * NP * RB;
+    const int vt = valid(t);
+    // realign (float8: and widen) each value once: 8 columns a unit, zero
+    // from column vt on
+    for (int e = tid; e < n * UNITS; e += kNarrowThreads) {
+      const int r = e / UNITS;
+      const int u = e % UNITS;
+      const int mis = (int)(reinterpret_cast<uintptr_t>(
+                                xb + (long long)r * d) & 15);
+      const int off = mis + u * 8 * ES;
+      const unsigned* wp = reinterpret_cast<const unsigned*>(
+          st + r * RB + (off & ~3));
+      const unsigned sh = (off & 3) * 8;
+      unsigned o[4];
+      if constexpr (ES == 2) {
+        unsigned w[5];
+#pragma unroll
+        for (int k = 0; k < 5; ++k) w[k] = wp[k];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[k] = __funnelshift_r(w[k], w[k + 1], sh);
+      } else {
+        const unsigned w0 = wp[0], w1 = wp[1], w2 = wp[2];
+        e4m3x4_to_f16(__funnelshift_r(w0, w1, sh), o[0], o[1]);
+        e4m3x4_to_f16(__funnelshift_r(w1, w2, sh), o[2], o[3]);
+      }
+      const int c = u * 8;
+      if (c + 8 > vt) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          o[k] &= (c + 2 * k < vt ? 0x0000FFFFu : 0u) |
+                  (c + 2 * k + 1 < vt ? 0xFFFF0000u : 0u);
+      }
+      *reinterpret_cast<uint4*>(work + r * WB + c * 2) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+    __syncthreads();
+    // each warp sums its 16-column steps of the tile: the 16 x 16 blocks
+    // of G over row groups gi <= gj, A and B from the same fragments
+    const int steps = (vt + 15) / 16;
+    for (int kc = warp; kc < steps; kc += WARPS) {
+      unsigned f[NG][4];
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        ldmatrix_x4(f[g], work + (16 * g + lrow) * WB + (16 * kc + lcol) * 2);
+      int q = 0;
+#pragma unroll
+      for (int gi = 0; gi < NG; ++gi) {
+#pragma unroll
+        for (int gj = gi; gj < NG; ++gj, ++q) {
+          mma16816<BF>(acc[q][0], f[gi], f[gj][0], f[gj][2]);
+          mma16816<BF>(acc[q][1], f[gi], f[gj][1], f[gj][3]);
+        }
+      }
+    }
+    cp_async_wait<kStages - 2>();  // tile t + 1 landed
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warps' blocks into red [WARPS][NP][NP], then summed in warp order
+  float* red = reinterpret_cast<float*>(smem);
+  {
+    const int g = lane / 4, c2 = 2 * (lane % 4);
+    int q = 0;
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi) {
+#pragma unroll
+      for (int gj = gi; gj < NG; ++gj, ++q) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* blk = red + warp * NP * NP + (16 * gi + g) * NP + 16 * gj +
+                       8 * h + c2;
+          blk[0] = acc[q][h][0];
+          blk[1] = acc[q][h][1];
+          blk[8 * NP] = acc[q][h][2];
+          blk[8 * NP + 1] = acc[q][h][3];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < n_entries; e += kNarrowThreads) {
+    int i, j;
+    entry_ij(e, nb, &i, &j);
+    float s = red[i * NP + j];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) s += red[w * NP * NP + i * NP + j];
+    part[e] = s;
+  }
+  finish(part, n_entries, nb, p, out, smem, b, tid, kNarrowThreads);
+}
+
 // One launch in clusters of p.cluster CTAs; the first launch of each kernel
 // on a device allows clusters of 16 and the largest dynamic shared memory a
 // plan can ask for.
@@ -508,43 +782,94 @@ cudaError_t launch(const void* x, float* out, const PairdistPlan& p,
   return cudaGetLastError();
 }
 
-// The widest cp.async the row addresses allow: every row start and every
-// tile start (a multiple of 256 columns) must be aligned to it.
-int copy_bytes(const void* x, long long d, int esize) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(x);
-  for (int vb = 16; vb >= 4; vb /= 2) {
-    if (vb >= esize && a % vb == 0 && (d * esize) % vb == 0) return vb;
+// The narrow kernels: one launch in clusters, as launch() does.
+template <typename T, int TB, int NG>
+cudaError_t launch_narrow(const void* x, float* out, const PairdistPlan& p,
+                          cudaStream_t stream) {
+  static bool configured[kMaxDevices] = {};
+  auto kernel = pairdist_narrow_kernel<T, TB, NG>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !configured[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kNarrowSmemMax);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) configured[dev] = true;
   }
-  return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(p.groups * p.cluster), (unsigned)p.B, 1);
+  cfg.blockDim = dim3((unsigned)kNarrowThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), out, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_2byte(const void* x, float* o, const PairdistPlan& p,
-                         cudaStream_t s) {
-  switch (copy_bytes(x, p.d, 2)) {
-    case 16: return launch<T, 16>(x, o, p, s);
-    case 8: return launch<T, 8>(x, o, p, s);
-    case 4: return launch<T, 4>(x, o, p, s);
-    default: return launch<T, 0>(x, o, p, s);
+cudaError_t launch_narrow_tb(const void* x, float* o, const PairdistPlan& p,
+                             cudaStream_t s) {
+  const int ng = (p.n + 15) / 16;
+  if constexpr (sizeof(T) == 2) {  // float8 stages 512 B only
+    if (p.tile * 2 == 1024) {
+      if (ng == 1) return launch_narrow<T, 1024, 1>(x, o, p, s);
+      if (ng == 2) return launch_narrow<T, 1024, 2>(x, o, p, s);
+      return cudaErrorInvalidValue;
+    }
   }
+  switch (ng) {
+    case 1: return launch_narrow<T, 512, 1>(x, o, p, s);
+    case 2: return launch_narrow<T, 512, 2>(x, o, p, s);
+    case 3: return launch_narrow<T, 512, 3>(x, o, p, s);
+    default: return launch_narrow<T, 512, 4>(x, o, p, s);
+  }
+}
+
+// The widest cp.async the float32 row addresses allow: every row start and
+// every tile start (a multiple of 256 columns) must be aligned to it.
+int copy_bytes(const void* x, long long d) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x);
+  for (int vb = 16; vb > 4; vb /= 2) {
+    if (a % vb == 0 && (d * 4) % vb == 0) return vb;
+  }
+  return 4;
 }
 
 bool valid_plan(const PairdistPlan& p) {
   if (p.n < 1 || p.n > kMaxN || p.B < 1 || p.B > 65535 || p.d < 1)
     return false;
   if (p.dtype < 0 || p.dtype > 3) return false;
-  if (p.phases < 1 || p.phases > kTile / 2 || (p.phases & (p.phases - 1)))
+  if (p.dtype == 0 &&
+      (p.phases < 1 || p.phases > kTile / 2 || (p.phases & (p.phases - 1)) ||
+       block_pairs(p.n) * p.phases > kMaxThreads))
     return false;
-  if (block_pairs(p.n) * p.phases > kMaxThreads) return false;
   if (p.cluster < 1 || p.cluster > kMaxCluster || p.groups < 1 ||
       p.tiles_per_cta < 1)
     return false;
-  if ((long long)p.groups * p.cluster * p.tiles_per_cta * kTile < p.d)
+  const int es = esize_of(p.dtype);
+  const int tb = p.tile * es;  // bytes of a staged row
+  if (p.dtype == 0 ? p.tile != kTile : tb != 512 && !(es == 2 && tb == 1024))
+    return false;
+  if ((long long)p.groups * p.cluster * p.tiles_per_cta * p.tile < p.d)
     return false;
   if ((long long)p.groups * p.cluster > 0x7fffffffLL) return false;
   if (p.groups > 1 && (p.scratch == nullptr || p.counters == nullptr))
     return false;
-  return p.smem == smem_bytes(p.n, p.phases, esize_of(p.dtype));
+  if (p.dtype == 0) return p.smem == smem_bytes(p.n, p.phases, es);
+  if (tb == 1024 && narrow_rows(p.n) > 32) return false;
+  return p.smem == narrow_smem_bytes(p.n, tb, es) &&
+         p.smem <= kNarrowSmemMax;
 }
 
 }  // namespace
@@ -564,22 +889,17 @@ extern "C" int pairdist(const void* x, void* out, const void* plan,
   float* o = static_cast<float*>(out);
   cudaError_t err;
   if (p.dtype == 0) {
-    switch (copy_bytes(x, p.d, 4)) {
+    switch (copy_bytes(x, p.d)) {
       case 16: err = launch<float, 16>(x, o, p, s); break;
       case 8: err = launch<float, 8>(x, o, p, s); break;
       default: err = launch<float, 4>(x, o, p, s); break;
     }
   } else if (p.dtype == 1) {
-    err = launch_2byte<__nv_bfloat16>(x, o, p, s);
+    err = launch_narrow_tb<__nv_bfloat16>(x, o, p, s);
   } else if (p.dtype == 2) {
-    err = launch_2byte<__half>(x, o, p, s);
+    err = launch_narrow_tb<__half>(x, o, p, s);
   } else {
-    switch (copy_bytes(x, p.d, 1)) {
-      case 16: err = launch<E4M3, 16>(x, o, p, s); break;
-      case 8: err = launch<E4M3, 8>(x, o, p, s); break;
-      case 4: err = launch<E4M3, 4>(x, o, p, s); break;
-      default: err = launch<E4M3, 0>(x, o, p, s); break;
-    }
+    err = launch_narrow_tb<E4M3>(x, o, p, s);
   }
   return (int)err;
 }

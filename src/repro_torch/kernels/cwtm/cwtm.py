@@ -8,9 +8,16 @@ bitonic network unrolled at compile time and sums them with static rank
 weights. CWTM (here) and the coordinate-wise median
 (``repro_torch.kernels.median``) are this kernel with two weight vectors.
 
-The launch plan (the block size, :func:`sorted_weight_threads`, and the
-float32 weights) is built once per ``(B, n, d, dtype, weights, device)``
-into the C struct the entry takes; a call allocates only its output.
+Below float32 a thread owns :func:`vec_of` adjacent coordinates, reads
+each worker row in loads of :func:`load_width` bytes and sorts two
+coordinates an instruction (f16x2 or bf16x2); every result keeps the
+float32 sum's bits. Where that leaves the card short of threads
+(:func:`plan_vec`) a thread takes one coordinate, as at float32.
+
+The launch plan (the block size, :func:`sorted_weight_threads`, the
+coordinates a thread and the load width, and the float32 weights) is built
+once per ``(B, n, d, dtype, weights, device, address mod 16)`` into the C
+struct the entry takes; a call allocates only its output.
 """
 
 from __future__ import annotations
@@ -58,12 +65,51 @@ def n_pad_of(n: int) -> int:
     return p
 
 
-def sorted_weight_threads(b: int, d: int, sm_count: int) -> int:
+def vec_of(n_pad: int, itemsize: int) -> int:
+    """Coordinates a thread owns (``vec_of`` of the source): 1 at float32;
+    below it at most a 16-byte load a row and at most 64 values (``V *
+    n_pad``, two to a register); at least one pair."""
+    if itemsize >= 4:
+        return 1
+    return max(2, min(16 // itemsize, 64 // n_pad))
+
+
+#: Threads an SM the vector plan must give, else a narrow class takes one
+#: coordinate a thread (latency-bound: CWTM at [1, 13, 11958] on an H100
+#: read 1.8 µs of device time so and 5.3 at V = 4; at [36, 13, 11958], 108K
+#: threads at V = 4, 9.1 against 10.7).
+VEC_MIN_THREADS_PER_SM = 512
+
+
+def plan_vec(b: int, n: int, d: int, itemsize: int, sm_count: int) -> int:
+    """Coordinates a thread the plan takes: :func:`vec_of`, or 1 (the
+    float32 kernel's design) where that would leave an SM fewer than
+    :data:`VEC_MIN_THREADS_PER_SM` threads."""
+    vec = vec_of(n_pad_of(n), itemsize)
+    if -(-d // vec) * b < VEC_MIN_THREADS_PER_SM * sm_count:
+        return 1
+    return vec
+
+
+def load_width(address: int, d: int, itemsize: int, vec: int) -> int:
+    """Bytes a load: the widest power of two up to ``vec * itemsize`` that
+    the tensor's address and its row length ``d * itemsize`` are multiples
+    of (every row start and every thread's first coordinate then lie on
+    it); ``itemsize`` at the least."""
+    w = vec * itemsize
+    while w > itemsize and (address % w or (d * itemsize) % w):
+        w //= 2
+    return w
+
+
+def sorted_weight_threads(b: int, d: int, sm_count: int,
+                          vec: int = 1) -> int:
     """Threads a block: 256, or the widest of 128 and 64 that gives at least
-    one block per SM (64 if none does): one thread per coordinate, so a
+    one block per SM (64 if none does): ``vec`` coordinates a thread, so a
     small ``[b, n, d]`` spreads over the card."""
+    coords = -(-d // vec)  # threads a row
     for t in THREADS[:-1]:
-        if -(-d // t) * b >= sm_count:
+        if -(-coords // t) * b >= sm_count:
             return t
     return THREADS[-1]
 
@@ -77,23 +123,29 @@ class PlanStruct(ctypes.Structure):
     _fields_ = [("d", ctypes.c_longlong), ("B", ctypes.c_int),
                 ("n", ctypes.c_int), ("dtype", ctypes.c_int),
                 ("threads", ctypes.c_int), ("nan_out", ctypes.c_int),
+                ("vec", ctypes.c_int), ("width", ctypes.c_int),
                 ("weights", RankWeights)]
 
 
 def plan_struct(b: int, n: int, d: int, dtype: torch.dtype,
                 weights: Sequence[float], sm_count: int,
-                nan_out: bool = False) -> PlanStruct:
-    """The C launch plan: the block size for the card, the weights as
-    float32, zero past ``n``, and whether a NaN among a coordinate's values
-    makes it NaN (``nan_out``, the median) or sorts last (CWTM)."""
+                nan_out: bool = False, address: int = 0) -> PlanStruct:
+    """The C launch plan: the block size for the card, the coordinates a
+    thread and the load width (from the tensor's ``address``), the weights
+    as float32, zero past ``n``, and whether a NaN among a coordinate's
+    values makes it NaN (``nan_out``, the median) or sorts last (CWTM)."""
     w = RankWeights()
     w.w[:len(weights)] = [float(v) for v in weights]
+    size = torch.empty((), dtype=dtype).element_size()
+    vec = plan_vec(b, n, d, size, sm_count)
     return PlanStruct(d, b, n, DTYPES[dtype],
-                      sorted_weight_threads(b, d, sm_count), int(nan_out), w)
+                      sorted_weight_threads(b, d, sm_count, vec),
+                      int(nan_out), vec, load_width(address, d, size, vec),
+                      w)
 
 
-#: ``{(B, n, d, dtype, device index, weights, nan_out): (struct address,
-#: struct)}``.
+#: ``{(B, n, d, dtype, device index, weights, nan_out, address % 16):
+#: (struct address, struct)}``.
 _LAUNCH: Dict[tuple, tuple] = {}
 
 
@@ -125,15 +177,16 @@ def sorted_weighted_cuda(x: torch.Tensor, weights: Sequence[float],
     _check(x, weights)
     b, n, d = x.shape
     idx = x.get_device()
-    key = (b, n, d, x.dtype, idx, tuple(weights), nan_out)
+    ptr = x.data_ptr()
+    key = (b, n, d, x.dtype, idx, tuple(weights), nan_out, ptr % 16)
     launch = _LAUNCH.get(key)
     if launch is None:
         struct = plan_struct(b, n, d, x.dtype, weights, build.sm_count(idx),
-                             nan_out)
+                             nan_out, ptr % 16)
         launch = _LAUNCH[key] = (ctypes.addressof(struct), struct)
     out = x.new_empty((b, d))
     err = build.entry("sorted_weight", "sorted_weight")(
-        x.data_ptr(), out.data_ptr(), launch[0], build.stream_ptr(idx))
+        ptr, out.data_ptr(), launch[0], build.stream_ptr(idx))
     build.check(err, "sorted_weight")
     return out
 

@@ -119,9 +119,9 @@ def test_plan_structs_match_the_c_structs(source, struct, py):
         else:
             assert t is expect, field
     if struct == "SortedWeightPlan":
-        assert ctypes.sizeof(cls) == 28 + 4 * 64 + 4  # to 8-byte alignment
+        assert ctypes.sizeof(cls) == 36 + 4 * 64 + 4  # to 8-byte alignment
     else:
-        assert ctypes.sizeof(cls) == 8 * 3 + 4 * 8
+        assert ctypes.sizeof(cls) == 8 * 3 + 4 * 9 + 4  # the same
 
 
 def test_profile_kinds_name_the_real_kernels():

@@ -1496,3 +1496,183 @@ def test_cwtm_at_float16_compute_through_make_aggregator(card):
         want = make_aggregator(cfg, device="cpu")(x.cpu())
         assert got.dtype == torch.float16
         assert int(_steps_off(got.cpu(), want, x).max()) <= 1
+
+
+# --------------------------------------------------------------------------
+# The sort kernels' narrow classes: V coordinates a thread, pairs sorted in
+# f16x2/bf16x2 (sorted_weight.cu), tiles of bytes widened once (pairdist.cu)
+# --------------------------------------------------------------------------
+
+NARROW = [torch.bfloat16, torch.float16, torch.float8_e4m3fn]
+ODD_D = list(range(1, 34)) + [4099, 11958]
+# Row lengths whose grid takes the vector plan at n = 13 (V = 4; over
+# VEC_MIN_THREADS_PER_SM threads an SM of an H100): odd, 2 and 4 mod 8.
+VEC_D = [300_001, 300_002, 300_004]
+
+
+def _vec(x):
+    """Coordinates a thread the sorted-weight plan takes for ``x``."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.cwtm.cwtm import plan_vec
+    return plan_vec(*x.shape, x.element_size(), build.sm_count(0))
+
+
+def _narrow(x, dt, offset=0):
+    """``x`` rounded to ``dt`` (float8: the reference's cast), copied into
+    a tensor that starts ``offset`` elements into its storage."""
+    from repro_torch.utils.dtypes import to_dtype
+    v = to_dtype(x, dt)
+    flat = torch.empty(v.numel() + offset, dtype=dt, device=v.device)
+    out = flat[offset:].view(v.shape)
+    out.copy_(v)
+    return out
+
+
+def _rounded_f32_kernel(x, kernel):
+    """The float32 kernel on ``x`` widened, rounded to ``x``'s dtype: the
+    narrow classes sort the same values and sum them in the same order, so
+    they must give these bits (NaN alike)."""
+    from repro_torch.utils.dtypes import to_dtype
+    return to_dtype(kernel(x.float()), x.dtype)
+
+
+def _same_narrow(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert int(_ulps_off(got, want).max()) == 0
+    # _ulps_off reads -0 and +0 as one value: the bits must agree too
+    same = got.view(torch.uint8 if got.element_size() == 1 else torch.int16
+                    ) == want.view(torch.uint8 if want.element_size() == 1
+                                   else torch.int16)
+    nan = torch.isnan(got.float()) & torch.isnan(want.float())
+    assert bool((same | nan).all())
+
+
+def _sort_checks(x, f):
+    """CWTM and the median on narrow ``x``: the float32 kernel's bits
+    rounded; against the plain versions within one step (the median
+    bitwise), NaN at their places."""
+    if x.shape[1] > 2 * f:
+        got = cwtm_cuda(x, f)
+        _same_narrow(got, _rounded_f32_kernel(x, lambda t: cwtm_cuda(t, f)))
+        assert int(_steps_off(got, cwtm_ref(x, f), x).max()) <= 1
+    got = median_cuda(x)
+    _same_narrow(got, _rounded_f32_kernel(x, median_cuda))
+    assert int(_ulps_off(got, median_ref(x)).max()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", NARROW)
+def test_narrow_sort_kernels_keep_signed_zeros(card, dt):
+    """-0.0 and +0.0 among a coordinate's values (and values that round to
+    zero): f16x2/bf16x2 min/max order them as the float32 network does."""
+    x = _x(2, 13, 300_001, 41, card)
+    rng = np.random.default_rng(41)
+    zero = torch.tensor(rng.random(x.shape) < 0.4, device=card)
+    sign = torch.tensor(rng.random(x.shape) < 0.5, device=card)
+    x = torch.where(zero, torch.where(sign, -0.0, 0.0), x)
+    x[:, :, ::5] = torch.where(sign[:, :, ::5], -1e-4, 1e-4)
+    x[:, :, ::9] = torch.where(sign[:, :, ::9], -0.0, 0.0)
+    xs = _narrow(x, dt)
+    assert bool((xs.float() == 0).any() & torch.signbit(xs.float()).any())
+    assert _vec(xs) > 1  # the pairs kernel
+    _sort_checks(xs, 3)
+    x8 = _narrow(x[:, :8].contiguous(), dt)
+    assert _vec(x8) > 1
+    _sort_checks(x8, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", NARROW)
+@pytest.mark.parametrize("lanes", ["even", "odd", "one_of_each_pair"])
+def test_nan_in_one_lane_of_a_packed_pair(card, dt, lanes):
+    """NaN in one coordinate of a packed pair: only that coordinate takes
+    the second sort (CWTM trims the NaN, the median is NaN), its neighbour
+    keeps its sum."""
+    d = 140_001
+    x = _x(2, 13, d, 42, card).clamp(-400, 400)
+    rng = np.random.default_rng(42)
+    cols = np.arange(d)
+    pick = {"even": cols[cols % 2 == 0], "odd": cols[cols % 2 == 1],
+            "one_of_each_pair": cols[(cols // 2) % 2 == cols % 2]}[lanes]
+    pick = pick[rng.random(pick.size) < 0.5]
+    # one NaN in each picked coordinate, a second in every third of them
+    for part in (pick, pick[pick % 3 == 2]):
+        x[:, torch.tensor(rng.integers(13, size=part.size)),
+          torch.tensor(part)] = float("nan")
+    xs = _narrow(x, dt)
+    assert _vec(xs) > 1  # the pairs kernel
+    _sort_checks(xs, 3)
+    nan_cols = torch.isnan(median_cuda(xs).float()).any(0)
+    assert bool(nan_cols[torch.tensor(pick)].all())
+    assert not bool(nan_cols[torch.tensor(np.setdiff1d(cols, pick))].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,offset", [(torch.bfloat16, 0), (torch.bfloat16, 1),
+                                       (torch.float16, 0), (torch.float16, 1),
+                                       (torch.float8_e4m3fn, 0),
+                                       (torch.float8_e4m3fn, 1),
+                                       (torch.float8_e4m3fn, 2),
+                                       (torch.float8_e4m3fn, 3)])
+def test_narrow_sort_kernels_on_misaligned_rows(card, dt, offset):
+    """Rows made misaligned by odd d (1..33, 4,099, 11,958: the
+    one-coordinate plan; VEC_D: the vector plan) and by a tensor that
+    starts ``offset`` elements (1, 2 or 3 bytes at float8, 2 at 16 bits)
+    into its storage: the sorted-weight kernel's narrower loads, and
+    pairdist's covering chunks, give what aligned rows give. pairdist is
+    held to the float64 distances: at d = 4,099 in bfloat16 the float32
+    plain version (cuBLAS) is 0.39 from them on an H100, the kernel
+    0.001."""
+    from repro_torch.kernels.cwtm.cwtm import load_width, n_pad_of, vec_of
+    for d in ODD_D + VEC_D:
+        x = _x(2 if d < VEC_D[0] else 1, 13, d, 43 + d, card).clamp(-400,
+                                                                    400)
+        xs = _narrow(x, dt, offset)
+        size = xs.element_size()
+        w = load_width(xs.data_ptr() % 16, d, size, vec_of(n_pad_of(13),
+                                                           size))
+        if offset * size % 2 or d * size % 2:
+            assert w == size  # no wider load fits these rows
+        assert (_vec(xs) > 1) == (d in VEC_D)
+        _sort_checks(xs, 3)
+        got = pairdist_cuda(xs)
+        _pairdist_ok(got, xs, "float64")
+        assert torch.equal(got, pairdist_cuda(xs))
+        # the same values aligned: within 1e-5 of max |x|^2 of them
+        aligned = pairdist_cuda(_narrow(x, dt))
+        assert float((got - aligned).abs().max()) <= 1e-5 * float(
+            xs.float().square().sum(-1).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", NARROW)
+@pytest.mark.parametrize("b,n,f,d", [(1, 1, 0, 1 << 21), (3, 1, 0, 77),
+                                     (1, 13, 3, 300_001), (4, 13, 3, 2049),
+                                     (3, 13, 3, 100_003),
+                                     (1, 64, 20, 140_001), (3, 64, 20, 999),
+                                     (2, 33, 10, 70_001)])
+def test_narrow_sort_kernels_at_n_1_13_64_and_batches(card, dt, b, n, f, d):
+    """n = 1 (N_PAD 2), 13, 33 and 64 (V = 2 at N_PAD 64), one and several
+    batch rows, each on the plan its grid takes (the pairs kernel past
+    VEC_MIN_THREADS_PER_SM threads an SM): the sorted-weight kernel gives
+    the float32 kernel's bits rounded; pairdist stays within 1e-5 of max
+    |x|^2 of the float64 distances and repeats bitwise."""
+    xs = _narrow(_x(b, n, d, 44, card).clamp(-400, 400), dt)
+    assert (_vec(xs) > 1) == (d > 50_000)
+    _sort_checks(xs, f)
+    got = pairdist_cuda(xs)
+    _pairdist_ok(got, xs, "float64")
+    assert torch.equal(got, pairdist_cuda(xs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", NARROW)
+@pytest.mark.parametrize("shape", [(1, 13, 11958), (36, 13, 11958),
+                                   (1, 13, 1048576), (8, 13, 1048576)])
+def test_narrow_pairdist_repeats_bitwise(card, dt, shape):
+    """No float atomics: two calls on the same narrow inputs give the same
+    bits, with a zero diagonal and a symmetric result."""
+    xs = _narrow(_x(*shape, 45, card).clamp(-400, 400), dt)
+    first = pairdist_cuda(xs)
+    _pairdist_ok(first, xs, "float64")
+    assert torch.equal(first, pairdist_cuda(xs))

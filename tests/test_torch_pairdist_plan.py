@@ -28,7 +28,7 @@ RAGGED = [(1, 13, 1), (1, 13, 100), (1, 13, 127), (1, 13, 128),
 
 
 @pytest.mark.parametrize("b,n,d", PATH + RAGGED)
-@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
 @pytest.mark.parametrize("sms", [H100_SMS, 114])
 def test_every_column_falls_in_exactly_one_cta(b, n, d, itemsize, sms):
     plan = pairdist_plan(b, n, d, itemsize, sms)
@@ -43,7 +43,7 @@ def test_every_column_falls_in_exactly_one_cta(b, n, d, itemsize, sms):
 
 
 @pytest.mark.parametrize("b,n,d", PATH + RAGGED)
-@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
 def test_plan_limits(b, n, d, itemsize):
     plan = pairdist_plan(b, n, d, itemsize, H100_SMS)
     assert 1 <= plan.cluster <= MAX_CLUSTER
@@ -53,11 +53,11 @@ def test_plan_limits(b, n, d, itemsize):
     assert plan.threads <= MAX_THREADS and plan.threads % plan.phases == 0
     assert (TILE // 2) % plan.phases == 0
     assert plan.smem < SMEM_LIMIT
-    assert plan.groups * plan.cluster * plan.tiles_per_cta * TILE >= d
+    assert plan.groups * plan.cluster * plan.tiles_per_cta * plan.tile >= d
 
 
 @pytest.mark.parametrize("n", range(1, 65))
-@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
 def test_shared_memory_stays_under_227_kb(n, itemsize):
     plan = pairdist_plan(1, n, 1 << 20, itemsize, H100_SMS)
     assert plan.smem < SMEM_LIMIT
