@@ -27,7 +27,9 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    compress and decompress bitwise against theirs at awkward shapes and at
    the LLM step's ``[8, 416179200]`` with 40,642 blocks of 512 and the
    audio train step's ``[8, 59784192]`` with 5,838, compress alone at the
-   families' train steps' banks; the
+   families' train steps' banks and at one row of dbrx_132b's ``[1,
+   4492216320]`` float8 bank (the streamed step compresses a worker's row
+   at a time; 64-bit offsets past 2^32 bytes); the
    momentum update (``momentum_scatter``) bitwise against its plain
    version at awkward shapes (global and local ids, float32 and bfloat16
    banks, beta 0, 0.9 and 0.99, one block and every block, banks holding
@@ -47,7 +49,8 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    folded ``[288, 32, 2, 64]``, at the audio train step's ``[1, 4096, 24,
    64]``, at zamba2's ``[1, 4096, 32, 112]`` (unpadded), at gemma_2b's
    ``[1, 4096, 8, 256]`` with one kv head (dk/dv split 9 ways, dq from
-   dS^T), at the vlm's, qwen25_3b's and mistral's and at the LLM step's
+   dS^T), at the vlm's, qwen25_3b's, mistral's and dbrx_132b's ``[1,
+   4096, 48, 128]`` (8 kv heads) and at the LLM step's
    ``[1, 4096, 32, 80]``, and where the bf16 dk/dv blocks split
    (``FLASH_SPLIT``, 112 among them), two backward runs bitwise equal in
    every bf16 case; the float32 kernels (``csrc/flash_attention_f32.cu``)
@@ -76,12 +79,15 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    sequence, f = 1, ALIE, CWTM, global Block-RandK at 0.05, for 8 steps on
    the payload route; every step's honest loss, |R| and time, the peak
    device memory and a profiled window; the launch counts (flash forward
-   and backward = layers x workers x steps, compress = momentum_scatter =
-   CWTM = steps, decompress = 0), a finite falling loss, and the first 2
+   and backward = layers x workers x steps, compress = workers x steps
+   (the streamed step compresses each worker's row as its gradient
+   exists), momentum_scatter = CWTM = steps, decompress = 0), a finite
+   falling loss, and the first 2
    steps against the plain path. Then the launcher's options: 2 steps with
    ``--local-masks`` (the dense wire: decompress = 2), 4 steps with
    ``--momentum-dtype bfloat16``, 2 steps each with ``--momentum-dtype
-   float16`` and ``float8_e4m3fn`` (compress = momentum_scatter = 2), 2
+   float16`` and ``float8_e4m3fn`` (compress 16, momentum_scatter and
+   CWTM once a window), 2
    steps each of ``--algo dasha`` at ``float32``, ``bfloat16`` and
    ``float8_e4m3fn`` banks (the round by column slices, each slice's new
    banks written over the old: CWTM once a slice, 25 a step, no
@@ -159,7 +165,7 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    mistral_large_123b (4 layers), timed and held the same way;
    musicgen_medium's train path through ``repro_torch.launch.train`` (2
    layers, seq 4096, 8 workers, f = 1, 4 steps: flash forward and backward
-   64 each, compress, ``momentum_scatter`` and CWTM 4), its first 2 steps
+   64 each, compress 32, ``momentum_scatter`` and CWTM 4), its first 2 steps
    against the plain path (``python3 chip_smoke.py decode`` runs this
    phase alone, with its profiled decode steps);
 11. the MoE, MLA, SSM and hybrid families (``families``): dbrx_132b at full
@@ -179,11 +185,15 @@ Phases, each of which fails the run (nonzero exit, no ``ok`` line):
    prompt (16 chunks of 256 and a padded 17th) and 16 steps; the train
    paths of deepseek_v2_lite_16b (2 layers, bfloat16 banks), mamba2_1_3b
    (2 layers), zamba2_7b (6 layers, bfloat16 banks) and gemma_2b (2
-   layers, bfloat16 banks: head dim 256, one kv head) through
+   layers, bfloat16 banks: head dim 256, one kv head), the vlm (5 layers,
+   float8 and bfloat16 banks), qwen25_3b, mistral_large_123b (1 layer,
+   float8 banks) and dbrx_132b (1 layer, float8 banks: the streamed step
+   holds no gradient bank, so it fits one card) through
    ``repro_torch.launch.train`` (seq 4096, 8 workers, f = 1, 4 steps:
-   compress, ``momentum_scatter`` and CWTM once a step, decompress 0, flash
-   forward and backward 32 each for zamba2, 64 each for gemma_2b), their
-   first 2 steps against
+   compress once a worker, ``momentum_scatter`` and CWTM once a window,
+   decompress 0, flash forward and backward 32 each for zamba2, 64 each
+   for gemma_2b), each peak and held MiB beside the dry run's reckoning,
+   their first 2 steps against
    the plain path; then profiled decode steps of llama32_vision_11b,
    musicgen_medium and the four families' models;
 12. the paper's experiments (``paper``; it runs after the stream phase):
@@ -402,6 +412,13 @@ VLM_BANK = ("llama32_vision_11b", 2_141_237_760, "float8_e4m3fn")
 VLM_WINDOW_BLOCKS = 32_768
 VLM_WINDOWS = ((0, VLM_WINDOW_BLOCKS),
                (127 * VLM_WINDOW_BLOCKS, 2_141_237_760 // LLM_BS))
+# dbrx_132b's train path (the families phase): full width cut to 1 layer,
+# float8 banks of D = 4,492,216,320 (8,773,860 whole blocks). The streamed
+# step compresses one worker's row at a time, [1, D] (4.49 GB: the kernel's
+# offsets pass 2^32 bytes), and its payload round runs 268 windows of
+# 32,768 blocks a step (MOMENTUM_DBRX_SWEEP: the momentum kernel and CWTM
+# over every window, held at the first, a middle and the ragged last)
+DBRX_BANK = ("dbrx_132b", 4_492_216_320, "float8_e4m3fn")
 
 # Block-RandK cases: (n, d, block_size, kb, local ids, dtype name).
 RANDK_AWKWARD = [(3, 128 * 7, 128, 1, False, "float32"),
@@ -431,6 +448,9 @@ RANDK_FAMILIES = [(LLM_WORKERS, d, LLM_BS, kept_blocks(d), False, dt)
                   for _, d, dt in FAMILY_BANKS]
 RANDK_LOWP = [(LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, dt)
               for dt in LOWP_DTYPES]
+# compress as the streamed step launches it on dbrx_132b: one row (timed)
+RANDK_DBRX = (1, DBRX_BANK[1], LLM_BS, kept_blocks(DBRX_BANK[1]), False,
+              DBRX_BANK[2])
 
 # Momentum cases: (n, d, block_size, kb, local ids, bank dtype, beta,
 # -0.0 in the bank). The payload is in the bank's dtype (the wire dtype is
@@ -478,8 +498,13 @@ MOMENTUM_LOWP = [(LLM_WORKERS, LLM_D, LLM_BS, LLM_KB, False, dt, 0.9, False)
 # the vlm's float8 bank at its first and last window (timed)
 MOMENTUM_VLM = [(LLM_WORKERS, VLM_BANK[1], LLM_BS, kept_blocks(VLM_BANK[1]),
                  False, VLM_BANK[2], 0.9, False, w) for w in VLM_WINDOWS]
-# ... and every window of VLM_WINDOW_BLOCKS blocks of it, one after another
+# ... and every window of VLM_WINDOW_BLOCKS blocks of it, one after another;
+# then dbrx_132b's float8 bank the same way
 MOMENTUM_VLM_SWEEP = MOMENTUM_VLM[0][:8] + (VLM_WINDOW_BLOCKS,)
+MOMENTUM_DBRX_SWEEP = (LLM_WORKERS, DBRX_BANK[1], LLM_BS,
+                       kept_blocks(DBRX_BANK[1]), False, DBRX_BANK[2], 0.9,
+                       False, VLM_WINDOW_BLOCKS)
+MOMENTUM_SWEEPS = (MOMENTUM_VLM_SWEEP, MOMENTUM_DBRX_SWEEP)
 # float8 stores past the largest finite value: values that round to 448,
 # the midpoint 464, past it, +-inf and NaN, on the momentum kernel's
 # store (beta 0 writes the float32 payload as it is)
@@ -531,6 +556,8 @@ FLASH_VLM = (1, LLM_SEQ, LLM_SEQ, 32, 8, 128, True, None, 0)
 # mistral_large_123b's (96 on 8: groups of 12) self-attention
 FLASH_QWEN = (1, LLM_SEQ, LLM_SEQ, 16, 2, 128, True, None, 0)
 FLASH_MISTRAL = (1, LLM_SEQ, LLM_SEQ, 96, 8, 128, True, None, 0)
+# dbrx_132b's (48 on 8: groups of 6)
+FLASH_DBRX = (1, LLM_SEQ, LLM_SEQ, 48, 8, 128, True, None, 0)
 # transformer-table1's folded call: 8 lanes x 9 workers x 4 sequences of 32
 # tokens, 2 heads of 64 (the stream phase's grid under torch.func)
 FLASH_TT1 = (288, 32, 32, 2, 2, 64, True, None, 0)
@@ -564,7 +591,8 @@ FLASH_F32_TILE_TOL = 1e-4
 # 112, which the float32 kernels take unpadded).
 FLASH_F32_TIMED = (FLASH_ZAMBA, FLASH_GEMMA, FLASH_VLM, FLASH_PATH)
 FLASH_BF16_TIMED = (FLASH_PATH, FLASH_TT1, FLASH_AUDIO, FLASH_ZAMBA,
-                    FLASH_GEMMA, FLASH_VLM, FLASH_QWEN, FLASH_MISTRAL)
+                    FLASH_GEMMA, FLASH_VLM, FLASH_QWEN, FLASH_MISTRAL,
+                    FLASH_DBRX)
 # Rounds of (version, tree, tree, version) readings an A/B takes at each
 # case: the spread between calls of one build reaches 4% at table1's
 # backward, so two readings each cannot resolve a 3% difference.
@@ -1016,6 +1044,10 @@ def kernel_phase(torch) -> dict:
             # payload and dense rounds, dasha's): DENSE_COLUMNS columns
             cases.append(((1, LLM_WORKERS, 1 << 24), 1, torch.float32, True,
                           "plain"))
+            # the ragged last window of dbrx_132b's payload round (24,804
+            # blocks of 512)
+            cases.append(((1, LLM_WORKERS, DBRX_BANK[1] % (1 << 24)), 1,
+                          torch.float32, False, "plain"))
         for i, (shape, f, dt, timed, ref) in enumerate(cases):
             rec = kernel_case(torch, name, shape, f, dt, timed, seed=100 + i,
                               reference=ref)
@@ -1621,7 +1653,7 @@ def momentum_fn(torch, case, seed: int, device: str = "cuda"):
 
 def momentum_sweep_fns(torch, case, inputs, device: str = "cuda"):
     """The payload round's steps 5 and 6 over every window of ``case[8]``
-    blocks of the case's bank, as ``algorithms._rosdhb_payload_round``
+    blocks of the case's bank, as ``algorithms._payload_apply``
     launches them (one slot map, one reused float32 slice), on ``inputs``
     (:func:`momentum_inputs`): ``({"momentum_scatter": the momentum kernel
     over the windows, "cwtm": CWTM (f = 1) over each window's slice into
@@ -1835,17 +1867,19 @@ def randk_phase(torch, device: str = "cuda", path=RANDK_PATH,
                 families=RANDK_FAMILIES,
                 momentum_families=MOMENTUM_FAMILIES, lowp=RANDK_LOWP,
                 momentum_lowp=MOMENTUM_LOWP,
-                momentum_vlm=MOMENTUM_VLM,
-                momentum_sweep=MOMENTUM_VLM_SWEEP) -> dict:
+                momentum_vlm=MOMENTUM_VLM, dbrx=RANDK_DBRX,
+                momentum_sweeps=MOMENTUM_SWEEPS) -> dict:
     """Block-RandK kernel cases: awkward shapes (float16 and float8 among
     them), the audio train path's (``audio``), the families' train paths'
-    (``families``: compress only, timed), the LLM path's bank in float16
-    and float8 (``lowp``, timed), then the LLM path's (timed, last); the
-    momentum kernel likewise (the families' and then ``momentum_lowp``,
-    timed), its windowed awkward cases and the vlm's float8 bank at its
-    first and last window (``momentum_vlm``, timed) and over all its
-    windows with CWTM on their slices (``momentum_sweep``, timed,
-    :func:`momentum_sweep_case`); the float8 store at its edges
+    (``families``: compress only, timed), one row of dbrx_132b's float8
+    bank as the streamed step compresses it (``dbrx``: compress only,
+    timed), the LLM path's bank in float16 and float8 (``lowp``, timed),
+    then the LLM path's (timed, last); the momentum kernel likewise (the
+    families' and then ``momentum_lowp``, timed), its windowed awkward
+    cases and the vlm's float8 bank at its first and last window
+    (``momentum_vlm``, timed) and, the vlm's and then dbrx_132b's, over all
+    the bank's windows with CWTM on their slices (``momentum_sweeps``,
+    timed, :func:`momentum_sweep_case`); the float8 store at its edges
     (:func:`float8_store_case`); then one server round, payload route
     against dense round, at the LLM path's shape (``round_shape`` ``(n, d,
     bs)`` overrides it)."""
@@ -1857,6 +1891,7 @@ def randk_phase(torch, device: str = "cuda", path=RANDK_PATH,
              + [(audio, False, 300 + n_awk + 1, True)]
              + [(c, True, 300 + n_awk + 2 + i, False)
                 for i, c in enumerate(families)]
+             + [(dbrx, True, 370, False)]
              + [(c, False, 360 + i, True)
                 for i, c in enumerate(RANDK_AWKWARD_LOWP)]
              + [(c, True, 350 + i, True) for i, c in enumerate(lowp)]
@@ -1912,25 +1947,27 @@ def randk_phase(torch, device: str = "cuda", path=RANDK_PATH,
             failures.append(f"momentum_scatter {case}")
         if device == "cuda":
             torch.cuda.empty_cache()
-    rec = momentum_sweep_case(torch, momentum_sweep, device == "cuda",
-                              seed=490, device=device)
-    out["momentum_sweep"] = [rec]
-    line = (f"kernel momentum_scatter n={rec['shape'][0]} d={rec['shape'][1]}"
-            f" {rec['dtype']}: {rec['windows']} windows of "
-            f"{rec['window_blocks']} blocks, bitwise {rec['ok']} at "
-            f"{rec['checked_windows']}")
-    for name in ("momentum_scatter", "cwtm"):
-        if name in rec:
-            t = rec[name]
-            line += (f" | {name} sweep ms={t['ms']:.5f} host_us="
-                     f"{t['host_us']:.1f} bound_ms={t['bound_ms']:.5f}"
-                     + (f" plain_ms={t['plain_ms']:.5f}" if "plain_ms" in t
-                        else ""))
-    log(line)
-    if not rec["ok"]:
-        failures.append(f"momentum_scatter sweep {momentum_sweep}")
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    out["momentum_sweep"] = []
+    for i, sweep in enumerate(momentum_sweeps):
+        rec = momentum_sweep_case(torch, sweep, device == "cuda",
+                                  seed=490 + i, device=device)
+        out["momentum_sweep"].append(rec)
+        line = (f"kernel momentum_scatter n={rec['shape'][0]} "
+                f"d={rec['shape'][1]} {rec['dtype']}: {rec['windows']} "
+                f"windows of {rec['window_blocks']} blocks, bitwise "
+                f"{rec['ok']} at {rec['checked_windows']}")
+        for name in ("momentum_scatter", "cwtm"):
+            if name in rec:
+                t = rec[name]
+                line += (f" | {name} sweep ms={t['ms']:.5f} host_us="
+                         f"{t['host_us']:.1f} bound_ms={t['bound_ms']:.5f}"
+                         + (f" plain_ms={t['plain_ms']:.5f}"
+                            if "plain_ms" in t else ""))
+        log(line)
+        if not rec["ok"]:
+            failures.append(f"momentum_scatter sweep {sweep}")
+        if device == "cuda":
+            torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"block kernels disagree: {failures}")
     out["float8_store"] = float8_store_case(torch, device)
@@ -2196,8 +2233,9 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
     transformer-table1's folded call, the audio train path's (``audio``),
     zamba2_7b's shared block at head dim 112 (``zamba``), gemma_2b's at
     head dim 256 (``gemma``), the vlm's self-attention (``vlm``: GQA, 32
-    heads of 128 on 8), qwen25_3b's (16 on 2) and mistral_large_123b's (96
-    on 8), and the LLM path's (timed; the LLM path's last), then
+    heads of 128 on 8), qwen25_3b's (16 on 2), mistral_large_123b's (96
+    on 8) and dbrx_132b's (48 on 8), and the LLM path's (timed; the LLM
+    path's last), then
     ``FLASH_SPLIT`` (bf16 dk/dv splits, 112), each bf16 backward twice and
     bitwise equal; the float32 kernels on every awkward case and, timed,
     at ``f32_timed`` (zamba2's, gemma_2b's, the vlm's and the LLM path's
@@ -2217,7 +2255,8 @@ def flash_phase(torch, device: str = "cuda", path=FLASH_PATH,
                 (gemma, True, 500 + n_awk + 4),
                 (vlm, True, 500 + n_awk + 5),
                 (FLASH_QWEN, True, 500 + n_awk + 6),
-                (FLASH_MISTRAL, True, 500 + n_awk + 7)]
+                (FLASH_MISTRAL, True, 500 + n_awk + 7),
+                (FLASH_DBRX, True, 500 + n_awk + 8)]
              + [(c, False, 650 + i) for i, c in enumerate(FLASH_SPLIT)])
     cases = [(c, timed, seed, "bfloat16") for c, timed, seed in cases]
     # the float32 kernels: every awkward case, then the timed rows; the
@@ -3438,11 +3477,11 @@ def llm_phase(torch, device: str = "cuda", steps: int = LLM_STEPS,
     if not sum(losses[-2:]) / 2 < losses[0]:
         raise AssertionError(f"llm: honest loss did not fall: {losses}")
     on_card = device == "cuda"
-    # the payload route: compress, the momentum kernel and CWTM once a
-    # step; no dense wire, so no decompress
+    # the payload route, streamed: compress once a worker, the momentum
+    # kernel and CWTM once a window; no dense wire, so no decompress
     check_launches("llm", launches, llm_launches(
-        cfg, plan, steps, on_card, block_compress=1, block_decompress=0,
-        momentum_scatter=payload_slices))
+        cfg, plan, steps, on_card, block_compress=compressions,
+        block_decompress=0, momentum_scatter=payload_slices))
 
     prof = None
     if on_card:
@@ -3496,8 +3535,8 @@ def llm_f32(torch, device: str = "cuda", steps: int = LLM_F32_STEPS) -> dict:
     from repro_torch.launch import train
     on_card = device == "cuda"
     res = llm_run(torch, device, "f32", llm_argv(device, steps), steps,
-                  dtype="float32", block_compress=1, block_decompress=0,
-                  momentum_scatter=payload_slices)
+                  dtype="float32", block_compress=compressions,
+                  block_decompress=0, momentum_scatter=payload_slices)
     cfg = res["plan"].model
     rec = {"dtype": cfg.dtype, "steps": steps, "losses": res["losses"],
            "dir_norms": res["dir_norms"], "step_ms": res["step_ms"],
@@ -3557,6 +3596,17 @@ def llm_run(torch, device: str, label: str, argv: list, steps: int,
     held = (res["held_bytes"] / 2**20 if res["held_bytes"] is not None
             else float("nan"))
     return {**res, "peak_mib": peak, "held_mib": held, "launches": launches}
+
+
+def compressions(plan) -> int:
+    """Launches of ``block_compress`` a step of RoSDHB under ``plan``: one a
+    worker where the step streams its payload
+    (``algorithms.streams_payload``: each worker's row compressed into its
+    payload row as soon as its gradient exists), one a step on the ``[n,
+    D]`` bank."""
+    from repro_torch.core import algorithms as alg
+    return (plan.n_workers if alg.streams_payload(plan.algo,
+                                                  plan.bank_width) else 1)
 
 
 def payload_slices(plan) -> int:
@@ -3632,7 +3682,7 @@ def llm_options(torch, device: str = "cuda", local_steps: int = 2,
 
     res = llm_run(torch, device, "bfloat16 banks", llm_argv(
         device, bf16_steps) + ["--momentum-dtype", "bfloat16"], bf16_steps,
-        block_compress=1, block_decompress=0,
+        block_compress=compressions, block_decompress=0,
         momentum_scatter=payload_slices)
     if res["state"].server.momentum.dtype != torch.bfloat16:
         raise AssertionError("llm bfloat16 banks: the momentum bank is "
@@ -3648,7 +3698,7 @@ def llm_options(torch, device: str = "cuda", local_steps: int = 2,
     for dt in LOWP_DTYPES:
         argv = llm_argv(device, lowp_steps) + ["--momentum-dtype", dt]
         res = llm_run(torch, device, f"{dt} banks", argv, lowp_steps,
-                      block_compress=1, block_decompress=0,
+                      block_compress=compressions, block_decompress=0,
                       momentum_scatter=payload_slices)
         if res["state"].server.momentum.dtype != getattr(torch, dt):
             raise AssertionError(f"llm {dt} banks: the momentum bank is "
@@ -3685,8 +3735,9 @@ def llm_options(torch, device: str = "cuda", local_steps: int = 2,
     argv = llm_argv(device, stream_steps)
     res = llm_run(torch, device, "stream", argv + [
         "--stream", "--chunk-size", str(chunk), "--prefetch-depth", "2",
-        "--checkpoint", str(ckpt)], stream_steps, block_compress=1,
-        block_decompress=0, momentum_scatter=payload_slices)
+        "--checkpoint", str(ckpt)], stream_steps,
+        block_compress=compressions, block_decompress=0,
+        momentum_scatter=payload_slices)
     streamed = res["state"].params
     stream_rec = {k: res[k] for k in ("losses", "step_ms", "peak_mib",
                                       "launches", "host_high_water_bytes")}
@@ -5119,7 +5170,7 @@ def decode_phase(torch, device: str = "cuda", profile: bool = True) -> dict:
     launches = K.launches()
     plan = res["plan"]
     check_launches("decode audio train", launches, llm_launches(
-        plan.model, plan, AUDIO_STEPS, on_card, block_compress=1,
+        plan.model, plan, AUDIO_STEPS, on_card, block_compress=compressions,
         block_decompress=0, momentum_scatter=payload_slices))
     losses, norms = res["losses"], res["dir_norms"]
     if not all(math.isfinite(v) for v in losses + norms):
@@ -5208,23 +5259,27 @@ FAMILY_LAYER_GAPS = ("mamba2_1_3b", "zamba2_7b")
 # 17th (the chunk recurrence, the pad, the conv state), then 16 steps
 FAMILY_LONG = ("mamba2_1_3b", 4100, 16)
 # the train paths: (arch, layers, bank dtype), full width, seq 4096, 8
-# workers, f = 1, ALIE, CWTM, global Block-RandK 0.05; bfloat16 banks at
-# D ~ 1e9, where two float32 [8, D] banks would fill 66 GB; gemma_2b's
-# (D = 744,499,200) takes the flash kernels at head dim 256 (MQA); the
-# vlm's (VLM_BANK: 5 layers, the first with a cross layer) at float8 banks,
-# its payload round 128 windows a step (at bfloat16 banks its held state,
-# gradient bank and a worker's transients would not fit 80 GB); qwen25_3b's
-# (D = 776,485,888; QKV bias, 16 query heads on 2 KV heads, an untied
-# 151,936-row head) at bfloat16 banks; mistral_large_123b's one 12288-wide
-# layer (D = 2,189,463,552; 96 query heads on 8) at float8 banks, 131
-# windows a step
+# workers, f = 1, ALIE, CWTM, global Block-RandK 0.05, the streamed step
+# (each worker's row compressed as its gradient exists: no [n, D] gradient
+# bank); bfloat16 banks at D ~ 1e9, where two float32 [8, D] banks would
+# fill 66 GB; gemma_2b's (D = 744,499,200) takes the flash kernels at head
+# dim 256 (MQA); the vlm's (VLM_BANK: 5 layers, the first with a cross
+# layer) at float8 banks and at the reference's bfloat16 ones, its payload
+# round 128 windows a step; qwen25_3b's (D = 776,485,888; QKV bias, 16
+# query heads on 2 KV heads, an untied 151,936-row head) at bfloat16 banks;
+# mistral_large_123b's one 12288-wide layer (D = 2,189,463,552; 96 query
+# heads on 8) at float8 banks, 131 windows a step; dbrx_132b's one layer
+# (DBRX_BANK: D = 4,492,216,320; 16 experts of 10752, top 4; 48 query heads
+# on 8) at float8 banks, 268 windows a step
 FAMILY_TRAIN = (("deepseek_v2_lite_16b", 2, "bfloat16"),
                 ("mamba2_1_3b", 2, "float32"),
                 ("zamba2_7b", 6, "bfloat16"),
                 ("gemma_2b", 2, "bfloat16"),
                 (VLM_BANK[0], 5, VLM_BANK[2]),
                 ("qwen25_3b", 2, "bfloat16"),
-                ("mistral_large_123b", 1, "float8_e4m3fn"))
+                ("mistral_large_123b", 1, "float8_e4m3fn"),
+                (DBRX_BANK[0], 1, DBRX_BANK[2]),
+                (VLM_BANK[0], 5, "bfloat16"))
 FAMILY_STEPS, FAMILY_CHECK_STEPS = 4, 2
 
 
@@ -5438,15 +5493,26 @@ def family_cut_case(torch, arch: str, layers: int, dtype: str,
             **{k: chk[k] for k in ("rel_prefill", "rel_steps", "max_h")}}
 
 
+def train_key(arch: str, mdt: str) -> str:
+    """The families phase's key of a :data:`FAMILY_TRAIN` path: the arch,
+    and its bank dtype where the arch has more than one path."""
+    dtypes = [m for a, _, m in FAMILY_TRAIN if a == arch]
+    return arch if len(dtypes) == 1 else f"{arch}/{mdt}"
+
+
 def family_train_case(torch, arch: str, layers: int, mdt: str,
                       dev_args: list, on_card: bool) -> dict:
     """``launch.train`` on ``arch`` at full width cut to ``layers`` (the
-    payload route: compress once a step, ``momentum_scatter`` and CWTM once
-    a window of its round (:func:`payload_slices`), no decompress; the
-    flash kernels once a self-attention application and worker), ``FAMILY_STEPS`` steps with finite losses, then its first
-    ``FAMILY_CHECK_STEPS`` against the plain path."""
+    payload route, streamed: compress once a worker (:func:`compressions`),
+    ``momentum_scatter`` and CWTM once a window of its round
+    (:func:`payload_slices`), no decompress; the flash kernels once a
+    self-attention application and worker), ``FAMILY_STEPS`` steps with
+    finite losses, its peak and held MiB beside the dry run's reckoning of
+    the same cut (``launch.dryrun.run_one``: the step's floor and the held
+    state), then its first ``FAMILY_CHECK_STEPS`` against the plain
+    path."""
     from repro_torch import kernels as K
-    from repro_torch.launch import train
+    from repro_torch.launch import dryrun, train
 
     argv = ["--arch", arch, "--n-layers", str(layers), "--n-workers",
             str(LLM_WORKERS), "--global-batch", str(LLM_WORKERS), "--f", "1",
@@ -5458,7 +5524,7 @@ def family_train_case(torch, arch: str, layers: int, mdt: str,
     launches = K.launches()
     plan = res["plan"]
     check_launches(label, launches, llm_launches(
-        plan.model, plan, FAMILY_STEPS, on_card, block_compress=1,
+        plan.model, plan, FAMILY_STEPS, on_card, block_compress=compressions,
         block_decompress=0, momentum_scatter=payload_slices))
     losses, norms = res["losses"], res["dir_norms"]
     if not all(math.isfinite(v) for v in losses + norms):
@@ -5472,6 +5538,18 @@ def family_train_case(torch, arch: str, layers: int, mdt: str,
     del res
     if on_card:
         torch.cuda.empty_cache()
+    # the dry run of the card's cut (full width: on the CPU the run above
+    # is the reduced model, so the two are not comparable there)
+    rep = dryrun.run_one(arch, "train_4k", n_layers=layers,
+                         n_workers=LLM_WORKERS, global_batch=LLM_WORKERS,
+                         ratio=0.05, momentum_dtype=mdt, verbose=False)
+    pred = {"step_floor_mib": rep["state_bytes_total"] / 2**20,
+            "held_mib": rep["held_bytes"] / 2**20,
+            "streamed": rep["streamed"]}
+    log(f"{label}: peak {peak} MiB, held {held} MiB; dry run (the card's "
+        f"cut, {'streamed' if rep['streamed'] else 'bank'} step): floor "
+        f"{pred['step_floor_mib']:.1f} MiB, held {pred['held_mib']:.1f} "
+        f"MiB, fits {rep['state_fits']}")
     plain = train.run(argv + ["--steps", str(FAMILY_CHECK_STEPS)],
                       plain=True, log=log)
     rel_l = max(abs(a - b) / abs(b) for a, b in zip(losses,
@@ -5501,7 +5579,7 @@ def family_train_case(torch, arch: str, layers: int, mdt: str,
             "workers": plan.n_workers, "steps": FAMILY_STEPS,
             "losses": losses, "dir_norms": norms, "step_ms": step_ms,
             "peak_mib": peak, "held_mib": held, "launches": launches,
-            "plain_rel_loss": rel_l,
+            "dryrun": pred, "plain_rel_loss": rel_l,
             "plain_rel_dir": rel_r, "plain_step_ms": plain_ms,
             "plain_peak_mib": (plain_peak / 2**20 if plain_peak is not None
                                else None)}
@@ -5513,10 +5591,9 @@ def families_phase(torch, device: str = "cuda") -> dict:
     (full depth) served in bfloat16 (:func:`family_serve_case`), the cuts
     of :data:`FAMILY_CUTS` (:func:`family_cut_case`), mamba2_1_3b through a
     4,100-token prompt and 16 steps; (e) the train paths of
-    deepseek_v2_lite_16b, mamba2_1_3b and zamba2_7b
-    (:func:`family_train_case`). The decode steps' profiles are taken
-    later (:data:`FAMILY_PROFILED`). On the CPU (rehearsal) every model is
-    the launchers' reduced one."""
+    :data:`FAMILY_TRAIN` (:func:`family_train_case`). The decode steps'
+    profiles are taken later (:data:`FAMILY_PROFILED`). On the CPU
+    (rehearsal) every model is the launchers' reduced one."""
     import numpy as np
 
     from repro_torch.launch import serve
@@ -5573,8 +5650,8 @@ def families_phase(torch, device: str = "cuda") -> dict:
             torch, arch, layers, dtype, dev_args, on_card)
         done()
     for arch, layers, mdt in FAMILY_TRAIN:
-        out["train"][arch] = family_train_case(torch, arch, layers, mdt,
-                                               dev_args, on_card)
+        out["train"][train_key(arch, mdt)] = family_train_case(
+            torch, arch, layers, mdt, dev_args, on_card)
         done()
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"families: phase wall {out['wall_s']:.1f} s")
@@ -5988,10 +6065,11 @@ def dryrun_cuts(llm=None, families=None) -> list:
             cuts.append((f"llm dasha {dt}", dict(base, algo="dasha",
                                                  momentum_dtype=dt), opt))
     for arch, layers, mdt in FAMILY_TRAIN:
-        if families is not None and arch in families.get("train", {}):
-            cuts.append((f"{arch} train", dict(
+        key = train_key(arch, mdt)
+        if families is not None and key in families.get("train", {}):
+            cuts.append((f"{key} train", dict(
                 base, arch_id=arch, n_layers=layers, momentum_dtype=mdt),
-                families["train"][arch]))
+                families["train"][key]))
     return cuts
 
 
@@ -6044,7 +6122,7 @@ def roofline_phase(torch, device: str = "cuda", llm=None,
         "dispatch_parity_rel")} for k, row in bench["aggregation"].items()}
     if llm is None and families is None:
         res = llm_run(torch, device, "roofline step", llm_argv(device, 1), 1,
-                      block_compress=1, block_decompress=0,
+                      block_compress=compressions, block_decompress=0,
                       momentum_scatter=payload_slices)
         llm = {"peak_mib": res["peak_mib"], "held_mib": res["held_mib"]}
         del res
@@ -6612,7 +6690,8 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
     wins = [r for r in randk["momentum"] if "ms" in r and "window" in r]
     first, last = wins[0], wins[-1]
     sweep = randk["momentum_sweep"][0]
-    vlm_train = families["train"][VLM_BANK[0]]
+    vlm_train = families["train"][train_key(VLM_BANK[0], VLM_BANK[2])]
+    dbrx_train = families["train"][train_key(DBRX_BANK[0], DBRX_BANK[2])]
     record["kernels"].append({
         "name": "momentum_scatter_window", "route": "cuda",
         **KERNELS["momentum_scatter"], "dtype": VLM_BANK[2],
@@ -6630,7 +6709,43 @@ def kernel_record(results, randk, flash, cnn, quad, llm, grid,
             "ms", "plain_ms", "bound_ms", "bound_by", "device_us",
             "device_ops", "host_us")} for name in ("momentum_scatter",
                                                    "cwtm")}})
+    record["kernels"] += dbrx_kernel_records(randk, dbrx_train)
     return record
+
+
+def dbrx_kernel_records(randk, dbrx_train) -> list:
+    """The kernels line's records of dbrx_132b's train path (its launches
+    ``dbrx_train``'s): compress on one worker's row at a time, the
+    momentum kernel (and CWTM) over the step's 268 windows, from the randk
+    phase's timed cases."""
+    out = []
+    row = next(r for r in randk["block"]
+               if r["shape"] == list(RANDK_DBRX[:2])
+               and r["dtype"] == RANDK_DBRX[5])
+    t = row["block_compress"]
+    out.append({
+        "name": "block_compress_row", "route": "cuda",
+        **KERNELS["block_compress"], "dtype": RANDK_DBRX[5],
+        "launches": dbrx_train["launches"]["block_compress"],
+        "max_abs_err": row["max_abs_err"]["block_compress"],
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "host_us")},
+        "device_us": t.get("device_us"), "shape": row["shape"]})
+    dbrx_sweep = randk["momentum_sweep"][1]
+    t = dbrx_sweep["momentum_scatter"]
+    out.append({
+        "name": "momentum_scatter_window_sweep", "route": "cuda",
+        **KERNELS["momentum_scatter"], "dtype": DBRX_BANK[2],
+        "launches": dbrx_train["launches"]["momentum_scatter"],
+        "max_abs_err": dbrx_sweep["max_abs_err"],
+        **{k: t.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "device_us", "host_us")},
+        "shape": dbrx_sweep["shape"], "step_windows": dbrx_sweep["windows"],
+        "cwtm_sweep": {k: dbrx_sweep["cwtm"].get(k) for k in (
+            "ms", "bound_ms", "bound_by", "device_us", "device_ops",
+            "host_us")},
+        "cwtm_launches": dbrx_train["launches"]["cwtm"]})
+    return out
 
 
 def ptxas_table(report: str) -> dict:

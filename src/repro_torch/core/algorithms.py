@@ -29,7 +29,10 @@ builds the dense wire: the Byzantine overwrite runs on the
 the payload into the selected blocks in one pass, bitwise the dense round.
 Past :data:`DENSE_COLUMNS` at banks narrower than float32 it runs a window
 of blocks at a time, each window's float32 momenta aggregated before the
-next (:func:`_payload_window`).
+next (:func:`_payload_window`). A caller that has the rows one at a time
+draws the round's block ids first, compresses each row into its payload
+row as it comes, and hands the finished payload to :func:`payload_round`
+(:func:`streams_payload`): no ``[n, D]`` bank exists then.
 
 The lanes of a grid (``grads [B, n, D]``, :func:`_lanes_round`) carry an
 explicit leading lane axis. Each lane's values are those of its lone round:
@@ -442,14 +445,29 @@ def _rosdhb_apply(cfg: AlgorithmConfig, agg, state: ServerState,
 
 
 def _payload_route(cfg: AlgorithmConfig, d: int) -> bool:
-    """RoSDHB on global Block-RandK with the kernels and an attack that
+    """RoSDHB on global Block-RandK of whole blocks and an attack that
     keeps zero columns zero: the round can stay on the wire payload. With a
     global mask every honest row is zero off the selected blocks, so the
-    Byzantine rows are too, and the dense wire adds nothing there."""
+    Byzantine rows are too, and the dense wire adds nothing there. With
+    ``use_kernels`` off the route runs the kernels' plain versions (and the
+    aggregator's plain rule) on the same device: at an LLM's D the dense
+    round's ``[n, D]`` wire and ``[D]`` mask would not fit beside the
+    banks."""
     sp = cfg.sparsifier
-    return (cfg.name == "rosdhb" and C._kernel_eligible(sp, d)
+    return (cfg.name == "rosdhb" and C._block_eligible(sp, d)
             and not sp.local and cfg.attack.name in A.ZERO_PRESERVING
             and cfg.server_compute_dtype == "float32")
+
+
+def streams_payload(cfg: AlgorithmConfig, d: int) -> bool:
+    """Whether a caller may compress each worker's row into its payload
+    row as soon as the row exists and hand the round the payload
+    (:func:`payload_round`): the payload route with no per-worker clip
+    (``clip_norm`` reads each whole row before the compress) and a plain
+    aggregator (not the lanes' bank). Every other round takes the ``[n,
+    D]`` bank (:func:`server_round`)."""
+    return (_payload_route(cfg, d) and cfg.clip_norm is None
+            and cfg.aggregator.name != "bank")
 
 
 #: Columns of the ``[n, D]`` bank that one pass of the dense RoSDHB round
@@ -460,7 +478,8 @@ DENSE_COLUMNS = 1 << 24
 def _dense_by_columns(cfg: AlgorithmConfig, d: int) -> bool:
     """The dense RoSDHB round is a function of each column on its own: the
     masks drawn once, the dense wire (no kernel round trip), an attack
-    and an aggregator that work coordinate by coordinate."""
+    and an aggregator that work coordinate by coordinate. :func:`server_round`
+    takes it off the payload route (:func:`_payload_route` comes first)."""
     return (cfg.name == "rosdhb"
             and not C._kernel_eligible(cfg.sparsifier, d)
             and cfg.attack.name in A.ZERO_PRESERVING
@@ -501,7 +520,7 @@ def _rosdhb_dense_columns(cfg: AlgorithmConfig, agg, state: ServerState,
 
 
 def _payload_window(cfg: AlgorithmConfig, d: int) -> int:
-    """Blocks a window of the payload round (:func:`_rosdhb_payload_round`)
+    """Blocks a window of the payload round (:func:`_payload_apply`)
     takes: ``DENSE_COLUMNS // block_size`` where the bank is narrower than
     float32 (its float32 momenta would otherwise be a new ``[n, D]`` bank)
     and the aggregator works coordinate by coordinate (CWTM, the median or
@@ -521,39 +540,56 @@ def _rosdhb_payload_round(cfg: AlgorithmConfig, agg, state: ServerState,
                           grads: torch.Tensor, draws, hparams,
                           attack_params=None) -> Tuple[torch.Tensor,
                                                        ServerState]:
-    # Steps 1-3 on the wire: the block ids and the [n, kb*bs] payload; step
-    # 4 on its rows (the attack is per coordinate, so the selected columns
-    # get the dense attack's values); then steps 5 and 6 a window of
-    # _payload_window whole blocks at a time, the slot map built once: the
-    # momentum kernel decays the caller's bank in place there and adds
-    # (1-beta)*payload into the selected blocks in one pass (a bank
-    # narrower than float32 also hands back the unrounded float32 momenta,
-    # into one reused slice), and the aggregator (one CWTM or median launch
-    # a window) turns the float32 momenta into r's columns. Bitwise one
-    # window over the whole bank: every step works coordinate by
-    # coordinate. At the vlm's D = 2.1e9 the whole bank's float32 momenta
-    # [n, D] (65 GiB at n = 8) would not fit one card; a window's are 512
-    # MiB.
+    # Steps 1-3 on the wire: the block ids and the [n, kb*bs] payload of
+    # the whole bank; then steps 4-6 on it (_payload_apply).
+    payload, ids = C.compressed_payload(grads, draws, cfg.sparsifier)
+    return _payload_apply(cfg, agg, state, payload, ids, grads.shape[1],
+                          draws, hparams, attack_params)
+
+
+def _payload_apply(cfg: AlgorithmConfig, agg, state: ServerState,
+                   payload: torch.Tensor, ids: torch.Tensor, d: int, draws,
+                   hparams, attack_params=None) -> Tuple[torch.Tensor,
+                                                         ServerState]:
+    # Step 4 on the payload's rows (the attack is per coordinate, so the
+    # selected columns get the dense attack's values); then steps 5 and 6
+    # a window of _payload_window whole blocks at a time, the slot map
+    # built once: the momentum kernel decays the caller's bank in place
+    # there and adds (1-beta)*payload into the selected blocks in one pass
+    # (a bank narrower than float32 also hands back the unrounded float32
+    # momenta, into one reused slice), and the aggregator (one CWTM or
+    # median launch a window) turns the float32 momenta into r's columns.
+    # Bitwise one window over the whole bank: every step works coordinate
+    # by coordinate. At the vlm's D = 2.1e9 the whole bank's float32
+    # momenta [n, D] (65 GiB at n = 8) would not fit one card; a window's
+    # are 512 MiB. Without use_kernels the same steps run the kernels'
+    # plain versions.
     sp = cfg.sparsifier
-    n, d = grads.shape
+    n = payload.shape[0]
     bs = sp.block_size
     nb = d // bs
-    payload, ids = C.compressed_payload(grads, draws, sp)
-    payload = _byzantine_overwrite(cfg, payload, attack_params, draws)
-    slots = RK.slot_map(ids.to(device=grads.device, dtype=torch.int32)
-                        .contiguous(), nb)
+    if cfg.f and cfg.attack.name != "none":
+        # in place on the Byzantine rows: the payload is the round's own
+        payload[:cfg.f] = A.apply_attack(
+            cfg.attack, payload[cfg.f:], cfg.f, params=attack_params,
+            draws=draws).to(payload.dtype)
+    if sp.use_kernels:
+        update = RK.momentum_update
+        slots = RK.slot_map(ids.to(device=payload.device, dtype=torch.int32)
+                            .contiguous(), nb)
+    else:
+        update, slots = RK.momentum_scatter_ref, None
     step = _payload_window(cfg, d)
     flat = (torch.empty(n * step * bs, dtype=torch.float32,
-                        device=grads.device)
+                        device=payload.device)
             if state.momentum.dtype != torch.float32 else None)
     r = None
     for b0 in range(0, nb, step):
         b1 = min(nb, b0 + step)
         w = (b1 - b0) * bs
-        m = RK.momentum_update(
-            state.momentum, payload, ids, block_size=bs, beta=hparams[0],
-            window=(b0, b1), slots=slots,
-            out=None if flat is None else flat[:n * w].view(n, w))
+        m = update(state.momentum, payload, ids, block_size=bs,
+                   beta=hparams[0], window=(b0, b1), slots=slots,
+                   out=None if flat is None else flat[:n * w].view(n, w))
         if b1 == nb:
             del payload, slots  # the last aggregation needs neither
         part = agg(m)
@@ -566,6 +602,38 @@ def _rosdhb_payload_round(cfg: AlgorithmConfig, agg, state: ServerState,
             r[..., b0 * bs:b1 * bs] = part
         del part
     return r, state._replace(step=state.step + 1)
+
+
+def payload_round(cfg: AlgorithmConfig, state: ServerState,
+                  payload: torch.Tensor, ids: torch.Tensor, d: int, draws,
+                  agg=None, attack_params=None
+                  ) -> Tuple[torch.Tensor, ServerState, dict]:
+    """Steps 4-6 of one RoSDHB round on a finished wire payload: the
+    ``[n, kb * block_size]`` rows each worker's gradient was compressed
+    into (``compression.compress_rows``) on the round's block ``ids``
+    (``compression.block_ids``, drawn before the rows), for a ``d``-wide
+    bank. Bitwise :func:`server_round` on the ``[n, d]`` bank of the same
+    rows and draws (which compresses the bank in one call). For a config
+    that :func:`streams_payload`. ``state`` is consumed as
+    :func:`server_round` consumes it (its momentum bank is updated in
+    place), and so is ``payload``: the attack writes its Byzantine rows
+    over the first ``f``. Returns ``(direction [d], next state, aux)``."""
+    _check_ported(cfg)
+    if not streams_payload(cfg, d):
+        raise ValueError(f"{cfg.name} with {cfg.sparsifier} and attack "
+                         f"{cfg.attack.name!r} does not stream its payload "
+                         f"at d={d}: call server_round on the [n, d] bank")
+    n = payload.shape[0]
+    if n != cfg.n_workers or payload.shape[1] != C.payload_width(
+            d, cfg.sparsifier):
+        raise ValueError(f"payload {tuple(payload.shape)} for {cfg.n_workers}"
+                         f" workers and d={d}")
+    if agg is None:
+        agg = G.make_aggregator(cfg.aggregator, device=payload.device)
+    r, new = _payload_apply(cfg, agg, state, payload, ids, d, draws,
+                            static_hparams(cfg), attack_params)
+    return r, new, {"payload_floats_per_worker":
+                    C.payload_floats(d, cfg.sparsifier)}
 
 
 def _dasha_wire(state_m: torch.Tensor, state_h: torch.Tensor,

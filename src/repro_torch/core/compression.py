@@ -19,6 +19,10 @@ with ``use_kernels``, :func:`compressed_estimate` runs the real wire round
 trip instead: the Block-RandK compress and decompress kernels
 (``repro_torch.kernels.randk``); :func:`compressed_payload` stops at the
 wire, for the RoSDHB round that updates its momentum from the payload.
+It is two steps, which a caller may also take apart: the round's block ids
+(:func:`block_ids`, drawn first) and each row compressed into its payload
+row (:func:`compress_rows`; the LLM train step compresses a worker's row as
+soon as its gradient exists, ``launch.steps``).
 """
 
 from __future__ import annotations
@@ -276,11 +280,17 @@ def compress(g: torch.Tensor, mask: torch.Tensor,
     return (cfg.alpha * g) * mask
 
 
+def _block_eligible(cfg: SparsifierConfig, d: int) -> bool:
+    """Exact Block-RandK with a ratio below 1 and block-aligned ``d``: the
+    configs whose round has a wire payload of whole blocks."""
+    return (cfg.kind == "block" and cfg.ratio < 1.0
+            and d % cfg.block_size == 0)
+
+
 def _kernel_eligible(cfg: SparsifierConfig, d: int) -> bool:
     """Only exact Block-RandK with a ratio below 1 and block-aligned ``d``
     has the kernel round trip; everything else takes the dense path."""
-    return (cfg.use_kernels and cfg.kind == "block" and cfg.ratio < 1.0
-            and d % cfg.block_size == 0)
+    return cfg.use_kernels and _block_eligible(cfg, d)
 
 
 def block_ids(draws, n: int, d: int, cfg: SparsifierConfig
@@ -292,15 +302,34 @@ def block_ids(draws, n: int, d: int, cfg: SparsifierConfig
     return mask_draw(draws, d, cfg, local_workers=n if cfg.local else 0)
 
 
+def payload_width(d: int, cfg: SparsifierConfig) -> int:
+    """Columns of a worker's payload row: the ``kb`` blocks :func:`block_ids`
+    draws for a ``d``-wide bank, whole."""
+    return max(1, int(round(cfg.ratio * (d // cfg.block_size)))) \
+        * cfg.block_size
+
+
+def compress_rows(g: torch.Tensor, ids: torch.Tensor, cfg: SparsifierConfig,
+                  out=None) -> torch.Tensor:
+    """Step 3 on ``g``'s rows: the ``[m, kb * block_size]`` payload of
+    ``alpha * g`` on the blocks ``ids`` (the round's :func:`block_ids`), into
+    ``out`` where given (a worker's rows of the round's payload). The
+    compress kernel with ``use_kernels`` (its plain version on a CPU
+    tensor), else the kernel's plain version on ``g``'s device."""
+    if cfg.use_kernels:
+        return RK.compress(g, ids, block_size=cfg.block_size,
+                           alpha=cfg.alpha, out=out)
+    return RK.block_compress_ref(g, ids, cfg.block_size, cfg.alpha, out=out)
+
+
 def compressed_payload(grads: torch.Tensor, draws, cfg: SparsifierConfig
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Steps 1-3 on the real wire: the round's block ids
     (:func:`block_ids`) and the ``[n, kb * block_size]`` payload of
-    ``alpha * g`` on those blocks (the compress kernel). For an eligible
-    ``block`` config (:func:`_kernel_eligible`)."""
+    ``alpha * g`` on those blocks (:func:`compress_rows`). For a ``block``
+    config of whole blocks (:func:`_block_eligible`)."""
     ids = block_ids(draws, grads.shape[0], grads.shape[1], cfg)
-    return RK.compress(grads, ids, block_size=cfg.block_size,
-                       alpha=cfg.alpha), ids
+    return compress_rows(grads, ids, cfg), ids
 
 
 def compressed_estimate(grads: torch.Tensor, draws,

@@ -20,11 +20,12 @@ def _device_type(x: torch.Tensor, what: str) -> str:
 
 
 def compress(g: torch.Tensor, ids: torch.Tensor, *, block_size: int,
-             alpha: float) -> torch.Tensor:
-    """Wire payload ``[n, kb * block_size]`` of the bank ``g [n, d]``."""
+             alpha: float, out=None) -> torch.Tensor:
+    """Wire payload ``[n, kb * block_size]`` of the bank ``g [n, d]``, into
+    ``out`` where given (a worker's rows of the round's payload)."""
     if _device_type(g, "block compress") == "cpu":
-        return block_compress_ref(g, ids, block_size, alpha)
-    return block_compress_cuda(g, ids, block_size, alpha)
+        return block_compress_ref(g, ids, block_size, alpha, out=out)
+    return block_compress_cuda(g, ids, block_size, alpha, out=out)
 
 
 def decompress(payload: torch.Tensor, ids: torch.Tensor, *, block_size: int,

@@ -57,9 +57,14 @@ def _ids(ids: torch.Tensor, n: int, device) -> tuple:
 
 
 def block_compress_cuda(g: torch.Tensor, ids: torch.Tensor, block_size: int,
-                        alpha: float) -> torch.Tensor:
+                        alpha: float, out=None) -> torch.Tensor:
     """g ``[n, d]``, ids ``[kb]`` or ``[n, kb]`` (distinct, in
-    ``[0, d/block_size)``) -> payload ``[n, kb * block_size]``."""
+    ``[0, d/block_size)``) -> payload ``[n, kb * block_size]``, into
+    ``out`` where given: a contiguous, 16-byte aligned ``[n, kb *
+    block_size]`` tensor of g's dtype on g's card (a worker's rows of a
+    round's payload, compressed as soon as the worker's gradient exists).
+    The kernel's offsets are 64-bit: one row may span more than 2^32
+    bytes (dbrx_132b's 4,492,216,320 float8 values)."""
     _check_bank(g, "block_compress")
     _check_block(block_size, g.dtype)
     n, d = g.shape
@@ -67,7 +72,17 @@ def block_compress_cuda(g: torch.Tensor, ids: torch.Tensor, block_size: int,
         raise ValueError(f"d={d} is not a multiple of block_size={block_size}")
     ids, stride = _ids(ids, n, g.device)
     kb = ids.shape[-1]
-    payload = torch.empty((n, kb * block_size), dtype=g.dtype, device=g.device)
+    if out is None:
+        payload = torch.empty((n, kb * block_size), dtype=g.dtype,
+                              device=g.device)
+    elif (out.dtype != g.dtype or out.device != g.device
+          or tuple(out.shape) != (n, kb * block_size)
+          or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"out must be a contiguous, 16-byte aligned {g.dtype}"
+                         f" [{n}, {kb * block_size}] on {g.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    else:
+        payload = out
     lib = build.load("randk")
     err = lib.block_compress(g.data_ptr(), ids.data_ptr(), payload.data_ptr(),
                              n, d, kb, block_size, stride, float(alpha),

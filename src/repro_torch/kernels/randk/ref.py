@@ -23,15 +23,18 @@ def _row_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def block_compress_ref(g: torch.Tensor, ids: torch.Tensor, block_size: int,
-                       alpha: float) -> torch.Tensor:
+                       alpha: float, out=None) -> torch.Tensor:
     """g ``[n, d]`` (``d % block_size == 0``), block ids ``[kb]`` or
     ``[n, kb]`` -> payload ``[n, kb * block_size]``: the selected blocks of
-    each row times ``alpha``, multiplied in float32 and cast to g's dtype."""
+    each row times ``alpha``, multiplied in float32 and cast to g's dtype.
+    ``out``: the caller's ``[n, kb * block_size]`` tensor of g's dtype (a
+    worker's rows of a round's payload), written and returned."""
     n, d = g.shape
     gb = _bits(g).reshape(n, d // block_size, block_size)
     rows = torch.gather(gb, 1, _row_ids(ids, n).long()[..., None].expand(
         -1, -1, block_size)).view(g.dtype)
-    return to_dtype(rows.float() * alpha, g.dtype).reshape(n, -1)
+    payload = to_dtype(rows.float() * alpha, g.dtype).reshape(n, -1)
+    return payload if out is None else out.copy_(payload)
 
 
 def block_decompress_ref(payload: torch.Tensor, ids: torch.Tensor,
@@ -51,28 +54,6 @@ def block_decompress_ref(payload: torch.Tensor, ids: torch.Tensor,
 MOMENTUM_COLS = 1 << 24
 
 
-def _wire_columns(pf: torch.Tensor, ids: torch.Tensor, block_size: int,
-                  lo: int, hi: int) -> torch.Tensor:
-    """Blocks ``[lo, hi)`` of the dense wire of the payload ``pf [n, kb *
-    block_size]``: each payload block whose id falls there at its place,
-    zeros elsewhere."""
-    n = pf.shape[0]
-    pb = pf.reshape(n, -1, block_size)
-    nb = hi - lo
-    out = pf.new_zeros((n, nb, block_size))
-    if ids.ndim == 1:  # one global mask: the blocks inside, once
-        sel = ((ids >= lo) & (ids < hi)).nonzero()[:, 0]
-        out[:, (ids[sel] - lo).long()] = pb[:, sel]
-    else:  # per-row ids: those outside land in a dropped slot
-        rid = ids.long()
-        slot = torch.where((rid >= lo) & (rid < hi), rid - lo,
-                           torch.full_like(rid, nb))
-        out = torch.cat([out, out.new_zeros((n, 1, block_size))], dim=1)
-        out.scatter_(1, slot[..., None].expand(-1, -1, block_size), pb)
-        out = out[:, :nb]
-    return out.reshape(n, nb * block_size)
-
-
 def _weighted_payload(m: torch.Tensor, payload: torch.Tensor,
                       beta: float) -> torch.Tensor:
     """The payload in float32 as the update scatters it: times ``1 -
@@ -82,12 +63,41 @@ def _weighted_payload(m: torch.Tensor, payload: torch.Tensor,
     return payload.float() * (1.0 - beta)
 
 
-def _columns(m: torch.Tensor, pf: torch.Tensor, ids: torch.Tensor,
+def _wire_columns(m: torch.Tensor, payload: torch.Tensor, ids: torch.Tensor,
+                  block_size: int, beta: float, lo: int, hi: int
+                  ) -> torch.Tensor:
+    """Blocks ``[lo, hi)`` of the dense float32 wire of the payload ``[n,
+    kb * block_size]``, weighted for the bank ``m``
+    (:func:`_weighted_payload`): each payload block whose id falls there at
+    its place, zeros elsewhere. Under one global mask only the blocks
+    inside are widened to float32 (a round of windows at D ~ 4e9 would
+    otherwise widen the whole payload once a window)."""
+    n = payload.shape[0]
+    pb = _bits(payload).reshape(n, -1, block_size)
+    nb = hi - lo
+    out = torch.zeros((n, nb, block_size), dtype=torch.float32,
+                      device=payload.device)
+    if ids.ndim == 1:  # one global mask: the blocks inside, once
+        sel = ((ids >= lo) & (ids < hi)).nonzero()[:, 0]
+        out[:, (ids[sel] - lo).long()] = _weighted_payload(
+            m, pb[:, sel].view(payload.dtype), beta)
+    else:  # per-row ids: those outside land in a dropped slot
+        rid = ids.long()
+        slot = torch.where((rid >= lo) & (rid < hi), rid - lo,
+                           torch.full_like(rid, nb))
+        out = torch.cat([out, out.new_zeros((n, 1, block_size))], dim=1)
+        out.scatter_(1, slot[..., None].expand(-1, -1, block_size),
+                     _weighted_payload(m, pb.view(payload.dtype), beta))
+        out = out[:, :nb]
+    return out.reshape(n, nb * block_size)
+
+
+def _columns(m: torch.Tensor, payload: torch.Tensor, ids: torch.Tensor,
              block_size: int, beta: float, b0: int, b1: int) -> torch.Tensor:
     """The float32 momenta of blocks ``[b0, b1)``, written into ``m`` there
     (rounded to its dtype)."""
     cols = slice(b0 * block_size, b1 * block_size)
-    wire = _wire_columns(pf, ids, block_size, b0, b1)
+    wire = _wire_columns(m, payload, ids, block_size, beta, b0, b1)
     if m.dtype == torch.bfloat16:
         res = (m[:, cols].float() * beta).add_(wire, alpha=1.0 - beta)
     else:
@@ -102,8 +112,7 @@ def momentum_columns_ref(m: torch.Tensor, payload: torch.Tensor,
     """:func:`momentum_scatter_ref` on the window of blocks ``[b0, b1)``
     (columns ``b0 * block_size`` to ``b1 * block_size``) in one pass: the
     window of ``m`` updated in place, its float32 momenta returned."""
-    return _columns(m, _weighted_payload(m, payload, beta), ids, block_size,
-                    beta, b0, b1)
+    return _columns(m, payload, ids, block_size, beta, b0, b1)
 
 
 def momentum_scatter_ref(m: torch.Tensor, payload: torch.Tensor,
@@ -125,11 +134,10 @@ def momentum_scatter_ref(m: torch.Tensor, payload: torch.Tensor,
     del slots
     nb = m.shape[1] // block_size
     b0, b1 = (0, nb) if window is None else (int(window[0]), int(window[1]))
-    pf = _weighted_payload(m, payload, beta)
     step = max(1, MOMENTUM_COLS // block_size)
     for lo in range(b0, b1, step):
         hi = min(b1, lo + step)
-        res = _columns(m, pf, ids, block_size, beta, lo, hi)
+        res = _columns(m, payload, ids, block_size, beta, lo, hi)
         if out is not None:
             out[:, (lo - b0) * block_size:(hi - b0) * block_size] = res
         del res

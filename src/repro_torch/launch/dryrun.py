@@ -9,16 +9,20 @@ abstract inputs (``launch.steps.train_input_specs``,
   the reference; it leaves out the norms) and the built model's elements;
 * the server banks' bytes (``core.algorithms.server_state_bytes``) and the
   state one card holds: the float32 master parameters, the step's bf16
-  working copy of them, the banks (and the adversary's memory), the batch
-  and, on serve shapes, the caches; of these, ``held_bytes``: what a run
-  holds between steps (the parameters, the banks and the adversary's
-  memory; on serve shapes the parameters and the caches);
-  ``state_fits``: whether the state fits the card's 80 GB. That is a
-  floor, not the step's peak: the activations, the gradients and the
-  server round's float32 transients come on top (``chip_smoke.py``
-  prints the peak the card reads beside the state at the cuts it runs),
-  so a state that does not fit rules a pair out and one that fits does
-  not rule it in;
+  working copy of them, the banks (and the adversary's memory), the batch,
+  on train shapes the step's own transients (:func:`step_transients`: the
+  gradient bank, or on the streamed route the payload, one raveled row,
+  one worker's gradients and the round's direction) and, on serve shapes,
+  the caches; of these, ``held_bytes``: what a run holds between steps
+  (the parameters, the banks and the adversary's memory; on serve shapes
+  the parameters and the caches); ``state_bytes_total``: what the step
+  holds at its fullest (on train shapes the held state, the batch and the
+  most of the transients held at once); ``state_fits``: whether that fits
+  the card's 80 GB. That is a floor, not the step's peak: the activations
+  and the round's smaller temporaries come on top (``chip_smoke.py``
+  prints the peak the card reads beside it at the cuts it runs), so a
+  state that does not fit rules a pair out and one that fits does not
+  rule it in;
 * ``model_flops`` and the FLOPs of one step, counted by
   ``torch.utils.flop_counter.FlopCounterMode`` over the step run on meta
   tensors (the model's loss and gradient of one worker, times the
@@ -192,6 +196,33 @@ def server_counts(plan: S.TrainPlan) -> Dict:
             "pieces": pieces}
 
 
+def step_transients(plan: S.TrainPlan, half: int) -> tuple:
+    """What the train step (``launch.steps.build_train_step``) allocates
+    beside the held state, from shapes: ``(pieces, the most of them held at
+    once)``. ``half``: one worker's bf16 working copy (and so its bf16
+    gradients). On the streamed route (``algorithms.streams_payload``) the
+    round's ``payload``, one worker's ``gradients`` and then either its
+    working copy (until the gradient exists) or its raveled ``row`` in the
+    wire dtype, and, in the round, the float32 ``direction`` and a
+    window's float32 ``momenta`` (banks narrower than float32); on the bank
+    route the ``[n, D]`` ``gradient_bank``, the working copy and one
+    worker's gradients. Activations and the round's smaller temporaries
+    come on top: the sum is a floor of the step's peak."""
+    algo, sp = plan.algo, plan.algo.sparsifier
+    n, d = plan.n_workers, plan.bank_width
+    wire = A.BANK_DTYPES[algo.momentum_dtype].itemsize
+    if not A.streams_payload(algo, d):
+        pieces = {"gradient_bank": n * d * wire, "gradients": half}
+        return pieces, pieces["gradient_bank"] + half + half
+    window = A._payload_window(algo, d) * sp.block_size
+    pieces = {"payload": n * C.payload_width(d, sp) * wire,
+              "gradients": half, "row": d * wire, "direction": d * 4,
+              "momenta": n * window * 4 if wire != 4 else 0}
+    return pieces, pieces["payload"] + max(
+        half + half, half + pieces["row"],
+        pieces["direction"] + pieces["momenta"])
+
+
 def trace_serve(spec: ArchSpec, shape: InputShape, args) -> Dict:
     """FLOPs and eager bytes of one prefill or decode step on meta
     tensors."""
@@ -246,13 +277,20 @@ def run_one(arch_id: str, shape_name: str, *, algo: str = "rosdhb",
                        "batch": _nbytes(batch)}
         held = (state_bytes["params"] + bank_bytes
                 + state_bytes["attack"])
+        # the step's floor: the held state, the batch and the most of the
+        # step's transients it holds at once
+        step_bytes, transient = step_transients(plan, half)
+        state_bytes.update(step_bytes)
+        total = held + state_bytes["batch"] + transient
         report.update(n_workers=plan.n_workers, local_batch=plan.local_batch,
                       momentum_dtype=momentum_dtype,
                       server_compute_dtype=server_compute_dtype,
                       flat_size=plan.flat_spec.size,
                       bank_width=plan.bank_width, bank_bytes=bank_bytes,
                       payload_route=A._payload_route(plan.algo,
-                                                     plan.bank_width))
+                                                     plan.bank_width),
+                      streamed=A.streams_payload(plan.algo,
+                                                 plan.bank_width))
     else:
         args = S.serve_input_specs(spec, shape)
         params, batch, caches = args[:3]
@@ -261,7 +299,7 @@ def run_one(arch_id: str, shape_name: str, *, algo: str = "rosdhb",
         state_bytes = {"params": _nbytes(params), "batch": _nbytes(batch),
                        "caches": _nbytes(caches)}
         held = state_bytes["params"] + state_bytes["caches"]
-    total = sum(state_bytes.values())
+        total = sum(state_bytes.values())
     mf = R.model_flops(cfg, shape)
     rf = R.Roofline(flops_per_chip=model["flops"] + server["flops"],
                     hbm_bytes_per_chip=model["bytes"] + server["bytes"],

@@ -8,18 +8,20 @@ of ``repro.launch.steps``, host mode).
      kernels are ``ctypes`` calls inside ``autograd.Function``s, which
      ``torch.func.vmap`` cannot map, and the loop keeps one worker's
      activations alive at a time);
-  2. each gradient raveled into its row of the ``[n, D]`` bank in the
-     wire dtype (``momentum_dtype``, as the reference) and the plan's
-     layout (``TrainPlan.flatten``: the sharded layout of
-     ``repro_torch.sharding`` where the worker count is the one-card
-     layout's data extent, 1, else the naive flatten, as the reference
-     chooses), the bank widened to whole Block-RandK blocks
-     (``TrainPlan.bank_width``);
-  3. ``core.algorithms.server_round``: the round's masks, the Block-RandK
-     wire, the Byzantine overwrite, the per-worker momentum (for RoSDHB on
-     a global mask, the momentum kernel on the payload) and the robust
-     aggregation;
-  4. ``p - gamma * d`` on the master parameters.
+  2. each gradient raveled in the wire dtype (``momentum_dtype``, as the
+     reference) and the plan's layout (``TrainPlan.flatten``: the sharded
+     layout of ``repro_torch.sharding`` where the worker count is the
+     one-card layout's data extent, 1, else the naive flatten, as the
+     reference chooses), rows widened to whole Block-RandK blocks
+     (``TrainPlan.bank_width``): for RoSDHB on a global mask into one row
+     compressed at once into the worker's payload row (the streamed step:
+     no ``[n, D]`` bank), else into its row of the ``[n, D]`` bank;
+  3. ``core.algorithms.payload_round`` on the payload, or
+     ``server_round`` on the bank: the round's masks, the Block-RandK
+     wire, the Byzantine overwrite, the per-worker momentum (on the
+     payload, the momentum kernel) and the robust aggregation;
+  4. ``p - gamma * d`` in place on the master parameters (the step
+     consumes its state).
 
 ``build_chunked_train_step`` runs ``chunk_size`` such steps over one chunk
 of stacked batches (the streamed launcher's unit). ``build_serve_step`` is
@@ -141,50 +143,89 @@ def build_train_step(plan: TrainPlan, device: DeviceLike = None):
     local_batch]`` (``tokens [.., seq]``, or ``embeddings`` and
     ``targets``; the vlm's ``image_embeddings``); metrics are ``loss``
     (mean honest loss, rows ``f:``), ``dir_norm`` (|R|) and
-    ``payload_floats_per_worker``."""
+    ``payload_floats_per_worker``.
+
+    Where the round streams its payload (``algorithms.streams_payload``:
+    RoSDHB on a global Block-RandK mask, the reference's launcher's round)
+    the step draws the round's block ids first, then for each worker in
+    turn computes its gradient, ravels it into one row of the wire dtype
+    (allocated once the gradient exists) and compresses the row into the
+    worker's payload row (``compression.compress_rows``), and runs the
+    round on the finished payload (``algorithms.payload_round``): no ``[n,
+    D]`` bank exists, and the numbers are the bank round's (the reference
+    compresses before the Byzantine overwrite too). Every other round
+    takes the ``[n, D]`` bank (``algorithms.server_round``).
+
+    The step consumes its state: the round updates the momentum bank in
+    place (as ``server_round`` does) and the step updates the master
+    parameters in place, so the returned state holds the same tensors. A
+    caller that reuses a state passes a copy (every tensor cloned)."""
     dev = resolve_device(device)
     cfg, fspec, algo = plan.model, plan.flat_spec, plan.algo
     agg = G.make_aggregator(algo.aggregator, device=dev)
     n, d = plan.n_workers, plan.bank_width
+    sp = algo.sparsifier
+    stream = A.streams_payload(algo, d)
     wire_dtype = A.BANK_DTYPES[algo.momentum_dtype]
     ravel, unravel = ((SF.ravel_into, SF.bank_to_param_tree)
                       if plan.flatten == "sharded"
                       else (T.tree_ravel_into, T.tree_unravel))
 
+    def worker_grads(params, batch, w):
+        # (1) mixed precision, as the reference: differentiate with respect
+        # to a bf16 cast of the f32 master parameters, cast anew for each
+        # worker so that no copy is held while a gradient is raveled
+        half = [(p.to(torch.bfloat16) if p.dtype == torch.float32 else p)
+                .detach().requires_grad_() for p in T.tree_leaves(params)]
+        loss = tf.lm_loss(T.tree_unflatten(fspec.treedef, half), cfg,
+                          {k: v[w] for k, v in batch.items()})
+        return loss.detach(), list(torch.autograd.grad(loss, half))
+
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, Any]]:
-        # (1)+(2) mixed precision, as the reference: differentiate with
-        # respect to a bf16 cast of the f32 master parameters
-        half = [(p.to(torch.bfloat16) if p.dtype == torch.float32 else p)
-                .detach().requires_grad_()
-                for p in T.tree_leaves(state.params)]
-        half_tree = T.tree_unflatten(fspec.treedef, half)
-        bank = torch.empty((n, d), dtype=wire_dtype, device=dev)
         losses = []
+        if stream:
+            ids = C.block_ids(state.draws, n, d, sp)
+            payload = torch.empty((n, C.payload_width(d, sp)),
+                                  dtype=wire_dtype, device=dev)
+        else:
+            bank = torch.empty((n, d), dtype=wire_dtype, device=dev)
         for w in range(n):
-            loss = tf.lm_loss(half_tree, cfg,
-                              {k: v[w] for k, v in batch.items()})
-            grads = torch.autograd.grad(loss, half)
-            ravel(list(grads), bank[w], fspec)
-            losses.append(loss.detach())
-            del grads, loss
-        del half, half_tree
-        # (3) the paper's steps 1-6 on the [n, D] bank
-        direction, server, _ = A.server_round(algo, state.server, bank,
-                                              state.draws, agg=agg)
-        del bank
-        # (4) step 7 on the master parameters, one fused multiply-add
-        dir_leaves = T.tree_leaves(unravel(direction, fspec))
-        new_params = T.tree_unflatten(fspec.treedef, [
-            torch.add(p, r.to(p.dtype), alpha=-algo.gamma)
-            for p, r in zip(T.tree_leaves(state.params), dir_leaves)])
+            loss, grads = worker_grads(state.params, batch, w)
+            losses.append(loss)
+            # (2) the gradient raveled in the wire dtype: into the worker's
+            # row of the bank, or into one row compressed at once into the
+            # worker's payload row
+            if stream:
+                row = torch.empty(d, dtype=wire_dtype, device=dev)
+                ravel(grads, row, fspec)
+                del grads
+                C.compress_rows(row[None], ids, sp, out=payload[w:w + 1])
+                del row
+            else:
+                ravel(grads, bank[w], fspec)
+                del grads
+        # (3) the paper's steps 1-6
+        if stream:
+            direction, server, _ = A.payload_round(
+                algo, state.server, payload, ids, d, state.draws, agg=agg)
+            del payload
+        else:
+            direction, server, _ = A.server_round(algo, state.server, bank,
+                                                  state.draws, agg=agg)
+            del bank
+        # (4) step 7 in place on the master parameters, one fused
+        # multiply-add a leaf (the direction's leaves are views of it)
+        for p, r in zip(T.tree_leaves(state.params),
+                        T.tree_leaves(unravel(direction, fspec))):
+            p.add_(r.to(p.dtype), alpha=-algo.gamma)
         metrics = {
             "loss": torch.stack(losses)[algo.f:].mean(),
             "dir_norm": vector_norm(direction),
             "payload_floats_per_worker": float(C.payload_floats(
                 fspec.padded_size, algo.sparsifier)),
         }
-        return TrainState(new_params, server, state.step + 1,
+        return TrainState(state.params, server, state.step + 1,
                           state.draws), metrics
 
     return train_step

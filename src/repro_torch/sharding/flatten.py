@@ -91,7 +91,10 @@ def ravel_into(tree: Any, out: torch.Tensor, spec: ShardedFlatSpec
     for leaf, mdim, off in zip(T.tree_leaves(tree), spec.model_dims,
                                spec.offsets):
         src = _model_major(leaf, mdim)
-        out[off:off + src.numel()].copy_(to_float8(src) if f8 else src)
+        if f8:
+            to_float8(src, out=out[off:off + src.numel()])
+        else:
+            out[off:off + src.numel()].copy_(src)
     return out
 
 

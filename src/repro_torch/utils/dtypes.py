@@ -32,11 +32,18 @@ FLOAT8_LIMIT = 464.0
 FLOAT8_CHUNK = 1 << 26
 
 
-def to_float8(x: torch.Tensor) -> torch.Tensor:
+def to_float8(x: torch.Tensor, out=None) -> torch.Tensor:
     """``x`` rounded to nearest even float8_e4m3fn, NaN (with ``x``'s sign)
     past :data:`FLOAT8_LIMIT`, for +-inf and for NaN. float64 is rounded to
     float32 first. A contiguous tensor of more than :data:`FLOAT8_CHUNK`
-    values is rounded that many at a time."""
+    values is rounded that many at a time. ``out``: a contiguous float8
+    tensor of ``x``'s size (a slice of a bank row) that takes the result
+    chunk by chunk, with no float8 copy of the whole of ``x`` beside it."""
+    if out is not None:
+        src, dst = x.reshape(-1), out.view(-1)
+        for i in range(0, src.numel(), FLOAT8_CHUNK):
+            dst[i:i + FLOAT8_CHUNK] = to_float8(src[i:i + FLOAT8_CHUNK])
+        return out
     if x.numel() > FLOAT8_CHUNK and x.is_contiguous():
         flat = x.reshape(-1)
         out = torch.empty(flat.shape, dtype=FLOAT8, device=x.device)

@@ -126,7 +126,10 @@ def tree_ravel_into(tree: Any, out: torch.Tensor, spec: FlatSpec
     f8 = is_float8(out)
     for leaf, off, size in zip(tree_leaves(tree), spec.offsets, spec.sizes):
         src = leaf.reshape(-1)
-        out[off:off + size].copy_(to_float8(src) if f8 else src)
+        if f8:
+            to_float8(src, out=out[off:off + size])
+        else:
+            out[off:off + size].copy_(src)
     out[spec.size:].zero_()
     return out
 

@@ -81,10 +81,11 @@ def test_momentum_plain_version_by_columns_is_bitwise(monkeypatch, bank,
                                              ("median", "signflip")])
 def test_dense_round_by_columns_is_bitwise_the_whole_round(monkeypatch, mdt,
                                                            agg_name, attack):
-    """The dense RoSDHB round (the train step's plain path: Block-RandK
-    without kernels) over slices of 96 columns equals the whole-bank round
-    on the same draws: the direction and the momentum bank bit for bit."""
-    n, d, bs = 8, 512 * 3, 64
+    """The dense RoSDHB round (Block-RandK over a width of no whole number
+    of blocks, which the payload route does not take) over slices of 96
+    columns equals the whole-bank round on the same draws: the direction
+    and the momentum bank bit for bit."""
+    n, d, bs = 8, 512 * 3 - 32, 64
     cfg = AlgorithmConfig(
         name="rosdhb", n_workers=n, f=1, beta=0.9, momentum_dtype=mdt,
         sparsifier=SparsifierConfig(kind="block", ratio=0.25, block_size=bs,
@@ -96,10 +97,10 @@ def test_dense_round_by_columns_is_bitwise_the_whole_round(monkeypatch, mdt,
     grads = torch.tensor(rng.normal(size=(n, d)),
                          dtype=torch.float32).to(wire)
     m0 = torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32).to(wire)
-    ids = rng.permutation(d // bs)[:6]
+    ids = rng.permutation(-(-d // bs))[:6]
     agg = make_aggregator(cfg.aggregator, device="cpu")
     state = alg.init_state(cfg, d, device="cpu")._replace(momentum=m0)
-    assert alg._dense_by_columns(cfg, d)
+    assert alg._dense_by_columns(cfg, d) and not alg._payload_route(cfg, d)
     runs = []
     for cols in (1 << 24, 96):
         monkeypatch.setattr(alg, "DENSE_COLUMNS", cols)

@@ -221,21 +221,56 @@ def test_pairdist_path_shapes_repeat_bitwise(card, shape):
     assert torch.equal(first, pairdist_cuda(x))
 
 
+def _graph_kernel_names(graph) -> list:
+    """The nodes of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``), read through libcuda's graph calls: each kernel
+    node's function name, and ``"node type <t>"`` for any other node (a
+    copy, a memset). A count that does not depend on the profiler's CUPTI
+    window."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            names.append(f"node type {kind.value}")
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2 (under 128 bytes), the function first
+        params = (ctypes.c_void_p * 16)()
+        assert cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                params) == 0
+        name = ctypes.c_char_p()
+        assert cu.cuFuncGetName(ctypes.byref(name),
+                                ctypes.c_void_p(params[0])) == 0
+        names.append(name.value.decode())
+    return names
+
+
 @pytest.mark.cuda
 def test_pairdist_is_one_device_kernel_at_the_cnn_shape(card):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Four calls captured in a CUDA graph are four nodes, each a launch
+    of ``pairdist_kernel``, and no other node; replayed, each gives the
+    eager call's distances bit for bit. The graph's nodes are read through
+    libcuda (``cuGraphGetNodes``): a profiler window (CUPTI) once saw 3 of
+    the 4 launches on an H100."""
     x = _x(1, 13, 11958, 23, card)
-    pairdist_cuda(x)
+    want = pairdist_cuda(x)  # the first call sets the cluster attribute
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(4):
-            pairdist_cuda(x)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        outs = [pairdist_cuda(x) for _ in range(4)]
+    names = _graph_kernel_names(graph)
     assert len(names) == 4 and all("pairdist_kernel" in m for m in names)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
 
 
 # The sorted-rank kernel at each block size (sorted_weight_threads on an
@@ -307,6 +342,34 @@ def test_block_wrappers_reject_what_the_kernels_do_not_take(card):
         block_compress_cuda(g, ids, 6, 1.0)
     with pytest.raises(ValueError, match="multiple"):
         block_compress_cuda(g[:, :1000].contiguous(), ids, 128, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float8_e4m3fn])
+def test_compress_rows_into_one_payload(card, dtype):
+    """The streamed train step's calls: each row of a bank compressed on
+    its own into its row of one payload (``out=``), bitwise the whole
+    bank's compress; an ``out`` of another shape or dtype raises."""
+    from repro_torch.kernels.randk import block_compress_cuda
+    from repro_torch.utils.dtypes import to_dtype
+    n, bs, nb, kb = 5, 512, 40, 9
+    g = to_dtype(_x(1, n, nb * bs, 13, card)[0], dtype)
+    ids = torch.tensor(np.random.default_rng(13).permutation(nb)[:kb],
+                       dtype=torch.int64, device=card)
+    whole = block_compress_cuda(g, ids, bs, nb / kb)
+    pay = torch.empty_like(whole)
+    for w in range(n):
+        got = block_compress_cuda(g[w:w + 1], ids, bs, nb / kb,
+                                  out=pay[w:w + 1])
+        assert got.data_ptr() == pay[w:w + 1].data_ptr()
+    assert torch.equal(pay.view(torch.uint8), whole.view(torch.uint8))
+    with pytest.raises(ValueError, match="out"):
+        block_compress_cuda(g[:1], ids, bs, 1.0, out=pay[:2])
+    with pytest.raises(ValueError, match="out"):
+        block_compress_cuda(g[:1], ids, bs, 1.0,
+                            out=torch.empty((1, kb * bs), device=card,
+                                            dtype=torch.float16))
 
 
 MOMENTUM = [(3, 128 * 7, 128, 1, False, torch.float32, 0.9),
@@ -925,16 +988,16 @@ def _reduced_llm_steps(card, plain: bool, steps: int = 2):
 @pytest.mark.cuda
 def test_llm_train_steps_kernel_vs_plain(card):
     """Two steps (the plan's default bfloat16 banks): the kernel path
-    launches flash fwd/bwd n_layers x n_workers times a step and compress,
-    the momentum kernel and CWTM once (the payload route: no decompress);
-    it agrees with the plain path (same seed and draws) within rtol 5e-3 on
-    the honest loss and 2e-2 on |R| (bf16 rounding in the attention
-    kernels)."""
+    launches flash fwd/bwd n_layers x n_workers times a step, compress
+    once a worker, the momentum kernel and CWTM once (the streamed payload
+    route: no decompress); it agrees with the plain path (same seed and
+    draws) within rtol 5e-3 on the honest loss and 2e-2 on |R| (bf16
+    rounding in the attention kernels)."""
     K.reset_launches()
     kern = _reduced_llm_steps(card, plain=False)
     got = K.launches()
     assert got["flash_fwd"] == got["flash_bwd"] == 2 * 8 * 2
-    assert got["block_compress"] == got["momentum_scatter"] == 2
+    assert got["block_compress"] == 2 * 8 and got["momentum_scatter"] == 2
     assert got["block_decompress"] == 0
     assert got["cwtm"] == 2 and got["pairdist"] == 0
     K.reset_launches()

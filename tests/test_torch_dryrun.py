@@ -197,3 +197,63 @@ def test_cli_writes_the_reports(tmp_path):
     with pytest.raises(SystemExit):
         D.main(["--arch", "qwen25_3b", "--shape", "long_500k",
                 "--server-compute-dtype", "float64"])
+
+
+# the card's cuts: 8 workers of one 4096-token sequence, Block-RandK 0.05
+CUT = dict(shape_name="train_4k", n_workers=8, global_batch=8, ratio=0.05,
+           verbose=False)
+CARD_MIB = 81_559  # an H100 80GB HBM3's memory as PyTorch reads it
+
+
+@pytest.mark.parametrize("arch,layers,mdt", [
+    ("dbrx_132b", 1, "float8_e4m3fn"), ("llama32_vision_11b", 5, "bfloat16")])
+def test_streamed_step_floor_fits_the_card(arch, layers, mdt):
+    """The two cuts the streamed step brings onto one card: the step's
+    floor (the held state, the batch, the payload and, at the step's
+    fullest, the round's float32 direction and a window's momenta beside
+    it, or one worker's gradients beside its working copy or its row)
+    under 80 GB and under the card's 81,559 MiB, with no gradient bank
+    counted."""
+    r = D.run_one(arch, n_layers=layers, momentum_dtype=mdt, **CUT)
+    assert r["streamed"] and r["payload_route"]
+    sb, n, d = r["state_bytes"], 8, r["bank_width"]
+    w = 1 if mdt == "float8_e4m3fn" else 2
+    assert "gradient_bank" not in sb
+    assert sb["payload"] == n * max(1, round(0.05 * (d // 512))) * 512 * w
+    assert sb["row"] == d * w and sb["gradients"] == sb["working_copy"]
+    assert sb["direction"] == 4 * d
+    floor = sb["payload"] + max(2 * sb["gradients"],
+                                sb["gradients"] + sb["row"],
+                                sb["direction"] + sb["momenta"])
+    assert r["state_bytes_total"] == r["held_bytes"] + sb["batch"] + floor
+    assert r["state_fits"] and r["state_bytes_total"] / 2**20 < CARD_MIB
+    # what the bank route would hold: the [n, D] gradient bank beside the
+    # same state does not fit
+    assert r["held_bytes"] + n * d * w + 2 * sb["working_copy"] > 80e9
+
+
+def test_dbrx_at_bf16_banks_does_not_fit():
+    """dbrx_132b at one layer with the reference's bfloat16 banks: the
+    parameters and the banks alone (71.9 + 18.0 GB) pass 80 GB."""
+    r = D.run_one("dbrx_132b", n_layers=1, momentum_dtype="bfloat16", **CUT)
+    assert r["streamed"] and r["held_bytes"] > 80e9
+    assert not r["state_fits"]
+
+
+def test_bank_route_counts_its_gradient_bank():
+    """A round that takes the ``[n, D]`` bank (a bfloat16 compute dtype)
+    counts the gradient bank in the wire dtype, the working copy and one
+    worker's gradients; the streamed route of the same cut counts a
+    payload and a row instead."""
+    kw = dict(CUT, n_layers=1, momentum_dtype="bfloat16")
+    r = D.run_one("stablelm_3b", server_compute_dtype="bfloat16", **kw)
+    assert not r["streamed"]
+    sb, d = r["state_bytes"], r["bank_width"]
+    assert sb["gradient_bank"] == 8 * d * 2
+    assert sb["gradients"] == sb["working_copy"]
+    assert r["state_bytes_total"] == (r["held_bytes"] + sb["batch"]
+                                      + sb["gradient_bank"]
+                                      + 2 * sb["working_copy"])
+    s = D.run_one("stablelm_3b", **kw)
+    assert s["streamed"] and "gradient_bank" not in s["state_bytes"]
+    assert s["state_bytes_total"] < r["state_bytes_total"]

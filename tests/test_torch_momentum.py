@@ -158,8 +158,9 @@ def test_payload_route_only_where_it_is_bitwise():
     assert not Alg._payload_route(_cfg(local=True), D)
     assert not Alg._payload_route(_cfg(name="dgd"), D)
     assert not Alg._payload_route(_cfg(), D + 1)
+    # without the kernels the route runs their plain versions
     cfg = _cfg()
-    assert not Alg._payload_route(Alg.AlgorithmConfig(**{
+    assert Alg._payload_route(Alg.AlgorithmConfig(**{
         **cfg.__dict__, "sparsifier": C.SparsifierConfig(
             kind="block", ratio=RATIO, block_size=BS, use_kernels=False)}), D)
 

@@ -1,5 +1,5 @@
 """RoSDHB's payload round by column slices
-(``algorithms._rosdhb_payload_round`` a window of
+(``algorithms._payload_apply`` a window of
 ``algorithms._payload_window`` blocks at a time: past ``DENSE_COLUMNS`` at
 banks narrower than float32, which fits the vlm's train path on one card):
 with the slice width shrunk so that small banks split into many windows and
@@ -399,9 +399,11 @@ def test_the_cards_train_paths_slice_as_chip_smoke_counts():
     ``momentum_scatter`` and CWTM at the narrow banks of the LLM cut (25),
     deepseek (62), zamba2 (54), gemma_2b (45), the vlm at 5 layers and
     float8 banks (128: its bank of 4,182,105 blocks ends in a window of
-    20,569, ``chip_smoke.VLM_WINDOWS``), qwen25_3b at 2 layers (47) and
-    mistral_large_123b at 1 layer and float8 banks (131); one at float32
-    banks."""
+    20,569, ``chip_smoke.VLM_WINDOWS``; the same at bfloat16 banks),
+    qwen25_3b at 2 layers (47), mistral_large_123b at 1 layer and float8
+    banks (131) and dbrx_132b at 1 layer and float8 banks (268: its bank of
+    8,773,860 blocks ends in a window of 24,804, ``chip_smoke.DBRX_BANK``);
+    one at float32 banks."""
     from repro_torch.configs import INPUT_SHAPES, get_arch
     from repro_torch.configs.base import ArchSpec
     from repro_torch.launch.steps import make_train_plan
@@ -419,7 +421,7 @@ def test_the_cards_train_paths_slice_as_chip_smoke_counts():
 
     want = {"deepseek_v2_lite_16b": 62, "mamba2_1_3b": 1, "zamba2_7b": 54,
             "gemma_2b": 45, "llama32_vision_11b": 128, "qwen25_3b": 47,
-            "mistral_large_123b": 131}
+            "mistral_large_123b": 131, "dbrx_132b": 268}
     assert {a for a, _, _ in chip_smoke.FAMILY_TRAIN} == set(want)
     for arch, layers, mdt in chip_smoke.FAMILY_TRAIN:
         assert chip_smoke.payload_slices(plan(arch, layers, mdt)) == \
@@ -435,6 +437,16 @@ def test_the_cards_train_paths_slice_as_chip_smoke_counts():
     assert nb == 4_182_105 and nb - 127 * 32_768 == 20_569
     assert [w[:2] for w in chip_smoke.VLM_WINDOWS] == [
         (0, 32_768), (127 * 32_768, nb)]
+    dbrx = plan("dbrx_132b", 1, "float8_e4m3fn")
+    arch, width, mdt = chip_smoke.DBRX_BANK
+    assert (arch, dbrx.bank_width, dbrx.algo.momentum_dtype) == (
+        "dbrx_132b", width, mdt)
+    nb = width // 512
+    assert nb == 8_773_860 and nb - 267 * 32_768 == 24_804
+    assert chip_smoke.MOMENTUM_DBRX_SWEEP[1] == width and \
+        chip_smoke.MOMENTUM_DBRX_SWEEP[8] == 32_768
+    assert chip_smoke.RANDK_DBRX[:2] == (1, width)
+    assert chip_smoke.compressions(dbrx) == 8
 
 
 # ----------------------------------------------------------------------- #
@@ -516,8 +528,8 @@ def test_train_step_through_the_route_matches_the_reference(monkeypatch,
 
     monkeypatch.setattr(Alg, "DENSE_COLUMNS", 1 << 15)
     taken = []
-    sliced = Alg._rosdhb_payload_round
-    monkeypatch.setattr(Alg, "_rosdhb_payload_round",
+    sliced = Alg._payload_apply
+    monkeypatch.setattr(Alg, "_payload_apply",
                         lambda *a, **k: taken.append(1) or sliced(*a, **k))
     model = get_arch("stablelm_3b").model.reduced(
         n_layers=1, d_model=128).with_overrides(vocab_size=512)
